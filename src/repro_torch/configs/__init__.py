@@ -1,0 +1,51 @@
+"""Architecture registry of the port.
+
+``get_config(arch)`` returns the exact full-size config; ``get_smoke_config``
+returns the reduced same-family config for CPU smoke tests, by the same rule
+as ``repro.configs``. Only the archs whose slices have been ported are
+registered; the others arrive with their slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig, with_overrides
+from repro_torch.configs import qwen3_0p6b
+
+_MODULES = {
+    "qwen3-0.6b": qwen3_0p6b,
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"arch {arch!r} is not ported yet; have {ARCHS}")
+    return _MODULES[arch].CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced config of the same family, runnable on one CPU core."""
+    cfg = get_config(arch)
+    kw = dict(
+        num_layers=min(cfg.num_layers, 4),
+        d_model=128,
+        d_ff=256,
+        vocab_size=512,
+        head_dim=32,
+        num_heads=4 if cfg.num_heads else 0,
+        num_kv_heads=2 if cfg.num_kv_heads else 0,
+        frontend_prefix=8 if cfg.frontend else 0,
+    )
+    if cfg.num_experts:
+        kw.update(num_experts=4, top_k=min(cfg.top_k, 2), moe_d_ff=256)
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
+    if cfg.attn_period:
+        kw.update(attn_period=2, num_layers=4)
+    if cfg.moe_period > 1:
+        kw.update(moe_period=2)
+    return with_overrides(cfg, **kw)
+
+
+__all__ = ["ModelConfig", "with_overrides", "ARCHS", "get_config",
+           "get_smoke_config"]

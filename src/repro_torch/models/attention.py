@@ -1,0 +1,126 @@
+"""Grouped-query attention with KV cache, rope and qk_norm.
+
+Three entry points, as in ``repro/models/attention.py``:
+  * ``attend_full``    — causal self-attention over a whole sequence;
+  * ``attend_prefill`` — the same, filling the KV cache;
+  * ``attend_decode``  — one new token against the KV cache.
+
+Kernels go through ``kernels.ops`` and so through the dispatch registry:
+the CUDA kernel for CUDA tensors, the plain version for CPU tensors, or
+what a ``dispatch.using(...)`` scope asks for. On one device the head
+counts need no padding.
+
+The port updates the KV cache in place (``index_copy_`` / slice assignment)
+where JAX returns new arrays; the returned ``KVCache`` holds the same
+tensors.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import apply_rope, dtype_of, rms_norm
+from repro_torch.models.params import ParamSpec
+
+
+def attention_spec(cfg: ModelConfig):
+    H, K, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    spec = {
+        "wq": ParamSpec((d, H, hd), fan_in=d),
+        "wk": ParamSpec((d, K, hd), fan_in=d),
+        "wv": ParamSpec((d, K, hd), fan_in=d),
+        "wo": ParamSpec((H, hd, d), fan_in=H * hd),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = ParamSpec((hd,), init="zeros", dtype=torch.float32)
+        spec["k_norm"] = ParamSpec((hd,), init="zeros", dtype=torch.float32)
+    return spec
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, S_max, K, hd)
+    v: torch.Tensor          # (B, S_max, K, hd)
+    length: torch.Tensor     # () int32 — filled prefix
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> KVCache:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    dtype = dtype or dtype_of(cfg.dtype)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _proj(x, w, dt):
+    """x (B,T,d) · w (d,N,hd) → (B,T,N,hd)."""
+    d, n, hd = w.shape
+    return (x @ w.to(dt).reshape(d, n * hd)).unflatten(-1, (n, hd))
+
+
+def _project_qkv(params, x, cfg: ModelConfig, positions):
+    dt = dtype_of(cfg.dtype)
+    q = _proj(x, params["wq"], dt)
+    k = _proj(x, params["wk"], dt)
+    v = _proj(x, params["wv"], dt)
+    if cfg.qk_norm:              # per-head RMSNorm over head_dim
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out(params, out, cfg: ModelConfig):
+    """out (B,T,H,hd) · wo (H,hd,d) → (B,T,d)."""
+    H, hd, d = params["wo"].shape
+    wo = params["wo"].to(dtype_of(cfg.dtype)).reshape(H * hd, d)
+    return out.flatten(-2) @ wo
+
+
+def _positions(B: int, T: int, device):
+    return torch.arange(T, dtype=torch.int32, device=device).expand(B, T)
+
+
+def attend_full(params, x, cfg: ModelConfig):
+    """Causal self-attention over a full sequence. x: (B, T, d)."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, _positions(B, T, x.device))
+    out = kops.flash_attention(q, k, v, causal=True)
+    return _out(params, out, cfg)
+
+
+def attend_prefill(params, x, cfg: ModelConfig, cache: KVCache):
+    """Full-sequence attention that also fills the KV cache (in place)."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, _positions(B, T, x.device))
+    out = kops.flash_attention(q, k, v, causal=True)
+    cache.k[:, :T] = k
+    cache.v[:, :T] = v
+    cache = KVCache(cache.k, cache.v,
+                    torch.full((), T, dtype=torch.int32, device=x.device))
+    return _out(params, out, cfg), cache
+
+
+def attend_decode(params, x, cfg: ModelConfig, cache: KVCache):
+    """One-token decode. x: (B, 1, d); ``cache.length`` tokens are filled.
+
+    The new K/V are written at index ``length`` first (in place), then the
+    query attends to positions ``<= length``, the new token included. The
+    length stays on the device: nothing here waits for the host."""
+    B, one, _ = x.shape
+    if one != 1:
+        raise ValueError(f"attend_decode takes one token, got {one}")
+    pos = cache.length.expand(B, 1)
+    q, k_new, v_new = _project_qkv(params, x, cfg, pos)
+    idx = cache.length.long().view(1)
+    cache.k.index_copy_(1, idx, k_new)
+    cache.v.index_copy_(1, idx, v_new)
+    out = kops.flash_decode(q[:, 0], cache.k, cache.v,
+                            cache.length)                     # (B, H, hd)
+    y = _out(params, out[:, None].to(dtype_of(cfg.dtype)), cfg)
+    return y, KVCache(cache.k, cache.v, cache.length + 1)
