@@ -1,8 +1,12 @@
-"""Model configuration: a copy of ``ModelConfig`` and ``with_overrides`` from
-``repro/configs/base.py`` (the port imports nothing from ``repro``).
+"""Configuration: copies of ``ModelConfig``, ``TrainConfig`` and
+``with_overrides`` from ``repro/configs/base.py`` (the port imports nothing
+from ``repro``). ``TrainConfig`` keeps the reference's defaults exactly
+(``adam_b2`` 0.95, ``max_grad_norm`` 1.0); the port's engine reads the jit
+tier's fields, and the host, async and checkpoint fields wait for the
+slices that port those tiers.
 
-The model code reads only from this dataclass — there is no other source of
-architecture truth in the port.
+The model code reads only from ``ModelConfig`` — there is no other source
+of architecture truth in the port.
 """
 from __future__ import annotations
 
@@ -83,6 +87,75 @@ class ModelConfig:
 
     def padded_vocab(self, multiple: int = 128) -> int:
         return _round_up(self.vocab_size, multiple)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """PPO / optimization hyperparameters (Clean PuffeRL defaults)."""
+    learning_rate: float = 3e-4
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.0
+    max_grad_norm: float = 1.0
+    warmup_steps: int = 100
+    optimizer_state_dtype: str = "float32"   # "bfloat16" for >100B models
+
+    # PPO
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_coef: float = 0.2
+    vf_coef: float = 0.5
+    vf_clip: float = 0.2
+    ent_coef: float = 0.01
+    update_epochs: int = 4
+    num_minibatches: int = 4
+    norm_adv: bool = True
+    target_kl: float = 0.0           # 0 => disabled
+
+    # rollout
+    unroll_length: int = 128
+    num_envs: int = 64
+    pool_buffers: int = 2            # EnvPool double buffering (M = buffers*N)
+
+    # training engine (rl/engine.py)
+    updates_per_launch: int = 1      # K: fused updates per host dispatch
+    engine_backend: str = "jit"      # jit | shard_map | pool | host | async
+    host_recv_timeout: float = 60.0  # host tier: bound on one first-finisher
+                                     # batch (turns a hung worker into an
+                                     # error instead of a deadlocked run)
+    host_backend: str = "thread"     # host tier workers: "thread" (GIL-
+                                     # releasing C/sleep steps) | "proc"
+                                     # (pure-Python steps; shared-memory
+                                     # spawn processes — core/host.py)
+
+    # async actor–learner tier (distributed/actor_learner.py)
+    num_actors: int = 2              # spawn actor processes
+    shards_per_actor: int = 1        # env shards per actor (num_shards =
+                                     # num_actors * shards_per_actor)
+    actor_slots: int = 2             # fragment ring depth per shard; small
+                                     # on purpose — backpressure bounds how
+                                     # stale an actor's next fragment can be
+    max_staleness: int = 2           # versions; fragments older than this are
+                                     # dropped ("drop") or importance-clipped
+                                     # ("vtrace") per staleness_mode
+    staleness_mode: str = "drop"     # drop | vtrace
+    vtrace_rho: float = 1.0          # rho-bar clamp (vtrace mode)
+    vtrace_c: float = 1.0            # c-bar clamp (vtrace mode)
+    async_recv_timeout: float = 120.0  # bound on waiting for one update's
+                                       # fragments (hang -> error)
+    actor_jitter_ms: float = 0.0     # injected per-step actor latency
+                                     # (benchmarks / fault injection)
+
+    # fault tolerance
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+
+    # observability (telemetry/http.py)
+    metrics_port: int = 0            # 0 = no monitoring server; >0 binds
+                                     # /metrics, /healthz, /spans on
+                                     # 127.0.0.1:<port> for the run
 
 
 def with_overrides(cfg, **kw):

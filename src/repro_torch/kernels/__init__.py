@@ -5,5 +5,6 @@
   explicit ``mode=`` and ``using()`` overrides, device default
 - ``ref``      — plain PyTorch versions (CPU path and on-card yardstick)
 - ``build``    — nvcc build of ``csrc/*.cu`` and ctypes loading
-- one wrapper module per kernel (``flash_attention``, ``flash_decode``)
+- one wrapper module per kernel (``flash_attention``, ``flash_decode``,
+  ``gae``)
 """

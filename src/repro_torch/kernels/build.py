@@ -41,6 +41,12 @@ SIGNATURES = {
         I, I, I, I, I,              # B, S, H, K, hd
         L, L, L, L, L, L, L, L,     # q (batch, head), k/v (batch, seq, head)
         I, F, P]),                  # is_bf16, scale, stream
+    "gae": ("gae_fwd", [
+        P, P, P, P, P,              # rewards, values, dones (u8), last, out
+        I, I,                       # B, T
+        L, L, L, L, L, L,           # r/v/dones strides (env, time)
+        L, L, L,                    # last_value stride, out (env, time)
+        F, F, P]),                  # gamma, lam, stream
 }
 
 # launches per kernel: each wrapper adds one where it launches its kernel

@@ -43,3 +43,26 @@ def flash_decode(q, k, v, length):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", w, v.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def gae(rewards, values, dones, last_value, gamma: float, lam: float):
+    """Generalized advantage estimation, a reverse loop over time on (B,)
+    slices (the recurrence of ``repro/kernels/ref.py::gae``).
+
+    rewards, values, dones: (B, T); last_value: (B,). ``dones[:, t]`` marks
+    that the episode ended at step t (no bootstrap across it). Returns the
+    advantages (B, T) in f32."""
+    rewards, values, last_value = (x.float() for x in
+                                   (rewards, values, last_value))
+    nonterm = 1.0 - dones.float()
+    adv_next, v_next = torch.zeros_like(last_value), last_value
+    out = [None] * rewards.shape[1]
+    for t in reversed(range(rewards.shape[1])):
+        nt = nonterm[:, t]
+        delta = rewards[:, t] + gamma * v_next * nt - values[:, t]
+        adv_next = delta + gamma * lam * nt * adv_next
+        v_next = values[:, t]
+        out[t] = adv_next
+    if not out:
+        return torch.zeros_like(rewards)
+    return torch.stack(out, dim=1)

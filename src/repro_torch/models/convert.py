@@ -1,5 +1,10 @@
 """Load the JAX package's parameters into the port, name for name.
 
+``ocean_params_from_jax(tree)`` takes the tree ``repro``'s ``OceanPolicy.init``
+returns, as numpy arrays, and gives the port's ``OceanPolicy`` parameter
+dict: the same keys and layouts, except the conv kernel, HWIO ``(3, 3, 1, 8)``
+in JAX and OIHW ``(8, 1, 3, 3)`` in the port.
+
 ``params_from_jax(tree)`` takes the tree ``repro``'s ``BackbonePolicy.init``
 returns, as numpy arrays (``jax.tree.map(np.asarray, params)``), and gives a
 ``state_dict`` for the port's ``BackbonePolicy``. The stacked
@@ -64,3 +69,12 @@ def _leaves(tree):
 def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def ocean_params_from_jax(tree: dict) -> dict:
+    """JAX ``OceanPolicy`` parameter tree (numpy leaves) → port parameter
+    dict (CPU tensors)."""
+    out = _map(tree, to_torch)
+    if "conv" in out:
+        out["conv"] = out["conv"].permute(3, 2, 0, 1).contiguous()
+    return out

@@ -1,0 +1,5 @@
+"""Run telemetry: the shared launch/fetch/SPS clock (``timers``). Spans,
+the metrics registry and the live endpoints come with the telemetry slice."""
+from repro_torch.telemetry.timers import TierTimer
+
+__all__ = ["TierTimer"]

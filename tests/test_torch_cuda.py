@@ -7,20 +7,29 @@ it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: bf16 2e-2; f32 1e-4 with TF32 off (the kernels sum in another
-order than the plain version's einsum).
+order than the plain version's einsum); GAE 1e-5 (the kernel contracts
+products into FMAs); one whole learn atol 1e-5, rtol 1e-4 (cuBLAS and the
+CPU reduce in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.ocean import ocean_tcfg
+from repro_torch.envs import ocean
 from repro_torch.kernels import build, ops, ref
 from repro_torch.models.policy import BackbonePolicy
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.rl import actor
+from repro_torch.rl.engine import METRIC_KEYS, TrainEngine
+from repro_torch.rl.learner import epoch_perms
+from repro_torch.rl.trainer import Trainer, ocean_policy_stack
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs a CUDA card (H100)")
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, "gae": 1e-5}
 
 
 @pytest.fixture
@@ -92,5 +101,89 @@ def test_generate_launches_both_kernels(no_tf32):
     out = actor.generate(pol, prompt, 5, gen)
     torch.cuda.synchronize()
     assert out.shape == (2, 5)
-    assert build.LAUNCHES == {"flash_attention": cfg.num_layers,
-                              "flash_decode": cfg.num_layers * 4}
+    assert build.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert build.LAUNCHES["flash_decode"] == cfg.num_layers * 4
+    assert build.LAUNCHES["gae"] == 0
+
+
+@pytest.mark.parametrize("done_p", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("B,T", [(4096, 64), (1000, 37)])
+def test_gae_kernel_matches_ref_on_time_major_inputs(B, T, done_p):
+    """The learner's call: (B, T) views of (T, B)-stored trajectories."""
+    rng = np.random.default_rng(B + T)
+    r, v = (_randn(rng, (T, B), torch.float32) for _ in range(2))
+    d = torch.from_numpy(rng.random((T, B)) < done_p).cuda()
+    lv = _randn(rng, (B,), torch.float32)
+    _check("gae", lambda: ops.gae(r.T, v.T, d.T, lv, 0.99, 0.95),
+           ref.gae(r.T, v.T, d.T, lv, 0.99, 0.95), "gae")
+
+
+def test_gae_kernel_raises_on_what_it_does_not_take():
+    r = torch.zeros(4, 8, device="cuda")
+    d = torch.zeros(4, 8, dtype=torch.bool, device="cuda")
+    lv = torch.zeros(4, device="cuda")
+    with pytest.raises(TypeError, match="bool"):
+        ops.gae(r, r, d.float(), lv, 0.99, 0.95)
+    with pytest.raises(TypeError, match="float32"):
+        ops.gae(r.double(), r, d, lv, 0.99, 0.95)
+
+
+def test_trainer_launch_runs_one_gae_kernel_per_update_without_sync():
+    tcfg = ocean_tcfg("squared", num_envs=256, unroll_length=16)
+    tr = Trainer(ocean.Squared(), tcfg, hidden=64)
+    tr.engine.launch(1)                       # warm-up: builds, caches
+    torch.cuda.synchronize()
+    build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ring = tr.engine.launch(3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert build.LAUNCHES["gae"] == 3
+    assert build.LAUNCHES["flash_attention"] == 0
+    assert build.LAUNCHES["flash_decode"] == 0
+    assert bool(torch.isfinite(ring).all())
+
+
+def _to(x, device):
+    """Tensors of a nested NamedTuple / tuple / dict, moved to ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [_to(v, device) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+@pytest.mark.parametrize("name,recurrent", [("bandit", False),
+                                            ("memory", True)])
+def test_learn_on_the_card_matches_the_cpu(name, recurrent, no_tf32):
+    """One whole learn from the same rollout and permutations, on the card
+    (GAE kernel, the recurrent branch's carry gathers and ``seq``) and on
+    the CPU (plain GAE): the same params, moments and metrics."""
+    tcfg = TrainConfig(num_envs=64, unroll_length=16, update_epochs=2,
+                       num_minibatches=4, learning_rate=1e-3, gamma=0.95)
+    em, dist, pol = ocean_policy_stack(ocean.OCEAN[name](), hidden=32,
+                                       recurrent=recurrent)
+    eng = TrainEngine(em, pol, tcfg, dist, seed=0, device="cpu")
+    rc, _ = eng.update.collect(eng.ts, eng.rc, eng.generator)  # live carry
+    _, batch = eng.update.collect(eng.ts, rc, eng.generator)
+    assert bool(batch[1].dones.any()), "no episode ends in the data"
+    B = eng.vec.batch_size
+    n = B if recurrent else tcfg.unroll_length * B
+    perms = epoch_perms(eng.generator, n, tcfg.update_epochs,
+                        tcfg.num_minibatches)
+    cpu_ts, cpu_m = eng.update.learn(eng.ts, *batch, perms=perms)
+    build.reset_launches()
+    gpu_ts, gpu_m = eng.update.learn(_to(eng.ts, "cuda"), *_to(batch, "cuda"),
+                                     perms=perms.cuda())
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["gae"] == 1
+    tol = dict(atol=1e-5, rtol=1e-4)
+    for got, want in zip(tree_leaves({"p": gpu_ts.params, "m": gpu_ts.opt.m}),
+                         tree_leaves({"p": cpu_ts.params, "m": cpu_ts.opt.m})):
+        torch.testing.assert_close(got.cpu(), want, **tol)
+    for k in METRIC_KEYS:
+        torch.testing.assert_close(gpu_m[k].cpu(), cpu_m[k], msg=k, **tol)

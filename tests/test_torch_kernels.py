@@ -128,7 +128,7 @@ def test_dispatch_scope_and_errors():
     with pytest.raises(KeyError):
         dispatch.using("interpret").__enter__()
     with pytest.raises(KeyError, match="not ported"):
-        dispatch.implementations("gae")
+        dispatch.implementations("ssd")
 
 
 def test_wrappers_check_arguments():
@@ -147,7 +147,7 @@ def test_wrappers_check_arguments():
 
 def test_build_paths_carry_the_source_hash():
     paths = {n: build.library_path(n) for n in build.SIGNATURES}
-    assert set(paths) == {"flash_attention", "flash_decode"}
+    assert set(paths) == {"flash_attention", "flash_decode", "gae"}
     for name, p in paths.items():
         assert p.parent == build.BUILD_DIR and p.name.startswith(name + "-")
     assert set(build.LAUNCHES) == set(build.SIGNATURES)
