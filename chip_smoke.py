@@ -11,18 +11,23 @@ lines; any failure ends the run with a traceback and a non-zero exit:
   2. build       nvcc builds every kernel (one process per source, together)
   3. parity      each kernel against its plain PyTorch version on the card at
                  the serve and training shapes and edge shapes: attention
-                 bf16 at 2e-2, f32 at 1e-4 with TF32 off; GAE f32 at 1e-5
-  4. full width  qwen3-0.6b in f32 (TF32 off): the cuda and ref backends on
-                 prefill last-token logits and 4 teacher-forced decode steps,
-                 atol = rtol = 1e-3
-  5. serve       qwen3-0.6b in bf16, batch 8, prompt 512, 64 new tokens
-                 through ``rl.actor.generate``; the launch counters must read
-                 28 (flash_attention), 28 x 63 (flash_decode) and 0 (gae);
-                 prints prefill ms, decode ms/token, tok/s, a profile of one
-                 prefill and 8 decode steps (device time, idle share, top
-                 kernels), and each kernel's ms beside its plain version's,
-                 its bound and ``scaled_dot_product_attention`` (a yardstick
-                 the port never calls)
+                 bf16 at 2e-2, f32 at 1e-4 with TF32 off; GAE f32 at 1e-5;
+                 SSD (y and h_last) bf16 at the serve shape at 2e-2, f32 at
+                 edge shapes (ragged T, T = 1, T < chunk, x a strided view,
+                 stride-0 B_/C, two groups) at 1e-4
+  4. full width  qwen3-0.6b and mamba2-1.3b in f32 (TF32 off): the cuda and
+                 ref backends on prefill last-token logits and 4
+                 teacher-forced decode steps, atol = rtol = 1e-3
+  5. serve       qwen3-0.6b, then mamba2-1.3b, in bf16, batch 8, prompt 512,
+                 64 new tokens through ``rl.actor.generate``; the launch
+                 counters must read 28 (flash_attention), 28 x 63
+                 (flash_decode), 0 (gae, ssd) for qwen3 and 48 (ssd), 0 (the
+                 others) for mamba2; prints prefill ms, decode ms/token,
+                 tok/s, a profile of one prefill and 8 decode steps (device
+                 time, idle share, top kernels), and each kernel's ms beside
+                 its plain version's, its bound and, for attention,
+                 ``scaled_dot_product_attention`` (a yardstick the port never
+                 calls)
   6. train       Ocean PPO through ``rl.trainer.Trainer`` on the card, f32:
                  (a) bandit and squared solve (score >= 0.9) at their presets
                  (64 envs x 64 steps, hidden 64, seed 0) within 150k / 300k
@@ -33,7 +38,7 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  5 timed updates, one launch under
                  ``torch.cuda.set_sync_debug_mode("error")``, one update split
                  into rollout and learn; the counters must read one gae
-                 launch per update and 0 for the attention kernels; prints
+                 launch per update and 0 for the others; prints
                  sps, rollout / learn / launch ms per update, and a profile
                  of one update; then the GAE kernel's ms beside its plain
                  version's and its bound
@@ -67,12 +72,13 @@ from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.gae import gae  # noqa: E402
+from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
 from repro_torch.rl import actor  # noqa: E402
 from repro_torch.rl.engine import METRIC_KEYS  # noqa: E402
 from repro_torch.rl.trainer import Trainer  # noqa: E402
 
-ARCH = "qwen3-0.6b"
+ARCH, SSM_ARCH = "qwen3-0.6b", "mamba2-1.3b"
 BATCH, PROMPT, NEW = 8, 512, 64
 PEAK_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
@@ -84,7 +90,11 @@ KERNELS = {
                      "src/repro/kernels/flash_decode.py:65"),
     "gae": ("src/repro_torch/kernels/csrc/gae.cu",
             "src/repro/kernels/gae_scan.py:56"),
+    "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+            "src/repro/kernels/ssd.py:69"),
 }
+# mamba2-1.3b's SSD at the serve shape: heads, head dim, state, groups, chunk
+SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q = 64, 64, 128, 1, 128
 TRAIN_ENVS, TRAIN_UNROLL = 4096, 64     # the full-size training update
 GAMMA, LAM = 0.95, 0.95                 # ocean_tcfg's gamma, TrainConfig's
 
@@ -156,7 +166,8 @@ def phase_parity(gen):
     each kernel at the serve shapes in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs = {"flash_attention": 0.0, "flash_decode": 0.0, "gae": 0.0}
+    errs = {"flash_attention": 0.0, "flash_decode": 0.0, "gae": 0.0,
+            "ssd": 0.0}
     cases = 0
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         # (B, T, H, K, hd): the serve shape, then ragged and small-head edges
@@ -198,10 +209,48 @@ def phase_parity(gen):
             if B == TRAIN_ENVS:
                 errs["gae"] = max(errs["gae"], err)
             cases += 1
+    # SSD: the serve shape in bf16 as models/ssm.py hands it over, then
+    # edge shapes in f32 (B, T, H, P, N, G, chunk, x a view of the conv
+    # output)
+    for shape, dtype, tol in (
+            ((BATCH, PROMPT, SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q, True),
+             torch.bfloat16, 2e-2),
+            ((2, 300, 4, 64, 128, 1, 128, False), torch.float32, 1e-4),
+            ((2, 1, 4, 64, 128, 1, 128, True), torch.float32, 1e-4),
+            ((3, 50, 4, 16, 16, 1, 128, True), torch.float32, 1e-4),
+            ((2, 200, 8, 64, 128, 1, 128, True), torch.float32, 1e-4),
+            ((2, 96, 4, 16, 16, 2, 16, True), torch.float32, 1e-4),
+            ((2, 64, 3, 16, 32, 3, 16, False), torch.float32, 1e-4),
+            ((1, 70, 2, 128, 128, 1, 128, False), torch.float32, 1e-4)):
+        B, T, H, P, N, G, Q, view = shape
+        args = ssd_inputs(gen, B, T, H, P, N, G, dtype, view)
+        (y, h), (ry, rh) = ssd(*args, chunk=Q), ref.ssd(*args)
+        err = max(check_close(f"ssd y {shape} {dtype}", y, ry, tol),
+                  check_close(f"ssd h_last {shape} {dtype}", h, rh, tol))
+        if B == BATCH:
+            errs["ssd"] = err
+        cases += 1
     sync()
     print(f"[3 parity] {cases} cases pass; max abs err at the serve shapes "
           f"(bf16) and the training shape (gae, f32): {errs}", flush=True)
     return errs
+
+
+def ssd_inputs(gen, B, T, H, P, N, G, dtype, view):
+    """SSD inputs as models/ssm.py hands them to the kernel: B_ and C slices
+    of one (B, T, H*P + 2*G*N) conv-output buffer, each head h reading group
+    h // (H/G) (a stride-0 view for one group, a copy for more), and with
+    ``view`` x a slice of the same buffer; dt = softplus(normal) and
+    A = -exp(0.3 normal), as the JAX package's test_ssd_sweep draws them."""
+    buf = randn(gen, (B, T, H * P + 2 * G * N), dtype) * 0.5
+    x = buf[..., :H * P].unflatten(-1, (H, P)) if view \
+        else randn(gen, (B, T, H, P), dtype) * 0.5
+    bc = [buf[..., H * P + i * G * N:H * P + (i + 1) * G * N]
+          .unflatten(-1, (G, N)).unsqueeze(-2).expand(B, T, G, H // G, N)
+          .flatten(-3, -2) for i in range(2)]
+    dt = F.softplus(torch.randn((B, T, H), generator=gen, device="cuda"))
+    A = -torch.exp(0.3 * torch.randn(H, generator=gen, device="cuda"))
+    return x, dt, A, bc[0], bc[1]
 
 
 def gae_inputs(gen, B, T, done_p):
@@ -214,10 +263,10 @@ def gae_inputs(gen, B, T, done_p):
     return r, v, d, lv
 
 
-def phase_full_width_f32(gen):
+def phase_full_width_f32(gen, arch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = with_overrides(get_config(ARCH), dtype="float32",
+    cfg = with_overrides(get_config(arch), dtype="float32",
                          param_dtype="float32")
     policy = BackbonePolicy(cfg, generator=gen)
     B, T, steps = 2, 256, 4
@@ -236,14 +285,24 @@ def phase_full_width_f32(gen):
                       logits["ref"], 1e-3)
     print(f"[4 full width] {cfg.name} f32 {cfg.num_layers}L d{cfg.d_model}: "
           f"cuda vs ref logits over prefill + {steps} decode steps, max abs "
-          f"err {err} (|logit| max {float(logits['ref'].abs().max())})",
+          f"err {err} (|logit| max "
+          f"{float(logits['ref'][..., :cfg.vocab_size].abs().max())})",
           flush=True)
     del policy, caches
     torch.cuda.empty_cache()
 
 
-def phase_serve(gen):
-    cfg = get_config(ARCH)
+def serve_launches(cfg):
+    """The kernel launches one ``generate`` of NEW tokens must make: one
+    prefill kernel per attention or SSM layer, one decode kernel per
+    attention layer and step (SSM layers decode without a kernel)."""
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    return {"flash_attention": attn, "flash_decode": attn * (NEW - 1),
+            "ssd": cfg.num_layers - attn, "gae": 0}
+
+
+def phase_serve(gen, arch):
+    cfg = get_config(arch)
     policy = BackbonePolicy(cfg, generator=gen)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
                            device="cuda")
@@ -257,8 +316,7 @@ def phase_serve(gen):
     sync()
     total_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
-    want = {"flash_attention": cfg.num_layers,
-            "flash_decode": cfg.num_layers * (NEW - 1), "gae": 0}
+    want = serve_launches(cfg)
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if out.shape != (BATCH, NEW) or out.dtype != torch.int32 or \
@@ -297,8 +355,10 @@ def phase_serve(gen):
         state["tok"], _, state["caches"] = serve(state["tok"], state["caches"],
                                                  gen)
 
-    profile_steps("5 serve", "prefill", run_prefill, 1, prefill_ms)
-    profile_steps("5 serve", "decode step", run_decode, 8, decode_ms)
+    profile_steps("5 serve", f"{cfg.name} prefill", run_prefill, 1,
+                  prefill_ms)
+    profile_steps("5 serve", f"{cfg.name} decode step", run_decode, 8,
+                  decode_ms)
     del policy, caches
     torch.cuda.empty_cache()
     return launches
@@ -402,7 +462,8 @@ def phase_train():
     updates += 1
     sync()
     launches = dict(build.LAUNCHES)
-    want = {"gae": updates, "flash_attention": 0, "flash_decode": 0}
+    want = {"gae": updates, "flash_attention": 0, "flash_decode": 0,
+            "ssd": 0}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"launch counts {launches}, expected {want}")
     # one more update through the engine's own two halves, for their times;
@@ -438,7 +499,7 @@ def phase_train():
 
 def kernel_rows(gen, launches, errs):
     """Times at the main paths' shapes: kernel, plain version, library call
-    (SDPA for attention; none for GAE), and bound."""
+    (SDPA for attention; none for GAE and SSD), and bound."""
     bf = torch.bfloat16
     H, K, hd = 16, 8, 128
     rows = []
@@ -506,6 +567,17 @@ def kernel_rows(gen, launches, errs):
           f"computes GAE, so there is no library time", flush=True)
     del gae_sets
 
+    # SSD at mamba2's serve shape, laid out as models/ssm.py gives it: 3
+    # input sets of 36.7 MB (110 MB)
+    ssd_sets = [ssd_inputs(gen, BATCH, PROMPT, SSD_H, SSD_P, SSD_N, SSD_G,
+                           bf, True) for _ in range(3)]
+    flops, nbytes = ssd_work(BATCH, PROMPT, SSD_H, SSD_P, SSD_N, SSD_G,
+                             SSD_Q, 2)
+    rows.append(("ssd", flops, PEAK_FLOPS, nbytes,
+                 cuda_ms(lambda *a: ssd(*a, chunk=SSD_Q), ssd_sets, 20),
+                 cuda_ms(ref.ssd, ssd_sets, 3), None))
+    del ssd_sets
+
     out = []
     for name, flops, peak, nbytes, ms, plain_ms, lib_ms in rows:
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -524,6 +596,21 @@ def kernel_rows(gen, launches, errs):
     return out
 
 
+def ssd_work(B, T, H, P, N, G, Q, elem):
+    """(FLOP, bytes) the SSD function needs: per (b, h) and chunk of q
+    steps, C.B^T (2 q^2 N), the masked product with x (2 q^2 P), the
+    carried state's term (2 q P N) and the state update (2 q P N); x read
+    and y written in the input type, dt read and h_last written in f32, B_
+    and C read once per group."""
+    flops = 0
+    for c0 in range(0, T, Q):
+        q = min(Q, T - c0)
+        flops += B * H * (2 * q * q * (N + P) + 4 * q * P * N)
+    nbytes = (2 * B * T * H * P * elem + 4 * B * T * H
+              + 2 * B * T * G * N * elem + 4 * B * H * P * N)
+    return flops, nbytes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -533,8 +620,10 @@ def main():
     smi = phase_device()
     phase_build()
     errs = phase_parity(gen)
-    phase_full_width_f32(gen)
-    launches = phase_serve(gen)
+    phase_full_width_f32(gen, ARCH)
+    phase_full_width_f32(gen, SSM_ARCH)
+    launches = phase_serve(gen, ARCH)
+    launches["ssd"] = phase_serve(gen, SSM_ARCH)["ssd"]
     launches["gae"] = phase_train()["gae"]
     rows = kernel_rows(gen, launches, errs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

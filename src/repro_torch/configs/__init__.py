@@ -8,10 +8,11 @@ registered; the others arrive with their slices (ROADMAP.md).
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, with_overrides
-from repro_torch.configs import qwen3_0p6b
+from repro_torch.configs import mamba2_1p3b, qwen3_0p6b
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0p6b,
+    "mamba2-1.3b": mamba2_1p3b,
 }
 
 ARCHS = tuple(_MODULES)

@@ -72,6 +72,14 @@ class ModelConfig:
     value_head: bool = True          # PPO critic head
 
     # Derived -----------------------------------------------------------------
+    @property
+    def d_inner(self) -> int:        # mamba inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
     def is_moe_layer(self, i: int) -> bool:
         if self.num_experts == 0:
             return False
@@ -84,6 +92,17 @@ class ModelConfig:
         if self.attn_period == 0:
             return False             # pure SSM
         return (i % self.attn_period) == (self.attn_period - 1)
+
+    @property
+    def attn_free(self) -> bool:
+        return self.ssm_state > 0 and self.attn_period == 0
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch run long-context decode? SSM and hybrid stacks can:
+        their state is sub-quadratic in context. Pure full-attention archs
+        cannot."""
+        return self.ssm_state > 0
 
     def padded_vocab(self, multiple: int = 128) -> int:
         return _round_up(self.vocab_size, multiple)

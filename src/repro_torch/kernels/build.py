@@ -47,6 +47,12 @@ SIGNATURES = {
         L, L, L, L, L, L,           # r/v/dones strides (env, time)
         L, L, L,                    # last_value stride, out (env, time)
         F, F, P]),                  # gamma, lam, stream
+    "ssd": ("ssd_fwd", [
+        P, P, P, P, P, P, P,        # x, dt, A, B_, C, y, h_last
+        I, I, I, I, I, I,           # B, T, H, hd, ds, chunk
+        L, L, L, L, L, L, L, L,     # x (batch, seq, head, elem), dt (b, s, h), A
+        L, L, L, L, L, L, L, L,     # B_ and C (batch, seq, head, elem)
+        I, P]),                     # is_bf16, stream
 }
 
 # launches per kernel: each wrapper adds one where it launches its kernel

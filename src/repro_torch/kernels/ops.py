@@ -3,7 +3,7 @@
 Each ported op registers ``ref`` (plain PyTorch) and ``cuda`` (the
 hand-written kernel). Selection: explicit ``mode=`` > ``dispatch.using(...)``
 scope > device default (``cuda`` for CUDA tensors, ``ref`` for CPU tensors);
-see kernels/dispatch.py. The ops of later slices (``ssd``, ``quant_matmul``,
+see kernels/dispatch.py. The ops of later slices (``quant_matmul``,
 ``pack``) are not registered yet and raise.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _fa_cuda
 from repro_torch.kernels.flash_decode import flash_decode as _fd_cuda
 from repro_torch.kernels.gae import gae as _gae_cuda
+from repro_torch.kernels.ssd import ssd as _ssd_cuda
 
 dispatch.register("flash_attention", dispatch.REF)(_ref.flash_attention)
 dispatch.register("flash_attention", dispatch.CUDA)(_fa_cuda)
@@ -20,6 +21,12 @@ dispatch.register("flash_decode", dispatch.REF)(_ref.flash_decode)
 dispatch.register("flash_decode", dispatch.CUDA)(_fd_cuda)
 dispatch.register("gae", dispatch.REF)(_ref.gae)
 dispatch.register("gae", dispatch.CUDA)(_gae_cuda)
+dispatch.register("ssd", dispatch.CUDA)(_ssd_cuda)
+
+
+@dispatch.register("ssd", dispatch.REF)
+def _ssd_ref(x, dt, A, B_, C, chunk: int = 128):
+    return _ref.ssd(x, dt, A, B_, C)     # the chunk is the kernel's tiling
 
 
 def flash_attention(q, k, v, causal: bool = True, mode: str = None):
@@ -35,3 +42,8 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float,
         mode: str = None):
     return dispatch.call("gae", rewards, values, dones, last_value, gamma,
                          lam, mode=mode)
+
+
+def ssd(x, dt, A, B_, C, chunk: int = 128, mode: str = None):
+    """Mamba2 SSD scan from a zero state: (y, h_last); see ``ref.ssd``."""
+    return dispatch.call("ssd", x, dt, A, B_, C, mode=mode, chunk=chunk)

@@ -66,3 +66,28 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float):
     if not out:
         return torch.zeros_like(rewards)
     return torch.stack(out, dim=1)
+
+
+def ssd(x, dt, A, B_, C, h0=None):
+    """Mamba2 selective-state recurrence, the step-by-step oracle of
+    ``repro/kernels/ref.py::ssd``, in f32.
+
+    x: (B,T,H,hd); dt: (B,T,H) positive step sizes (post-softplus); A: (H,)
+    negative decay rates; B_, C: (B,T,H,ds) head-expanded gates; h0:
+    optional (B,H,hd,ds) initial state. Returns y (B,T,H,hd) in x.dtype and
+    h_last (B,H,hd,ds) in f32."""
+    Bb, T, H, hd = x.shape
+    ds = B_.shape[-1]
+    in_dtype = x.dtype
+    x, dt, B_, C, A = (t.float() for t in (x, dt, B_, C, A))
+    h = h0.float() if h0 is not None else torch.zeros(
+        (Bb, H, hd, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(T):
+        decay = torch.exp(dt[:, t] * A[None])                     # (B,H)
+        upd = dt[:, t, :, None, None] * x[:, t, :, :, None] \
+            * B_[:, t, :, None, :]                                # (B,H,hd,ds)
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhds,bhs->bhd", h, C[:, t]))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros((Bb, 0, H, hd))
+    return y.to(in_dtype), h

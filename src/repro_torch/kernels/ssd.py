@@ -1,0 +1,89 @@
+"""Mamba2 SSD chunked scan, forward: wrapper of ``csrc/ssd.cu``.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/ssd.py`` (``ssd``, def
+at :69, ``pallas_call`` at :87). On the H100 it is bound by bytes: at the
+serve shape (B 8, T 512, H 64, hd 64, ds 128) it must read x, dt, B_ and C
+and write y and h_last, 87 MB with B_/C counted once per group, 0.026 ms at
+3.35 TB/s, against 2.1e10 FLOP (0.022 ms on the bf16 tensor cores). This
+first kernel does its math in f32 on the CUDA cores: one block per
+(batch, head) walks the chunks with the state in shared memory.
+
+The kernel reads every input through its strides, so ``models/ssm.py``
+passes x as a view of the conv output and, with one group, B_ and C as
+stride-0 expansions over heads, without a copy. It takes any ``T >= 1``
+(the Pallas kernel needs ``T % chunk == 0``), chunks of 1 to 128 steps, and
+head dim and state size up to 128.
+
+CPU tensors take the plain version (``ref.ssd``); a CUDA tensor launches the
+kernel or raises — there is no fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels._checks import DTYPES
+
+NAME = "ssd"
+MAX_DIM = 128           # chunk, head dim and state size the kernel takes
+
+
+def _check(x, dt, A, B_, C) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"{NAME}: x must be (B, T, H, hd), got shape "
+                         f"{tuple(x.shape)}")
+    Bb, T, H, _ = x.shape
+    ds = B_.shape[-1] if B_.dim() == 4 else -1
+    for name, t, shape in (("dt", dt, (Bb, T, H)), ("A", A, (H,)),
+                           ("B_", B_, (Bb, T, H, ds)),
+                           ("C", C, (Bb, T, H, ds))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{NAME}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.device != x.device:
+            raise ValueError(f"{NAME}: {name} is on {t.device}, x on "
+                             f"{x.device}")
+    if T < 1:
+        raise ValueError(f"{NAME}: needs T >= 1, got {T}")
+
+
+def ssd(x, dt, A, B_, C, chunk: int = 128):
+    """x: (B,T,H,hd); dt: (B,T,H) f32; A: (H,) f32; B_, C: (B,T,H,ds) in
+    x's dtype. Returns (y (B,T,H,hd) in x.dtype, h_last (B,H,hd,ds) f32),
+    from a zero initial state."""
+    _check(x, dt, A, B_, C)
+    if x.device.type == "cpu":
+        return ref.ssd(x, dt, A, B_, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"{NAME}: unsupported device {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{NAME}: x is {x.dtype}; the kernel takes "
+                        f"{DTYPES}")
+    for name, t, want in (("B_", B_, x.dtype), ("C", C, x.dtype),
+                          ("dt", dt, torch.float32), ("A", A, torch.float32)):
+        if t.dtype != want:
+            raise TypeError(f"{NAME}: {name} is {t.dtype}; the kernel takes "
+                            f"{want} with x {x.dtype}")
+    Bb, T, H, hd = x.shape
+    ds = B_.shape[-1]
+    Q = min(int(chunk), T)
+    for name, n in (("chunk", chunk), ("head dim", hd), ("d_state", ds)):
+        if not 1 <= n <= MAX_DIM:
+            raise ValueError(f"{NAME}: {name} {n} outside [1, {MAX_DIM}]")
+    y = torch.empty((Bb, T, H, hd), dtype=x.dtype, device=x.device)
+    h_last = torch.empty((Bb, H, hd, ds), dtype=torch.float32,
+                         device=x.device)
+    if y.numel() == 0:                  # B or H is 0: nothing to launch
+        return y, h_last
+    lib = build.load(NAME)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+            C.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+            Bb, T, H, hd, ds, Q, *x.stride(), *dt.stride(), A.stride(0),
+            *B_.stride(), *C.stride(), int(x.dtype == torch.bfloat16),
+            stream)
+    build.check(err, NAME)
+    build.LAUNCHES[NAME] += 1
+    return y, h_last

@@ -1,6 +1,10 @@
-"""Serving launcher: batched autoregressive decoding with a KV cache.
+"""Serving launcher: batched autoregressive decoding against the caches
+(KV caches for attention layers, conv window and SSM state for Mamba2
+layers).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --batch 8 --prompt-len 512 --tokens 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
       --batch 8 --prompt-len 512 --tokens 64
 
 runs the full config on the card (bf16, random weights from ``--seed``):

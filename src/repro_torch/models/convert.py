@@ -10,7 +10,9 @@ returns, as numpy arrays (``jax.tree.map(np.asarray, params)``), and gives a
 ``state_dict`` for the port's ``BackbonePolicy``. The stacked
 ``(n_periods, …)`` leading axis of every layer parameter is unstacked: entry
 ``p`` of ``layers/l{i}`` becomes ``layers.{p * period + i}``, where
-``period`` is the number of ``l{i}`` keys. Layouts are otherwise the same.
+``period`` is the number of ``l{i}`` keys. Layouts are otherwise the same,
+the Mamba2 leaves included: ``ssm.in_proj``, ``conv_w`` and ``out_proj`` in
+the parameter dtype, ``ssm.A_log``, ``D``, ``dt_bias`` and ``norm`` in f32.
 
 bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects; they go through their 16-bit pattern, bit for bit.

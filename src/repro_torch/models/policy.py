@@ -3,8 +3,9 @@
 ``OceanPolicy`` is an MLP encoder with an optional LSTM cell and an optional
 3×3 conv frontend; ``BackbonePolicy`` wraps an LM architecture as a
 token-level policy: actions are next-token choices and the critic reads the
-same final hidden state; the "recurrent cell" is the KV cache used by the
-serve step. Both are the counterparts of ``repro/models/policy.py``.
+same final hidden state; the "recurrent cell" is what the serve step
+carries: the KV caches of attention layers and the conv window and state of
+Mamba2 (SSM) layers. Both are the counterparts of ``repro/models/policy.py``.
 
 ``OceanPolicy`` is trained, so it keeps the reference's functional form: its
 methods take the parameter dict (``init`` makes one), and the learner
@@ -223,8 +224,9 @@ class BackbonePolicy(nn.Module):
 
     @torch.no_grad()
     def decode(self, tokens, caches):
-        """tokens: (B, 1) — one serve step against ``caches`` (updated in
-        place). Returns (logits (B,V), value (B,), caches)."""
+        """tokens: (B, 1) — one serve step against ``caches`` (KV caches and
+        SSM states updated in place). Returns (logits (B,V), value (B,),
+        caches)."""
         hidden, caches = tr.decode(self.backbone, tokens, self.cfg, caches)
         logits = tr.logits_from_hidden(self.backbone, hidden, self.cfg)
         return logits[:, 0], self._value(hidden)[:, 0], caches

@@ -1,36 +1,35 @@
-"""Backbone assembler: the dense transformer stack.
+"""Backbone assembler: dense, SSM and hybrid stacks from one config.
 
 Counterpart of ``repro/models/transformer.py``. JAX scans a stacked
 ``(n_periods, …)`` parameter tree; the port keeps one parameter tree per
 layer (``layers.0`` … ``layers.{L-1}``) and runs a Python loop over layers.
-MoE and SSM layers arrive with the LM-backbone training slice and raise
-``NotImplementedError`` until then.
+Each layer's mixer is attention or a Mamba2 block by
+``cfg.is_attn_layer(i)``; MoE layers arrive with the LM-backbone training
+slice and raise ``NotImplementedError`` until then.
 
 Three entry points: ``forward`` (full sequence), ``prefill`` (build caches),
 ``decode`` (one token against caches).
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamSpec
 
 
 def layer_kinds(cfg: ModelConfig, i: int):
-    if not cfg.is_attn_layer(i):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM layers arrive with the LM-backbone training "
-            f"slice of the port")
     if cfg.is_moe_layer(i):
         raise NotImplementedError(
             f"{cfg.name}: MoE layers arrive with the LM-backbone training "
             f"slice of the port")
-    return "attn", (None if cfg.d_ff == 0 else "mlp")
+    mixer = "attn" if cfg.is_attn_layer(i) else "ssm"
+    return mixer, (None if cfg.d_ff == 0 else "mlp")
 
 
 def _norm_spec(cfg: ModelConfig) -> ParamSpec:
@@ -40,8 +39,12 @@ def _norm_spec(cfg: ModelConfig) -> ParamSpec:
 def transformer_spec(cfg: ModelConfig):
     layers = {}
     for i in range(cfg.num_layers):
-        _, ffn = layer_kinds(cfg, i)
-        l = {"ln_mix": _norm_spec(cfg), "attn": attn.attention_spec(cfg)}
+        mixer, ffn = layer_kinds(cfg, i)
+        l = {"ln_mix": _norm_spec(cfg)}
+        if mixer == "attn":
+            l["attn"] = attn.attention_spec(cfg)
+        else:
+            l["ssm"] = ssm_mod.ssm_spec(cfg)
         if ffn == "mlp":
             l["ln_ffn"] = _norm_spec(cfg)
             l["mlp"] = L.make_mlp_spec(cfg)
@@ -66,7 +69,10 @@ def forward(params, tokens, cfg: ModelConfig):
     for i in range(cfg.num_layers):
         p = params["layers"][str(i)]
         h = L.rms_norm(x, p["ln_mix"], cfg.norm_eps)
-        x = x + attn.attend_full(p["attn"], h, cfg)
+        if "attn" in p:
+            x = x + attn.attend_full(p["attn"], h, cfg)
+        else:
+            x = x + ssm_mod.ssm_apply(p["ssm"], h, cfg)
         x = _ffn(p, x, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, {"moe_aux": torch.zeros((), device=x.device)}
@@ -84,47 +90,68 @@ def logits_from_hidden(params, x, cfg: ModelConfig):
 # -- caches -------------------------------------------------------------------
 
 class Caches(NamedTuple):
-    kv: List[attn.KVCache]   # one per layer
-    length: torch.Tensor     # () int32 on the device: filled prefix
+    kv: List[Optional[attn.KVCache]]       # per layer; None on SSM layers
+    ssm: List[Optional[ssm_mod.SSMCache]]  # per layer; None on attn layers
+    length: torch.Tensor                   # () int32 on the device
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> Caches:
-    kv = [attn.init_cache(cfg, batch, max_len, device=device)
-          for _ in range(cfg.num_layers)]
-    return Caches(kv, torch.zeros((), dtype=torch.int32, device=device))
+    kv, ssm = [], []
+    for i in range(cfg.num_layers):
+        is_attn = layer_kinds(cfg, i)[0] == "attn"
+        kv.append(attn.init_cache(cfg, batch, max_len, device=device)
+                  if is_attn else None)
+        ssm.append(None if is_attn else
+                   ssm_mod.init_ssm_cache(cfg, batch, device=device))
+    return Caches(kv, ssm, torch.zeros((), dtype=torch.int32, device=device))
 
 
 def prefill(params, tokens, cfg: ModelConfig, max_len: int = 0):
-    """Forward + cache build. tokens: (B, T). Returns (hidden, caches)."""
+    """Forward + cache build. tokens: (B, T). Returns (hidden, caches).
+    KV caches are allocated at ``max_len`` and filled; SSM caches are the
+    conv window and final state that the scan returns."""
     x = L.embed_tokens(params["embedding"], tokens, cfg)
     B, T, _ = x.shape
-    caches = init_caches(cfg, B, max_len or T, device=x.device)
-    kv = []
+    kv, ssm = [], []
     for i in range(cfg.num_layers):
         p = params["layers"][str(i)]
         h = L.rms_norm(x, p["ln_mix"], cfg.norm_eps)
-        y, c = attn.attend_prefill(p["attn"], h, cfg, caches.kv[i])
-        kv.append(c)
+        if "attn" in p:
+            cache = attn.init_cache(cfg, B, max_len or T, device=x.device)
+            y, c = attn.attend_prefill(p["attn"], h, cfg, cache)
+            kv.append(c)
+            ssm.append(None)
+        else:
+            y, c = ssm_mod.ssm_apply(p["ssm"], h, cfg, return_cache=True)
+            kv.append(None)
+            ssm.append(c)
         x = _ffn(p, x + y, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, Caches(kv, torch.full((), T, dtype=torch.int32,
-                                    device=x.device))
+    return x, Caches(kv, ssm, torch.full((), T, dtype=torch.int32,
+                                         device=x.device))
 
 
 def decode(params, tokens, cfg: ModelConfig, caches: Caches):
     """One-token step. tokens: (B, 1). Returns (hidden, caches). As in JAX,
-    each layer attends at the global ``caches.length``; the per-layer
-    lengths come back zeroed and the global one is incremented."""
+    each attention layer attends at the global ``caches.length``; the
+    per-layer lengths come back zeroed and the global one is incremented.
+    SSM layers step their conv window and state (the state in place)."""
     x = L.embed_tokens(params["embedding"], tokens, cfg)
     zero = torch.zeros((), dtype=torch.int32, device=x.device)
-    kv = []
+    kv, ssm = [], []
     for i in range(cfg.num_layers):
         p = params["layers"][str(i)]
         h = L.rms_norm(x, p["ln_mix"], cfg.norm_eps)
-        y, c = attn.attend_decode(p["attn"], h, cfg,
-                                  caches.kv[i]._replace(length=caches.length))
-        kv.append(c._replace(length=zero))
+        if "attn" in p:
+            y, c = attn.attend_decode(
+                p["attn"], h, cfg, caches.kv[i]._replace(length=caches.length))
+            kv.append(c._replace(length=zero))
+            ssm.append(None)
+        else:
+            y, c = ssm_mod.ssm_decode(p["ssm"], h, cfg, caches.ssm[i])
+            kv.append(None)
+            ssm.append(c)
         x = _ffn(p, x + y, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, Caches(kv, caches.length + 1)
+    return x, Caches(kv, ssm, caches.length + 1)

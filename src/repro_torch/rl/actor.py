@@ -1,9 +1,10 @@
 """Acting / serving: the prefill step and the serve (decode) step.
 
 Counterpart of ``repro/rl/actor.py``. The serve step is one token of
-autoregressive acting against the KV cache. As in JAX, the prefill step
-samples at temperature 1 whatever ``temperature`` says, and the serve step
-divides the logits by it. Random draws come from an explicit
+autoregressive acting against the caches: the KV cache of each attention
+layer, the conv window and state of each Mamba2 (SSM) layer. As in JAX, the
+prefill step samples at temperature 1 whatever ``temperature`` says, and
+the serve step divides the logits by it. Random draws come from an explicit
 ``torch.Generator`` on the logits' device; they cannot reproduce JAX's
 threefry stream, so the two packages agree in distribution, not draw for
 draw.

@@ -7,7 +7,8 @@ it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: bf16 2e-2; f32 1e-4 with TF32 off (the kernels sum in another
-order than the plain version's einsum); GAE 1e-5 (the kernel contracts
+order than the plain version's einsum; SSD chunks where the plain version
+steps); GAE 1e-5 (the kernel contracts
 products into FMAs); one whole learn atol 1e-5, rtol 1e-4 (cuBLAS and the
 CPU reduce in another order).
 """
@@ -104,6 +105,90 @@ def test_generate_launches_both_kernels(no_tf32):
     assert build.LAUNCHES["flash_attention"] == cfg.num_layers
     assert build.LAUNCHES["flash_decode"] == cfg.num_layers * 4
     assert build.LAUNCHES["gae"] == 0
+    assert build.LAUNCHES["ssd"] == 0
+
+
+def _ssd_inputs(rng, B, T, H, hd, ds, dtype, layout):
+    """SSD inputs as the JAX package's test_ssd_sweep draws them. ``layout``
+    "dense"; "view" (x a slice of a wider row, as the conv output gives);
+    "g1" (B_/C one group expanded over heads with stride 0); "g2" (two
+    groups, head h reading group h // (H/2), copied)."""
+    if layout == "view":
+        x = (_randn(rng, (B, T, H * hd + 24), dtype) * 0.5)[
+            ..., 8:8 + H * hd].unflatten(-1, (H, hd))
+        assert not x.is_contiguous()
+    else:
+        x = _randn(rng, (B, T, H, hd), dtype) * 0.5
+    dt = torch.nn.functional.softplus(_randn(rng, (B, T, H), torch.float32))
+    A = -torch.exp(_randn(rng, (H,), torch.float32) * 0.3)
+    G = {"g1": 1, "g2": 2}.get(layout, H)
+    bc = [_randn(rng, (B, T, G, ds), dtype) * 0.5 for _ in range(2)]
+    if layout == "g1":
+        bc = [t.expand(B, T, H, ds) for t in bc]
+    elif G != H:
+        bc = [t.repeat_interleave(H // G, dim=2) for t in bc]
+    return x, dt, A, bc[0], bc[1]
+
+
+SSD_EDGES = [  # (B, T, H, hd, ds, chunk, layout)
+    (2, 300, 4, 64, 128, 128, "dense"),    # ragged T
+    (2, 1, 4, 64, 128, 128, "g1"),         # T = 1
+    (3, 50, 4, 16, 16, 128, "view"),       # T < chunk
+    (2, 200, 4, 64, 128, 128, "view"),     # non-contiguous x
+    (2, 130, 8, 64, 128, 128, "g1"),       # stride-0 B_/C
+    (2, 96, 4, 16, 16, 16, "g2"),          # two groups
+    (1, 128, 2, 32, 16, 64, "dense"),      # test_ssd_sweep shapes
+    (2, 64, 3, 16, 32, 16, "dense"),
+    (1, 16, 1, 8, 8, 4, "dense"),
+    (1, 70, 2, 128, 128, 128, "dense"),    # largest head dim and state
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd,ds,chunk,layout", SSD_EDGES)
+def test_ssd_kernel_matches_ref(B, T, H, hd, ds, chunk, layout, dtype,
+                                no_tf32):
+    rng = np.random.default_rng(T + hd)
+    x, dt, A, B_, C = _ssd_inputs(rng, B, T, H, hd, ds, dtype, layout)
+    want_y, want_h = ref.ssd(x, dt, A, B_, C)
+    before = build.LAUNCHES["ssd"]
+    y, h = ops.ssd(x, dt, A, B_, C, chunk=chunk)
+    assert build.LAUNCHES["ssd"] == before + 1
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, want_h, atol=tol, rtol=tol)
+
+
+def test_ssd_kernel_raises_on_what_it_does_not_take():
+    x = torch.zeros(1, 8, 2, 16, device="cuda")
+    dt = torch.ones(1, 8, 2, device="cuda")
+    A = -torch.ones(2, device="cuda")
+    b = torch.zeros(1, 8, 2, 16, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd(x, dt.bfloat16(), A, b, b)
+    with pytest.raises(TypeError, match="B_"):
+        ops.ssd(x, dt, A, b.bfloat16(), b)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd(x, dt, A, b, b, chunk=256)
+    big = torch.zeros(1, 8, 2, 256, device="cuda")
+    with pytest.raises(ValueError, match="d_state"):
+        ops.ssd(x, dt, A, big, big)
+
+
+def test_mamba2_generate_launches_ssd_once_per_layer():
+    cfg = get_smoke_config("mamba2-1.3b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pol = BackbonePolicy(cfg, generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 37), generator=gen,
+                           device="cuda")
+    build.reset_launches()
+    out = actor.generate(pol, prompt, 5, gen)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 5)
+    assert build.LAUNCHES == {"flash_attention": 0, "flash_decode": 0,
+                              "gae": 0, "ssd": cfg.num_layers}
 
 
 @pytest.mark.parametrize("done_p", [0.0, 0.1, 0.5])
@@ -142,6 +227,7 @@ def test_trainer_launch_runs_one_gae_kernel_per_update_without_sync():
     assert build.LAUNCHES["gae"] == 3
     assert build.LAUNCHES["flash_attention"] == 0
     assert build.LAUNCHES["flash_decode"] == 0
+    assert build.LAUNCHES["ssd"] == 0
     assert bool(torch.isfinite(ring).all())
 
 
