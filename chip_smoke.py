@@ -15,14 +15,23 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  SSD (y and h_last) bf16 at the serve shape at 2e-2, f32 at
                  edge shapes (ragged T, T = 1, T < chunk, x a strided view,
                  stride-0 B_/C, two groups) at 1e-4
-  4. full width  qwen3-0.6b and mamba2-1.3b in f32 (TF32 off): the cuda and
-                 ref backends on prefill last-token logits and 4
-                 teacher-forced decode steps, atol = rtol = 1e-3
-  5. serve       qwen3-0.6b, then mamba2-1.3b, in bf16, batch 8, prompt 512,
-                 64 new tokens through ``rl.actor.generate``; the launch
-                 counters must read 28 (flash_attention), 28 x 63
-                 (flash_decode), 0 (gae, ssd) for qwen3 and 48 (ssd), 0 (the
-                 others) for mamba2; prints prefill ms, decode ms/token,
+                 quant_matmul (int8 and int4 weights, x in bf16 at 2e-2
+                 and f32 at 1e-4) at the seven serve shapes, M = 8 and
+                 4096 (the tied unembed, 151936 x 1024 read as (N, K), at
+                 M = 8), and edge shapes (M = 1, ragged N and K, a strided
+                 x, a tiled scale, K below a tile)
+  4. full width  qwen3-0.6b and mamba2-1.3b in f32 (TF32 off), then
+                 qwen3-0.6b with int8 weights: the cuda and ref backends on
+                 prefill last-token logits and 4 teacher-forced decode steps,
+                 atol = rtol = 1e-3
+  5. serve       qwen3-0.6b, then mamba2-1.3b, then qwen3-0.6b with int8 and
+                 with int4 weights, in bf16, batch 8, prompt 512, 64 new
+                 tokens through ``rl.actor.generate``; the launch counters
+                 must read 28 (flash_attention), 28 x 63 (flash_decode), 0
+                 (gae, ssd, quant_matmul) for qwen3, 48 (ssd) and 0 (the
+                 others) for mamba2, and 64 x (28 x 6 + 1) (quant_matmul) on
+                 top of qwen3's for the quantised runs; prints prefill ms,
+                 decode ms/token,
                  tok/s, a profile of one prefill and 8 decode steps (device
                  time, idle share, top kernels), and each kernel's ms beside
                  its plain version's, its bound and, for attention,
@@ -42,6 +51,13 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  sps, rollout / learn / launch ms per update, and a profile
                  of one update; then the GAE kernel's ms beside its plain
                  version's and its bound
+
+Kernel rows: each kernel's ms at its main path's shapes beside its plain
+version's, its bound and a library call. quant_matmul's row is the total
+over one int8 ``generate`` of its device times at each serve shape (printed
+on the lines before it, timed by CUDA-graph replay), beside the same totals
+of the plain version, the bound and ``torch.matmul`` on the
+already-dequantised bf16 weight.
 
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seed 0.
@@ -72,7 +88,9 @@ from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.gae import gae  # noqa: E402
+from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.ssd import ssd  # noqa: E402
+from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
 from repro_torch.rl import actor  # noqa: E402
 from repro_torch.rl.engine import METRIC_KEYS  # noqa: E402
@@ -92,9 +110,21 @@ KERNELS = {
             "src/repro/kernels/gae_scan.py:56"),
     "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
             "src/repro/kernels/ssd.py:69"),
+    "quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
+                     "src/repro/kernels/quant_matmul.py:43"),
 }
 # mamba2-1.3b's SSD at the serve shape: heads, head dim, state, groups, chunk
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q = 64, 64, 128, 1, 128
+# qwen3-0.6b's quantised products (K, N) per layer: wq, wk, wv, wo, mlp wi,
+# mlp wo; and the tied unembed, the (V, d) table read as (N, K)
+QMM_LAYER = ((1024, 2048), (1024, 1024), (1024, 1024), (2048, 1024),
+             (1024, 6144), (3072, 1024))
+QMM_UNEMBED = (1024, 151936)
+QMM_EDGES = (  # (M, K, N, transposed, scale length or None, x row pad)
+    (1, 1024, 1024, False, None, 0), (5, 999, 1001, False, None, 24),
+    (37, 1001, 999, True, None, 8), (300, 77, 130, False, None, 0),
+    (8, 1024, 2048, False, 128, 0), (200, 1024, 2048, False, 128, 0),
+    (17, 3, 5, False, None, 0), (8, 4096, 64, False, None, 0))
 TRAIN_ENVS, TRAIN_UNROLL = 4096, 64     # the full-size training update
 GAMMA, LAM = 0.95, 0.95                 # ocean_tcfg's gamma, TrainConfig's
 
@@ -230,10 +260,45 @@ def phase_parity(gen):
         if B == BATCH:
             errs["ssd"] = err
         cases += 1
+    # quant_matmul: the serve shapes at decode and prefill M, the unembed at
+    # decode M, then the edge shapes; int8 and int4, x in bf16 and f32
+    errs["quant_matmul"] = 0.0
+    serve = [(M, K, N, False, None, 0) for K, N in QMM_LAYER
+             for M in (BATCH, BATCH * PROMPT)]
+    serve.append((BATCH, *QMM_UNEMBED, True, None, 0))
+    for qtype in ("int8", "int4"):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            for shape in serve + list(QMM_EDGES):
+                M, K, N, trans, S, pad = shape
+                x, w, s = qmm_inputs(gen, M, K, N, trans, S, pad, qtype,
+                                     dtype)
+                err = check_close(f"quant_matmul {shape} {qtype} {dtype}",
+                                  quant_matmul(x, w, s, trans),
+                                  ref.quant_matmul(x, w, s, trans), tol)
+                if shape in serve and qtype == "int8" and \
+                        dtype == torch.bfloat16:
+                    errs["quant_matmul"] = max(errs["quant_matmul"], err)
+                cases += 1
     sync()
     print(f"[3 parity] {cases} cases pass; max abs err at the serve shapes "
-          f"(bf16) and the training shape (gae, f32): {errs}", flush=True)
+          f"(bf16; quant_matmul int8) and the training shape (gae, f32): "
+          f"{errs}", flush=True)
     return errs
+
+
+def qmm_inputs(gen, M, K, N, transposed, S, pad, qtype, dtype):
+    """quant_matmul inputs: x (M, K) normal (a view with row stride K + pad
+    when pad), integer weights uniform in [-qmax, qmax] stored (K, N) or
+    (N, K) (int4 packed), and a positive f32 scale of length S (tiled) or of
+    the stored last axis, scaled so that outputs are of order 1."""
+    qmax = 127 if qtype == "int8" else 7
+    ints = torch.randint(-qmax, qmax + 1, (N, K) if transposed else (K, N),
+                         generator=gen, device="cuda", dtype=torch.int8)
+    w = ref.pack_int4(ints) if qtype == "int4" else ints
+    S = S or (K if transposed else N)
+    s = torch.rand(S, generator=gen, device="cuda") * 2 / (qmax * K ** 0.5)
+    x = randn(gen, (M, K + pad), dtype)[:, pad // 2:pad // 2 + K]
+    return x, w, s
 
 
 def ssd_inputs(gen, B, T, H, P, N, G, dtype, view):
@@ -263,12 +328,12 @@ def gae_inputs(gen, B, T, done_p):
     return r, v, d, lv
 
 
-def phase_full_width_f32(gen, arch):
+def phase_full_width_f32(gen, arch, quantize=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = with_overrides(get_config(arch), dtype="float32",
                          param_dtype="float32")
-    policy = BackbonePolicy(cfg, generator=gen)
+    policy = BackbonePolicy(cfg, generator=gen, quantize=quantize)
     B, T, steps = 2, 256, 4
     toks = torch.randint(0, cfg.vocab_size, (B, T + steps), generator=gen,
                          device="cuda")
@@ -283,7 +348,8 @@ def phase_full_width_f32(gen, arch):
         logits[mode] = torch.stack(out)
     err = check_close("full-width f32 cuda vs ref", logits["cuda"],
                       logits["ref"], 1e-3)
-    print(f"[4 full width] {cfg.name} f32 {cfg.num_layers}L d{cfg.d_model}: "
+    print(f"[4 full width] {cfg.name} f32 {cfg.num_layers}L d{cfg.d_model}"
+          f"{f' {quantize} weights' if quantize else ''}: "
           f"cuda vs ref logits over prefill + {steps} decode steps, max abs "
           f"err {err} (|logit| max "
           f"{float(logits['ref'][..., :cfg.vocab_size].abs().max())})",
@@ -292,18 +358,24 @@ def phase_full_width_f32(gen, arch):
     torch.cuda.empty_cache()
 
 
-def serve_launches(cfg):
+def serve_launches(cfg, quantize=None):
     """The kernel launches one ``generate`` of NEW tokens must make: one
     prefill kernel per attention or SSM layer, one decode kernel per
-    attention layer and step (SSM layers decode without a kernel)."""
+    attention layer and step (SSM layers decode without a kernel); with
+    quantised weights one quant_matmul per matmul weight and forward (NEW
+    forwards: the prefill and NEW - 1 decode steps), the unembed included."""
     attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    per_forward = (4 * attn + 2 * (cfg.num_layers - attn)
+                   + 2 * cfg.num_layers * (cfg.d_ff > 0) + 1)
     return {"flash_attention": attn, "flash_decode": attn * (NEW - 1),
-            "ssd": cfg.num_layers - attn, "gae": 0}
+            "ssd": cfg.num_layers - attn, "gae": 0,
+            "quant_matmul": NEW * per_forward if quantize else 0}
 
 
-def phase_serve(gen, arch):
+def phase_serve(gen, arch, quantize=None):
     cfg = get_config(arch)
-    policy = BackbonePolicy(cfg, generator=gen)
+    policy = BackbonePolicy(cfg, generator=gen, quantize=quantize)
+    name = f"{cfg.name}{f' {quantize}' if quantize else ''}"
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
                            device="cuda")
     max_len = PROMPT + NEW
@@ -316,7 +388,7 @@ def phase_serve(gen, arch):
     sync()
     total_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
-    want = serve_launches(cfg)
+    want = serve_launches(cfg, quantize)
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if out.shape != (BATCH, NEW) or out.dtype != torch.int32 or \
@@ -340,7 +412,7 @@ def phase_serve(gen, arch):
     sync()
     decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
     tok_s = BATCH * NEW / total_s
-    print(f"[5 serve] {cfg.name} bf16 B{BATCH} prompt {PROMPT} +{NEW} tokens: "
+    print(f"[5 serve] {name} bf16 B{BATCH} prompt {PROMPT} +{NEW} tokens: "
           f"generate {total_s * 1e3:.1f} ms, {tok_s:.1f} tok/s; prefill "
           f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/token; launches "
           f"{launches}", flush=True)
@@ -355,9 +427,9 @@ def phase_serve(gen, arch):
         state["tok"], _, state["caches"] = serve(state["tok"], state["caches"],
                                                  gen)
 
-    profile_steps("5 serve", f"{cfg.name} prefill", run_prefill, 1,
+    profile_steps("5 serve", f"{name} prefill", run_prefill, 1,
                   prefill_ms)
-    profile_steps("5 serve", f"{cfg.name} decode step", run_decode, 8,
+    profile_steps("5 serve", f"{name} decode step", run_decode, 8,
                   decode_ms)
     del policy, caches
     torch.cuda.empty_cache()
@@ -463,7 +535,7 @@ def phase_train():
     sync()
     launches = dict(build.LAUNCHES)
     want = {"gae": updates, "flash_attention": 0, "flash_decode": 0,
-            "ssd": 0}
+            "ssd": 0, "quant_matmul": 0}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"launch counts {launches}, expected {want}")
     # one more update through the engine's own two halves, for their times;
@@ -593,7 +665,161 @@ def kernel_rows(gen, launches, errs):
               f"library {lib}, bound {max(t_ops, t_bytes):.4f} ms by "
               f"{out[-1]['bound_by']}: {flops:.4g} FLOP, {nbytes:.4g} B)",
               flush=True)
+    out.append(qmm_row(gen, launches, errs))
     return out
+
+
+def graph_ms(fn, arg_sets, calls, replays=5):
+    """Device ms per call of ``fn``: ``calls`` calls cycling through
+    ``arg_sets``, captured once in a CUDA graph and replayed, between CUDA
+    events. At a few microseconds a call, events around back-to-back eager
+    calls would time the host's launch rate instead; and in this long
+    process the profiler has been seen to drop kernel events of some of its
+    sessions."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm-up outside the capture
+        for args in arg_sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    sync()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def qmm_row(gen, launches, errs):
+    """quant_matmul at qwen3-0.6b's serve shapes, int8 and int4: device ms
+    per call (``graph_ms``) of the kernel, its plain version and
+    ``torch.matmul`` on the dequantised bf16 weight (the product the kernel
+    replaces), with ``torch._weight_int8pack_mm`` where this torch runs it
+    on CUDA (given x already scaled for the unembed, whose scale lies on
+    K); inputs cycled through > 64 MB. The row is the total over one int8
+    generate: each shape's time times its calls per generate."""
+    bf = torch.bfloat16
+    L = get_config(ARCH).num_layers
+    shapes = [(BATCH * PROMPT, K, N, False, L) for K, N in QMM_LAYER]
+    shapes += [(BATCH, K, N, False, L * (NEW - 1)) for K, N in QMM_LAYER]
+    shapes.append((BATCH, *QMM_UNEMBED, True, NEW))
+    total = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "ops": 0.0, "bytes": 0.0,
+             "int8pack": 0.0}
+    int8pack_missing = set()
+    for M, K, N, trans, calls in shapes:
+        flops = 2 * M * K * N
+        line = []
+        for qtype in ("int8", "int4"):
+            wbytes = K * N // (2 if qtype == "int4" else 1)
+            nbytes = 2 * M * K + wbytes + 4 * (K if trans else N) + 2 * M * N
+            nsets = max(2, min(64, math.ceil(64e6 / nbytes)))
+            sets = [qmm_inputs(gen, M, K, N, trans, None, 0, qtype, bf)
+                    for _ in range(nsets)]
+            n = 64 if M == BATCH else 8
+            ms = graph_ms(lambda x, w, s: quant_matmul(x, w, s, trans),
+                          sets, n)
+            t_ops = flops / PEAK_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            line.append(f"{qtype} {ms:.4f} ms (bound "
+                        f"{max(t_ops, t_bytes):.4f} by {by})")
+            if qtype == "int8":
+                plain = graph_ms(lambda x, w, s: ref.quant_matmul(
+                    x, w, s, trans), sets[:2], 4)
+                deq = [(x, (w.float() * s).to(bf)) for x, w, s in sets]
+                lib = graph_ms(lambda x, d: x @ (d.t() if trans else d),
+                               deq, n)
+                total["ms"] += calls * ms
+                total["plain"] += calls * plain
+                total["lib"] += calls * lib
+                if t_ops >= t_bytes:
+                    total["ops"] += calls * t_ops
+                else:
+                    total["bytes"] += calls * t_bytes
+                line.append(f"plain {plain:.4f} ms, torch.matmul on the "
+                            f"dequantised bf16 weight {lib:.4f} ms")
+                del deq
+                # a yardstick only: the port never calls it
+                packed = [((x * s).to(bf), w, torch.ones(
+                    N, dtype=bf, device="cuda")) if trans else
+                          (x, w.t().contiguous(), s.to(bf))
+                          for x, w, s in sets]
+                try:
+                    pack_ms = graph_ms(torch._weight_int8pack_mm, packed, n)
+                    total["int8pack"] += calls * pack_ms
+                    line.append(f"torch._weight_int8pack_mm {pack_ms:.4f} "
+                                f"ms")
+                except (RuntimeError, NotImplementedError, TypeError,
+                        AttributeError) as e:
+                    int8pack_missing.add(type(e).__name__)
+                    line.append("torch._weight_int8pack_mm does not run "
+                                f"here ({type(e).__name__}: "
+                                f"{str(e).splitlines()[0][:80]})")
+                del packed
+            del sets
+        print(f"[kernel] quant_matmul M {M} K {K} N {N}"
+              f"{' (N, K) layout' if trans else ''}, {calls} per generate: "
+              + "; ".join(line), flush=True)
+    bound = total["ops"] + total["bytes"]
+    int8pack = (f"{total['int8pack']:.4f} ms" if not int8pack_missing else
+                f"not run at every shape ({', '.join(int8pack_missing)})")
+    row = {"name": "quant_matmul", "route": "cuda",
+           "source": KERNELS["quant_matmul"][0],
+           "replaces": KERNELS["quant_matmul"][1],
+           "launches": launches["quant_matmul"],
+           "max_abs_err": errs["quant_matmul"], "ms": total["ms"],
+           "plain_ms": total["plain"], "bound_ms": bound,
+           "bound_by": "operations" if total["ops"] >= total["bytes"]
+           else "bytes", "library_ms": total["lib"]}
+    print(f"[kernel] quant_matmul over one int8 generate: {row['ms']:.4f} ms "
+          f"(plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+          f"ms, bound {bound:.4f} ms: {total['ops']:.4f} ms of it by "
+          f"operations, {total['bytes']:.4f} ms by bytes); "
+          f"torch._weight_int8pack_mm: {int8pack}", flush=True)
+    qmm_host_time(gen)
+    torch.cuda.empty_cache()
+    return row
+
+
+def host_us(fn, calls=3000):
+    """Host microseconds per call of ``fn`` over back-to-back calls (the
+    device work of each is a few microseconds and overlaps)."""
+    for _ in range(200):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def qmm_host_time(gen):
+    """What a decode-step matmul costs the host, at K = N = 1024, B 8:
+    ``params.matmul`` on a quantised weight (dispatch, checks, the ctypes
+    launch) against the same call on a bf16 weight (``x @ w``)."""
+    bf = torch.bfloat16
+    x, w, s = qmm_inputs(gen, BATCH, 1024, 1024, False, None, 0, "int8", bf)
+    quant = {"w": w, "w_scale": s}
+    plain = {"w": (w.float() * s).to(bf)}
+    x = x[:, None]
+    q_us = host_us(lambda: matmul(quant, "w", x, bf))
+    b_us = host_us(lambda: matmul(plain, "w", x, bf))
+    calls = 6 * get_config(ARCH).num_layers + 1
+    print(f"[kernel] quant_matmul host time per decode-step call (B {BATCH}, "
+          f"K = N = 1024, params.matmul): {q_us:.2f} us quantised, "
+          f"{b_us:.2f} us on the bf16 weight; {calls} calls per decode step",
+          flush=True)
 
 
 def ssd_work(B, T, H, P, N, G, Q, elem):
@@ -622,8 +848,11 @@ def main():
     errs = phase_parity(gen)
     phase_full_width_f32(gen, ARCH)
     phase_full_width_f32(gen, SSM_ARCH)
+    phase_full_width_f32(gen, ARCH, quantize="int8")
     launches = phase_serve(gen, ARCH)
     launches["ssd"] = phase_serve(gen, SSM_ARCH)["ssd"]
+    launches["quant_matmul"] = phase_serve(gen, ARCH, "int8")["quant_matmul"]
+    phase_serve(gen, ARCH, "int4")
     launches["gae"] = phase_train()["gae"]
     rows = kernel_rows(gen, launches, errs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

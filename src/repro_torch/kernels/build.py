@@ -53,6 +53,12 @@ SIGNATURES = {
         L, L, L, L, L, L, L, L,     # x (batch, seq, head, elem), dt (b, s, h), A
         L, L, L, L, L, L, L, L,     # B_ and C (batch, seq, head, elem)
         I, P]),                     # is_bf16, stream
+    "quant_matmul": ("quant_matmul_fwd", [
+        P, P, P, P,                 # x, w_q, scale, out
+        I, I, I,                    # M, N, K
+        L, L, L,                    # x strides (row, col), w_q row (bytes)
+        I, I, I, I, I, I, P]),      # scale length, is_bf16, is_int4,
+                                    # transposed, vec16 (w, x), stream
 }
 
 # launches per kernel: each wrapper adds one where it launches its kernel

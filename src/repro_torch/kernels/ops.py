@@ -3,8 +3,8 @@
 Each ported op registers ``ref`` (plain PyTorch) and ``cuda`` (the
 hand-written kernel). Selection: explicit ``mode=`` > ``dispatch.using(...)``
 scope > device default (``cuda`` for CUDA tensors, ``ref`` for CPU tensors);
-see kernels/dispatch.py. The ops of later slices (``quant_matmul``,
-``pack``) are not registered yet and raise.
+see kernels/dispatch.py. The op of a later slice (``pack``) is not
+registered yet and raises.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _fa_cuda
 from repro_torch.kernels.flash_decode import flash_decode as _fd_cuda
 from repro_torch.kernels.gae import gae as _gae_cuda
+from repro_torch.kernels.quant_matmul import quant_matmul as _qmm_cuda
 from repro_torch.kernels.ssd import ssd as _ssd_cuda
 
 dispatch.register("flash_attention", dispatch.REF)(_ref.flash_attention)
@@ -22,6 +23,8 @@ dispatch.register("flash_decode", dispatch.CUDA)(_fd_cuda)
 dispatch.register("gae", dispatch.REF)(_ref.gae)
 dispatch.register("gae", dispatch.CUDA)(_gae_cuda)
 dispatch.register("ssd", dispatch.CUDA)(_ssd_cuda)
+dispatch.register("quant_matmul", dispatch.REF)(_ref.quant_matmul)
+dispatch.register("quant_matmul", dispatch.CUDA)(_qmm_cuda)
 
 
 @dispatch.register("ssd", dispatch.REF)
@@ -47,3 +50,11 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float,
 def ssd(x, dt, A, B_, C, chunk: int = 128, mode: str = None):
     """Mamba2 SSD scan from a zero state: (y, h_last); see ``ref.ssd``."""
     return dispatch.call("ssd", x, dt, A, B_, C, mode=mode, chunk=chunk)
+
+
+def quant_matmul(x, w_q, scale, transposed: bool = False,
+                 mode: str = None):
+    """x (M, K) times int8 / packed int4 weights with a per-channel scale;
+    see ``kernels/quant_matmul.py`` for the layouts."""
+    return dispatch.call("quant_matmul", x, w_q, scale, mode=mode,
+                         transposed=transposed)

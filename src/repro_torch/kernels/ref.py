@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the ported kernels.
 
 Same contracts as ``repro/kernels/ref.py``. They are the CPU execution path
-and, on the card, the yardstick each CUDA kernel is held against.
+and, on the card, the yardstick each CUDA kernel is held against. The int4
+helpers (``pack_int4``, ``unpack_int4``, ``last_len``) follow the layout
+stated in ``kernels/quant_matmul.py``.
 """
 from __future__ import annotations
 
@@ -91,3 +93,46 @@ def ssd(x, dt, A, B_, C, h0=None):
         ys.append(torch.einsum("bhds,bhs->bhd", h, C[:, t]))
     y = torch.stack(ys, dim=1) if ys else x.new_zeros((Bb, 0, H, hd))
     return y.to(in_dtype), h
+
+
+def pack_int4(q):
+    """(..., n) integers in [-8, 7] → (..., ceil(n / 2)) uint8: two values
+    per byte along the last axis, the even index in the low nibble; an odd
+    n leaves the last byte's high nibble 0."""
+    q = q.to(torch.int8)
+    if q.shape[-1] % 2:
+        q = torch.cat([q, q.new_zeros(q.shape[:-1] + (1,))], dim=-1)
+    u = q.contiguous().view(torch.uint8) & 0xF
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def unpack_int4(p, n: int):
+    """(..., ceil(n / 2)) uint8 from ``pack_int4`` → (..., n) int8,
+    sign-extended."""
+    s = p.contiguous().view(torch.int8)
+    lo = (p << 4).view(torch.int8) >> 4
+    return torch.stack([lo, s >> 4], dim=-1).flatten(-2)[..., :n]
+
+
+def last_len(w_q, scale) -> int:
+    """Logical length of the stored last axis of ``w_q``: its size for
+    int8; for packed int4 (uint8) the scale's length when the bytes hold
+    exactly that many values (2·bytes or 2·bytes − 1), else 2·bytes, which
+    the scale then tiles."""
+    if w_q.dtype != torch.uint8:
+        return w_q.shape[-1]
+    n2, s = 2 * w_q.shape[-1], scale.numel()
+    return s if s in (n2 - 1, n2) else n2
+
+
+def quant_matmul(x, w_q, scale, transposed: bool = False):
+    """x (M, K) times the dequantised weight, f32 products, in x.dtype.
+
+    ``w_q`` (K, N), or (N, K) with ``transposed``: int8, or int4 packed by
+    ``pack_int4``; ``scale`` f32 over the stored last axis, tiled when
+    shorter. The plain version of ``repro/kernels/ref.py::quant_matmul``:
+    ``x @ (w_q · scale)`` (``x @ (w_q · scale).T`` with ``transposed``)."""
+    n = last_len(w_q, scale)
+    w = unpack_int4(w_q, n) if w_q.dtype == torch.uint8 else w_q
+    w = w.float() * scale.float().repeat(n // scale.numel())
+    return (x.float() @ (w.t() if transposed else w)).to(x.dtype)

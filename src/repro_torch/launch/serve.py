@@ -9,7 +9,10 @@ layers).
 
 runs the full config on the card (bf16, random weights from ``--seed``):
 one prefill, then ``tokens - 1`` decode steps, and prints tok/s. ``--smoke``
-takes the reduced config; ``--device cpu`` runs on the CPU.
+takes the reduced config; ``--device cpu`` runs on the CPU. ``--quantize
+int8`` (or ``int4``) quantises the drawn weights per output channel and
+sends every matmul through the ``quant_matmul`` kernel, as
+``repro.launch.dryrun --quantize`` does for the reference.
 """
 from __future__ import annotations
 
@@ -39,12 +42,16 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quantize", default="off",
+                    choices=["off", "int8", "int4"])
     args = ap.parse_args(argv)
+    quantize = None if args.quantize == "off" else args.quantize
 
     dev = _device.resolve(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    policy = BackbonePolicy(cfg, device=dev, generator=gen)
+    policy = BackbonePolicy(cfg, device=dev, generator=gen,
+                            quantize=quantize)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
     _sync(dev)
@@ -54,7 +61,8 @@ def main(argv=None):
                          temperature=args.temperature)
     _sync(dev)
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.name} device={dev} generated {tuple(out.shape)} in "
+    print(f"arch={cfg.name} quantize={args.quantize} device={dev} "
+          f"generated {tuple(out.shape)} in "
           f"{dt:.3f}s ({args.batch * args.tokens / dt:.1f} tok/s incl. "
           f"first-call overhead)")
     print("first sequence:", out[0].tolist())

@@ -7,8 +7,9 @@ Three entry points, as in ``repro/models/attention.py``:
 
 Kernels go through ``kernels.ops`` and so through the dispatch registry:
 the CUDA kernel for CUDA tensors, the plain version for CPU tensors, or
-what a ``dispatch.using(...)`` scope asks for. On one device the head
-counts need no padding.
+what a ``dispatch.using(...)`` scope asks for; with quantised weights the
+four projections go through ``quant_matmul`` (``params.matmul``). On one
+device the head counts need no padding.
 
 The port updates the KV cache in place (``index_copy_`` / slice assignment)
 where JAX returns new arrays; the returned ``KVCache`` holds the same
@@ -23,7 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dtype_of, rms_norm
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, matmul
 
 
 def attention_spec(cfg: ModelConfig):
@@ -55,17 +56,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                    torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _proj(x, w, dt):
+def _proj(params, name: str, x, cfg: ModelConfig):
     """x (B,T,d) · w (d,N,hd) → (B,T,N,hd)."""
-    d, n, hd = w.shape
-    return (x @ w.to(dt).reshape(d, n * hd)).unflatten(-1, (n, hd))
+    y = matmul(params, name, x, dtype_of(cfg.dtype))
+    return y.unflatten(-1, (-1, cfg.head_dim))
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
-    dt = dtype_of(cfg.dtype)
-    q = _proj(x, params["wq"], dt)
-    k = _proj(x, params["wk"], dt)
-    v = _proj(x, params["wv"], dt)
+    q = _proj(params, "wq", x, cfg)
+    k = _proj(params, "wk", x, cfg)
+    v = _proj(params, "wv", x, cfg)
     if cfg.qk_norm:              # per-head RMSNorm over head_dim
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -77,9 +77,7 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
 
 def _out(params, out, cfg: ModelConfig):
     """out (B,T,H,hd) · wo (H,hd,d) → (B,T,d)."""
-    H, hd, d = params["wo"].shape
-    wo = params["wo"].to(dtype_of(cfg.dtype)).reshape(H * hd, d)
-    return out.flatten(-2) @ wo
+    return matmul(params, "wo", out.flatten(-2), dtype_of(cfg.dtype))
 
 
 def _positions(B: int, T: int, device):

@@ -15,19 +15,29 @@ the Mamba2 leaves included: ``ssm.in_proj``, ``conv_w`` and ``out_proj`` in
 the parameter dtype, ``ssm.A_log``, ``D``, ``dt_bias`` and ``norm`` in f32.
 
 bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
-rejects; they go through their 16-bit pattern, bit for bit.
+rejects; they go through their 16-bit pattern, bit for bit. A quantised tree
+(``repro.models.params.quantize_params``) loads into a ``BackbonePolicy``
+built with the same ``quantize``: int8 leaves as they are, ``ml_dtypes``
+int4 leaves as int8 values packed two to a byte (``kernels/ref.py::
+pack_int4``), and each ``<name>_scale``, (n_periods, last) per layer leaf,
+unstacked like the rest.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import pack_int4
+
 
 def to_torch(a) -> torch.Tensor:
-    """numpy array → CPU tensor; bf16 is moved bit-exactly."""
+    """numpy array → CPU tensor; bf16 is moved bit-exactly, int4 packed
+    two to a uint8 along its last axis."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name == "int4":
+        return pack_int4(torch.from_numpy(a.astype(np.int8)))
     return torch.from_numpy(a.copy())
 
 

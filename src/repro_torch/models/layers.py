@@ -3,6 +3,9 @@
 Numerics follow ``repro/models/layers.py`` step for step, so bf16 rounds at
 the same places: the norm's variance in f32 with the products in x.dtype,
 rope in f32, the embedding scale as a ``cfg.dtype`` scalar, logits in f32.
+Matmul weights go through ``params.matmul`` (``quant_matmul`` when
+quantised); quantised embedding rows are dequantised in bf16 after the
+gather, as the reference dequantises its table.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, matmul, stored
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -64,7 +67,14 @@ def embedding_spec(cfg: ModelConfig):
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
     dt = dtype_of(cfg.dtype)
-    x = params["embed"][tokens].to(dt)
+    scale = params.get("embed_scale")
+    x = stored(params["embed"][tokens], scale)
+    if scale is not None:
+        # the gathered rows dequantised in bf16 whatever cfg.dtype, as the
+        # reference's weight() does (repro/models/params.py:199-205)
+        bf = torch.bfloat16
+        x = x.to(bf) * scale.to(bf)
+    x = x.to(dt)
     # the scale is rounded to cfg.dtype before the product, as in JAX;
     # torch.full fills on the device (no host-to-device copy, no sync)
     return x * torch.full((), math.sqrt(cfg.d_model), dtype=dt,
@@ -80,11 +90,11 @@ def unembed_spec(cfg: ModelConfig):
 
 def unembed(params, embed_params, x, cfg: ModelConfig):
     dt = dtype_of(cfg.dtype)
-    if cfg.tie_embeddings:
-        w = embed_params["embed"].to(dt).t()
+    if cfg.tie_embeddings:      # x @ E.T: the (V, d) table in the (N, K) layout
+        y = matmul(embed_params, "embed", x, dt, transposed=True)
     else:
-        w = params["unembed"].to(dt)
-    return (x @ w).float()
+        y = matmul(params, "unembed", x, dt)
+    return y.float()
 
 
 # -- gated MLP (SwiGLU / GeGLU) -----------------------------------------------
@@ -99,8 +109,8 @@ def make_mlp_spec(cfg: ModelConfig, d_ff: int = 0):
 
 def mlp_apply(params, x, cfg: ModelConfig):
     dt = dtype_of(cfg.dtype)
-    h = x @ params["wi"].to(dt)
+    h = matmul(params, "wi", x, dt)
     gate, up = h.chunk(2, dim=-1)
     act = F.silu(gate) if cfg.mlp_activation == "silu" \
         else F.gelu(gate, approximate="tanh")
-    return (act * up) @ params["wo"].to(dt)
+    return matmul(params, "wo", act * up, dt)

@@ -24,7 +24,8 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.params import ParamSpec, Params, init_params
+from repro_torch.models.params import (QMAX, ParamSpec, Params, init_params,
+                                       quantize_params, quantize_spec, stored)
 
 
 # -- LSTM cell ----------------------------------------------------------------
@@ -177,33 +178,51 @@ class BackbonePolicy(nn.Module):
 
     Parameters are drawn from ``generator`` (default: a new generator on
     ``device`` seeded with 0), in ``dtype`` (default ``cfg.param_dtype``).
-    ``device=None`` means CUDA and raises without a Hopper card."""
+    ``device=None`` means CUDA and raises without a Hopper card.
+    ``quantize="int8"`` or ``"int4"`` draws the same float parameters,
+    quantises them with ``params.quantize_params`` and keeps only the
+    quantised tree: every matmul weight then goes through ``quant_matmul``."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 generator: torch.Generator = None, dtype=None):
+                 generator: torch.Generator = None, dtype=None,
+                 quantize: Optional[str] = None):
         super().__init__()
+        if quantize not in (None, *QMAX):
+            raise ValueError(f"quantize must be None or one of {tuple(QMAX)}"
+                             f", got {quantize!r}")
         dev = _device.resolve(device)
-        self.cfg = cfg
+        self.cfg, self.quantize = cfg, quantize
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        tree = init_params(self.spec(), generator,
+        spec = self._float_spec()
+        tree = init_params(spec, generator,
                            dtype_of(dtype or cfg.param_dtype), dev)
+        if quantize:
+            tree = quantize_params(tree, spec, quantize)
         self.backbone = Params(tree["backbone"])
-        if cfg.value_head:
-            self.value = nn.Parameter(tree["value"], requires_grad=False)
+        for k in ("value", "value_scale"):
+            if k in tree:
+                setattr(self, k, nn.Parameter(tree[k], requires_grad=False))
 
-    def spec(self):
+    def _float_spec(self):
         s = {"backbone": tr.transformer_spec(self.cfg)}
         if self.cfg.value_head:
             s["value"] = ParamSpec((self.cfg.d_model, 1),
                                    fan_in=self.cfg.d_model)
         return s
 
+    def spec(self):
+        s = self._float_spec()
+        return quantize_spec(s, self.quantize) if self.quantize else s
+
     def _value(self, hidden):
         if not self.cfg.value_head:
             return torch.zeros(hidden.shape[:-1], device=hidden.device)
+        # A quantised head is read as its raw integers without value_scale,
+        # as the reference reads it (repro/models/policy.py:220-221).
+        w = stored(self.value, getattr(self, "value_scale", None))
         # dot in hidden.dtype, upcast after
-        return (hidden @ self.value.to(hidden.dtype))[..., 0].float()
+        return (hidden @ w.to(hidden.dtype))[..., 0].float()
 
     def seq(self, tokens):
         """Full-sequence forward. tokens: (B, T). Returns (logits (B,T,V),

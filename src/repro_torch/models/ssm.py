@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dtype_of, rms_norm
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, matmul, stored
 
 
 class SSMCache(NamedTuple):
@@ -76,7 +76,14 @@ def _gated_out(params, y, z, cfg: ModelConfig):
     dt_ = dtype_of(cfg.dtype)
     y = rms_norm(y * F.silu(z.float()).to(dt_), params["norm"],
                  cfg.norm_eps)
-    return y @ params["out_proj"].to(dt_)
+    return matmul(params, "out_proj", y, dt_)
+
+
+def _conv_w(params, dt_):
+    """The conv kernel (k, conv_dim) in ``cfg.dtype``. A quantised one is
+    read as its raw integers without ``conv_w_scale``, as the reference
+    reads it (repro/models/ssm.py:85, :135)."""
+    return stored(params["conv_w"], params.get("conv_w_scale")).to(dt_)
 
 
 def ssm_apply(params, x, cfg: ModelConfig, return_cache: bool = False):
@@ -87,11 +94,11 @@ def ssm_apply(params, x, cfg: ModelConfig, return_cache: bool = False):
     di, H, ds, G, conv_dim, _ = _dims(cfg)
     dt_ = dtype_of(cfg.dtype)
 
-    zxbcdt = x @ params["in_proj"].to(dt_)
+    zxbcdt = matmul(params, "in_proj", x, dt_)
     z, xBC_raw, dt = _split_proj(zxbcdt, cfg)
 
     # short causal conv over the (x, B, C) channels
-    w = params["conv_w"].to(dt_)                          # (k, conv_dim)
+    w = _conv_w(params, dt_)                          # (k, conv_dim)
     pad = torch.zeros((B, cfg.ssm_conv - 1, conv_dim), dtype=dt_,
                       device=x.device)
     xp = torch.cat([pad, xBC_raw], dim=1)
@@ -131,11 +138,11 @@ def ssm_decode(params, x, cfg: ModelConfig, cache: SSMCache):
     di, H, ds, G, conv_dim, _ = _dims(cfg)
     dt_ = dtype_of(cfg.dtype)
 
-    zxbcdt = x @ params["in_proj"].to(dt_)
+    zxbcdt = matmul(params, "in_proj", x, dt_)
     z, xBC, dt = _split_proj(zxbcdt, cfg)                 # (B, 1, *)
 
     window = torch.cat([cache.conv, xBC], dim=1)          # (B, k, conv)
-    w = params["conv_w"].to(dt_)
+    w = _conv_w(params, dt_)
     xc = F.silu(torch.einsum("bkc,kc->bc", window, w))    # (B, conv)
 
     xs, Bc, Cc = torch.split(xc, [di, G * ds, G * ds], dim=-1)

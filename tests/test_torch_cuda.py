@@ -7,8 +7,8 @@ it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: bf16 2e-2; f32 1e-4 with TF32 off (the kernels sum in another
-order than the plain version's einsum; SSD chunks where the plain version
-steps); GAE 1e-5 (the kernel contracts
+order than the plain version's einsum or matmul; SSD chunks where the plain
+version steps); GAE 1e-5 (the kernel contracts
 products into FMAs); one whole learn atol 1e-5, rtol 1e-4 (cuBLAS and the
 CPU reduce in another order).
 """
@@ -106,6 +106,7 @@ def test_generate_launches_both_kernels(no_tf32):
     assert build.LAUNCHES["flash_decode"] == cfg.num_layers * 4
     assert build.LAUNCHES["gae"] == 0
     assert build.LAUNCHES["ssd"] == 0
+    assert build.LAUNCHES["quant_matmul"] == 0
 
 
 def _ssd_inputs(rng, B, T, H, hd, ds, dtype, layout):
@@ -187,8 +188,83 @@ def test_mamba2_generate_launches_ssd_once_per_layer():
     out = actor.generate(pol, prompt, 5, gen)
     torch.cuda.synchronize()
     assert out.shape == (2, 5)
-    assert build.LAUNCHES == {"flash_attention": 0, "flash_decode": 0,
-                              "gae": 0, "ssd": cfg.num_layers}
+    want = {"flash_attention": 0, "flash_decode": 0, "gae": 0,
+            "ssd": cfg.num_layers, "quant_matmul": 0}
+    assert {k: build.LAUNCHES[k] for k in want} == want
+
+
+QMM_EDGES = [  # (M, K, N, transposed, scale length or None, x row pad)
+    (1, 1024, 1024, False, None, 0),       # M = 1
+    (8, 1024, 2048, False, 128, 0),        # wq: a (hd,) scale tiled over H
+    (5, 999, 1001, False, None, 24),       # ragged N, K; strided x
+    (37, 1001, 999, True, None, 8),        # (N, K) layout, ragged, strided
+    (300, 77, 130, False, None, 0),        # prefill tile, ragged M
+    (200, 1024, 2048, False, 128, 0),      # prefill tile, tiled scale
+    (17, 3, 5, False, None, 0),            # K and N below every tile
+    (8, 4096, 64, False, None, 0),         # K split over a full cluster
+    (8, 1024, 4099, True, None, 0),        # the unembed's layout, ragged V
+]
+
+
+def _qmm_inputs(rng, M, K, N, transposed, S, pad, qtype, dtype):
+    qmax = 127 if qtype == "int8" else 7
+    ints = torch.from_numpy(rng.integers(-qmax, qmax + 1, (N, K) if
+                                         transposed else (K, N))
+                            .astype(np.int8))
+    w = ref.pack_int4(ints) if qtype == "int4" else ints
+    S = S or (K if transposed else N)
+    s = torch.from_numpy(np.abs(rng.standard_normal(S, np.float32))
+                         / (qmax * K ** 0.5))
+    x = _randn(rng, (M, K + pad), dtype)[:, pad // 2:pad // 2 + K]
+    return x, w.cuda(), s.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype", ["int8", "int4"])
+@pytest.mark.parametrize("M,K,N,transposed,S,pad", QMM_EDGES)
+def test_quant_matmul_kernel_matches_ref(M, K, N, transposed, S, pad, qtype,
+                                         dtype, no_tf32):
+    rng = np.random.default_rng(M + K + N)
+    x, w, s = _qmm_inputs(rng, M, K, N, transposed, S, pad, qtype, dtype)
+    _check("quant_matmul",
+           lambda: ops.quant_matmul(x, w, s, transposed=transposed),
+           ref.quant_matmul(x, w, s, transposed), dtype)
+
+
+def test_quant_matmul_kernel_raises_on_what_it_does_not_take():
+    x = torch.zeros(2, 8, device="cuda")
+    w = torch.zeros(8, 6, dtype=torch.int8, device="cuda")
+    s = torch.ones(6, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.quant_matmul(x, torch.zeros(6, 8, dtype=torch.int8,
+                                        device="cuda").t(), s)
+    with pytest.raises(ValueError, match="is on"):
+        ops.quant_matmul(x, w.cpu(), s)
+    with pytest.raises(TypeError, match="float32"):
+        ops.quant_matmul(x, w, s.bfloat16())
+
+
+@pytest.mark.parametrize("arch,qtype", [("qwen3-0.6b", "int8"),
+                                        ("qwen3-0.6b", "int4"),
+                                        ("mamba2-1.3b", "int8")])
+def test_quantised_generate_launches_quant_matmul_on_every_matmul(arch,
+                                                                  qtype):
+    cfg = get_smoke_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pol = BackbonePolicy(cfg, generator=gen, quantize=qtype)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 37), generator=gen,
+                           device="cuda")
+    build.reset_launches()
+    out = actor.generate(pol, prompt, 5, gen)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 5)
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    mixer = 4 * attn + 2 * (cfg.num_layers - attn)   # wq wk wv wo | in, out
+    per_forward = mixer + 2 * cfg.num_layers * (cfg.d_ff > 0) + 1
+    want = {"quant_matmul": 5 * per_forward, "flash_attention": attn,
+            "flash_decode": 4 * attn, "ssd": cfg.num_layers - attn,
+            "gae": 0}
+    assert {k: build.LAUNCHES[k] for k in want} == want
 
 
 @pytest.mark.parametrize("done_p", [0.0, 0.1, 0.5])
@@ -228,6 +304,7 @@ def test_trainer_launch_runs_one_gae_kernel_per_update_without_sync():
     assert build.LAUNCHES["flash_attention"] == 0
     assert build.LAUNCHES["flash_decode"] == 0
     assert build.LAUNCHES["ssd"] == 0
+    assert build.LAUNCHES["quant_matmul"] == 0
     assert bool(torch.isfinite(ring).all())
 
 
