@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs six phases, each printing its
+``src/repro_torch/kernels/csrc`` and runs nine phases, each printing its
 lines; any failure ends the run with a traceback and a non-zero exit:
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
@@ -19,7 +19,11 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  and f32 at 1e-4) at the seven serve shapes, M = 8 and
                  4096 (the tied unembed, 151936 x 1024 read as (N, K), at
                  M = 8), and edge shapes (M = 1, ragged N and K, a strided
-                 x, a tiled scale, K below a tile)
+                 x, a tiled scale, K below a tile); pack exactly
+                 (``torch.equal``) at the host tier's act shape, the bytes
+                 emulation of Spaces' obs at 4096 envs and edge shapes (one
+                 leaf, 1-byte leaves, odd widths at unaligned offsets, B = 1,
+                 a strided row view, more leaves than one launch holds)
   4. full width  qwen3-0.6b and mamba2-1.3b in f32 (TF32 off), then
                  qwen3-0.6b with int8 weights: the cuda and ref backends on
                  prefill last-token logits and 4 teacher-forced decode steps,
@@ -28,7 +32,7 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  with int4 weights, in bf16, batch 8, prompt 512, 64 new
                  tokens through ``rl.actor.generate``; the launch counters
                  must read 28 (flash_attention), 28 x 63 (flash_decode), 0
-                 (gae, ssd, quant_matmul) for qwen3, 48 (ssd) and 0 (the
+                 (gae, ssd, quant_matmul, pack) for qwen3, 48 (ssd) and 0 (the
                  others) for mamba2, and 64 x (28 x 6 + 1) (quant_matmul) on
                  top of qwen3's for the quantised runs; prints prefill ms,
                  decode ms/token,
@@ -49,11 +53,32 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  into rollout and learn; the counters must read one gae
                  launch per update and 0 for the others; prints
                  sps, rollout / learn / launch ms per update, and a profile
-                 of one update; then the GAE kernel's ms beside its plain
-                 version's and its bound
+                 of one update
+  7. emulation   ``Emulated(env, mode="bytes")`` for spaces and multiagent
+                 steps 4096 envs on the card: one pack launch per step, the
+                 obs equal to the ref path's byte for byte, and unemulate
+                 then emulate gives them back
+  8. pool        the pool tier through ``Trainer(backend="pool")``: (a)
+                 bandit and squared solve at their presets; (b) full size:
+                 squared on 2 buffers of 4096 envs x 64 steps, hidden 128: 2
+                 warm-up and 5 timed updates, one more under sync debug mode
+                 "error" up to its enqueue; the counters must read one gae
+                 per update and 0 pack; prints sps, ms per update and a
+                 profile of one run of one update
+  9. host        the host tier through ``bridge.make_host_engine`` on
+                 threads: bandit must solve at its preset (N 64, M 128,
+                 unroll 64), squared runs its preset budget (its score is
+                 printed, not required); the counters must read one pack per
+                 act step and one gae per update; a profile of one update of
+                 squared; then squared on the proc backend through the
+                 launcher in a subprocess (N 8, M 16 spawned workers, 4
+                 updates), whose printed counters must agree the same way
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
-version's, its bound and a library call. quant_matmul's row is the total
+version's, its bound and a library call. pack's row is timed by CUDA-graph
+replay at the host tier's act shape, with ``torch.cat`` as its library
+call, and a line before it times it at a full-size trajectory's bytes
+emulation, whose inputs exceed the L2. quant_matmul's row is the total
 over one int8 ``generate`` of its device times at each serve shape (printed
 on the lines before it, timed by CUDA-graph replay), beside the same totals
 of the plain version, the bound and ``torch.matmul`` on the
@@ -64,9 +89,11 @@ Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 """
 from __future__ import annotations
 
+import ast
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -81,19 +108,25 @@ import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.bridge import make_host_engine  # noqa: E402
 from repro_torch.configs import get_config, with_overrides  # noqa: E402
 from repro_torch.configs.ocean import ocean_tcfg, preset  # noqa: E402
+from repro_torch.core.emulation import (Emulated, emulate,  # noqa: E402
+                                        unemulate)
 from repro_torch.envs.ocean import OCEAN  # noqa: E402
+from repro_torch.envs.ocean_host import OCEAN_HOST  # noqa: E402
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.gae import gae  # noqa: E402
+from repro_torch.kernels.pack import MAX_LEAVES, pack  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
 from repro_torch.rl import actor  # noqa: E402
-from repro_torch.rl.engine import METRIC_KEYS  # noqa: E402
+from repro_torch.rl.engine import (METRIC_KEYS,  # noqa: E402
+                                   act_transfer_spec)
 from repro_torch.rl.trainer import Trainer  # noqa: E402
 
 ARCH, SSM_ARCH = "qwen3-0.6b", "mamba2-1.3b"
@@ -112,6 +145,8 @@ KERNELS = {
             "src/repro/kernels/ssd.py:69"),
     "quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                      "src/repro/kernels/quant_matmul.py:43"),
+    "pack": ("src/repro_torch/kernels/csrc/pack.cu",
+             "src/repro/kernels/pack.py:29"),
 }
 # mamba2-1.3b's SSD at the serve shape: heads, head dim, state, groups, chunk
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q = 64, 64, 128, 1, 128
@@ -127,6 +162,8 @@ QMM_EDGES = (  # (M, K, N, transposed, scale length or None, x row pad)
     (17, 3, 5, False, None, 0), (8, 4096, 64, False, None, 0))
 TRAIN_ENVS, TRAIN_UNROLL = 4096, 64     # the full-size training update
 GAMMA, LAM = 0.95, 0.95                 # ocean_tcfg's gamma, TrainConfig's
+HOST_N = 64                             # the host tier's preset batch (M 128)
+PROC_N, PROC_UPDATES = 8, 4             # the proc-backend run: M 16 workers
 
 
 def sync():
@@ -279,11 +316,49 @@ def phase_parity(gen):
                         dtype == torch.bfloat16:
                     errs["quant_matmul"] = max(errs["quant_matmul"], err)
                 cases += 1
+    # pack: exact, at the host tier's act shape, the bytes emulation of
+    # Spaces' obs at 4096 envs and the edge shapes
+    errs["pack"] = 0.0
+    for what, leaves in pack_cases(gen).items():
+        got, want = pack(leaves), ref.pack(leaves)
+        if not (got.is_contiguous() and torch.equal(got, want)):
+            raise AssertionError(f"pack {what}: differs from torch.cat")
+        errs["pack"] = max(errs["pack"], max_err(got, want))
+        cases += 1
     sync()
     print(f"[3 parity] {cases} cases pass; max abs err at the serve shapes "
-          f"(bf16; quant_matmul int8) and the training shape (gae, f32): "
-          f"{errs}", flush=True)
+          f"(bf16; quant_matmul int8), the training shape (gae, f32) and "
+          f"the host tier's shapes (pack, exact): {errs}", flush=True)
     return errs
+
+
+def u8(gen, B, n):
+    return torch.randint(0, 256, (B, n), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+
+
+def f32_bytes(gen, B, n):
+    """(B, 4n) uint8: the bytes of (B, n) normal f32, as emulate makes."""
+    return torch.randn((B, n), generator=gen, device="cuda").view(torch.uint8)
+
+
+def pack_cases(gen):
+    base = u8(gen, 300, 64)
+    return {
+        "host act (B 64: action 4, logp 4, value 4)":
+            [u8(gen, HOST_N, 4), f32_bytes(gen, HOST_N, 1),
+             f32_bytes(gen, HOST_N, 1)],
+        "spaces obs (B 4096: flat 16, image 36)":
+            [f32_bytes(gen, TRAIN_ENVS, 4), f32_bytes(gen, TRAIN_ENVS, 9)],
+        "one leaf": [u8(gen, 257, 48)],
+        "1-byte leaves": [u8(gen, 100, 1) for _ in range(5)],
+        "odd widths at unaligned offsets":
+            [u8(gen, 333, n) for n in (3, 17, 4, 33)],
+        "B = 1": [u8(gen, 1, n) for n in (7, 16, 5)],
+        "strided row view": [base[:, 5:21], base[:, 32:64], u8(gen, 300, 2)],
+        f"more than {MAX_LEAVES} leaves":
+            [u8(gen, 70, 1 + i % 5) for i in range(2 * MAX_LEAVES + 11)],
+    }
 
 
 def qmm_inputs(gen, M, K, N, transposed, S, pad, qtype, dtype):
@@ -368,7 +443,7 @@ def serve_launches(cfg, quantize=None):
     per_forward = (4 * attn + 2 * (cfg.num_layers - attn)
                    + 2 * cfg.num_layers * (cfg.d_ff > 0) + 1)
     return {"flash_attention": attn, "flash_decode": attn * (NEW - 1),
-            "ssd": cfg.num_layers - attn, "gae": 0,
+            "ssd": cfg.num_layers - attn, "gae": 0, "pack": 0,
             "quant_matmul": NEW * per_forward if quantize else 0}
 
 
@@ -535,7 +610,7 @@ def phase_train():
     sync()
     launches = dict(build.LAUNCHES)
     want = {"gae": updates, "flash_attention": 0, "flash_decode": 0,
-            "ssd": 0, "quant_matmul": 0}
+            "ssd": 0, "quant_matmul": 0, "pack": 0}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"launch counts {launches}, expected {want}")
     # one more update through the engine's own two halves, for their times;
@@ -566,6 +641,226 @@ def phase_train():
                   update_ms)
     del tr, eng, batch
     torch.cuda.empty_cache()
+    return launches
+
+
+def phase_emulation(gen):
+    """Emulation's bytes mode on the card: ``Emulated(env, mode="bytes")``
+    steps 4096 envs; its obs equal the ``ref`` path's (``torch.cat``) byte
+    for byte, and ``unemulate`` then ``emulate`` gives them back."""
+    for name in ("spaces", "multiagent"):
+        em = Emulated(OCEAN[name](), mode="bytes")
+        state, _ = em.reset(em.env.init(TRAIN_ENVS, gen), gen)
+        A = em.num_agents
+        lead = (TRAIN_ENVS, A) if A > 1 else (TRAIN_ENVS,)
+        act = torch.randint(0, 2, lead + (em.act_spec.num_components,),
+                            generator=gen, device="cuda", dtype=torch.int32)
+        before = build.LAUNCHES["pack"]
+        state, obs, _, _, _ = em.step(state, act, gen)
+        if build.LAUNCHES["pack"] != before + 1:
+            raise AssertionError("the bytes-mode step did not launch pack")
+        with dispatch.using("ref"):
+            want = emulate(em.obs_spec, em.env.obs(state))
+        back = emulate(em.obs_spec, unemulate(em.obs_spec, obs))
+        if not (obs.dtype == torch.uint8 and torch.equal(obs, want)
+                and torch.equal(back, obs)):
+            raise AssertionError(f"bytes emulation of {name} differs")
+        print(f"[7 emulation] {name} bytes mode at {TRAIN_ENVS} envs: obs "
+              f"{tuple(obs.shape)} uint8 equal to the ref path, round trip "
+              f"exact", flush=True)
+
+
+def check_launches(tag, want):
+    launches = dict(build.LAUNCHES)
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{tag}: launch counts {launches}, expected "
+                             f"{want}")
+    return launches
+
+
+def tier_profile(tag, label, run_one):
+    """Wall time of one ``run_one()`` (a run of a few updates; it ends in a
+    synchronise), then the same under the profiler: device time and idle
+    share over the run."""
+    sync()
+    t0 = time.perf_counter()
+    run_one()
+    sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_steps(tag, label, run_one, 1, wall_ms)
+
+
+def phase_pool():
+    """The pool tier through ``Trainer(backend="pool")``: bandit and squared
+    solve at their presets, then the full-size squared update (2 buffers of
+    4096 envs, unroll 64). Returns the launch counts of the full-size run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in ("bandit", "squared"):
+        p = preset(name)
+        tr = Trainer(OCEAN[name](), ocean_tcfg(name, engine_backend="pool"),
+                     hidden=p.hidden, recurrent=p.recurrent, seed=0)
+        t0 = time.perf_counter()
+        m = tr.train(p.total_steps, target_score=p.target_score)
+        wall = time.perf_counter() - t0
+        if not m["score"] >= p.target_score:
+            raise AssertionError(f"pool {name} unsolved in {p.total_steps} "
+                                 f"steps: score {m['score']}")
+        print(f"[8 pool] (a) {name} SOLVED score {m['score']:.3f} at "
+              f"{m['env_steps']} env steps (budget {p.total_steps}) in "
+              f"{wall:.2f} s wall", flush=True)
+
+    tcfg = ocean_tcfg("squared", num_envs=TRAIN_ENVS, engine_backend="pool")
+    tr = Trainer(OCEAN["squared"](), tcfg, hidden=128, seed=0)
+    eng = tr.engine
+    spu = eng.steps_per_update
+    eng.run(2 * spu)                                    # warm-up
+    sync()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    hist, _ = eng.run(5 * spu)
+    sync()
+    wall = time.perf_counter() - t0
+    # one more update, its host work under sync debug mode "error" from the
+    # first env step to the update's enqueue (the metrics drain after it)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        guarded, _ = eng.run(spu, on_launch=lambda u: (
+            torch.cuda.set_sync_debug_mode(0)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync()
+    updates = len(hist) + len(guarded)
+    launches = check_launches("pool tier", {
+        "gae": updates, "pack": 0, "flash_attention": 0, "flash_decode": 0,
+        "ssd": 0, "quant_matmul": 0})
+    if not all(math.isfinite(h[k]) for h in hist + guarded
+               for k in METRIC_KEYS):
+        raise AssertionError("non-finite metrics in the pool-tier run")
+    update_ms = wall * 1e3 / len(hist)
+    print(f"[8 pool] (b) squared full size: {tcfg.pool_buffers} buffers x "
+          f"{TRAIN_ENVS} envs x {tcfg.unroll_length} steps, {spu} "
+          f"transitions/update, {tcfg.update_epochs} epochs x "
+          f"{tcfg.num_minibatches} minibatches, hidden 128: "
+          f"{len(hist) * spu / wall:.0f} sps, {update_ms:.2f} ms/update "
+          f"(learn enqueue {sum(h['launch_ms'] for h in hist) / len(hist):.2f}"
+          f" ms); an update ran under sync debug mode 'error'; score "
+          f"{hist[-1]['score']:.3f}; act steps {eng.act_steps}; launches "
+          f"{launches} over {updates} updates", flush=True)
+    tier_profile("8 pool", "full size, one run of 5 updates",
+                 lambda: eng.run(5 * spu))
+    del tr, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def host_run(name, backend="thread"):
+    """``--host-env name`` at its preset, in process (what the launcher
+    does): returns (engine, final metrics, updates, wall s). The engine is
+    left open for its profile; the caller closes it."""
+    p = preset(name)
+    tcfg = ocean_tcfg(name, engine_backend="host", host_backend=backend)
+    eng = make_host_engine(OCEAN_HOST[name], tcfg, hidden=p.hidden,
+                           recurrent=p.recurrent, seed=0)
+    t0 = time.perf_counter()
+    hist, solved = eng.run(p.total_steps, target_score=p.target_score)
+    wall = time.perf_counter() - t0
+    m = solved if solved is not None else hist[-1]
+    if not all(math.isfinite(h[k]) for h in hist for k in METRIC_KEYS):
+        raise AssertionError(f"non-finite metrics in host/{name}")
+    status = "SOLVED" if m["score"] >= p.target_score else "unsolved"
+    print(f"[9 host] host/{name} threads M {eng.hvec.num_envs} N "
+          f"{eng.hvec.batch_envs}: {status} score {m['score']:.3f} at "
+          f"{m['env_steps']} env steps (budget {p.total_steps}), "
+          f"{len(hist)} updates, {eng.act_steps} act steps, "
+          f"{m['env_steps'] / wall:.0f} sps over {wall:.2f} s wall",
+          flush=True)
+    return eng, m, len(hist), status
+
+
+def phase_host():
+    """The host tier: bandit on threads must solve at its preset; squared
+    runs its preset budget (no run of the reference shows a host-tier
+    squared solve); then squared on the proc backend through the launcher,
+    in a subprocess (spawned workers re-import its torch-free module), N 8,
+    M 16, 4 updates. Every act step packs its outputs with one pack launch;
+    every update runs one gae. Returns the launch counts of the two thread
+    runs."""
+    build.reset_launches()
+    act_steps = updates = 0
+    for name in ("bandit", "squared"):
+        eng, m, n, status = host_run(name)
+        try:
+            act_steps += eng.act_steps
+            updates += n
+            if name == "bandit" and status != "SOLVED":
+                raise AssertionError(f"host/bandit unsolved: {m}")
+        finally:
+            eng.close()
+    launches = check_launches("host tier", {
+        "pack": act_steps, "gae": updates, "flash_attention": 0,
+        "flash_decode": 0, "ssd": 0, "quant_matmul": 0})
+    print(f"[9 host] launches {launches} over {updates} updates and "
+          f"{act_steps} act steps ({act_steps / updates:.1f} pack launches "
+          f"per update)", flush=True)
+
+    # where the time goes: 3 updates of host/squared, wall and profiled;
+    # then the act step alone (device act, pack, copy, numpy cut) against
+    # the wall time of a batch
+    p = preset("squared")
+    eng = make_host_engine(OCEAN_HOST["squared"],
+                           ocean_tcfg("squared", engine_backend="host"),
+                           hidden=p.hidden, seed=0)
+    try:
+        eng.run(eng.steps_per_update)                   # warm-up
+        eng.act_steps = 0
+        t0 = time.perf_counter()
+        eng.run(3 * eng.steps_per_update)
+        batch_ms = (time.perf_counter() - t0) * 1e3 / eng.act_steps
+        tier_profile("9 host", "host/squared, one run of 3 updates",
+                     lambda: eng.run(3 * eng.steps_per_update))
+        obs, _, done, _, ids = eng.hvec.recv(timeout=60.0)
+        spec = act_transfer_spec(eng.hvec.act_spec)
+        staging = torch.empty((eng.batch_size, spec.total),
+                              dtype=torch.uint8, pin_memory=True)
+        n = 200
+        t0 = time.perf_counter()
+        for _ in range(n):
+            action = eng._act_to_host(spec, obs, None, done, staging)[0]
+        act_ms = (time.perf_counter() - t0) * 1e3 / n
+        eng.hvec.send(action, ids)
+        print(f"[9 host] host/squared act step (obs to the card, act, one "
+              f"pack, one {spec.total * eng.batch_size}-byte copy, numpy "
+              f"cut): {act_ms:.3f} ms of {batch_ms:.3f} ms wall per batch of "
+              f"{eng.hvec.batch_envs} envs ({100 * act_ms / batch_ms:.1f}%)",
+              flush=True)
+    finally:
+        eng.close()
+
+    steps = PROC_UPDATES * TRAIN_UNROLL * PROC_N
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--host-env",
+           "squared", "--host-backend", "proc", "--num-envs", str(PROC_N),
+           "--total-env-steps", str(steps), "--full-budget"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"proc-backend launcher exit {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    line = next(ln for ln in r.stdout.splitlines() if "act_steps=" in ln)
+    got = re.search(r"updates=(\d+) act_steps=(\d+) launches=(\{.*\})",
+                    line)
+    n_upd, n_act = int(got.group(1)), int(got.group(2))
+    proc_launches = ast.literal_eval(got.group(3))
+    if n_upd != PROC_UPDATES or proc_launches["pack"] != n_act or \
+            proc_launches["gae"] != n_upd:
+        raise AssertionError(f"proc run: {line}")
+    print(f"[9 host] host/squared proc backend through the launcher (M "
+          f"{2 * PROC_N} spawned workers, N {PROC_N}, {PROC_UPDATES} "
+          f"updates) in {wall:.1f} s wall, interpreter start and spawn "
+          f"included:{line.split('->')[1]}", flush=True)
     return launches
 
 
@@ -650,6 +945,8 @@ def kernel_rows(gen, launches, errs):
                  cuda_ms(ref.ssd, ssd_sets, 3), None))
     del ssd_sets
 
+    rows.append(pack_row(gen))
+
     out = []
     for name, flops, peak, nbytes, ms, plain_ms, lib_ms in rows:
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -667,6 +964,35 @@ def kernel_rows(gen, launches, errs):
               flush=True)
     out.append(qmm_row(gen, launches, errs))
     return out
+
+
+def pack_row(gen):
+    """pack at the host tier's act shape (B 64 rows of action, logp and
+    value: 12 bytes), then at the bytes emulation of a full-size trajectory
+    of Spaces' obs (262,144 rows of 16 + 36 bytes; four input sets of 13.6
+    MB, so they come from HBM): device ms per call by CUDA-graph replay of
+    the kernel, its plain version and ``torch.cat`` (the same function; the
+    yardstick the port never calls on the card)."""
+    def times(sets, calls):
+        return (graph_ms(lambda *l: pack(l), sets, calls),
+                graph_ms(lambda *l: ref.pack(l), sets, calls),
+                graph_ms(lambda *l: torch.cat(l, dim=-1), sets, calls))
+
+    act_sets = [(u8(gen, HOST_N, 4), f32_bytes(gen, HOST_N, 1),
+                 f32_bytes(gen, HOST_N, 1)) for _ in range(16)]
+    nbytes = 2 * HOST_N * 12
+    ms, plain_ms, lib_ms = times(act_sets, 64)
+    big = [(f32_bytes(gen, TRAIN_ENVS * TRAIN_UNROLL, 4),
+            f32_bytes(gen, TRAIN_ENVS * TRAIN_UNROLL, 9)) for _ in range(4)]
+    big_bytes = 2 * TRAIN_ENVS * TRAIN_UNROLL * 52
+    big_ms, big_plain, big_lib = times(big, 8)
+    print(f"[kernel] pack (B {TRAIN_ENVS * TRAIN_UNROLL}, leaves of 16 and "
+          f"36 bytes, inputs from HBM): {big_ms:.4f} ms (plain "
+          f"{big_plain:.4f} ms, torch.cat {big_lib:.4f} ms, bound "
+          f"{big_bytes / PEAK_BYTES * 1e3:.4f} ms by bytes: {big_bytes} B, "
+          f"{big_bytes / big_ms / 1e6:.1f} GB/s)", flush=True)
+    del big
+    return ("pack", 0, PEAK_FLOPS, nbytes, ms, plain_ms, lib_ms)
 
 
 def graph_ms(fn, arg_sets, calls, replays=5):
@@ -854,6 +1180,9 @@ def main():
     launches["quant_matmul"] = phase_serve(gen, ARCH, "int8")["quant_matmul"]
     phase_serve(gen, ARCH, "int4")
     launches["gae"] = phase_train()["gae"]
+    phase_emulation(gen)
+    phase_pool()
+    launches["pack"] = phase_host()["pack"]
     rows = kernel_rows(gen, launches, errs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -2,6 +2,10 @@
 of ``repro/core/spaces.py``, with ``sample`` drawing from a
 ``torch.Generator``.
 
+The module imports numpy only: the host pool's spawned workers import it,
+and must not pay for torch. ``torch_dtype`` and ``sample`` import torch
+where they run.
+
 PufferLib's emulation layer operates on arbitrarily nested space trees. We
 define a minimal, hashable space algebra that covers what the paper handles:
 Box / Discrete / MultiDiscrete leaves composed by Dict / Tuple nodes.
@@ -16,7 +20,6 @@ from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
 import numpy as np
-import torch
 
 
 def _canon_dtype(dtype):
@@ -110,8 +113,9 @@ def leaf_dtype(space: Space):
     return np.dtype(space.dtype)
 
 
-def torch_dtype(np_dtype) -> torch.dtype:
+def torch_dtype(np_dtype):
     """numpy dtype of a space leaf → torch dtype."""
+    import torch
     return torch.from_numpy(np.zeros((), np_dtype)).dtype
 
 
@@ -126,10 +130,11 @@ def zeros(space: Space):
     return np.zeros(leaf_shape(space), leaf_dtype(space))
 
 
-def sample(space: Space, generator: torch.Generator, batch: tuple = ()):
+def sample(space: Space, generator, batch: tuple = ()):
     """Random element (uniform over the space) with leading ``batch`` dims,
-    drawn from ``generator`` on its device — used in tests/mocks. Leaves
-    are tensors of the leaf dtype."""
+    drawn from ``generator`` (a ``torch.Generator``) on its device — used in
+    tests/mocks. Leaves are tensors of the leaf dtype."""
+    import torch
     dev = generator.device
     if isinstance(space, Dict):
         return {k: sample(s, generator, batch) for k, s in space.items()}

@@ -6,5 +6,5 @@
 - ``ref``      — plain PyTorch versions (CPU path and on-card yardstick)
 - ``build``    — nvcc build of ``csrc/*.cu`` and ctypes loading
 - one wrapper module per kernel (``flash_attention``, ``flash_decode``,
-  ``gae``, ``ssd``)
+  ``gae``, ``ssd``, ``quant_matmul``, ``pack``)
 """

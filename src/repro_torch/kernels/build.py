@@ -59,6 +59,10 @@ SIGNATURES = {
         L, L, L,                    # x strides (row, col), w_q row (bytes)
         I, I, I, I, I, I, P]),      # scale length, is_bf16, is_int4,
                                     # transposed, vec16 (w, x), stream
+    "pack": ("pack_fwd", [
+        P, P, P, P, I,              # leaf pointers, row strides, widths,
+                                    # column offsets (host arrays), K
+        P, L, L, P]),               # out, B, out row stride, stream
 }
 
 # launches per kernel: each wrapper adds one where it launches its kernel

@@ -90,6 +90,8 @@ def resolve(op: str, device: torch.device, mode: str = None) -> str:
 
 
 def call(op: str, *args, mode: str = None, **kwargs):
-    """Resolve on the first tensor argument's device and invoke."""
-    name = resolve(op, args[0].device, mode)
+    """Resolve on the first tensor argument's device (the first element's,
+    where that argument is a list of tensors) and invoke."""
+    first = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
+    name = resolve(op, first.device, mode)
     return _REGISTRY[op][name](*args, **kwargs)

@@ -3,8 +3,7 @@
 Each ported op registers ``ref`` (plain PyTorch) and ``cuda`` (the
 hand-written kernel). Selection: explicit ``mode=`` > ``dispatch.using(...)``
 scope > device default (``cuda`` for CUDA tensors, ``ref`` for CPU tensors);
-see kernels/dispatch.py. The op of a later slice (``pack``) is not
-registered yet and raises.
+see kernels/dispatch.py.
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _fa_cuda
 from repro_torch.kernels.flash_decode import flash_decode as _fd_cuda
 from repro_torch.kernels.gae import gae as _gae_cuda
+from repro_torch.kernels import pack as _pack
 from repro_torch.kernels.quant_matmul import quant_matmul as _qmm_cuda
 from repro_torch.kernels.ssd import ssd as _ssd_cuda
 
@@ -23,6 +23,8 @@ dispatch.register("flash_decode", dispatch.CUDA)(_fd_cuda)
 dispatch.register("gae", dispatch.REF)(_ref.gae)
 dispatch.register("gae", dispatch.CUDA)(_gae_cuda)
 dispatch.register("ssd", dispatch.CUDA)(_ssd_cuda)
+dispatch.register("pack", dispatch.REF)(_ref.pack)
+dispatch.register("pack", dispatch.CUDA)(_pack.pack)
 dispatch.register("quant_matmul", dispatch.REF)(_ref.quant_matmul)
 dispatch.register("quant_matmul", dispatch.CUDA)(_qmm_cuda)
 
@@ -58,3 +60,11 @@ def quant_matmul(x, w_q, scale, transposed: bool = False,
     see ``kernels/quant_matmul.py`` for the layouts."""
     return dispatch.call("quant_matmul", x, w_q, scale, mode=mode,
                          transposed=transposed)
+
+
+def pack(leaves, mode: str = None):
+    """[(B, n_i) uint8] → (B, Σ n_i) uint8: emulation's byte pack; see
+    ``kernels/pack.py``."""
+    leaves = list(leaves)
+    _pack.check(leaves)
+    return dispatch.call("pack", leaves, mode=mode)

@@ -95,6 +95,12 @@ def ssd(x, dt, A, B_, C, h0=None):
     return y.to(in_dtype), h
 
 
+def pack(leaves):
+    """Emulation's byte pack: [(B, n_i) uint8] → (B, Σ n_i) uint8, as
+    ``repro/kernels/ref.py::pack`` concatenates them."""
+    return torch.cat(list(leaves), dim=-1)
+
+
 def pack_int4(q):
     """(..., n) integers in [-8, 7] → (..., ceil(n / 2)) uint8: two values
     per byte along the last axis, the even index in the low nibble; an odd

@@ -10,21 +10,23 @@ Tolerances: bf16 2e-2; f32 1e-4 with TF32 off (the kernels sum in another
 order than the plain version's einsum or matmul; SSD chunks where the plain
 version steps); GAE 1e-5 (the kernel contracts
 products into FMAs); one whole learn atol 1e-5, rtol 1e-4 (cuBLAS and the
-CPU reduce in another order).
+CPU reduce in another order); pack exactly (it copies bytes).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.bridge import make_host_engine
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.ocean import ocean_tcfg
 from repro_torch.envs import ocean
+from repro_torch.envs.ocean_host import HostBandit, HostTeam
 from repro_torch.kernels import build, ops, ref
 from repro_torch.models.policy import BackbonePolicy
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.rl import actor
-from repro_torch.rl.engine import METRIC_KEYS, TrainEngine
+from repro_torch.rl.engine import METRIC_KEYS, TrainEngine, act_transfer_spec
 from repro_torch.rl.learner import epoch_perms
 from repro_torch.rl.trainer import Trainer, ocean_policy_stack
 
@@ -107,6 +109,7 @@ def test_generate_launches_both_kernels(no_tf32):
     assert build.LAUNCHES["gae"] == 0
     assert build.LAUNCHES["ssd"] == 0
     assert build.LAUNCHES["quant_matmul"] == 0
+    assert build.LAUNCHES["pack"] == 0
 
 
 def _ssd_inputs(rng, B, T, H, hd, ds, dtype, layout):
@@ -189,7 +192,7 @@ def test_mamba2_generate_launches_ssd_once_per_layer():
     torch.cuda.synchronize()
     assert out.shape == (2, 5)
     want = {"flash_attention": 0, "flash_decode": 0, "gae": 0,
-            "ssd": cfg.num_layers, "quant_matmul": 0}
+            "ssd": cfg.num_layers, "quant_matmul": 0, "pack": 0}
     assert {k: build.LAUNCHES[k] for k in want} == want
 
 
@@ -263,7 +266,7 @@ def test_quantised_generate_launches_quant_matmul_on_every_matmul(arch,
     per_forward = mixer + 2 * cfg.num_layers * (cfg.d_ff > 0) + 1
     want = {"quant_matmul": 5 * per_forward, "flash_attention": attn,
             "flash_decode": 4 * attn, "ssd": cfg.num_layers - attn,
-            "gae": 0}
+            "gae": 0, "pack": 0}
     assert {k: build.LAUNCHES[k] for k in want} == want
 
 
@@ -305,6 +308,7 @@ def test_trainer_launch_runs_one_gae_kernel_per_update_without_sync():
     assert build.LAUNCHES["flash_decode"] == 0
     assert build.LAUNCHES["ssd"] == 0
     assert build.LAUNCHES["quant_matmul"] == 0
+    assert build.LAUNCHES["pack"] == 0
     assert bool(torch.isfinite(ring).all())
 
 
@@ -350,3 +354,97 @@ def test_learn_on_the_card_matches_the_cpu(name, recurrent, no_tf32):
         torch.testing.assert_close(got.cpu(), want, **tol)
     for k in METRIC_KEYS:
         torch.testing.assert_close(gpu_m[k].cpu(), cpu_m[k], msg=k, **tol)
+
+
+def _pack_cases(rng):
+    """Edge shapes: one leaf, 1-byte leaves, odd widths at offsets that are
+    not 16-byte aligned, B = 1, empty leaves, a strided row view, a stride-0
+    (broadcast) row, and more leaves than one launch holds."""
+    def u8(B, n):
+        return torch.from_numpy(rng.integers(0, 256, (B, n), dtype=np.uint8)
+                                ).cuda()
+    base = u8(300, 64)
+    return {
+        "one leaf": [u8(257, 48)],
+        "1-byte leaves": [u8(100, 1) for _ in range(5)],
+        "odd widths": [u8(333, 3), u8(333, 17), u8(333, 4), u8(333, 33)],
+        "B = 1": [u8(1, 7), u8(1, 16), u8(1, 5)],
+        "empty leaf": [u8(9, 4), u8(9, 0), u8(9, 12)],
+        "strided view": [base[:, 5:21], base[:, 32:64], u8(300, 2)],
+        "stride 0": [u8(1, 16).expand(50, 16), u8(50, 8)],
+        "act step": [u8(64, 8), u8(64, 4), u8(64, 4)],
+        "many leaves": [u8(70, 1 + i % 5) for i in range(75)],
+    }
+
+
+def test_pack_kernel_matches_ref_exactly():
+    from repro_torch.kernels.pack import MAX_LEAVES
+    for what, leaves in _pack_cases(np.random.default_rng(0)).items():
+        before = build.LAUNCHES["pack"]
+        got = ops.pack(leaves)
+        nonempty = sum(t.shape[1] > 0 for t in leaves)
+        assert build.LAUNCHES["pack"] == before + -(-nonempty // MAX_LEAVES)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and torch.equal(got, ref.pack(leaves)), \
+            what
+    empty = ops.pack([torch.zeros((0, 4), dtype=torch.uint8, device="cuda")])
+    assert empty.shape == (0, 4)
+
+
+def test_pack_kernel_raises_on_what_it_does_not_take():
+    x = torch.zeros((4, 8), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="last stride"):
+        ops.pack([x.t().contiguous().t()[:, :3]])
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.pack([x, x.cpu()])
+    with pytest.raises(TypeError, match="uint8"):
+        ops.pack([x.float()])
+
+
+def test_host_tier_update_launches_pack_per_act_step_and_gae_once():
+    """One host-tier update (bandit, N 8, unroll 8, threads): one pack per
+    act step, one gae per update, nothing else; the act step's host arrays
+    equal its device tensors byte for byte."""
+    tcfg = TrainConfig(num_envs=8, unroll_length=8, update_epochs=1,
+                       num_minibatches=2, learning_rate=1e-3, gamma=0.95)
+    for env_fn in (HostBandit, HostTeam):
+        e = make_host_engine(env_fn, tcfg, hidden=16)
+        try:
+            obs, _, done, _, ids = e.hvec.recv(timeout=30.0)
+            state = e.generator.get_state()
+            want = e._act(e.ts.params, torch.from_numpy(obs).cuda(), None,
+                          torch.from_numpy(done).cuda(), e.generator)[:3]
+            e.generator.set_state(state)
+            spec = act_transfer_spec(e.hvec.act_spec)
+            staging = torch.empty((e.batch_size, spec.total),
+                                  dtype=torch.uint8, pin_memory=True)
+            got = e._act_to_host(spec, obs, None, done, staging)[:3]
+            for g, w in zip(got, want):
+                assert g.tobytes() == w.cpu().numpy().tobytes()
+            e.hvec.send(got[0], ids)
+            build.reset_launches()
+            e.act_steps = 0
+            hist, _ = e.run(e.steps_per_update)
+            torch.cuda.synchronize()
+            assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
+            assert build.LAUNCHES["pack"] == e.act_steps >= 8
+            assert build.LAUNCHES["gae"] == 1
+            assert all(build.LAUNCHES[k] == 0 for k in (
+                "flash_attention", "flash_decode", "ssd", "quant_matmul"))
+        finally:
+            e.close()
+
+
+def test_pool_tier_update_launches_gae_once_and_no_pack():
+    tcfg = ocean_tcfg("squared", num_envs=256, unroll_length=16,
+                      engine_backend="pool")
+    tr = Trainer(ocean.Squared(), tcfg, hidden=64)
+    tr.engine.run(tr.steps_per_update)          # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    hist, _ = tr.engine.run(2 * tr.steps_per_update)
+    torch.cuda.synchronize()
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    assert build.LAUNCHES["gae"] == 2
+    assert all(build.LAUNCHES[k] == 0 for k in (
+        "pack", "flash_attention", "flash_decode", "ssd", "quant_matmul"))

@@ -127,8 +127,10 @@ def test_dispatch_scope_and_errors():
         tops.flash_attention(q, q, q, mode="pallas")
     with pytest.raises(KeyError):
         dispatch.using("interpret").__enter__()
-    with pytest.raises(KeyError, match="not ported"):
-        dispatch.implementations("pack")
+    assert set(dispatch.implementations("pack")) == {"ref", "cuda"}
+    leaf = torch.zeros((2, 3), dtype=torch.uint8)
+    with pytest.raises(KeyError):
+        tops.pack([leaf], mode="interpret")
 
 
 def test_wrappers_check_arguments():
@@ -148,7 +150,7 @@ def test_wrappers_check_arguments():
 def test_build_paths_carry_the_source_hash():
     paths = {n: build.library_path(n) for n in build.SIGNATURES}
     assert set(paths) == {"flash_attention", "flash_decode", "gae",
-                          "ssd", "quant_matmul"}
+                          "ssd", "quant_matmul", "pack"}
     for name, p in paths.items():
         assert p.parent == build.BUILD_DIR and p.name.startswith(name + "-")
     assert set(build.LAUNCHES) == set(build.SIGNATURES)

@@ -235,8 +235,14 @@ def test_emulated_env_and_bytes_mode():
     _, obs2, rew, done, info = em.step(state, act, torch.Generator())
     assert obs2.shape == (8, 13) and rew.shape == (8,)
     assert set(info) == {"score", "episode_return", "episode_length", "valid"}
-    with pytest.raises(NotImplementedError, match="host-tier"):
-        tem.Emulated(tocean.Spaces(), mode="bytes")
+    # bytes mode: the same step, the obs as its 13 f32 leaves' 52 bytes
+    eb = tem.Emulated(tocean.Spaces(), mode="bytes")
+    state, obs = eb.reset(eb.init(8, torch.Generator().manual_seed(0)),
+                          torch.Generator().manual_seed(1))
+    assert obs.shape == (8, 52) and obs.dtype == torch.uint8
+    _, obs2, rew, done, info = eb.step(state, act, torch.Generator())
+    assert obs2.shape == (8, 52) and obs2.dtype == torch.uint8
+    assert rew.shape == (8,)
 
 
 # -- vector -----------------------------------------------------------------------

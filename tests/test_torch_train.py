@@ -13,9 +13,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.bridge import wrap
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.ocean import ocean_tcfg, preset
 from repro_torch.envs import ocean
+from repro_torch.envs.ocean_host import HostBandit
 from repro_torch.launch import train as train_cli
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.rl.engine import METRIC_KEYS, TrainEngine
@@ -92,9 +94,20 @@ def test_every_env_trains_one_update(name):
 
 def test_unported_backends_and_checkpoints_raise():
     em, dist, pol = ocean_policy_stack(ocean.Bandit(), hidden=8)
-    for backend in ("shard_map", "pool", "host", "async"):
+    for backend in ("shard_map", "async"):
         with pytest.raises(ValueError, match="slice"):
             TrainEngine(em, pol, TCFG, dist, device="cpu", backend=backend)
+    # the pool tier takes the batched env; the host tier a HostVecEnv only
+    assert TrainEngine(em, pol, TCFG, dist, device="cpu",
+                       backend="pool").pool.num_buffers == 2
+    with pytest.raises(ValueError, match="HostVecEnv"):
+        TrainEngine(em, pol, TCFG, dist, device="cpu", backend="host")
+    hv = wrap(HostBandit, num_envs=TCFG.num_envs)
+    try:
+        eng = TrainEngine(hv, pol, TCFG, dist, device="cpu", backend="host")
+        assert eng.hvec is hv
+    finally:
+        hv.close()
     tr = Trainer(ocean.Bandit(), TCFG, hidden=8, device="cpu")
     with pytest.raises(NotImplementedError):
         tr.save("unused")
