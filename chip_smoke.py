@@ -8,10 +8,18 @@ Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
 lines; any failure ends the run with a traceback and a non-zero exit:
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
-  2. build       nvcc builds every kernel (one process per source, together)
+  2. build       nvcc builds every kernel (one process per source, together);
+                 beside it a second compile of flash_attention.cu with
+                 ``-Xptxas -v`` prints each kernel's registers and spills,
+                 and ``cuobjdump -sass`` of the built library counts its
+                 tensor-core (HMMA, HGMMA) and asynchronous-copy (LDGSTS,
+                 UTMALDG) instructions, which every bf16 instance must have
   3. parity      each kernel against its plain PyTorch version on the card at
                  the serve and training shapes and edge shapes: attention
-                 bf16 at 2e-2, f32 at 1e-4 with TF32 off; GAE f32 at 1e-5;
+                 (``FA_CASES``: the serve shape, ragged T, T = 1, T = 65,
+                 S > T, S < T, non-causal, MQA, MHA, an odd group, every
+                 head dim) bf16 at 2e-2, f32 at 1e-4 with TF32 off; GAE f32
+                 at 1e-5;
                  SSD (y and h_last) bf16 at the serve shape at 2e-2, f32 at
                  edge shapes (ragged T, T = 1, T < chunk, x a strided view,
                  stride-0 B_/C, two groups) at 1e-4
@@ -75,7 +83,10 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  updates), whose printed counters must agree the same way
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
-version's, its bound and a library call. pack's row is timed by CUDA-graph
+version's, its bound and a library call. flash_attention and SDPA are timed
+in turns over 9 rounds by CUDA-graph replay, and the row gives each one's
+median; a line before it does the same at T 2048, where operations bound
+it. pack's row is timed by CUDA-graph
 replay at the host tier's act shape, with ``torch.cat`` as its library
 call, and a line before it times it at a full-size trajectory's bytes
 emulation, whose inputs exceed the L2. quant_matmul's row is the total
@@ -95,6 +106,8 @@ import json
 import math
 import os
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -148,6 +161,18 @@ KERNELS = {
     "pack": ("src/repro_torch/kernels/csrc/pack.cu",
              "src/repro/kernels/pack.py:29"),
 }
+# attention parity cases (B, T, S, H, K, hd, causal): the serve shape, ragged
+# tails, one row, one row past a tile, S > T and S < T, non-causal, MQA, MHA
+# and an odd group (one head per block on the wgmma path), and every head dim
+FA_CASES = (
+    (BATCH, PROMPT, PROMPT, 16, 8, 128, True), (2, 200, 200, 16, 8, 128, True),
+    (3, 77, 77, 8, 2, 64, True), (2, 130, 130, 4, 2, 32, True),
+    (2, 1, 1, 16, 8, 128, True), (2, 65, 65, 16, 8, 128, True),
+    (2, 100, 300, 8, 2, 128, True), (2, 130, 200, 8, 4, 64, False),
+    (2, 200, 70, 4, 4, 32, False), (2, 96, 96, 4, 1, 16, True),
+    (1, 64, 64, 4, 1, 128, False), (2, 200, 200, 4, 4, 128, True),
+    (2, 300, 150, 6, 2, 64, True))
+FA_LONG = 2048      # a prompt length where operations bound flash_attention
 # mamba2-1.3b's SSD at the serve shape: heads, head dim, state, groups, chunk
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q = 64, 64, 128, 1, 128
 # qwen3-0.6b's quantised products (K, N) per layer: wq, wk, wv, wo, mlp wi,
@@ -186,6 +211,35 @@ def cuda_ms(fn, arg_sets, iters):
     return start.elapsed_time(end) / iters
 
 
+def alternate_ms(fns, arg_sets, calls, rounds=9):
+    """Median device ms per call of each of ``fns``, timed in turns: each
+    round times every function once by CUDA-graph replay of ``calls`` calls
+    (``graph_ms``; host launch time is not counted), so a drift of the card
+    between rounds falls on all of them alike; also returns each one's
+    rounds."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, ts in zip(fns, times):
+            ts.append(graph_ms(fn, arg_sets, calls))
+    return [statistics.median(ts) for ts in times], times
+
+
+def sdpa(q, k, v):
+    """``scaled_dot_product_attention`` on the (B, T, H, hd) layout, causal
+    with GQA: the yardstick of flash_attention, never called by the port."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+
+
+def attention_work(B, T, H, K, hd):
+    """(FLOP, bytes) of causal attention: the causal pairs' two products,
+    and q, k, v and o moved once in bf16."""
+    flops = 2 * B * H * hd * T * (T + 1)
+    nbytes = 2 * (2 * B * T * H * hd + 2 * B * T * K * hd)
+    return flops, nbytes
+
+
 def randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -221,11 +275,111 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report("flash_attention")
     paths = build.build_all()
     for name in paths:
         build.load(name)
     print(f"[2 build] built and loaded {sorted(paths)} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    finish_ptxas_report("flash_attention", ptxas)
+    sass_report("flash_attention", paths["flash_attention"])
+
+
+# flash_attention's kernels by template instance: bf16 on wgmma (head dims
+# 64, 128) or mma.sync (16, 32), and f32 on the CUDA cores
+FA_KERNEL = re.compile(r"flash_attention_(wg|tc)?_?kernelI(f)?Li(\d+)E")
+FA_ROUTE = {"wg": "bf16 wgmma", "tc": "bf16 mma.sync", None: "f32 CUDA cores"}
+
+
+def fa_instance(mangled):
+    m = FA_KERNEL.search(mangled)
+    return None if m is None else f"{FA_ROUTE[m.group(1)]} hd {m.group(3)}"
+
+
+def by_instance(items):
+    """``fa_instance`` keys in order: bf16 then f32, by head dim."""
+    return sorted(items, key=lambda kv: (kv[0].startswith("f32"),
+                                         int(kv[0].split()[-1])))
+
+
+def start_ptxas_report(name):
+    """A second compile of ``csrc/<name>.cu`` to a cubin with ``-Xptxas -v``
+    (registers, spills and shared memory of each kernel), started beside the
+    build."""
+    out = build.BUILD_DIR / f"{name}-ptxas.cubin"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [build._nvcc(), *build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
+           "-o", str(out), str(build.CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_ptxas_report(name, proc):
+    log, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed for {name}:\n{log}")
+    entry, rows = None, {}
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w]+)", line)
+        if m:
+            entry = fa_instance(m.group(1))
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows.setdefault(entry, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.setdefault(entry, {})["registers"] = int(m.group(1))
+    if not rows:
+        raise AssertionError(f"no ptxas report for {name}:\n{log}")
+    for line in log.splitlines():       # e.g. wgmma serialised by ptxas
+        if "warning" in line.lower() or "Performance" in line:
+            print(f"[2 build] {name} ptxas: {line.strip()}", flush=True)
+    print(f"[2 build] {name} ptxas -v (sm_90a): " + "; ".join(
+        f"{k}: {v.get('registers')} registers, spill stores "
+        f"{v.get('spill_stores')} B, loads {v.get('spill_loads')} B"
+        for k, v in by_instance(rows.items())), flush=True)
+
+
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM", "MUFU.EX2")
+
+
+def sass_report(name, lib):
+    """Count the tensor-core and asynchronous-copy instructions in the
+    built library's SASS (``cuobjdump -sass``), by kernel instance; the bf16
+    kernels must have HMMA or HGMMA and LDGSTS or UTMALDG."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, entry = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = fa_instance(m.group(1))
+            if entry is not None:
+                counts[entry] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        if entry is None:
+            continue
+        ops = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if ops:
+            for op in SASS_OPS:
+                if ops.group(1) == op or ops.group(1).startswith(op + "."):
+                    counts[entry][op] += 1
+    print(f"[2 build] {name} SASS instruction counts: " + "; ".join(
+        f"{k}: " + ", ".join(f"{op} {n}" for op, n in v.items())
+        for k, v in by_instance(counts.items())), flush=True)
+    bf16 = [v for k, v in counts.items() if k.startswith("bf16")]
+    if len(bf16) != 4 or not all(
+            v["HMMA"] + v["HGMMA"] > 0 and v["LDGSTS"] + v["UTMALDG"] > 0
+            for v in bf16):
+        raise AssertionError(f"{name}: a bf16 kernel without tensor-core or "
+                             f"asynchronous-copy instructions: {counts}")
 
 
 def phase_parity(gen):
@@ -237,16 +391,15 @@ def phase_parity(gen):
             "ssd": 0.0}
     cases = 0
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        # (B, T, H, K, hd): the serve shape, then ragged and small-head edges
-        for shape in ((BATCH, PROMPT, 16, 8, 128), (2, 200, 16, 8, 128),
-                      (3, 77, 8, 2, 64), (2, 130, 4, 2, 32)):
-            B, T, H, K, hd = shape
+        for shape in FA_CASES:
+            B, T, S, H, K, hd, causal = shape
             q = randn(gen, (B, T, H, hd), dtype)
-            k, v = (randn(gen, (B, T, K, hd), dtype) for _ in range(2))
+            k, v = (randn(gen, (B, S, K, hd), dtype) for _ in range(2))
             err = check_close(f"flash_attention {shape} {dtype}",
-                              flash_attention(q, k, v),
-                              ref.flash_attention(q, k, v), tol)
-            if shape[0] == BATCH and dtype == torch.bfloat16:
+                              flash_attention(q, k, v, causal=causal),
+                              ref.flash_attention(q, k, v, causal=causal),
+                              tol)
+            if shape == FA_CASES[0] and dtype == torch.bfloat16:
                 errs["flash_attention"] = err
             cases += 1
         # (B, S, H, K, hd) x cache fill
@@ -871,19 +1024,35 @@ def kernel_rows(gen, launches, errs):
     H, K, hd = 16, 8, 128
     rows = []
 
-    # prefill attention: 4 input sets of 33.6 MB
-    fa_sets = [(randn(gen, (BATCH, PROMPT, H, hd), bf),
-                randn(gen, (BATCH, PROMPT, K, hd), bf),
-                randn(gen, (BATCH, PROMPT, K, hd), bf)) for _ in range(4)]
-    flops = 2 * BATCH * H * hd * PROMPT * (PROMPT + 1)   # causal pairs only
-    nbytes = 2 * (2 * BATCH * PROMPT * H * hd + 2 * BATCH * PROMPT * K * hd)
-    rows.append(("flash_attention", flops, PEAK_FLOPS, nbytes,
-                 cuda_ms(flash_attention, fa_sets, 20),
-                 cuda_ms(ref.flash_attention, fa_sets, 10),
-                 cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
-                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                     is_causal=True, enable_gqa=True), fa_sets, 20)))
-    del fa_sets
+    # prefill attention, timed in turns with SDPA: 4 input sets of 33.6 MB
+    # at the serve shape; then a line at T 2048 (4 sets of 134 MB), where
+    # operations bound it
+    for T in (FA_LONG, PROMPT):
+        fa_sets = [(randn(gen, (BATCH, T, H, hd), bf),
+                    randn(gen, (BATCH, T, K, hd), bf),
+                    randn(gen, (BATCH, T, K, hd), bf)) for _ in range(4)]
+        flops, nbytes = attention_work(BATCH, T, H, K, hd)
+        (ms, lib_ms), rounds = alternate_ms((flash_attention, sdpa), fa_sets,
+                                            32 if T == PROMPT else 8)
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        by = "operations" if t_ops > t_bytes else "bytes"
+        print(f"[kernel] flash_attention B {BATCH} T {T} H {H} K {K} hd {hd}"
+              f" causal bf16, {len(rounds[0])} rounds in turns: kernel "
+              f"median {ms:.4f} ms (rounds {min(rounds[0]):.4f}-"
+              f"{max(rounds[0]):.4f}), SDPA median {lib_ms:.4f} ms (rounds "
+              f"{min(rounds[1]):.4f}-{max(rounds[1]):.4f}), kernel / SDPA "
+              f"{ms / lib_ms:.3f}, bound {max(t_ops, t_bytes):.4f} ms by "
+              f"{by} ({flops:.4g} FLOP, {nbytes:.4g} B; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+    q, k, v = fa_sets[0]
+    print(f"[kernel] flash_attention host time per call at the serve shape "
+          f"(checks, three tensor maps, the ctypes launch): "
+          f"{host_us(lambda: flash_attention(q, k, v), 300):.2f} us; SDPA "
+          f"{host_us(lambda: sdpa(q, k, v), 300):.2f} us (back-to-back "
+          f"calls, each bounded below by its device time)", flush=True)
+    rows.append(("flash_attention", flops, PEAK_FLOPS, nbytes, ms,
+                 cuda_ms(ref.flash_attention, fa_sets, 10), lib_ms))
+    del fa_sets, q, k, v
 
     # decode attention at the last serve step: 6 cache sets of 18.9 MB
     S = PROMPT + NEW

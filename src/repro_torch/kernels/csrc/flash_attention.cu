@@ -6,20 +6,64 @@
 // aligned at 0; masked scores are -1e30; m, l and the accumulator are f32;
 // l is floored at 1e-30; output in q's dtype.
 //
-// Design (a simple kernel that is right; wgmma/TMA come later): one block of
-// 256 threads per (64-row query tile, head, batch). Q and each 64-row K/V
-// tile sit in shared memory in the input dtype; the block walks the K/V
-// tiles up to the causal limit (fully masked tiles are never loaded) with an
-// online softmax. Thread (ty, tx) of a 16x16 grid owns query rows ty+16i
-// and, per tile, score columns tx+16j; it keeps its 4x4 scores, the rows'
-// running max/denominator and a 4 x hd/16 slice of the output accumulator
-// in registers. Products run on the f32 CUDA cores, not the tensor cores.
 // What bounds it on the H100: at the serve shape (B 8, T 512, H 16, K 8,
 // hd 128, bf16) moving q, k, v and o once takes 15 us at 3.35 TB/s and the
 // causal products 8.7 us at 989 TFLOP/s, so bytes bound it up to T ~ 885 and
-// operations beyond; the CUDA-core products keep it far above both.
+// operations beyond. Three kernels:
+//
+// bf16 at head dims 64 and 128 (the serve path; wg::): warpgroup products
+// and TMA. A block is a producer warpgroup and two consumer warpgroups; each
+// consumer owns 64 query rows of one head: the two heads of a GQA pair
+// (same rows, so both read every K/V tile the block loads once), or two
+// 64-row tiles of one head when H / K is odd. One producer lane issues TMA
+// copies (cp.async.bulk.tensor, 128-byte swizzle) of the Q tiles and of
+// 128-row K and V tiles into a 2-stage ring, paced by mbarriers ("full"
+// per tile, "empty" per K and per V stage); rows past T or S arrive as
+// zeros and are masked. setmaxnreg moves registers from the producer (24)
+// to the consumers (240). A consumer computes S = Q K^T with wgmma
+// m64n128k16 (Q and K read from shared memory by descriptor) and P V with
+// wgmma m64nHDk16 (P from registers, V read transposed from shared
+// memory). Its softmax runs on the accumulator fragments (a row's max over
+// the 4 lanes of a quad; scale * log2 e folded into the exponent's FFMA,
+// ex2.approx; the rescale of the output skipped where no row's max moved)
+// while the tensor cores run the previous tile's P V: S_j is issued, then
+// P_{j-1} V_{j-1}, and only S_j is waited for before the softmax. The two
+// consumers take turns to issue (named barriers), so one's softmax overlaps
+// the other's products. P goes to the A fragments of P V pair by pair and
+// never through shared memory; the output is staged in the consumer's own
+// Q tile and written in 16-byte stores. Only tiles that cross the diagonal
+// or the end of S are masked; fully masked key tiles are never loaded;
+// query tiles are launched heaviest first (the tile index is the slowest
+// grid dimension, reversed), so the last wave holds the short causal tiles.
+//
+// bf16 at head dims 16 and 32 (tc::): mma.sync m16n8k16 on the tensor
+// cores. A block of 4 warps owns a 64-row query tile of one head; each warp
+// owns 16 rows, whose Q fragments it loads once (ldmatrix). 64-row K/V tiles
+// come through a 2-stage cp.async ring (16-byte copies; the ragged tail
+// zero-filled by the src-size operand), the next in flight while the
+// current one's math runs; K fragments by ldmatrix, V by ldmatrix.trans;
+// the softmax and P as above (exp2f, no fold), with rows HD + 8 elements
+// apart so that ldmatrix hits all 32 banks.
+//
+// A deliberate difference from the Pallas kernel in both bf16 kernels: P is
+// rounded to bf16 before P V (the Pallas body multiplies f32 P), a relative
+// error of at most 2^-9 per element; the row sums l add the f32 P, as
+// Pallas does.
+//
+// f32 (the TF32-off parity gates only): the first simple kernel, kept as
+// it was. One block of 256 threads per (64-row query tile, head, batch); Q
+// and each 64-row K/V tile sit in shared memory; thread (ty, tx) of a
+// 16x16 grid owns query rows ty+16i and, per tile, score columns tx+16j,
+// with its 4x4 scores, the rows' running max/denominator and a 4 x hd/16
+// slice of the output accumulator in registers; products on the f32 CUDA
+// cores.
 // The layout is read through strides; the ragged tail (T or S not a multiple
-// of 64) is zero-filled and masked.
+// of the tile) is zero-filled and masked.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -159,23 +203,747 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- bf16 at head dims 16 and 32: mma.sync and a cp.async K/V ring ---------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int WARPS = 4;
+constexpr int NT = 32 * WARPS;  // each warp owns 16 of the BQ query rows
+constexpr int STAGES = 2;       // K/V tiles in the shared-memory ring
+static_assert(BQ == 16 * WARPS, "16 query rows per warp");
+
+// Row stride in elements: 2 HD + 16 bytes, an odd number of 16-byte units.
+template <int HD>
+constexpr int LDS = HD + 8;
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return (BQ + 2 * STAGES * BK) * LDS<HD> * sizeof(bf16);
+}
+
+// Issue the cp.async copies of a (64 x HD) tile whose row r starts at
+// g + r * stride; rows >= valid read nothing and are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+                                          long long stride, int valid) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  static_assert((64 * CPR) % NT == 0, "chunks divide over the threads");
+#pragma unroll
+  for (int it = 0; it < 64 * CPR / NT; ++it) {
+    const int i = threadIdx.x + it * NT, r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = r < valid;
+    rt::cp_async16(s + r * LDS<HD> + c, ok ? g + r * stride + c : g, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 2)
+flash_attention_tc_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          int T_, int S, int H, int G, long long q_sb,
+                          long long q_st, long long q_sh, long long k_sb,
+                          long long k_ss, long long k_sh, long long v_sb,
+                          long long v_ss, long long v_sh, int causal,
+                          float scale_log2) {
+  constexpr int LD = LDS<HD>;
+  constexpr int KS = HD / 16;  // k-steps of Q K^T
+  constexpr int DN = HD / 8;   // 8-wide output column tiles
+  constexpr int SN = BK / 8;   // 8-wide score column tiles
+  static_assert(KS >= 1 && DN % 2 == 0, "head dim 16 to 128");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + BQ * LD;           // STAGES tiles
+  bf16* sV = sK + STAGES * BK * LD;  // STAGES tiles
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest tiles first
+  const int kh = h / G;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  const bf16* kb = k + b * k_sb + kh * k_sh;
+  const bf16* vb = v + b * v_sb + kh * v_sh;
+  // causal: key tiles past this tile's last query row are fully masked
+  const int kv_end = causal ? min(S, min(q0 + BQ, T_)) : S;
+  const int nkv = (kv_end + BK - 1) / BK;
+
+  auto load_kv = [&](int j) {
+    const int k0 = j * BK, valid = min(BK, S - k0);
+    load_tile<HD>(sK + (j % STAGES) * BK * LD, kb + k0 * k_ss, k_ss, valid);
+    load_tile<HD>(sV + (j % STAGES) * BK * LD, vb + k0 * v_ss, v_ss, valid);
+  };
+
+  load_tile<HD>(sQ, q + b * q_sb + q0 * q_st + h * q_sh, q_st,
+                min(BQ, T_ - q0));
+  rt::cp_async_commit();
+  load_kv(0);
+  rt::cp_async_commit();
+  rt::cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  // this warp's 16 rows of Q as A fragments, one per 16-wide k-step
+  uint32_t qf[KS][4];
+  const bf16* sQw = sQ + warp * 16 * LD;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    rt::ldsm_x4(qf[kk], sQw + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+
+  float acc[DN][4];
+#pragma unroll
+  for (int d = 0; d < DN; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  // rows g and g + 8 of the warp: running max (log2 units) and this lane's
+  // part of the row sum (the quad's parts are added at the end)
+  float m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + g;
+
+  for (int j = 0; j < nkv; ++j) {
+    if (j + 1 < nkv) load_kv(j + 1);  // in flight during this tile's math
+    rt::cp_async_commit();            // (empty on the last tile)
+    rt::cp_async_wait<1>();           // tile j has landed
+    __syncthreads();
+    const bf16* Ks = sK + (j % STAGES) * BK * LD;
+    const bf16* Vs = sV + (j % STAGES) * BK * LD;
+    const int k0 = j * BK;
+
+    // S = Q K^T: one ldmatrix.x4 gives the B fragments of two score tiles
+    float s[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int n = 0; n < SN; n += 2) {
+        uint32_t kf[4];
+        rt::ldsm_x4(kf, Ks + (n * 8 + lane % 8 + (lane / 16) * 8) * LD +
+                            kk * 16 + ((lane / 8) % 2) * 8);
+        rt::mma_bf16(s[n], qf[kk], kf);
+        rt::mma_bf16(s[n + 1], qf[kk], kf + 2);
+      }
+
+    // online softmax on the fragments: element e of tile n is row
+    // row0 + 8 (e / 2), column k0 + 8 n + 2 t + e % 2
+    const bool masked = (causal && k0 + BK - 1 > q0) || k0 + BK > S;
+    float mx[2] = {rt::NEG_INF, rt::NEG_INF};
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (masked) {
+          const int col = k0 + n * 8 + 2 * t + e % 2;
+          if (col >= S || (causal && col > row0 + 8 * (e / 2)))
+            x = rt::NEG_INF;
+        }
+        s[n][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int d = 0; d < DN; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][e] *= alpha[e / 2];
+
+    // P V: score tiles 2c and 2c + 1 are the A fragment of k-step c
+#pragma unroll
+    for (int c = 0; c < SN / 2; ++c) {
+      float p[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[i][e] = exp2f(s[2 * c + i][e] - m[e / 2]);
+          l[e / 2] += p[i][e];
+        }
+      const uint32_t pf[4] = {
+          rt::pack_bf16(p[0][0], p[0][1]), rt::pack_bf16(p[0][2], p[0][3]),
+          rt::pack_bf16(p[1][0], p[1][1]), rt::pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+      for (int d = 0; d < DN; d += 2) {
+        uint32_t vf[4];
+        rt::ldsm_x4_trans(vf, Vs + (c * 16 + lane % 16) * LD + d * 8 +
+                                  (lane / 16) * 8);
+        rt::mma_bf16(acc[d], pf, vf);
+        rt::mma_bf16(acc[d + 1], pf, vf + 2);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+
+  // normalise, stage the warp's 16 rows in its own rows of sQ, and write
+  // them out in 16-byte stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  bf16* sO = sQ + warp * 16 * LD;
+#pragma unroll
+  for (int d = 0; d < DN; ++d)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(sO + (g + 8 * r) * LD + d * 8 + 2 * t) =
+          rt::pack_bf16(acc[d][2 * r] * inv[r], acc[d][2 * r + 1] * inv[r]);
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < DN / 2; ++it) {
+    const int i = lane + it * 32, r = i / DN, c = (i % DN) * 8;
+    const int row = q0 + warp * 16 + r;
+    if (row < T_)
+      *reinterpret_cast<uint4*>(o + ((long long)(b * T_ + row) * H + h) * HD +
+                                c) =
+          *reinterpret_cast<const uint4*>(sO + r * LD + c);
+  }
+}
+
+}  // namespace tc
+
+// -- bf16 at head dims 64 and 128: TMA ring, warpgroup products (wgmma) ----
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+constexpr int CONSUMERS = 2;  // warpgroups, each 64 query rows of one head
+constexpr int NT = 128 * (1 + CONSUMERS);  // warpgroup 0 is the producer
+// Registers a thread: 168 at launch (64K over NT threads); the producer
+// hands its down to 24 so that each consumer can hold 240.
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(128 * (PRODUCER_REGS + CONSUMERS * CONSUMER_REGS) <= 65536,
+              "the register file holds the block");
+constexpr int STAGES = 2;     // K/V tiles in the shared-memory ring
+constexpr int BKW = 128;      // key rows per K/V tile
+constexpr int QHALF = 64 * 128;     // bytes of a Q tile's 64-column half
+constexpr int KHALF = BKW * 128;    // bytes of a K/V tile's 64-column half
+
+template <int HD>
+constexpr int QTILE = 64 * HD * 2;  // bytes of a 64-row Q tile
+template <int HD>
+constexpr int KTILE = BKW * HD * 2;  // bytes of a K/V tile
+
+struct Barriers {
+  uint64_t q, full_k[STAGES], full_v[STAGES], empty_k[STAGES],
+      empty_v[STAGES];
+};
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return CONSUMERS * QTILE<HD> + 2 * STAGES * KTILE<HD> + sizeof(Barriers) +
+         1024;  // + alignment slack
+}
+
+// D (64 x 128, f32) = A B (+ D if scale_d): A (64 x 16) and B (128 x 16)
+// both K-major in shared memory (descriptors).
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A B: A (64 x 16, bf16) in registers, laid out per
+// warp as mma.sync's m16n8k16 A fragment; B (16 x 64) MN-major in shared
+// memory (descriptor, imm-trans-b 1).
+__device__ __forceinline__ void wgmma_rs_m64n64_t(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 128, f32) += A B: A (64 x 16, bf16) in registers, laid out per
+// warp as mma.sync's m16n8k16 A fragment; B (16 x 128) MN-major in shared
+// memory (descriptor, imm-trans-b 1).
+__device__ __forceinline__ void wgmma_rs_m64n128_t(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// TMA coordinates of a tensor map whose dims 1..3 hold head, sequence and
+// batch in the order packed in ord (2 bits each: 0 head, 1 seq, 2 batch).
+struct Coords {
+  int c[3];
+  __device__ Coords(int ord, int head, int seq, int batch) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int what = (ord >> (2 * i)) & 3;
+      c[i] = what == 0 ? head : what == 1 ? seq : batch;
+    }
+  }
+};
+
+// Load the (rows x HD) tile at (head, seq, batch) as HD / 64 boxes, one per
+// 64-column half of HALF bytes, into the 128-byte swizzle; rows past the
+// tensor's end arrive as zeros.
+template <int HD, int HALF>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const void* map,
+                                         int ord, uint64_t* bar, int head,
+                                         int seq, int batch) {
+  const Coords c(ord, head, seq, batch);
+#pragma unroll
+  for (int half = 0; half < HD / 64; ++half)
+    rt::tma_load_4d(dst + half * HALF, map, bar, half * 64, c.c[0], c.c[1],
+                    c.c[2]);
+}
+
+// Block: a producer warpgroup, one lane of which keeps K/V tiles coming by
+// TMA through a ring of STAGES (an mbarrier "full" per K and per V tile,
+// "empty" when all consumer warps are done with a stage); CONSUMERS
+// warpgroups each own 64 query rows of one head: the two heads of a GQA
+// pair (hpb 2, the same rows, so both need the same K/V tiles), or two
+// 64-row tiles of one head (hpb 1). The two roles never reconverge, so
+// setmaxnreg moves registers from the producer to the consumers.
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          bf16* __restrict__ o, int T_, int S, int H, int G,
+                          int hpb, int q_ord, int k_ord, int v_ord,
+                          int causal, float scale_log2) {
+  constexpr int KS = HD / 16;  // k-steps of Q K^T
+  constexpr int DN = HD / 8;   // 8-wide output column tiles
+  constexpr int SN = BKW / 8;  // 8-wide score column tiles
+  static_assert(HD == 64 || HD == 128, "head dims 64 and 128");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sQ = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sK = sQ + CONSUMERS * QTILE<HD>;  // STAGES tiles
+  unsigned char* sV = sK + STAGES * KTILE<HD>;      // STAGES tiles
+  Barriers& bar = *reinterpret_cast<Barriers*>(sV + STAGES * KTILE<HD>);
+
+  const int bq = 64 * (CONSUMERS / hpb);  // query rows per block
+  const int h0 = blockIdx.x * hpb, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * bq;  // heaviest tiles first
+  const int kh = h0 / G;
+  // causal: key tiles past the block's last query row are fully masked
+  const int kv_end = causal ? min(S, min(q0 + bq, T_)) : S;
+  const int nkv = (kv_end + BKW - 1) / BKW;
+  const int w = threadIdx.x / 128 - 1;  // consumer warpgroup; -1 producer
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    rt::mbar_init(&bar.q, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      rt::mbar_init(&bar.full_k[i], 1);
+      rt::mbar_init(&bar.full_v[i], 1);
+      rt::mbar_init(&bar.empty_k[i], 4 * CONSUMERS);  // one per consumer
+      rt::mbar_init(&bar.empty_v[i], 4 * CONSUMERS);  // warp
+    }
+    rt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (w < 0) {  // the producer: one lane issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    rt::mbar_expect_tx(&bar.q, CONSUMERS * QTILE<HD>);
+    for (int c = 0; c < CONSUMERS; ++c)
+      tma_tile<HD, QHALF>(sQ + c * QTILE<HD>, &tq, q_ord, &bar.q,
+                          h0 + c % hpb, q0 + 64 * (c / hpb), b);
+    for (int j = 0; j < nkv; ++j) {
+      const int st = j % STAGES, free = ((j / STAGES) & 1) ^ 1;
+      rt::mbar_wait(&bar.empty_k[st], free);
+      rt::mbar_expect_tx(&bar.full_k[st], KTILE<HD>);
+      tma_tile<HD, KHALF>(sK + st * KTILE<HD>, &tk, k_ord, &bar.full_k[st],
+                          kh, j * BKW, b);
+      rt::mbar_wait(&bar.empty_v[st], free);
+      rt::mbar_expect_tx(&bar.full_v[st], KTILE<HD>);
+      tma_tile<HD, KHALF>(sV + st * KTILE<HD>, &tv, v_ord, &bar.full_v[st],
+                          kh, j * BKW, b);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int h = h0 + w % hpb;
+  const int qw = q0 + 64 * (w / hpb);  // this warpgroup's first query row
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = qw + warp * 16 + g;
+  const unsigned char* sQw = sQ + w * QTILE<HD>;
+  float acc[DN * 4], s[SN * 4];
+  uint32_t pf[BKW / 16][4];
+#pragma unroll
+  for (int i = 0; i < DN * 4; ++i) acc[i] = 0.f;
+  // rows g and g + 8 of the warp: running max (log2 units) and this lane's
+  // part of the row sum (the quad's parts are added at the end)
+  float m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+
+  // S = Q K^T of the tile in stage st: 64 x 128 per warpgroup, Q and K from
+  // shared memory
+  auto issue_s = [&](int st) {
+    const unsigned char* Ks = sK + st * KTILE<HD>;
+    rt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int off = (kk % 4) * 32;
+      wgmma_ss_m64n128(
+          s, rt::wgmma_desc(sQw + (kk / 4) * QHALF + off, 16, 1024),
+          rt::wgmma_desc(Ks + (kk / 4) * KHALF + off, 16, 1024), kk > 0);
+    }
+    rt::wgmma_commit();
+  };
+  // acc += P V of the tile in stage st; score tiles 2c and 2c + 1 are the A
+  // fragment of k-step c (keys 16c..16c+15: two 8-row groups of V, SBO
+  // 1024; the column halves of V are KHALF bytes apart, LBO)
+  auto issue_pv = [&](int st) {
+    const unsigned char* Vs = sV + st * KTILE<HD>;
+    rt::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BKW / 16; ++c) {
+      const uint64_t dv = rt::wgmma_desc(Vs + c * 2048, KHALF, 1024);
+      if constexpr (HD == 128)
+        wgmma_rs_m64n128_t(acc, pf[c], dv);
+      else
+        wgmma_rs_m64n64_t(acc, pf[c], dv);
+    }
+    rt::wgmma_commit();
+  };
+  // online softmax on the accumulators of the tile at k0, in place: s
+  // becomes P (f32); element 4n + e is row row0 + 8 (e / 2), column
+  // k0 + 8 n + 2 t + e % 2. Where nothing is masked (and scale > 0) the
+  // row max is taken of the raw scores and the scale folds into the
+  // exponent's FFMA; tiles that cross the diagonal or the end of S are
+  // scaled and masked first.
+  auto softmax = [&](int k0) {
+    const bool masked = (causal && k0 + BKW - 1 > qw) || k0 + BKW > S;
+    const bool fold = !masked && scale_log2 > 0.f;
+    if (!fold) {
+#pragma unroll
+      for (int n = 0; n < SN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + n * 8 + 2 * t + e % 2;
+          s[4 * n + e] = col >= S || (causal && col > row0 + 8 * (e / 2))
+                             ? rt::NEG_INF
+                             : s[4 * n + e] * scale_log2;
+        }
+    }
+    const float c = fold ? scale_log2 : 1.f;
+    float mx[2] = {rt::NEG_INF, rt::NEG_INF};
+#pragma unroll
+    for (int i = 0; i < SN * 4; ++i)
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * c);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < SN * 4; ++i) {
+      s[i] = rt::exp2_approx(fmaf(s[i], c, -m[(i % 4) / 2]));
+      l[(i % 4) / 2] += s[i];
+    }
+  };
+  // P to the bf16 A fragments of P V, after acc has taken the rescale
+  // (skipped where no row of the warp has a new max)
+  auto rescale_and_pack = [&]() {
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < DN * 4; ++i) acc[i] *= alpha[(i % 4) / 2];
+    }
+#pragma unroll
+    for (int c = 0; c < BKW / 16; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[c][i] = rt::pack_bf16(s[8 * c + 2 * i], s[8 * c + 2 * i + 1]);
+  };
+  auto release = [&](uint64_t* empty) {  // this warp is done with a stage
+    __syncwarp();
+    if (lane == 0) rt::mbar_arrive(empty);
+  };
+  // The consumers take turns to issue their products (named barriers 1 and
+  // 2), so that one's softmax runs while the other's products do.
+  static_assert(CONSUMERS == 2, "two consumers take turns");
+  auto my_turn = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
+  };
+  auto your_turn = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
+  };
+  if (w == 1) your_turn();  // consumer 0 takes the first turn
+
+  // Tile j's softmax runs on the CUDA cores while tile j - 1's P V runs on
+  // the tensor cores: S_j is issued, then P_{j-1} V_{j-1}; S_j is waited
+  // for alone, its softmax computed, and only then P_{j-1} V_{j-1}.
+  rt::mbar_wait(&bar.q, 0);
+  rt::mbar_wait(&bar.full_k[0], 0);
+  my_turn();
+  issue_s(0);
+  your_turn();
+  rt::wgmma_wait<0>();
+  rt::fence_regs(s);
+  release(&bar.empty_k[0]);
+  softmax(0);
+  rescale_and_pack();
+  for (int j = 1; j < nkv; ++j) {
+    const int st = j % STAGES, ph = (j / STAGES) & 1;
+    const int pst = (j - 1) % STAGES, pph = ((j - 1) / STAGES) & 1;
+    rt::mbar_wait(&bar.full_k[st], ph);
+    rt::mbar_wait(&bar.full_v[pst], pph);
+    my_turn();
+    issue_s(st);
+    issue_pv(pst);
+    your_turn();
+    rt::wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may run on
+    rt::fence_regs(s);
+    release(&bar.empty_k[st]);
+    softmax(j * BKW);
+    rt::wgmma_wait<0>();
+    rt::fence_regs(acc);
+    rt::fence_regs(pf);
+    release(&bar.empty_v[pst]);
+    rescale_and_pack();
+  }
+  const int lst = (nkv - 1) % STAGES;
+  rt::mbar_wait(&bar.full_v[lst], ((nkv - 1) / STAGES) & 1);
+  my_turn();
+  issue_pv(lst);
+  if (w == 0) your_turn();  // the last turn: consumer 0 has no next turn
+  rt::wgmma_wait<0>();
+  rt::fence_regs(acc);
+  release(&bar.empty_v[lst]);
+
+  // normalise, stage the warpgroup's 64 rows in its own Q tile (swizzled;
+  // no wgmma reads it any more), and write each warp's 16 rows out in
+  // 16-byte stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  unsigned char* sO = sQ + w * QTILE<HD>;
+#pragma unroll
+  for (int d = 0; d < DN; ++d)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(
+          sO + rt::swizzle128<QHALF>(warp * 16 + g + 8 * r, d) + 4 * t) =
+          rt::pack_bf16(acc[4 * d + 2 * r] * inv[r],
+                        acc[4 * d + 2 * r + 1] * inv[r]);
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < DN / 2; ++it) {
+    const int i = lane + it * 32, r = warp * 16 + i / DN, c = i % DN;
+    const int row = qw + r;
+    if (row < T_)
+      *reinterpret_cast<uint4*>(o + ((long long)(b * T_ + row) * H + h) * HD +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(sO + rt::swizzle128<QHALF>(r, c));
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda).
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 tensor map over (hd, and head, seq, batch in the order of
+// their strides) with boxes of 64 hd elements by rows seq elements, 128-byte
+// swizzled; ord receives the order of the outer dims (see Coords). Strides
+// are in elements; a dim of extent 1 takes any valid stride.
+cudaError_t make_map(CUtensorMap* map, int* ord, const void* base, int hd,
+                     int rows, int n_head, int n_seq, int n_batch,
+                     long long s_head, long long s_seq, long long s_batch) {
+  auto encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  struct Dim {
+    long long stride;
+    int n, what;
+  } d[3] = {{s_head, n_head, 0}, {s_seq, n_seq, 1}, {s_batch, n_batch, 2}};
+  for (auto& x : d)
+    if (x.n == 1) x.stride = (long long)hd * n_head * n_seq;  // unused
+  for (int i = 1; i < 3; ++i)  // order the outer dims by stride
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim tmp = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = tmp;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0}, strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1}, estr[4] = {1, 1, 1, 1};
+  *ord = 0;
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = (cuuint64_t)d[i].n;
+    strides[i] = (cuuint64_t)d[i].stride * sizeof(bf16);
+    box[i + 1] = d[i].what == 1 ? rows : 1;
+    *ord |= d[i].what << (2 * i);
+  }
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace wg
+
+template <int HD>
+int launch_wg(const void* q, const void* k, const void* v, void* o, int B,
+              int T_, int S, int H, int K, long long q_sb, long long q_st,
+              long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+              long long v_sb, long long v_ss, long long v_sh, int causal,
+              float scale, cudaStream_t stream) {
+  using wg::bf16;
+  CUtensorMap tq, tk, tv;
+  int q_ord, k_ord, v_ord;
+  cudaError_t err;
+  constexpr int R = wg::BKW;
+  if ((err = wg::make_map(&tq, &q_ord, q, HD, 64, H, T_, B, q_sh, q_st,
+                          q_sb)) ||
+      (err = wg::make_map(&tk, &k_ord, k, HD, R, K, S, B, k_sh, k_ss, k_sb)) ||
+      (err = wg::make_map(&tv, &v_ord, v, HD, R, K, S, B, v_sh, v_ss, v_sb)))
+    return err;
+  auto kern = wg::flash_attention_wg_kernel<HD>;
+  const size_t smem = wg::smem_bytes<HD>();
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int G = H / K;
+  const int hpb = G % wg::CONSUMERS == 0 ? wg::CONSUMERS : 1;
+  const int bq = 64 * (wg::CONSUMERS / hpb);
+  const dim3 grid(H / hpb, B, (T_ + bq - 1) / bq);
+  kern<<<grid, wg::NT, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), T_, S, H, G, hpb, q_ord, k_ord,
+      v_ord, causal, scale * 1.4426950408889634f);  // log2 units, for exp2f
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+              int T_, int S, int H, int K, long long q_sb, long long q_st,
+              long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+              long long v_sb, long long v_ss, long long v_sh, int causal,
+              float scale, cudaStream_t stream) {
+  using tc::bf16;
+  auto kern = tc::flash_attention_tc_kernel<HD>;
+  const size_t smem = tc::smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (T_ + BQ - 1) / BQ);
+  kern<<<grid, tc::NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), T_, S, H, H / K,
+      q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
+      scale * 1.4426950408889634f);  // scores in log2 units, for exp2f
+  return cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int T_, int S, int H, int K, long long q_sb, long long q_st,
            long long q_sh, long long k_sb, long long k_ss, long long k_sh,
            long long v_sb, long long v_ss, long long v_sh, int causal,
            float scale, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T, HD>;
-  const size_t smem = smem_bytes<T, HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T_ + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), T_, S, H, H / K, q_sb,
-      q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 64) {
+    return launch_wg<HD>(q, k, v, o, B, T_, S, H, K, q_sb, q_st, q_sh, k_sb,
+                         k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, stream);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_tc<HD>(q, k, v, o, B, T_, S, H, K, q_sb, q_st, q_sh, k_sb,
+                         k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, stream);
+  } else {
+    auto kern = flash_attention_kernel<T, HD>;
+    const size_t smem = smem_bytes<T, HD>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((T_ + BQ - 1) / BQ, H, B);
+    kern<<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), T_, S, H, H / K, q_sb,
+        q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

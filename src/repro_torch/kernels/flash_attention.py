@@ -5,9 +5,12 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 the H100: at the serve shape (B 8, T 512, H 16, K 8, hd 128, bf16) it must
 move q, k, v and o once, 50 MB (15 µs at 3.35 TB/s), and do 8.6 GFLOP of
 causal products (8.7 µs at 989 TFLOP/s of bf16 tensor cores): bytes bound
-it up to T ≈ 885 at this head layout, operations beyond. This first kernel
-runs its products on the f32 CUDA cores (see the .cu note), so it sits far
-above either bound.
+it up to T ≈ 885 at this head layout, operations beyond. In bf16 the
+products run on the tensor cores: at head dims 64 and 128 (the serve path)
+as ``wgmma`` fed by TMA through an mbarrier ring, at 16 and 32 as
+``mma.sync`` fed by ``cp.async``; both round P to bf16 before P·V. The f32
+kernel, which only the TF32-off parity checks use, runs on the f32 CUDA
+cores (see the .cu note).
 
 CPU tensors take the plain version (``ref.flash_attention``); a CUDA tensor
 launches the kernel or raises — there is no fallback.

@@ -61,15 +61,27 @@ def _check(op, got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,H,K,hd", [(2, 200, 4, 2, 32), (1, 130, 8, 2, 64),
-                                        (2, 256, 16, 8, 128),
-                                        (2, 64, 4, 1, 16)])
-def test_flash_attention_kernel_matches_ref(B, T, H, K, hd, dtype, no_tf32):
-    rng = np.random.default_rng(T)
+@pytest.mark.parametrize("B,T,S,H,K,hd,causal", [
+    (2, 200, 200, 4, 2, 32, True), (1, 130, 130, 8, 2, 64, True),
+    (2, 256, 256, 16, 8, 128, True), (2, 64, 64, 4, 1, 16, True),
+    (8, 512, 512, 16, 8, 128, True),     # the serve shape
+    (2, 1, 1, 16, 8, 128, True),         # one row
+    (2, 65, 65, 16, 8, 128, True),       # one row past a 64-row tile
+    (2, 100, 300, 8, 2, 128, True),      # S > T
+    (2, 130, 200, 8, 4, 64, False),      # non-causal, S > T
+    (2, 200, 70, 4, 4, 32, False),       # non-causal, S < T
+    (2, 96, 96, 4, 1, 128, True),        # MQA at hd 128
+    (1, 64, 64, 4, 1, 16, False),        # MQA, non-causal, hd 16
+    (2, 200, 200, 4, 4, 128, True),      # MHA: one head per wgmma block
+    (2, 300, 150, 6, 2, 64, True)])      # an odd group (3), S < T
+def test_flash_attention_kernel_matches_ref(B, T, S, H, K, hd, causal, dtype,
+                                            no_tf32):
+    rng = np.random.default_rng(T * S)
     q, k, v = (_randn(rng, s, dtype) for s in
-               ((B, T, H, hd), (B, T, K, hd), (B, T, K, hd)))
-    _check("flash_attention", lambda: ops.flash_attention(q, k, v),
-           ref.flash_attention(q, k, v), dtype)
+               ((B, T, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    _check("flash_attention",
+           lambda: ops.flash_attention(q, k, v, causal=causal),
+           ref.flash_attention(q, k, v, causal=causal), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

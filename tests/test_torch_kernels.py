@@ -94,6 +94,62 @@ def test_flash_attention_ragged_tail_and_noncausal():
                jref.flash_attention(qj, kj, vj, causal=causal), "float32")
 
 
+def _emulate_bf16_kernel(q, k, v, causal):
+    """The arithmetic of the bf16 CUDA kernel (csrc/flash_attention.cu) in
+    plain PyTorch: 64-row query tiles walk 64-row key tiles up to the causal
+    limit; products of bf16 values summed in f32; an online softmax in log2
+    units (scale * log2 e folded into one multiply, exp2); P rounded to bf16
+    before P V, the row sums taken of the f32 P; l floored at 1e-30."""
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    c = torch.tensor(hd ** -0.5, dtype=torch.float32) * 1.4426950408889634
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(H // K, dim=2) for x in (k, v))
+    out = torch.empty(B, T, H, hd)
+    for q0 in range(0, T, 64):
+        qt = qf[:, q0:q0 + 64]
+        rows = torch.arange(q0, q0 + qt.shape[1])
+        m = torch.full((B, H, qt.shape[1]), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, qt.shape[1], hd)
+        for k0 in range(0, min(S, q0 + 64, T) if causal else S, 64):
+            kt, vt = kf[:, k0:k0 + 64], vf[:, k0:k0 + 64]
+            s = torch.einsum("bqhd,bkhd->bhqk", qt, kt) * c
+            if causal:
+                cols = torch.arange(k0, k0 + kt.shape[1])
+                s = s.masked_fill(cols[None, :] > rows[:, None], -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), vt)
+            m = m_new
+        out[:, q0:q0 + 64] = (acc / l.clamp_min(1e-30)[..., None]
+                              ).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("jax_mode", ["interpret", "ref"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T,block", [(96, 32), (77, 77)])
+def test_bf16_kernel_rounding_contract_matches_jax(T, block, causal,
+                                                   jax_mode):
+    """The bf16 kernel rounds P to bf16 before P V, where the Pallas kernel
+    multiplies f32 P: an emulation of that arithmetic holds to JAX's
+    flash_attention at the bf16 tolerance (hd 128, GQA 2:1, T not a
+    multiple of the 64-row tile)."""
+    rng = np.random.default_rng(T + causal)
+    (qj, q), (kj, k), (vj, v) = (_pair(rng, s, "bfloat16") for s in
+                                 ((2, T, 4, 128), (2, T, 2, 128),
+                                  (2, T, 2, 128)))
+    want = jops.flash_attention(qj, kj, vj, causal=causal, mode=jax_mode,
+                                block_q=block, block_k=block)
+    got = _emulate_bf16_kernel(q, k, v, causal)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, "bfloat16")
+
+
 # -- dispatch -----------------------------------------------------------------
 
 def test_dispatch_defaults_to_ref_on_cpu():
