@@ -9,11 +9,13 @@ lines; any failure ends the run with a traceback and a non-zero exit:
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
   2. build       nvcc builds every kernel (one process per source, together);
-                 beside it a second compile of flash_attention.cu with
-                 ``-Xptxas -v`` prints each kernel's registers and spills,
-                 and ``cuobjdump -sass`` of the built library counts its
-                 tensor-core (HMMA, HGMMA) and asynchronous-copy (LDGSTS,
-                 UTMALDG) instructions, which every bf16 instance must have
+                 beside it a second compile of flash_attention.cu and of
+                 quant_matmul.cu with ``-Xptxas -v`` prints each kernel's
+                 registers and spills (none allowed in the serve-path
+                 instances), and ``cuobjdump -sass`` of the built libraries
+                 counts tensor-core (HMMA, HGMMA) and asynchronous-copy
+                 (LDGSTS, UTMALDG) instructions by instance (``SASS_NEEDS``
+                 says which each must have)
   3. parity      each kernel against its plain PyTorch version on the card at
                  the serve and training shapes and edge shapes: attention
                  (``FA_CASES``: the serve shape, ragged T, T = 1, T = 65,
@@ -27,7 +29,13 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  and f32 at 1e-4) at the seven serve shapes, M = 8 and
                  4096 (the tied unembed, 151936 x 1024 read as (N, K), at
                  M = 8), and edge shapes (M = 1, ragged N and K, a strided
-                 x, a tiled scale, K below a tile); pack exactly
+                 x, a tiled scale, K below a tile, M 13 and 16 at decode,
+                 M 17, 65 and 129 at prefill, K 1000, odd N, a strided x
+                 with and without 16-byte alignment, the unembed at M 13,
+                 decode shapes that reuse the kernels' rings), each call
+                 on the route the wrapper's ``route`` names, as the
+                 launcher counted it;
+                 pack exactly
                  (``torch.equal``) at the host tier's act shape, the bytes
                  emulation of Spaces' obs at 4096 envs and edge shapes (one
                  leaf, 1-byte leaves, odd widths at unaligned offsets, B = 1,
@@ -42,9 +50,13 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  must read 28 (flash_attention), 28 x 63 (flash_decode), 0
                  (gae, ssd, quant_matmul, pack) for qwen3, 48 (ssd) and 0 (the
                  others) for mamba2, and 64 x (28 x 6 + 1) (quant_matmul) on
-                 top of qwen3's for the quantised runs; prints prefill ms,
-                 decode ms/token,
-                 tok/s, a profile of one prefill and 8 decode steps (device
+                 top of qwen3's for the quantised runs, whose quant_matmul
+                 routes (as its launcher counted them) must read 63 x 168 +
+                 64 decode-kernel launches (every call at M = 8) and 168
+                 wgmma prefill ones, and whose greedy
+                 tokens (a prefill and 16 greedy steps) must repeat exactly
+                 in a second run; prints prefill ms, decode ms/token, tok/s,
+                 a profile of one prefill and 8 decode steps (device
                  time, idle share, top kernels), and each kernel's ms beside
                  its plain version's, its bound and, for attention,
                  ``scaled_dot_product_attention`` (a yardstick the port never
@@ -93,7 +105,8 @@ emulation, whose inputs exceed the L2. quant_matmul's row is the total
 over one int8 ``generate`` of its device times at each serve shape (printed
 on the lines before it, timed by CUDA-graph replay), beside the same totals
 of the plain version, the bound and ``torch.matmul`` on the
-already-dequantised bf16 weight.
+already-dequantised bf16 weight, and a line splits it into prefill, decode
+projections and unembed.
 
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seed 0.
@@ -133,7 +146,8 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.gae import gae  # noqa: E402
 from repro_torch.kernels.pack import MAX_LEAVES, pack  # noqa: E402
-from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.quant_matmul import (  # noqa: E402
+    alignment as qmm_alignment, quant_matmul, route as qmm_route)
 from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
@@ -144,6 +158,7 @@ from repro_torch.rl.trainer import Trainer  # noqa: E402
 
 ARCH, SSM_ARCH = "qwen3-0.6b", "mamba2-1.3b"
 BATCH, PROMPT, NEW = 8, 512, 64
+GREEDY_STEPS = 16         # greedy decode steps run twice for determinism
 PEAK_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
@@ -184,7 +199,23 @@ QMM_EDGES = (  # (M, K, N, transposed, scale length or None, x row pad)
     (1, 1024, 1024, False, None, 0), (5, 999, 1001, False, None, 24),
     (37, 1001, 999, True, None, 8), (300, 77, 130, False, None, 0),
     (8, 1024, 2048, False, 128, 0), (200, 1024, 2048, False, 128, 0),
-    (17, 3, 5, False, None, 0), (8, 4096, 64, False, None, 0))
+    (17, 3, 5, False, None, 0), (8, 4096, 64, False, None, 0),
+    # the decode fragments: M 16 full, M 13 ragged (with K 1000, not a
+    # multiple of a k-step, and a strided x); odd N (int4's last nibble)
+    (16, 1024, 1024, False, None, 0), (13, 1000, 2048, False, None, 8),
+    (8, 1024, 777, False, None, 0), (16, 1000, 999, True, None, 8),
+    (13, *QMM_UNEMBED, True, None, 0),
+    # the prefill tile's edges (M 17, 65, 129), odd N; a strided x whose
+    # base and rows are 16-byte aligned (pad 16), and one whose are not
+    (17, 1024, 1024, False, None, 0), (65, 1000, 1024, False, None, 0),
+    (129, 1024, 1001, False, None, 0), (200, 1024, 2048, False, None, 16),
+    (200, 1024, 2048, False, None, 6),
+    # the decode rings reused: more k-steps a warp than the (K, N) ring's
+    # slots (split 1 at N 16384, split 8 at K 8192); K past the (N, K)
+    # kernel's staged x * s (2048 / MT values), which restages it
+    (8, 1024, 16384, False, None, 0), (8, 8192, 1024, False, None, 0),
+    (8, 4096, 300, True, None, 0), (16, 2500, 300, True, None, 0))
+QMM_PATHS = build.ROUTES["quant_matmul"][1]     # the launcher's routes
 TRAIN_ENVS, TRAIN_UNROLL = 4096, 64     # the full-size training update
 GAMMA, LAM = 0.95, 0.95                 # ocean_tcfg's gamma, TrainConfig's
 HOST_N = 64                             # the host tier's preset batch (M 128)
@@ -275,31 +306,77 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report("flash_attention")
+    ptxas = {name: start_ptxas_report(name) for name in INSTANCES}
     paths = build.build_all()
     for name in paths:
         build.load(name)
     print(f"[2 build] built and loaded {sorted(paths)} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    finish_ptxas_report("flash_attention", ptxas)
-    sass_report("flash_attention", paths["flash_attention"])
+    for name, proc in ptxas.items():
+        finish_ptxas_report(name, proc)
+        sass_report(name, paths[name])
 
 
-# flash_attention's kernels by template instance: bf16 on wgmma (head dims
-# 64, 128) or mma.sync (16, 32), and f32 on the CUDA cores
-FA_KERNEL = re.compile(r"flash_attention_(wg|tc)?_?kernelI(f)?Li(\d+)E")
+# Kernel instances by their mangled names, for the ptxas and SASS reports:
+# flash_attention's bf16 kernels on wgmma (head dims 64, 128) or mma.sync
+# (16, 32) and its f32 kernels; quant_matmul's bf16 decode kernels by
+# layout, weight and m-tiles (MT 1 serves M <= 8), its wgmma prefill
+# kernel and its CUDA-core tiles.
 FA_ROUTE = {"wg": "bf16 wgmma", "tc": "bf16 mma.sync", None: "f32 CUDA cores"}
+QMM_TYPE = {"0": "int8", "1": "int4"}
 
 
-def fa_instance(mangled):
-    m = FA_KERNEL.search(mangled)
-    return None if m is None else f"{FA_ROUTE[m.group(1)]} hd {m.group(3)}"
+def _fa(m):
+    return f"{FA_ROUTE[m.group(1)]} hd {m.group(3)}"
 
 
-def by_instance(items):
-    """``fa_instance`` keys in order: bf16 then f32, by head dim."""
-    return sorted(items, key=lambda kv: (kv[0].startswith("f32"),
-                                         int(kv[0].split()[-1])))
+def _qmm_dec(m):
+    layout = "(K, N)" if m.group(1) == "kn" else "(N, K)"
+    return f"bf16 decode {layout} {QMM_TYPE[m.group(2)]} MT {m.group(3)}"
+
+
+def _qmm_fma(m):
+    dtype = "f32" if m.group(1) == "f" else "bf16"
+    layout = "(N, K)" if m.group(3) == "1" else "(K, N)"
+    return (f"{dtype} CUDA cores {layout} {QMM_TYPE[m.group(2)]} BM "
+            f"{m.group(4)}")
+
+
+INSTANCES = {
+    "flash_attention": [
+        (re.compile(r"flash_attention_(wg|tc)?_?kernelI(f)?Li(\d+)E"), _fa)],
+    "quant_matmul": [
+        (re.compile(r"dec_(kn|nk)_kernelILb([01])ELi(\d)E"), _qmm_dec),
+        (re.compile(r"qmm_wg_kernelILb([01])E"),
+         lambda m: f"bf16 wgmma prefill {QMM_TYPE[m.group(1)]}"),
+        (re.compile(r"qmm_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])E"
+                    r"NS_4TileILi(\d+)E"), _qmm_fma)],
+}
+# SASS each instance must hold, by label prefix: (count of instances,
+# groups of instructions of which each group needs one)
+SASS_NEEDS = {
+    "flash_attention": {"bf16": (4, (("HMMA", "HGMMA"),
+                                     ("LDGSTS", "UTMALDG")))},
+    "quant_matmul": {"bf16 decode": (8, (("HMMA",), ("LDGSTS",))),
+                     "bf16 wgmma": (2, (("HGMMA",), ("UTMALDG",)))},
+}
+# instances on the serve path, where ptxas must report no spills
+NO_SPILLS = {"flash_attention": ("bf16 wgmma hd 128",),
+             "quant_matmul": ("bf16 decode (K, N) int8 MT 1",
+                              "bf16 decode (K, N) int4 MT 1",
+                              "bf16 decode (N, K) int8 MT 1",
+                              "bf16 decode (N, K) int4 MT 1",
+                              "bf16 wgmma prefill int8",
+                              "bf16 wgmma prefill int4")}
+
+
+def instance(name, mangled):
+    """The label of kernel ``name``'s instance ``mangled``, or None."""
+    for pattern, label in INSTANCES[name]:
+        m = pattern.search(mangled)
+        if m:
+            return label(m)
+    return None
 
 
 def start_ptxas_report(name):
@@ -323,7 +400,7 @@ def finish_ptxas_report(name, proc):
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?([\w]+)", line)
         if m:
-            entry = fa_instance(m.group(1))
+            entry = instance(name, m.group(1))
             continue
         if entry is None:
             continue
@@ -343,7 +420,13 @@ def finish_ptxas_report(name, proc):
     print(f"[2 build] {name} ptxas -v (sm_90a): " + "; ".join(
         f"{k}: {v.get('registers')} registers, spill stores "
         f"{v.get('spill_stores')} B, loads {v.get('spill_loads')} B"
-        for k, v in by_instance(rows.items())), flush=True)
+        for k, v in sorted(rows.items())), flush=True)
+    spills = {k: rows.get(k) for k in NO_SPILLS[name]
+              if k not in rows or rows[k].get("spill_stores", 0)
+              or rows[k].get("spill_loads", 0)}
+    if spills:
+        raise AssertionError(f"{name}: serve-path instances missing or "
+                             f"spilling: {spills}")
 
 
 SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM", "MUFU.EX2")
@@ -351,8 +434,8 @@ SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM", "MUFU.EX2")
 
 def sass_report(name, lib):
     """Count the tensor-core and asynchronous-copy instructions in the
-    built library's SASS (``cuobjdump -sass``), by kernel instance; the bf16
-    kernels must have HMMA or HGMMA and LDGSTS or UTMALDG."""
+    built library's SASS (``cuobjdump -sass``), by kernel instance; each
+    instance of a ``SASS_NEEDS`` prefix must hold one of each group."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -360,7 +443,7 @@ def sass_report(name, lib):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            entry = fa_instance(m.group(1))
+            entry = instance(name, m.group(1))
             if entry is not None:
                 counts[entry] = dict.fromkeys(SASS_OPS, 0)
             continue
@@ -373,13 +456,13 @@ def sass_report(name, lib):
                     counts[entry][op] += 1
     print(f"[2 build] {name} SASS instruction counts: " + "; ".join(
         f"{k}: " + ", ".join(f"{op} {n}" for op, n in v.items())
-        for k, v in by_instance(counts.items())), flush=True)
-    bf16 = [v for k, v in counts.items() if k.startswith("bf16")]
-    if len(bf16) != 4 or not all(
-            v["HMMA"] + v["HGMMA"] > 0 and v["LDGSTS"] + v["UTMALDG"] > 0
-            for v in bf16):
-        raise AssertionError(f"{name}: a bf16 kernel without tensor-core or "
-                             f"asynchronous-copy instructions: {counts}")
+        for k, v in sorted(counts.items())), flush=True)
+    for prefix, (want, groups) in SASS_NEEDS[name].items():
+        got = [v for k, v in counts.items() if k.startswith(prefix)]
+        if len(got) != want or not all(
+                any(v[op] for op in group) for v in got for group in groups):
+            raise AssertionError(f"{name}: {prefix} instances ({len(got)} "
+                                 f"of {want}) lack one of {groups}: {counts}")
 
 
 def phase_parity(gen):
@@ -462,9 +545,17 @@ def phase_parity(gen):
                 M, K, N, trans, S, pad = shape
                 x, w, s = qmm_inputs(gen, M, K, N, trans, S, pad, qtype,
                                      dtype)
+                build.routes("quant_matmul", reset=True)
                 err = check_close(f"quant_matmul {shape} {qtype} {dtype}",
                                   quant_matmul(x, w, s, trans),
                                   ref.quant_matmul(x, w, s, trans), tol)
+                want = qmm_route(M, dtype, trans, *qmm_alignment(x, w))
+                taken = build.routes("quant_matmul")
+                if taken != {p: int(p == want) for p in QMM_PATHS}:
+                    raise AssertionError(f"quant_matmul {shape} {qtype} "
+                                         f"{dtype}: the launcher took "
+                                         f"{taken}, the route rule names "
+                                         f"{want}")
                 if shape in serve and qtype == "int8" and \
                         dtype == torch.bfloat16:
                     errs["quant_matmul"] = max(errs["quant_matmul"], err)
@@ -600,6 +691,33 @@ def serve_launches(cfg, quantize=None):
             "quant_matmul": NEW * per_forward if quantize else 0}
 
 
+def serve_routes(cfg, quantize=None):
+    """The quant_matmul route of each launch of one ``generate``: every
+    call at M = BATCH (the NEW - 1 decode steps' matmuls and every forward's
+    unembed, which reads the last position only) on the decode kernel, the
+    prefill's matmuls (M = BATCH x PROMPT) on the wgmma prefill kernel."""
+    counts = dict.fromkeys(QMM_PATHS, 0)
+    if quantize:
+        per_forward = serve_launches(cfg, quantize)["quant_matmul"] // NEW
+        counts["wgmma"] = per_forward - 1
+        counts["decode"] = (NEW - 1) * (per_forward - 1) + NEW
+    return counts
+
+
+def greedy_tokens(policy, prompt, max_len):
+    """A sampled first token from a generator seeded 1, then GREEDY_STEPS
+    greedy decode steps: (B, 1 + GREEDY_STEPS) int32."""
+    prefill = actor.make_prefill_step(policy, max_len)
+    serve = actor.make_serve_step(policy, greedy=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tok, _, caches = prefill(prompt, gen)
+    out = [tok]
+    for _ in range(GREEDY_STEPS):
+        tok, _, caches = serve(tok, caches, gen)
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
 def phase_serve(gen, arch, quantize=None):
     cfg = get_config(arch)
     policy = BackbonePolicy(cfg, generator=gen, quantize=quantize)
@@ -616,9 +734,14 @@ def phase_serve(gen, arch, quantize=None):
     sync()
     total_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    routes = build.routes("quant_matmul")
     want = serve_launches(cfg, quantize)
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"launch counts {launches}, expected {want}")
+    want_routes = serve_routes(cfg, quantize)
+    if routes != want_routes:
+        raise AssertionError(f"quant_matmul routes {routes}, expected "
+                             f"{want_routes}")
     if out.shape != (BATCH, NEW) or out.dtype != torch.int32 or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {out.shape} {out.dtype}")
@@ -643,7 +766,16 @@ def phase_serve(gen, arch, quantize=None):
     print(f"[5 serve] {name} bf16 B{BATCH} prompt {PROMPT} +{NEW} tokens: "
           f"generate {total_s * 1e3:.1f} ms, {tok_s:.1f} tok/s; prefill "
           f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/token; launches "
-          f"{launches}", flush=True)
+          f"{launches}{f'; quant_matmul routes {routes}' if quantize else ''}",
+          flush=True)
+    if quantize:
+        first, again = (greedy_tokens(policy, prompt, max_len)
+                        for _ in range(2))
+        if not torch.equal(first, again):
+            raise AssertionError(f"{name}: greedy tokens differ between two "
+                                 f"runs")
+        print(f"[5 serve] {name}: greedy tokens of two runs (prefill + "
+              f"{GREEDY_STEPS} steps) are identical", flush=True)
 
     # where the time goes: one profiled prefill, then 8 profiled decode steps
     state = {}
@@ -1210,6 +1342,7 @@ def qmm_row(gen, launches, errs):
     shapes.append((BATCH, *QMM_UNEMBED, True, NEW))
     total = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "ops": 0.0, "bytes": 0.0,
              "int8pack": 0.0}
+    split = {}          # (part, "ms" or "lib") -> ms over one int8 generate
     int8pack_missing = set()
     for M, K, N, trans, calls in shapes:
         flops = 2 * M * K * N
@@ -1237,6 +1370,11 @@ def qmm_row(gen, launches, errs):
                 total["ms"] += calls * ms
                 total["plain"] += calls * plain
                 total["lib"] += calls * lib
+                part = ("unembed" if trans else
+                        "decode" if M == BATCH else "prefill")
+                for key, t in (("ms", ms), ("lib", lib)):
+                    split[part, key] = split.get((part, key), 0.0) + \
+                        calls * t
                 if t_ops >= t_bytes:
                     total["ops"] += calls * t_ops
                 else:
@@ -1281,6 +1419,10 @@ def qmm_row(gen, launches, errs):
           f"ms, bound {bound:.4f} ms: {total['ops']:.4f} ms of it by "
           f"operations, {total['bytes']:.4f} ms by bytes); "
           f"torch._weight_int8pack_mm: {int8pack}", flush=True)
+    print("[kernel] quant_matmul over one int8 generate by part (kernel / "
+          "torch.matmul on the dequantised weight): " + ", ".join(
+              f"{part} {split[part, 'ms']:.4f} / {split[part, 'lib']:.4f} ms"
+              for part in ("prefill", "decode", "unembed")), flush=True)
     qmm_host_time(gen)
     torch.cuda.empty_cache()
     return row
@@ -1302,19 +1444,36 @@ def host_us(fn, calls=3000):
 def qmm_host_time(gen):
     """What a decode-step matmul costs the host, at K = N = 1024, B 8:
     ``params.matmul`` on a quantised weight (dispatch, checks, the ctypes
-    launch) against the same call on a bf16 weight (``x @ w``)."""
+    launch) against the same call on a bf16 weight (``x @ w``); then the
+    wrapper alone and its C launcher alone (``quant_matmul_fwd`` through
+    ctypes: the launch with the SM count read once a device), in turns."""
     bf = torch.bfloat16
     x, w, s = qmm_inputs(gen, BATCH, 1024, 1024, False, None, 0, "int8", bf)
     quant = {"w": w, "w_scale": s}
     plain = {"w": (w.float() * s).to(bf)}
-    x = x[:, None]
-    q_us = host_us(lambda: matmul(quant, "w", x, bf))
-    b_us = host_us(lambda: matmul(plain, "w", x, bf))
+    x3 = x[:, None]
+    out = torch.empty((BATCH, 1024), dtype=bf, device="cuda")
+    fwd = build.load("quant_matmul").quant_matmul_fwd
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), BATCH,
+            1024, 1024, x.stride(0), 1, w.stride(0), 1024, 1, 0, 0, 1, 1,
+            stream)
+    us = {"use site": [], "bf16 use site": [], "wrapper": [], "C launch": []}
+    for _ in range(3):
+        us["use site"].append(host_us(lambda: matmul(quant, "w", x3, bf)))
+        us["bf16 use site"].append(host_us(lambda: matmul(plain, "w", x3,
+                                                          bf)))
+        us["wrapper"].append(host_us(lambda: quant_matmul(x, w, s)))
+        us["C launch"].append(host_us(lambda: fwd(*args)))
     calls = 6 * get_config(ARCH).num_layers + 1
     print(f"[kernel] quant_matmul host time per decode-step call (B {BATCH}, "
-          f"K = N = 1024, params.matmul): {q_us:.2f} us quantised, "
-          f"{b_us:.2f} us on the bf16 weight; {calls} calls per decode step",
-          flush=True)
+          f"K = N = 1024), median of 3 turns: params.matmul "
+          f"{statistics.median(us['use site']):.2f} us quantised, "
+          f"{statistics.median(us['bf16 use site']):.2f} us on the bf16 "
+          f"weight; the wrapper {statistics.median(us['wrapper']):.2f} us; "
+          f"its C launch alone {statistics.median(us['C launch']):.2f} us "
+          f"(the SM count read once a device); {calls} calls per decode "
+          f"step", flush=True)
 
 
 def ssd_work(B, T, H, P, N, G, Q, elem):

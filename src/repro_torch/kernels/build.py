@@ -67,6 +67,10 @@ SIGNATURES = {
 
 # launches per kernel: each wrapper adds one where it launches its kernel
 LAUNCHES = {name: 0 for name in SIGNATURES}
+# a kernel with several paths counts its launches by path in its library:
+# kernel name -> (C function that copies out, and with reset zeroes, the
+# counts, path names in its order); ``routes`` reads them
+ROUTES = {"quant_matmul": ("quant_matmul_routes", ("decode", "wgmma", "fma"))}
 
 _LIBS: dict = {}
 
@@ -74,6 +78,20 @@ _LIBS: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in ROUTES:
+        routes(name, reset=True)
+
+
+def routes(name: str, reset: bool = False) -> dict:
+    """Launches of ``name`` by path since the last reset, as its launcher
+    counted them (all 0 while its library is not loaded); ``reset`` zeroes
+    them after reading."""
+    fn, paths = ROUTES[name]
+    counts = (ctypes.c_ulonglong * len(paths))()
+    lib = _LIBS.get(name)
+    if lib is not None:
+        getattr(lib, fn)(counts, int(reset))
+    return dict(zip(paths, counts))
 
 
 def _nvcc() -> str:
@@ -143,6 +161,9 @@ def load(name: str) -> ctypes.CDLL:
         fn, argtypes = SIGNATURES[name]
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
+        if name in ROUTES:
+            getattr(lib, ROUTES[name][0]).argtypes = [P, I]
+            getattr(lib, ROUTES[name][0]).restype = None
         _LIBS[name] = lib
     return lib
 

@@ -59,9 +59,6 @@
 // cores.
 // The layout is read through strides; the ragged tail (T or S not a multiple
 // of the tile) is zero-filled and masked.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include <type_traits>
 
 #include "common.cuh"
@@ -812,21 +809,6 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda).
-PFN_cuTensorMapEncodeTiled_v12000 encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // A 4-D bf16 tensor map over (hd, and head, seq, batch in the order of
 // their strides) with boxes of 64 hd elements by rows seq elements, 128-byte
 // swizzled; ord receives the order of the outer dims (see Coords). Strides
@@ -834,7 +816,7 @@ PFN_cuTensorMapEncodeTiled_v12000 encoder() {
 cudaError_t make_map(CUtensorMap* map, int* ord, const void* base, int hd,
                      int rows, int n_head, int n_seq, int n_batch,
                      long long s_head, long long s_seq, long long s_batch) {
-  auto encode = encoder();
+  auto encode = rt::tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   struct Dim {
     long long stride;

@@ -3,20 +3,30 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/quant_matmul.py``
 (``quant_matmul``, def at :43, ``pallas_call`` at :56): ``x @ (w_q ·
-scale)`` in x's dtype, products summed in f32, the weight turned to f32 in
-registers and never written back dequantised. At decode (M = 8) it is bound
-by the weight bytes: 1 per weight in int8, half that in int4; the kernel
-splits K over a thread block cluster so that the small grid fills the SMs.
-At prefill (M = 4096) it is bound by operations: with bf16 x the products
-run on the tensor cores (``mma.sync``, the weight dequantised to bf16 in
-registers), with f32 x as f32 FMAs on the CUDA cores.
+scale)`` in x's dtype, products summed in f32, the weight dequantised in
+registers or shared memory and never written back to device memory. At
+decode (M = 8) it is bound by the weight bytes: 1 per weight in int8, half
+that in int4; with bf16 x the products run on the tensor cores
+(``mma.sync``, the weight as the A operand, built from its bytes in
+registers), every load of a block is in flight before its first product,
+and K is split over a thread block cluster so that the small grid fills the
+SMs. At prefill (M = 4096) it is bound by operations: with bf16 x the
+products run on the tensor cores (``wgmma``, x and the raw weight brought
+by TMA, the weight dequantised to bf16 in shared memory). f32 x, and bf16 x
+at prefill that the ``wgmma`` kernel does not take (an (N, K) weight, or an
+x or weight TMA cannot describe), run FMAs on the CUDA cores. ``route``
+names the kernel each call takes; the launcher counts the route it took,
+and ``build.routes(NAME)`` reads the counts.
 
 Layouts. ``w_q`` is row-major (K, N) (every projection), or with
 ``transposed=True`` (N, K): the tied unembed reads the (V, d) embedding
 table as ``x @ E.T``. The scale is per channel of the stored last axis: on N
 for (K, N), where the kernel applies it to the f32 sum, as the Pallas body
 does; on K for (N, K), the embedding's ``(d,)`` scale, where the kernel folds
-it into x as it stages x, ``(x · s) @ E_q.T``. A scale shorter than that axis
+it into x as it stages x, ``(x · s) @ E_q.T``: in f32, and with bf16 x at
+M <= 16 split into two bf16 terms, ``hi = bf16(x · s)`` and ``lo = bf16(x ·
+s − hi)``, each multiplied by the weight on the tensor cores and summed in
+f32 (``|x · s − hi − lo| <= 2^-16 |x · s|``). A scale shorter than that axis
 is tiled over it: element i takes ``scale[i % len]``. Thus wq (d, H, hd) with
 its (hd,) scale flattens to N = H·hd with ``scale.repeat(H)``, not
 ``repeat_interleave``.
@@ -73,6 +83,37 @@ def _check(x, w_q, scale, transposed: bool) -> tuple:
     return x.shape[0], N, K
 
 
+def alignment(x, w_q) -> tuple:
+    """(vec, vec_x): the weight's base and row stride are 16-byte aligned
+    and its rows do not overlap; x's rows are contiguous, do not overlap
+    (no stride-0 view) and are not empty, and its base and row stride are
+    16-byte aligned. Both hold for every tensor a TMA tensor map can
+    describe as (rows, row length)."""
+    vec = (w_q.data_ptr() % 16 == 0 and w_q.stride(0) % 16 == 0
+           and w_q.stride(0) >= w_q.shape[1])
+    vec_x = (x.stride(1) == 1 and x.data_ptr() % 16 == 0
+             and x.stride(0) * x.element_size() % 16 == 0
+             and x.stride(0) >= x.shape[1] > 0)
+    return vec, vec_x
+
+
+def route(M: int, dtype, transposed: bool, vec: bool, vec_x: bool) -> str:
+    """The kernel a CUDA call takes, by the rule ``launch_m`` of
+    ``csrc/quant_matmul.cu`` applies to the same arguments (it counts the
+    route it took under these names, ``build.routes``): bf16 x at M <= 16
+    the tensor-core decode kernel ("decode"), in either layout and whatever
+    the strides; bf16 x at M > 16 with a (K, N) weight the ``wgmma``
+    prefill kernel fed by TMA ("wgmma") where TMA can describe x and the
+    weight (``vec`` and ``vec_x``, as ``alignment`` gives them); all else
+    (f32 x, an (N, K) weight at prefill, an x or weight beyond TMA) the
+    CUDA-core tiles ("fma")."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    if M <= 16:
+        return "decode"
+    return "wgmma" if vec and vec_x and not transposed else "fma"
+
+
 def quant_matmul(x, w_q, scale, transposed: bool = False):
     """x: (M, K) f32/bf16; w_q: (K, N), or (N, K) with ``transposed``, int8
     or packed int4; scale: f32 over w_q's last axis (tiled when shorter).
@@ -89,9 +130,7 @@ def quant_matmul(x, w_q, scale, transposed: bool = False):
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    vec = int(w_q.data_ptr() % 16 == 0 and w_q.stride(0) % 16 == 0)
-    vec_x = int(x.stride(1) == 1 and x.data_ptr() % 16 == 0
-                and x.stride(0) * x.element_size() % 16 == 0)
+    vec, vec_x = alignment(x, w_q)
     lib = build.load(NAME)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -99,7 +138,7 @@ def quant_matmul(x, w_q, scale, transposed: bool = False):
             x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             M, N, K, x.stride(0), x.stride(1), w_q.stride(0), scale.numel(),
             int(x.dtype == torch.bfloat16), int(w_q.dtype == torch.uint8),
-            int(transposed), vec, vec_x, stream)
+            int(transposed), int(vec), int(vec_x), stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     return out

@@ -23,6 +23,7 @@ from repro_torch.configs.ocean import ocean_tcfg
 from repro_torch.envs import ocean
 from repro_torch.envs.ocean_host import HostBandit, HostTeam
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.models.policy import BackbonePolicy
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.rl import actor
@@ -218,6 +219,23 @@ QMM_EDGES = [  # (M, K, N, transposed, scale length or None, x row pad)
     (17, 3, 5, False, None, 0),            # K and N below every tile
     (8, 4096, 64, False, None, 0),         # K split over a full cluster
     (8, 1024, 4099, True, None, 0),        # the unembed's layout, ragged V
+    (16, 1024, 1024, False, None, 0),      # decode: two full m-tiles
+    (13, 1000, 2048, False, None, 8),      # ragged m-tile, K not a k-step
+    (8, 1024, 777, False, None, 0),        # odd N: int4's last nibble
+    (16, 1000, 999, True, None, 8),        # (N, K) decode, two m-tiles
+    (8, 1024, 151936, True, None, 0),      # the unembed at decode
+    (17, 1024, 1024, False, None, 0),      # the prefill tile's edges
+    (65, 1000, 1024, False, None, 0),
+    (129, 1024, 1001, False, None, 0),
+    (200, 1024, 2048, False, None, 16),    # strided x, 16-byte aligned
+    (200, 1024, 2048, False, None, 6),     # strided x, unaligned
+    # decode rings reused: more k-steps a warp than the (K, N) ring's
+    # slots (split 1 at N 16384; split 8 at K 8192), and K past the
+    # (N, K) kernel's staged x * s (2048 / MT values), so it restages
+    (8, 1024, 16384, False, None, 0),
+    (8, 8192, 1024, False, None, 0),
+    (8, 4096, 300, True, None, 0),
+    (16, 2500, 300, True, None, 0),
 ]
 
 
@@ -241,9 +259,14 @@ def test_quant_matmul_kernel_matches_ref(M, K, N, transposed, S, pad, qtype,
                                          dtype, no_tf32):
     rng = np.random.default_rng(M + K + N)
     x, w, s = _qmm_inputs(rng, M, K, N, transposed, S, pad, qtype, dtype)
+    build.reset_launches()
     _check("quant_matmul",
            lambda: ops.quant_matmul(x, w, s, transposed=transposed),
            ref.quant_matmul(x, w, s, transposed), dtype)
+    # the launcher took the route the wrapper's rule names
+    want = qmm.route(M, dtype, transposed, *qmm.alignment(x, w))
+    assert build.routes("quant_matmul") == {
+        path: int(path == want) for path in build.ROUTES["quant_matmul"][1]}
 
 
 def test_quant_matmul_kernel_raises_on_what_it_does_not_take():
@@ -280,6 +303,11 @@ def test_quantised_generate_launches_quant_matmul_on_every_matmul(arch,
             "flash_decode": 4 * attn, "ssd": cfg.num_layers - attn,
             "gae": 0, "pack": 0}
     assert {k: build.LAUNCHES[k] for k in want} == want
+    # bf16 x: every M = 2 call (4 decode steps, 5 unembeds) on the decode
+    # kernel, the prefill's M = 74 matmuls on the wgmma prefill kernel
+    assert build.routes("quant_matmul") == {
+        "decode": 4 * (per_forward - 1) + 5, "wgmma": per_forward - 1,
+        "fma": 0}
 
 
 @pytest.mark.parametrize("done_p", [0.0, 0.1, 0.5])
