@@ -219,6 +219,8 @@ QMM_PATHS = build.ROUTES["quant_matmul"][1]     # the launcher's routes
 TRAIN_ENVS, TRAIN_UNROLL = 4096, 64     # the full-size training update
 GAMMA, LAM = 0.95, 0.95                 # ocean_tcfg's gamma, TrainConfig's
 HOST_N = 64                             # the host tier's preset batch (M 128)
+PACK_LEAVES = (1, 3, 8, 32, 33, 75)     # pack's leaf counts about its tables
+PACK_ROWS = (1, 31, 33, 64)             # pack's B about a warp
 PROC_N, PROC_UPDATES = 8, 4             # the proc-backend run: M 16 workers
 
 
@@ -602,6 +604,15 @@ def pack_cases(gen):
         "strided row view": [base[:, 5:21], base[:, 32:64], u8(gen, 300, 2)],
         f"more than {MAX_LEAVES} leaves":
             [u8(gen, 70, 1 + i % 5) for i in range(2 * MAX_LEAVES + 11)],
+        **{f"{n} leaves (a 0-width one among them past one)":
+           [u8(gen, 70, (3 * i + 1) % 7) for i in range(n)]
+           for n in PACK_LEAVES},
+        "mixed access widths (16, 4 and 1 bytes)":
+            [u8(gen, 100, n) for n in (16, 32, 4, 12, 1, 3, 12)],
+        **{f"B {B} (three 4-byte leaves)": [u8(gen, B, 4) for _ in range(3)]
+           for B in PACK_ROWS},
+        f"B {TRAIN_ENVS * TRAIN_UNROLL} (leaves of 16 and 36 bytes)":
+            [u8(gen, TRAIN_ENVS * TRAIN_UNROLL, n) for n in (16, 36)],
     }
 
 
@@ -1287,6 +1298,15 @@ def pack_row(gen):
             f32_bytes(gen, TRAIN_ENVS * TRAIN_UNROLL, 9)) for _ in range(4)]
     big_bytes = 2 * TRAIN_ENVS * TRAIN_UNROLL * 52
     big_ms, big_plain, big_lib = times(big, 8)
+    leaves = act_sets[0]
+    us = {"pack": [], "torch.cat": []}
+    for _ in range(3):
+        us["pack"].append(host_us(lambda: pack(leaves)))
+        us["torch.cat"].append(host_us(lambda: torch.cat(leaves, dim=-1)))
+    print(f"[kernel] pack host time per call at the act shape, median of 3 "
+          f"turns: the wrapper {statistics.median(us['pack']):.2f} us, "
+          f"torch.cat {statistics.median(us['torch.cat']):.2f} us",
+          flush=True)
     print(f"[kernel] pack (B {TRAIN_ENVS * TRAIN_UNROLL}, leaves of 16 and "
           f"36 bytes, inputs from HBM): {big_ms:.4f} ms (plain "
           f"{big_plain:.4f} ms, torch.cat {big_lib:.4f} ms, bound "

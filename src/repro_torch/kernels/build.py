@@ -60,8 +60,8 @@ SIGNATURES = {
         I, I, I, I, I, I, P]),      # scale length, is_bf16, is_int4,
                                     # transposed, vec16 (w, x), stream
     "pack": ("pack_fwd", [
-        P, P, P, P, I,              # leaf pointers, row strides, widths,
-                                    # column offsets (host arrays), K
+        P, I,                       # K x (address, row stride, width,
+                                    # column) as one host array, K
         P, L, L, P]),               # out, B, out row stride, stream
 }
 

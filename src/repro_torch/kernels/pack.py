@@ -11,6 +11,13 @@ any row stride of a leaf; a leaf's last stride must be 1 where n_i > 1. The
 kernel holds ``MAX_LEAVES`` leaves a launch in its parameters: more leaves
 take more launches, each writing its own columns.
 
+At the host tier's act shape (B 64, three 4-byte leaves) it moves 1,536
+bytes, so one round trip to device memory and the launch bound it, on the
+card and on the host: every leaf gets its own blocks, so all leaves' loads
+are in flight at once; the table ships 40 bytes a leaf (csrc/pack.cu); and
+the wrapper hands the launcher one ctypes array of four numbers a leaf
+(address, row stride, width, column).
+
 CPU tensors take the plain version (``ref.pack``, ``torch.cat``); a CUDA
 tensor launches the kernel or raises — there is no fallback.
 """
@@ -71,21 +78,19 @@ def pack(leaves):
     out = torch.empty((B, total), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
         return out
-    cols = [sum(widths[:i]) for i in range(len(leaves))]
-    table = [(t, w, c) for t, w, c in zip(leaves, widths, cols) if w > 0]
+    table = []                 # four numbers a non-empty leaf
+    col = 0
+    for t, w in zip(leaves, widths):
+        if w > 0:
+            table += (t.data_ptr(), t.stride(0), w, col)
+        col += w
     lib = build.load(NAME)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for k0 in range(0, len(table), MAX_LEAVES):
-            part = table[k0:k0 + MAX_LEAVES]
-            n = len(part)
-            srcs = (ctypes.c_ulonglong * n)(*(t.data_ptr() for t, _, _ in
-                                              part))
-            strides = (ctypes.c_longlong * n)(*(t.stride(0) for t, _, _ in
-                                                part))
-            ws = (ctypes.c_longlong * n)(*(w for _, w, _ in part))
-            cs = (ctypes.c_longlong * n)(*(c for _, _, c in part))
-            err = lib.pack_fwd(srcs, strides, ws, cs, n, out.data_ptr(), B,
+        for k0 in range(0, len(table), 4 * MAX_LEAVES):
+            part = table[k0:k0 + 4 * MAX_LEAVES]
+            err = lib.pack_fwd((ctypes.c_longlong * len(part))(*part),
+                               len(part) // 4, out.data_ptr(), B,
                                out.stride(0), stream)
             build.check(err, NAME)
             build.LAUNCHES[NAME] += 1

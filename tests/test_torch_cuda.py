@@ -431,6 +431,34 @@ def test_pack_kernel_matches_ref_exactly():
     assert empty.shape == (0, 4)
 
 
+def _u8_leaves(rng, B, widths):
+    return [torch.from_numpy(rng.integers(0, 256, (B, n), dtype=np.uint8)
+                             ).cuda() for n in widths]
+
+
+@pytest.mark.parametrize("B,widths", [
+    # leaf counts about the kernel's table sizes (4, 8, 32) and over one
+    # launch (32), a 0-width leaf among them
+    (70, [12]), (70, [4, 0, 8]), (70, [1 + i % 5 for i in range(8)]),
+    (70, [i % 7 for i in range(32)]), (70, [i % 6 for i in range(33)]),
+    (70, [i % 9 for i in range(75)]),
+    # mixed access widths in one launch (rows of 80 and 64 bytes): 16-byte
+    # leaves at 16-byte columns, 4-byte and 1-byte ones between them
+    (100, [16, 32, 4, 12, 1, 3, 12]), (100, [16, 16, 4, 4, 1, 3, 4, 16]),
+    # rows about a warp and the act step's B, and a full-size trajectory
+    (1, [4, 4, 4]), (31, [4, 4, 4]), (33, [4, 4, 4]), (64, [4, 4, 4]),
+    (262144, [16, 36])])
+def test_pack_kernel_matches_ref_over_leaves_widths_and_rows(B, widths):
+    from repro_torch.kernels.pack import MAX_LEAVES
+    leaves = _u8_leaves(np.random.default_rng(B + len(widths)), B, widths)
+    before = build.LAUNCHES["pack"]
+    got = ops.pack(leaves)
+    nonempty = sum(w > 0 for w in widths)
+    assert build.LAUNCHES["pack"] == before + -(-nonempty // MAX_LEAVES)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.equal(got, ref.pack(leaves))
+
+
 def test_pack_kernel_raises_on_what_it_does_not_take():
     x = torch.zeros((4, 8), dtype=torch.uint8, device="cuda")
     with pytest.raises(ValueError, match="last stride"):
