@@ -9,19 +9,25 @@ lines; any failure ends the run with a traceback and a non-zero exit:
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
   2. build       nvcc builds every kernel (one process per source, together);
-                 beside it a second compile of flash_attention.cu and of
-                 quant_matmul.cu with ``-Xptxas -v`` prints each kernel's
-                 registers and spills (none allowed in the serve-path
-                 instances), and ``cuobjdump -sass`` of the built libraries
-                 counts tensor-core (HMMA, HGMMA) and asynchronous-copy
-                 (LDGSTS, UTMALDG) instructions by instance (``SASS_NEEDS``
-                 says which each must have)
+                 beside it a second compile of flash_decode.cu,
+                 flash_attention.cu and quant_matmul.cu with ``-Xptxas -v``
+                 prints each kernel's registers and spills (none allowed in
+                 the serve-path instances), and ``cuobjdump -sass`` of the
+                 built libraries counts tensor-core (HMMA, HGMMA) and
+                 asynchronous-copy (LDGSTS, UBLKCP, UTMALDG) instructions
+                 by instance (``SASS_NEEDS`` says which each must have)
   3. parity      each kernel against its plain PyTorch version on the card at
                  the serve and training shapes and edge shapes: attention
                  (``FA_CASES``: the serve shape, ragged T, T = 1, T = 65,
                  S > T, S < T, non-causal, MQA, MHA, an odd group, every
-                 head dim) bf16 at 2e-2, f32 at 1e-4 with TF32 off; GAE f32
-                 at 1e-5;
+                 head dim) bf16 at 2e-2, f32 at 1e-4 with TF32 off;
+                 decode attention (``fd_cases``: the serve shape and two
+                 small ones at three fills, the lengths 0, split - 1,
+                 split, split + 1 and S - 1 of ``flash_decode.plan`` at S
+                 576, 100, 577, 1000 and at B 64, 1 to 20 query heads a KV
+                 head at every head dim, strided cache and q views whose
+                 two calls must agree bit for bit) at the same tolerances;
+                 GAE f32 at 1e-5;
                  SSD (y and h_last) bf16 at the serve shape at 2e-2, f32 at
                  edge shapes (ragged T, T = 1, T < chunk, x a strided view,
                  stride-0 B_/C, two groups) at 1e-4
@@ -39,7 +45,9 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  (``torch.equal``) at the host tier's act shape, the bytes
                  emulation of Spaces' obs at 4096 envs and edge shapes (one
                  leaf, 1-byte leaves, odd widths at unaligned offsets, B = 1,
-                 a strided row view, more leaves than one launch holds)
+                 a strided row view, more leaves than one launch holds, 1 to
+                 75 leaves with a 0-width one, mixed 16-, 4- and 1-byte
+                 access widths, B 1, 31, 33, 64 and 262,144)
   4. full width  qwen3-0.6b and mamba2-1.3b in f32 (TF32 off), then
                  qwen3-0.6b with int8 weights: the cuda and ref backends on
                  prefill last-token logits and 4 teacher-forced decode steps,
@@ -53,9 +61,9 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  top of qwen3's for the quantised runs, whose quant_matmul
                  routes (as its launcher counted them) must read 63 x 168 +
                  64 decode-kernel launches (every call at M = 8) and 168
-                 wgmma prefill ones, and whose greedy
-                 tokens (a prefill and 16 greedy steps) must repeat exactly
-                 in a second run; prints prefill ms, decode ms/token, tok/s,
+                 wgmma prefill ones; every qwen3 run's greedy tokens (a
+                 prefill and 16 greedy steps) must repeat exactly in a
+                 second run; prints prefill ms, decode ms/token, tok/s,
                  a profile of one prefill and 8 decode steps (device
                  time, idle share, top kernels), and each kernel's ms beside
                  its plain version's, its bound and, for attention,
@@ -98,10 +106,14 @@ Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. flash_attention and SDPA are timed
 in turns over 9 rounds by CUDA-graph replay, and the row gives each one's
 median; a line before it does the same at T 2048, where operations bound
-it. pack's row is timed by CUDA-graph
+it. flash_decode's row is timed the same way against SDPA over the filled
+prefix at the last serve step, and a line before it at S 8192, whose
+caches exceed the L2. pack's row is timed by CUDA-graph
 replay at the host tier's act shape, with ``torch.cat`` as its library
 call, and a line before it times it at a full-size trajectory's bytes
-emulation, whose inputs exceed the L2. quant_matmul's row is the total
+emulation, whose inputs exceed the L2. flash_decode and pack also print
+their wrappers' host microseconds a call beside SDPA's and
+``torch.cat``'s. quant_matmul's row is the total
 over one int8 ``generate`` of its device times at each serve shape (printed
 on the lines before it, timed by CUDA-graph replay), beside the same totals
 of the plain version, the bound and ``torch.matmul`` on the
@@ -144,6 +156,7 @@ from repro_torch.envs.ocean_host import OCEAN_HOST  # noqa: E402
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
+from repro_torch.kernels.flash_decode import plan as fd_plan  # noqa: E402
 from repro_torch.kernels.gae import gae  # noqa: E402
 from repro_torch.kernels.pack import MAX_LEAVES, pack  # noqa: E402
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
@@ -188,6 +201,7 @@ FA_CASES = (
     (1, 64, 64, 4, 1, 128, False), (2, 200, 200, 4, 4, 128, True),
     (2, 300, 150, 6, 2, 64, True))
 FA_LONG = 2048      # a prompt length where operations bound flash_attention
+FD_LONG = 8192      # a cache length whose K/V (268 MB) exceeds the L2
 # mamba2-1.3b's SSD at the serve shape: heads, head dim, state, groups, chunk
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q = 64, 64, 128, 1, 128
 # qwen3-0.6b's quantised products (K, N) per layer: wq, wk, wv, wo, mlp wi,
@@ -320,6 +334,7 @@ def phase_build():
 
 
 # Kernel instances by their mangled names, for the ptxas and SASS reports:
+# flash_decode's bf16 (mma.sync) and f32 (CUDA cores) kernels by head dim;
 # flash_attention's bf16 kernels on wgmma (head dims 64, 128) or mma.sync
 # (16, 32) and its f32 kernels; quant_matmul's bf16 decode kernels by
 # layout, weight and m-tiles (MT 1 serves M <= 8), its wgmma prefill
@@ -345,6 +360,10 @@ def _qmm_fma(m):
 
 
 INSTANCES = {
+    "flash_decode": [
+        (re.compile(r"fd_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
+         lambda m: f"{'f32' if m.group(1) == 'f' else 'bf16'} hd "
+                   f"{m.group(2)}")],
     "flash_attention": [
         (re.compile(r"flash_attention_(wg|tc)?_?kernelI(f)?Li(\d+)E"), _fa)],
     "quant_matmul": [
@@ -357,13 +376,15 @@ INSTANCES = {
 # SASS each instance must hold, by label prefix: (count of instances,
 # groups of instructions of which each group needs one)
 SASS_NEEDS = {
+    "flash_decode": {"bf16": (4, (("HMMA",), ("LDGSTS", "UBLKCP")))},
     "flash_attention": {"bf16": (4, (("HMMA", "HGMMA"),
                                      ("LDGSTS", "UTMALDG")))},
     "quant_matmul": {"bf16 decode": (8, (("HMMA",), ("LDGSTS",))),
                      "bf16 wgmma": (2, (("HGMMA",), ("UTMALDG",)))},
 }
 # instances on the serve path, where ptxas must report no spills
-NO_SPILLS = {"flash_attention": ("bf16 wgmma hd 128",),
+NO_SPILLS = {"flash_decode": ("bf16 hd 128",),
+             "flash_attention": ("bf16 wgmma hd 128",),
              "quant_matmul": ("bf16 decode (K, N) int8 MT 1",
                               "bf16 decode (K, N) int4 MT 1",
                               "bf16 decode (N, K) int8 MT 1",
@@ -431,7 +452,8 @@ def finish_ptxas_report(name, proc):
                              f"spilling: {spills}")
 
 
-SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM", "MUFU.EX2")
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UBLKCP", "UTMALDG", "LDSM",
+            "MUFU.EX2")
 
 
 def sass_report(name, lib):
@@ -487,22 +509,24 @@ def phase_parity(gen):
             if shape == FA_CASES[0] and dtype == torch.bfloat16:
                 errs["flash_attention"] = err
             cases += 1
-        # (B, S, H, K, hd) x cache fill
+        # (B, S, H, K, hd) x cache fill, then the lengths about the split
+        # (0, split - 1, split, split + 1, S - 1) at S on and off 16, query
+        # heads a KV head from 1 to 20 at every head dim, and strided views
         S = PROMPT + NEW
-        for shape in ((BATCH, S, 16, 8, 128), (3, 100, 8, 2, 64),
-                      (2, 64, 4, 1, 32)):
+        for shape, lengths in fd_cases():
             B, S_, H, K, hd = shape
-            for fill in (0.0, 0.6, 1.0):
-                q = randn(gen, (B, H, hd), dtype)
-                k, v = (randn(gen, (B, S_, K, hd), dtype) for _ in range(2))
-                length = torch.tensor(int(fill * (S_ - 1)), dtype=torch.int32,
-                                      device="cuda")
-                err = check_close(f"flash_decode {shape} fill {fill} {dtype}",
+            q = randn(gen, (B, H, hd), dtype)
+            k, v = (randn(gen, (B, S_, K, hd), dtype) for _ in range(2))
+            for L in lengths:
+                length = torch.tensor(L, dtype=torch.int32, device="cuda")
+                err = check_close(f"flash_decode {shape} length {L} {dtype}",
                                   flash_decode(q, k, v, length),
                                   ref.flash_decode(q, k, v, length), tol)
-                if shape[0] == BATCH and dtype == torch.bfloat16:
+                if shape == (BATCH, S, 16, 8, 128) and \
+                        dtype == torch.bfloat16:
                     errs["flash_decode"] = max(errs["flash_decode"], err)
                 cases += 1
+        cases += fd_view_case(gen, dtype, tol)
     # GAE at the training shapes: (B, T) views of (T, B)-stored tensors, as
     # the learner passes them, and a ragged B
     for B, T in ((TRAIN_ENVS, TRAIN_UNROLL), (64, 64), (1000, 37)):
@@ -576,6 +600,41 @@ def phase_parity(gen):
           f"(bf16; quant_matmul int8), the training shape (gae, f32) and "
           f"the host tier's shapes (pack, exact): {errs}", flush=True)
     return errs
+
+
+def fd_cases():
+    """flash_decode's parity cases: ((B, S, H, K, hd), lengths)."""
+    S = PROMPT + NEW
+    cases = [((BATCH, S, 16, 8, 128), [int(f * (S - 1)) for f in
+                                       (0.0, 0.6, 1.0)]),
+             ((3, 100, 8, 2, 64), [0, 59, 99]), ((2, 64, 4, 1, 32),
+                                                 [0, 37, 63])]
+    for B, S_, K in ((BATCH, S, 8), (2, 100, 2), (1, 577, 1), (3, 1000, 4),
+                     (64, 300, 8)):
+        split, _ = fd_plan(B, K, S_)
+        cases.append(((B, S_, 2 * K, K, 128), sorted(
+            {L for L in (0, split - 1, split, split + 1, S_ - 1)
+             if L < S_})))
+    for G in (1, 2, 4, 8, 20):
+        for hd in (16, 32, 64, 128):
+            cases.append(((2, 200, 2 * G, 2, hd), [150]))
+    return cases
+
+
+def fd_view_case(gen, dtype, tol):
+    """flash_decode on caches laid out (B, K, S, hd) and viewed as (B, S, K,
+    hd), q a view of a wider row; two calls must give the same bits."""
+    B, S, H, K, hd = BATCH, PROMPT + NEW, 16, 8, 128
+    k, v = (randn(gen, (B, K, S, hd), dtype).transpose(1, 2)
+            for _ in range(2))
+    q = randn(gen, (B, H, hd + 64), dtype)[..., 32:32 + hd]
+    length = torch.tensor(S - 7, dtype=torch.int32, device="cuda")
+    got = flash_decode(q, k, v, length)
+    check_close(f"flash_decode strided views {dtype}", got,
+                ref.flash_decode(q, k, v, length), tol)
+    if not torch.equal(got, flash_decode(q, k, v, length)):
+        raise AssertionError(f"flash_decode {dtype}: two calls differ")
+    return 1
 
 
 def u8(gen, B, n):
@@ -779,7 +838,7 @@ def phase_serve(gen, arch, quantize=None):
           f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/token; launches "
           f"{launches}{f'; quant_matmul routes {routes}' if quantize else ''}",
           flush=True)
-    if quantize:
+    if arch == ARCH:
         first, again = (greedy_tokens(policy, prompt, max_len)
                         for _ in range(2))
         if not torch.equal(first, again):
@@ -1197,23 +1256,44 @@ def kernel_rows(gen, launches, errs):
                  cuda_ms(ref.flash_attention, fa_sets, 10), lib_ms))
     del fa_sets, q, k, v
 
-    # decode attention at the last serve step: 6 cache sets of 18.9 MB
-    S = PROMPT + NEW
-    L = S - 2                                        # newest valid index
-    length = torch.tensor(L, dtype=torch.int32, device="cuda")
-    fd_sets = [(randn(gen, (BATCH, H, hd), bf),
-                randn(gen, (BATCH, S, K, hd), bf),
-                randn(gen, (BATCH, S, K, hd), bf), length) for _ in range(6)]
-    flops = 4 * BATCH * H * hd * (L + 1)
-    nbytes = 2 * (2 * BATCH * (L + 1) * K * hd + 2 * BATCH * H * hd)
-    rows.append(("flash_decode", flops, PEAK_FLOPS, nbytes,
-                 cuda_ms(flash_decode, fd_sets, 200),
-                 cuda_ms(ref.flash_decode, fd_sets, 50),
-                 cuda_ms(lambda q, k, v, n: F.scaled_dot_product_attention(
-                     q[:, :, None], k[:, :L + 1].transpose(1, 2),
-                     v[:, :L + 1].transpose(1, 2), enable_gqa=True),
-                     fd_sets, 200)))
-    del fd_sets
+    # decode attention at the last serve step, timed in turns with SDPA by
+    # graph replay: 6 cache sets of 18.9 MB; first a line at S 8192 (2 sets
+    # of 268 MB), past the L2
+    for S in (FD_LONG, PROMPT + NEW):
+        L = S - 2                                    # newest valid index
+        length = torch.tensor(L, dtype=torch.int32, device="cuda")
+        fd_sets = [(randn(gen, (BATCH, H, hd), bf),
+                    randn(gen, (BATCH, S, K, hd), bf),
+                    randn(gen, (BATCH, S, K, hd), bf), length)
+                   for _ in range(2 if S == FD_LONG else 6)]
+        flops = 4 * BATCH * H * hd * (L + 1)
+        nbytes = 2 * (2 * BATCH * (L + 1) * K * hd + 2 * BATCH * H * hd)
+
+        def fd_sdpa(q, k, v, n, L=L):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k[:, :L + 1].transpose(1, 2),
+                v[:, :L + 1].transpose(1, 2), enable_gqa=True)
+
+        (ms, lib_ms), rounds = alternate_ms((flash_decode, fd_sdpa), fd_sets,
+                                            8 if S == FD_LONG else 64)
+        bound = nbytes / PEAK_BYTES * 1e3
+        print(f"[kernel] flash_decode B {BATCH} S {S} L {L} H {H} K {K} hd "
+              f"{hd} bf16, {len(rounds[0])} rounds in turns: kernel median "
+              f"{ms:.4f} ms (rounds {min(rounds[0]):.4f}-"
+              f"{max(rounds[0]):.4f}), SDPA median {lib_ms:.4f} ms (rounds "
+              f"{min(rounds[1]):.4f}-{max(rounds[1]):.4f}), kernel / SDPA "
+              f"{ms / lib_ms:.3f}, bound {bound:.4f} ms by bytes ({nbytes:.4g}"
+              f" B; {nbytes / ms / 1e9:.2f} TB/s, {100 * bound / ms:.1f}% of "
+              f"the bound)", flush=True)
+    q, k, v, n = fd_sets[0]
+    print(f"[kernel] flash_decode host time per call at the serve shape "
+          f"(checks, plan, the ctypes launch): "
+          f"{host_us(lambda: flash_decode(q, k, v, n), 300):.2f} us; SDPA "
+          f"{host_us(lambda: fd_sdpa(q, k, v, n), 300):.2f} us (back-to-back "
+          f"calls, each bounded below by its device time)", flush=True)
+    rows.append(("flash_decode", flops, PEAK_FLOPS, nbytes, ms,
+                 cuda_ms(ref.flash_decode, fd_sets, 50), lib_ms))
+    del fd_sets, q, k, v
 
     # GAE at the full-size update: 24 input sets of 2.4 MB (57 MB). The
     # kernel's ms is its device time from the profiler: back-to-back event

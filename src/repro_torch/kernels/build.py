@@ -40,7 +40,7 @@ SIGNATURES = {
         P, P, P, P, P,              # q, k, v, length (device int32), o
         I, I, I, I, I,              # B, S, H, K, hd
         L, L, L, L, L, L, L, L,     # q (batch, head), k/v (batch, seq, head)
-        I, F, P]),                  # is_bf16, scale, stream
+        I, F, I, I, P]),            # is_bf16, scale, split, n_split, stream
     "gae": ("gae_fwd", [
         P, P, P, P, P,              # rewards, values, dones (u8), last, out
         I, I,                       # B, T

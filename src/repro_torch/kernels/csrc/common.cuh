@@ -254,6 +254,48 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       : "memory");
 }
 
+// -- thread block clusters ---------------------------------------------------
+
+// The address of shared-memory address a in cluster rank r's block.
+__device__ __forceinline__ uint32_t mapa(uint32_t a, int r) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d)
+               : "r"(a), "r"(r));
+  return d;
+}
+
+// 16 (v4) or 8 (v2) bytes into another block's shared memory at dst (an
+// address from mapa), completing on its mbarrier bar (likewise mapped).
+__device__ __forceinline__ void st_async(uint32_t dst, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t dst, float2 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(dst),
+      "f"(v.x), "f"(v.y), "r"(bar)
+      : "memory");
+}
+
+// Arrive on the cluster barrier without ordering this thread's memory
+// operations (a release would wait for its loads in flight); a later
+// cluster_wait acquires.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // One TMA copy of a box of the 4-D tensor map at coordinates c0..c3 (c0
 // innermost) into shared memory, completing bytes on bar.
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,

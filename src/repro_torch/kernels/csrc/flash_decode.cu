@@ -1,150 +1,468 @@
 // One-query (decode) GQA attention against a KV cache, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py
-// (flash_decode, pallas_call at :84). Same contract: q (B,H,hd), caches
-// k/v (B,S,K,hd), `length` an int32 scalar in device memory (the Pallas
-// kernel's SMEM scalar): positions <= length attend, the rest are masked
-// with -1e30; query head h reads KV head h / G; f32 softmax statistics and
-// accumulator; l floored at 1e-30; output (B,H,hd) in q's dtype. Reading
-// `length` on the device keeps decode free of host syncs.
+// (flash_decode, def at :65, pallas_call at :84). Same contract: q (B,H,hd),
+// caches k/v (B,S,K,hd), `length` an int32 scalar in device memory (the
+// Pallas kernel's SMEM scalar): positions <= length attend, the rest are
+// masked with -1e30; query head h reads KV head h / G; f32 softmax
+// statistics and accumulator; l floored at 1e-30; output (B,H,hd) in q's
+// dtype. Reading `length` on the device keeps decode free of host syncs.
 //
-// Design (simple first): one block of 128 threads per (KV head, batch). All
-// G query heads of the group attend against each 64-position K/V tile,
-// which is loaded into shared memory once. Tiles past `length` are never
-// loaded, so a step reads only the filled prefix of the cache. The kernel is
-// bound by bytes (the K/V prefix, 3.35 TB/s), but with B*K blocks (64 at the
-// serve shape) it fills under half of the 132 SMs and waits on each tile's
-// load before its math: split-KV with a combine pass is the first fix.
+// What bounds it on the H100: bytes. A call reads the filled K/V prefix
+// once, 2 * B * (length + 1) * K * hd elements (18.9 MB at qwen3-0.6b's last
+// serve step, B 8, S 576, K 8, hd 128: 5.6 us at 3.35 TB/s), and does 4
+// FLOPs per element read, far below the tensor cores' line. The Pallas
+// kernel walks S in order on one core; here S is split over the blocks of a
+// thread block cluster, so that the whole card streams:
+// - Split-KV over a cluster. The grid is (n_split, K * head groups, B), one
+//   cluster of n_split <= 8 blocks per (batch, KV head, group of up to 8
+//   query heads). Block r takes positions [r * split, (r + 1) * split), split
+//   a multiple of 16 chosen on the host from B, K and S (never from
+//   `length`: kernels/flash_decode.py's ``plan``), so that every cluster is
+//   resident at once; a block whose split starts past `length` loads
+//   nothing and contributes m = -1e30, l = 0. At the serve shape: 320
+//   blocks of 128 positions (61 KB of shared memory each, three an SM).
+// - An asynchronous ring. A block's two warps each own every other 16-
+//   position tile and stream its K and V rows through their own 3-stage
+//   cp.async ring (16 bytes a lane), issued before any math; tile i + 2's
+//   loads are in flight while tile i is computed, and no block barrier
+//   falls inside the loop.
+// - Tensor cores in bf16: mma.sync m16n8k16 with q (the block's query
+//   heads, rows 0-7 of A) in registers and K by ldmatrix as B, so S comes
+//   out heads x positions; P stays in registers as the A operand of P V
+//   (rounded to bf16, as flash_attention.cu does; l sums the f32 P), V by
+//   ldmatrix.trans as B. scale * log2(e) is folded into one multiply and
+//   exp2. f32 caches take CUDA cores (a lane per position and half of the
+//   heads for the scores, a lane per head dim for P V).
+// - The combine stays in the cluster. Every warp ends with its (m, l, acc);
+//   the warps of ranks 1..n push theirs into rank 0's shared memory with
+//   st.async, completing on rank 0's mbarrier, and leave; rank 0 merges
+//   every part in (rank, warp) order into the output. One relaxed cluster
+//   barrier, no float atomics, no workspace tensor, one launch a call, and
+//   the same output bits on every call.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BS = 64;   // cache positions per tile
-constexpr int NT = 128;  // 4 warps
+constexpr int TP = 16;        // cache positions a tile
+constexpr int WARPS = 2;      // warps a block, each with its own ring
+constexpr int NT = 32 * WARPS;
+constexpr int R = 3;          // ring stages a warp
+constexpr int GB = 8;         // query heads a block: rows 0-7 of an m16 tile
+constexpr int MAX_SPLIT = 8;  // blocks a cluster (the portable limit)
+constexpr float LOG2E = 1.4426950408889634f;
 
+// A warp's part: (m, l) a head (log2 units), then acc[head][HD], all f32. A
+// warp keeps its part in its block's shared memory; the warps of ranks 1..n
+// push theirs to rank 0's slots, (2 GB + gb HD) floats each (gb the block's
+// heads), in (rank, warp) order.
 template <typename T, int HD>
-size_t smem_bytes(int G) {
-  return 2 * BS * (HD + rt::Elem<T>::PAD) * sizeof(T) +
-         (2 * G * HD + G * BS + 3 * G) * sizeof(float);
+struct Layout {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte chunk
+  static constexpr int LD = HD + VEC;         // shared row stride: rows 16
+                                              // bytes apart in the banks
+  static constexpr int CPR = HD / VEC;        // chunks a row
+  static constexpr int STAGE = 2 * TP * LD;   // a K tile, then a V tile
+  static constexpr int WARP_RING_B = R * STAGE * (int)sizeof(T);
+  static constexpr int RING_B = WARPS * WARP_RING_B;
+  static constexpr int PART_B = (2 * GB + GB * HD) * 4;
+  static constexpr int WTS_B = GB * MAX_SPLIT * WARPS * 4;  // merge weights
+  // bf16: a warp's part overwrites its own ring once it is done, the merge
+  // weights follow warp 0's part. f32: the warps' parts hold their
+  // accumulators through the loop, then each warp's P (GB x TP) and rescale
+  // (GB), and q (GB x HD); the merge weights overwrite the P tiles. Then the
+  // slots (rank 0 only: the others' dynamic shared memory ends before).
+  static constexpr int PARTS_OFF = F32 ? RING_B : 0;
+  static constexpr int PART_STEP = F32 ? PART_B : WARP_RING_B;
+  static constexpr int P_OFF = RING_B + WARPS * PART_B;
+  static constexpr int A_OFF = P_OFF + WARPS * GB * TP * 4;
+  static constexpr int Q_OFF = A_OFF + WARPS * GB * 4;
+  static constexpr int WTS_OFF = F32 ? P_OFF : PART_B;
+  static constexpr int SLOTS_OFF = F32 ? Q_OFF + GB * HD * 4 : RING_B;
+  static constexpr int MAX_B = SLOTS_OFF + (MAX_SPLIT - 1) * WARPS * PART_B;
+  static_assert(F32 || PART_B + WTS_B <= WARP_RING_B,
+                "a part and the weights fit the ring they overwrite");
+  static_assert(!F32 || WTS_B <= WARPS * GB * TP * 4,
+                "the weights fit the P tiles");
+};
+
+// Dynamic shared memory of a launch: the slots for n_split ranks' parts of
+// gb heads.
+template <typename T, int HD>
+constexpr int smem_bytes(int n_split, int gb) {
+  return Layout<T, HD>::SLOTS_OFF +
+         (n_split - 1) * WARPS * (2 * GB + gb * HD) * 4;
+}
+
+// Weights of n <= N parts for each of the block's gb heads, in part order:
+// wts[g][r] = 2^(m_r - M) / max(L, 1e-30), M the parts' max and
+// L = sum_r 2^(m_r - M) l_r.
+template <int N>
+__device__ __forceinline__ void merge_weights(const float* const (&p)[N],
+                                              int n, int gb, float* wts) {
+  for (int g = threadIdx.x; g < gb; g += NT) {
+    float m[N], M = rt::NEG_INF;
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      if (r < n) {
+        m[r] = p[r][2 * g];
+        M = fmaxf(M, m[r]);
+      }
+    float a[N], L = 0.f;
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      if (r < n) {
+        a[r] = rt::exp2_approx(m[r] - M);
+        L = fmaf(a[r], p[r][2 * g + 1], L);
+      }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      if (r < n) wts[g * N + r] = a[r] * inv;
+  }
+}
+
+// sink(e, sum_r wts[g][r] acc_r[e]) for each element e = g * HD + d of the
+// gb heads, the parts added in order.
+template <int N, int HD, typename Sink>
+__device__ __forceinline__ void merge_values(const float* const (&p)[N],
+                                             int n, int gb, const float* wts,
+                                             Sink sink) {
+  for (int e = threadIdx.x; e < gb * HD; e += NT) {
+    const int g = e / HD;
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      if (r < n) acc = fmaf(wts[g * N + r], p[r][2 * GB + e], acc);
+    sink(e, acc);
+  }
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ length,
-                    T* __restrict__ o, int S, int H, int G, long long q_sb,
-                    long long q_sh, long long k_sb, long long k_ss,
-                    long long k_sh, long long v_sb, long long v_ss,
-                    long long v_sh, float scale) {
+fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const int* __restrict__ length,
+          T* __restrict__ o, int S, int H, int G, int split, long long q_sb,
+          long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+          long long v_sb, long long v_ss, long long v_sh, float scale) {
+  using Lay = Layout<T, HD>;
   using E = rt::Elem<T>;
-  constexpr int LD = HD + E::PAD;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);
-  T* sV = sK + BS * LD;
-  float* sQ = reinterpret_cast<float*>(sV + BS * LD);  // G x HD
-  float* sAcc = sQ + G * HD;                           // G x HD
-  float* sS = sAcc + G * HD;                           // G x BS scores / p
-  float* sM = sS + G * BS;                             // running max
-  float* sL = sM + G;                                  // running denominator
-  float* sA = sL + G;                                  // this tile's rescale
-
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t pushed;  // rank 0: the other ranks' parts have landed
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int rank = blockIdx.x, n_split = gridDim.x;
+  const int HG = (G + GB - 1) / GB;
+  const int kh = blockIdx.y / HG, h0 = kh * G + (blockIdx.y % HG) * GB;
+  const int gb = min(GB, kh * G + G - h0);  // the block's query heads
+  const int slot_n = 2 * GB + gb * HD;      // floats of a pushed part
+  const int b = blockIdx.z;
+  const float c2 = scale * LOG2E;           // scores in log2 units
   // positions [0, length] attend (length >= 0 by contract)
-  const int nvalid = min(S, max(*length, 0) + 1);
-  const int ntiles = (nvalid + BS - 1) / BS;
-
-  for (int i = tid; i < G * HD; i += NT) {
-    const int g = i / HD, d = i % HD;
-    sQ[i] = E::to_float(q[b * q_sb + (kh * G + g) * q_sh + d]);
-    sAcc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += NT) {
-    sM[g] = rt::NEG_INF;
-    sL[g] = 0.f;
-  }
+  const int nvalid = min(S, max(__ldg(length), 0) + 1);
+  const int s0 = rank * split, s1 = min(s0 + split, nvalid);
+  const int ntiles = s1 > s0 ? (s1 - s0 + TP - 1) / TP : 0;
+  const int mine = ntiles > warp ? (ntiles - warp + WARPS - 1) / WARPS : 0;
+  T* ring = reinterpret_cast<T*>(smem + warp * Lay::WARP_RING_B);
   const T* kb = k + b * k_sb + kh * k_sh;
   const T* vb = v + b * v_sb + kh * v_sh;
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int s0 = t * BS;
-    const int valid = min(BS, nvalid - s0);
-    __syncthreads();  // the previous tile's reads are done
-    rt::load_tile<T, HD, LD>(sK, kb + s0 * k_ss, k_ss, BS, valid);
-    rt::load_tile<T, HD, LD>(sV, vb + s0 * v_ss, v_ss, BS, valid);
-    __syncthreads();
-
-    // scores: one (head, position) pair per thread and step
-    for (int i = tid; i < G * BS; i += NT) {
-      const int g = i / BS, c = i % BS;
-      const float* qg = sQ + g * HD;
-      const T* kr = sK + c * LD;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; d += 2) {
-        const float2 kk = E::load2(kr + d);
-        acc = fmaf(qg[d + 1], kk.y, fmaf(qg[d], kk.x, acc));
-      }
-      sS[i] = c < valid ? acc * scale : rt::NEG_INF;
+  // the warp's i-th tile (the block's tile warp + i * WARPS) into slot i % R;
+  // rows past s1 are zero-filled from a mapped address
+  auto issue = [&](int i) {
+    const int p0 = s0 + (warp + i * WARPS) * TP;
+    T* sk = ring + (i % R) * Lay::STAGE;
+    T* sv = sk + TP * Lay::LD;
+#pragma unroll
+    for (int u = 0; u < TP * Lay::CPR / 32; ++u) {
+      const int ch = lane + 32 * u;
+      const int r = ch / Lay::CPR, e = (ch % Lay::CPR) * Lay::VEC;
+      const bool ok = p0 + r < s1;
+      const long long p = ok ? p0 + r : s0;
+      rt::cp_async16(sk + r * Lay::LD + e, kb + p * k_ss + e, ok);
+      rt::cp_async16(sv + r * Lay::LD + e, vb + p * v_ss + e, ok);
     }
-    __syncthreads();
-
-    // online softmax: one warp per query head, two positions per lane
-    for (int g = warp; g < G; g += NT / 32) {
-      float* sg = sS + g * BS;
-      const float x0 = sg[lane], x1 = sg[lane + 32];
-      const float m_old = sM[g];
-      const float m_new = fmaxf(m_old, rt::max32(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      sg[lane] = p0;
-      sg[lane + 32] = p1;
-      const float sum = rt::sum32(p0 + p1);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sA[g] = alpha;
-        sL[g] = sL[g] * alpha + sum;
-        sM[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // accumulator: one (head, dim) pair per thread and step
-    for (int i = tid; i < G * HD; i += NT) {
-      const int g = i / HD, d = i % HD;
-      const float* p = sS + g * BS;
-      float acc = sAcc[i] * sA[g];
-      for (int c = 0; c < valid; ++c)
-        acc = fmaf(p[c], E::to_float(sV[c * LD + d]), acc);
-      sAcc[i] = acc;
-    }
+  };
+  // the loads first: what follows runs while they are in flight
+#pragma unroll 1
+  for (int i = 0; i < R; ++i) {
+    if (i < mine) issue(i);
+    rt::cp_async_commit();
   }
+  if (n_split > 1) {
+    if (rank == 0 && threadIdx.x == 0) {
+      rt::mbar_init(&pushed, 1);
+      rt::mbar_init_fence();
+      rt::mbar_expect_tx(&pushed, (n_split - 1) * WARPS * gb * (8 + 4 * HD));
+    }
+    // relaxed: a release here would wait for the loads just issued; the
+    // mbarrier's init is released by its own fence
+    rt::cluster_arrive_relaxed();  // waited for before the first push
+  }
+  // where this warp's part lands in rank 0's slots, when rank > 0
+  const uint32_t slot = rt::smem_addr(smem + Lay::SLOTS_OFF) +
+                        ((rank - 1) * WARPS + warp) * slot_n * 4;
+
+  float* part = reinterpret_cast<float*>(smem + Lay::PARTS_OFF +
+                                         warp * Lay::PART_STEP);
+  if constexpr (!Lay::F32) {
+    // lane (g, t) of mma.sync's fragments: row (head) g, columns 2t, 2t + 1
+    // (and 2t + 8, 2t + 9); rows 8-15 of A are zero
+    const int g = lane / 4, t = lane % 4;
+    uint32_t qa[HD / 16][4];  // q as A: a0 (g, 2t), a2 (g, 2t + 8)
+    const T* qr = q + b * q_sb + (h0 + g) * q_sh + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][0] = g < gb ? *reinterpret_cast<const uint32_t*>(qr + 16 * kk)
+                         : 0u;
+      qa[kk][2] = g < gb ? *reinterpret_cast<const uint32_t*>(qr + 16 * kk +
+                                                              8)
+                         : 0u;
+      qa[kk][1] = qa[kk][3] = 0u;
+    }
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    float m = rt::NEG_INF, l = 0.f;
+    // ldmatrix row addresses: K's matrices (positions 0-7 | 8-15) x (dims
+    // +0 | +8) as B of S; V's (positions 0-7 | 8-15) x (dims +0 | +8),
+    // transposed, as B of P V
+    const int krow = lane % 8 + 8 * (lane / 16), kcol = 8 * (lane / 8 % 2);
+    const int vrow = lane % 8 + 8 * (lane / 8 % 2), vcol = 8 * (lane / 16);
+
+    for (int i = 0; i < mine; ++i) {
+      rt::cp_async_wait<R - 1>();
+      __syncwarp();
+      const T* sk = ring + (i % R) * Lay::STAGE;
+      const T* sv = sk + TP * Lay::LD;
+      const int p0 = s0 + (warp + i * WARPS) * TP;
+      // S: heads x positions 8 nt + 2t (+1), from two chains of products
+      float ch[2][2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t kf[4];
+        rt::ldsm_x4(kf, sk + krow * Lay::LD + 16 * kk + kcol);
+        rt::mma_bf16(ch[kk % 2][0], qa[kk], kf);
+        rt::mma_bf16(ch[kk % 2][1], qa[kk], kf + 2);
+      }
+      float sc[4];  // positions 2t, 2t + 1, 8 + 2t, 9 + 2t
+      float mx = rt::NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nt = j / 2, c = j % 2;
+        const bool ok = p0 + 8 * nt + 2 * t + c < s1;
+        sc[j] = ok ? (ch[0][nt][c] + ch[1][nt][c]) * c2 : rt::NEG_INF;
+        mx = fmaxf(mx, sc[j]);
+      }
+      // over the quad: the row's 16 positions
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m, mx);
+      const float al = rt::exp2_approx(m - mn);
+      m = mn;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[j] = rt::exp2_approx(sc[j] - mn);
+        ps += sc[j];
+      }
+      l = l * al + ps;  // this lane's share; the quad adds them last
+      const uint32_t pa[4] = {rt::pack_bf16(sc[0], sc[1]), 0u,
+                              rt::pack_bf16(sc[2], sc[3]), 0u};
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[j][0] *= al;
+        acc[j][1] *= al;
+      }
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t vf[4];
+        rt::ldsm_x4_trans(vf, sv + vrow * Lay::LD + 16 * np + vcol);
+        rt::mma_bf16(acc[2 * np], pa, vf);
+        rt::mma_bf16(acc[2 * np + 1], pa, vf + 2);
+      }
+      __syncwarp();  // the slot is read: refill it
+      if (i + R < mine) issue(i + R);
+      rt::cp_async_commit();
+    }
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (rank > 0) {  // push the part to rank 0 and leave
+      rt::cluster_wait();  // rank 0's barrier is ready
+      const uint32_t bar = rt::mapa(rt::smem_addr(&pushed), 0);
+      const uint32_t dst = rt::mapa(slot, 0);
+      if (g < gb) {
+        if (t == 0) rt::st_async(dst + 8 * g, make_float2(m, l), bar);
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          rt::st_async(dst + 4 * (2 * GB + g * HD + 8 * j + 2 * t),
+                       make_float2(acc[j][0], acc[j][1]), bar);
+      }
+      return;
+    }
+    rt::cp_async_wait<0>();
+    __syncwarp();  // the ring is free: the part overwrites it
+    if (t == 0) {
+      part[2 * g] = m;
+      part[2 * g + 1] = l;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(part + 2 * GB + g * HD + 8 * j + 2 * t) =
+          make_float2(acc[j][0], acc[j][1]);
+  } else {
+    // f32 on CUDA cores: the warp's part holds its accumulators
+    float* pacc = part + 2 * GB;
+    float* sP = reinterpret_cast<float*>(smem + Lay::P_OFF) + warp * GB * TP;
+    float* sA = reinterpret_cast<float*>(smem + Lay::A_OFF) + warp * GB;
+    float* sQ = reinterpret_cast<float*>(smem + Lay::Q_OFF);
+    for (int e = threadIdx.x; e < GB * HD; e += NT) {
+      const int g = e / HD;
+      sQ[e] = g < gb ? E::to_float(q[b * q_sb + (h0 + g) * q_sh + e % HD])
+                     : 0.f;
+    }
+    for (int e = lane; e < GB * HD; e += 32) pacc[e] = 0.f;
+    if (lane < GB) {
+      part[2 * lane] = rt::NEG_INF;
+      part[2 * lane + 1] = 0.f;
+    }
+    __syncthreads();
+    const int pr = lane % TP, half = lane / TP;  // position, head parity
+    for (int i = 0; i < mine; ++i) {
+      rt::cp_async_wait<R - 1>();
+      __syncwarp();
+      const T* sk = ring + (i % R) * Lay::STAGE;
+      const T* sv = sk + TP * Lay::LD;
+      const bool ok = s0 + (warp + i * WARPS) * TP + pr < s1;
+      for (int g = half; g < gb; g += 2) {
+        const float* qg = sQ + g * HD;
+        const float* kr = sk + pr * Lay::LD;
+        float a = 0.f;
+#pragma unroll
+        for (int d = 0; d < HD; d += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+          const float4 qv = *reinterpret_cast<const float4*>(qg + d);
+          a = fmaf(qv.x, kv.x, a);
+          a = fmaf(qv.y, kv.y, a);
+          a = fmaf(qv.z, kv.z, a);
+          a = fmaf(qv.w, kv.w, a);
+        }
+        sP[g * TP + pr] = ok ? a * c2 : rt::NEG_INF;
+      }
+      __syncwarp();
+      for (int g = 0; g < gb; ++g) {  // online softmax, a head at a time
+        const float x = sP[g * TP + pr];
+        const float m_old = part[2 * g];
+        const float mn = fmaxf(m_old, rt::max16(x));
+        const float p = rt::exp2_approx(x - mn);
+        const float sum = rt::sum16(p);
+        __syncwarp();
+        if (lane < TP) sP[g * TP + lane] = p;
+        if (lane == 0) {
+          const float al = rt::exp2_approx(m_old - mn);
+          sA[g] = al;
+          part[2 * g + 1] = part[2 * g + 1] * al + sum;
+          part[2 * g] = mn;
+        }
+        __syncwarp();
+      }
+      for (int d = lane; d < HD; d += 32)
+        for (int g = 0; g < gb; ++g) {
+          float a = pacc[g * HD + d] * sA[g];
+#pragma unroll
+          for (int p = 0; p < TP; ++p)
+            a = fmaf(sP[g * TP + p], sv[p * Lay::LD + d], a);
+          pacc[g * HD + d] = a;
+        }
+      __syncwarp();  // the slot is read: refill it
+      if (i + R < mine) issue(i + R);
+      rt::cp_async_commit();
+    }
+    if (rank > 0) {  // push the part to rank 0 and leave
+      rt::cluster_wait();  // rank 0's barrier is ready
+      const uint32_t bar = rt::mapa(rt::smem_addr(&pushed), 0);
+      const uint32_t dst = rt::mapa(slot, 0);
+      for (int g = lane; g < gb; g += 32)
+        rt::st_async(dst + 8 * g, make_float2(part[2 * g], part[2 * g + 1]),
+                     bar);
+      for (int c = lane; c < gb * HD / 4; c += 32)
+        rt::st_async(dst + 4 * (2 * GB + 4 * c),
+                     *reinterpret_cast<const float4*>(pacc + 4 * c), bar);
+      return;
+    }
+    rt::cp_async_wait<0>();
+  }
+
+  // rank 0: its warps' parts, then the other ranks' in (rank, warp) order,
+  // merged into the output
+  if (n_split > 1) {
+    rt::cluster_wait();
+    rt::mbar_wait(&pushed, 0);
+  }
+  __syncthreads();  // both warps' parts are in place
+  const float* pp[MAX_SPLIT * WARPS];
+#pragma unroll
+  for (int r = 0; r < MAX_SPLIT; ++r)
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      pp[r * WARPS + w] =
+          r == 0 ? reinterpret_cast<const float*>(smem + Lay::PARTS_OFF +
+                                                  w * Lay::PART_STEP)
+                 : reinterpret_cast<const float*>(smem + Lay::SLOTS_OFF) +
+                       ((r - 1) * WARPS + w) * slot_n;
+  float* wts = reinterpret_cast<float*>(smem + Lay::WTS_OFF);
+  merge_weights<MAX_SPLIT * WARPS>(pp, n_split * WARPS, gb, wts);
   __syncthreads();
+  T* ob = o + ((long long)b * H + h0) * HD;
+  merge_values<MAX_SPLIT * WARPS, HD>(
+      pp, n_split * WARPS, gb, wts,
+      [&](int e, float x) { ob[e] = E::from_float(x); });
+}
 
-  for (int i = tid; i < G * HD; i += NT) {
-    const int g = i / HD, d = i % HD;
-    o[((long long)b * H + kh * G + g) * HD + d] =
-        E::from_float(sAcc[i] / fmaxf(sL[g], 1e-30f));
-  }
+// raise a kernel's dynamic shared-memory limit once a device
+template <typename F>
+cudaError_t allow_smem(F kern, int bytes, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* length,
            void* o, int B, int S, int H, int K, long long q_sb, long long q_sh,
            long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-           long long v_ss, long long v_sh, float scale, cudaStream_t stream) {
-  auto kern = flash_decode_kernel<T, HD>;
-  const int G = H / K;
-  const size_t smem = smem_bytes<T, HD>(G);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           long long v_ss, long long v_sh, float scale, int split,
+           int n_split, cudaStream_t stream) {
+  static unsigned long long done = 0;  // devices with the limit raised
+  auto kern = fd_kernel<T, HD>;
+  cudaError_t err = allow_smem(kern, Layout<T, HD>::MAX_B, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid(K, B);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+  const int G = H / K, HG = (G + GB - 1) / GB;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, K * HG, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem_bytes<T, HD>(n_split, G < GB ? G : GB);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(length),
-      static_cast<T*>(o), S, H, G, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-      v_sh, scale);
+      static_cast<T*>(o), S, H, G, split, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb,
+      v_ss, v_sh, scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -153,20 +471,24 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
               const void* length, void* o, int B, int S, int H, int K,
               long long q_sb, long long q_sh, long long k_sb, long long k_ss,
               long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-              float scale, cudaStream_t st) {
+              float scale, int split, int n_split, cudaStream_t st) {
   switch (hd) {
     case 16:
       return launch<T, 16>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
+                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
+                           n_split, st);
     case 32:
       return launch<T, 32>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
+                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
+                           n_split, st);
     case 64:
       return launch<T, 64>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
+                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
+                           n_split, st);
     case 128:
       return launch<T, 128>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                            k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
+                            k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
+                            n_split, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -177,6 +499,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
 // Returns the cudaError_t of the launch (0 on success). Strides are in
 // elements; the last dimension of q, k and v is contiguous; o is a
 // contiguous (B, H, hd) tensor; length points to one int32 on the device.
+// The cache is split over n_split (1..8) blocks of `split` positions each (a
+// multiple of 16, with (n_split - 1) * split < S <= n_split * split):
+// kernels/flash_decode.py's plan.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const void* length, void* o, int B, int S,
                                 int H, int K, int hd, long long q_sb,
@@ -184,12 +509,17 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 long long k_ss, long long k_sh,
                                 long long v_sb, long long v_ss,
                                 long long v_sh, int is_bf16, float scale,
-                                void* stream) {
+                                int split, int n_split, void* stream) {
+  if (n_split < 1 || n_split > MAX_SPLIT || split < TP || split % TP ||
+      (long long)(n_split - 1) * split >= S ||
+      (long long)n_split * split < S || K < 1 || H % K)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_hd<__nv_bfloat16>(hd, q, k, v, length, o, B, S, H, K, q_sb,
                                     q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                                    scale, st);
+                                    scale, split, n_split, st);
   return launch_hd<float>(hd, q, k, v, length, o, B, S, H, K, q_sb, q_sh,
-                          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
+                          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
+                          n_split, st);
 }

@@ -450,32 +450,6 @@ __device__ __forceinline__ void stage_xpair(unsigned char* dst,
     stage_xpair_slow(dst, x, m, k, M, K, sxm, sxk);
 }
 
-// the address of shared-memory address a in cluster rank r's block
-__device__ __forceinline__ uint32_t mapa(uint32_t a, int r) {
-  uint32_t d;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(d)
-               : "r"(a), "r"(r));
-  return d;
-}
-
-// 16 bytes into another block's shared memory, completing on its mbarrier
-__device__ __forceinline__ void st_async(uint32_t dst, float4 v,
-                                         uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // (K, N): a block owns 128 output columns over a K range (its rank's share
 // when K is split over a cluster of gridDim.z blocks); warp w takes the
 // range's 16-row k-steps w, w + 8, .... Lane (g, t) stages rows 2t, 2t+1,
@@ -549,7 +523,7 @@ dec_kn_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ w,
     }
     // relaxed: a release here would wait for the loads just issued; the
     // mbarrier's init is released by its own fence
-    cluster_arrive_relaxed();  // waited for before the first push
+    rt::cluster_arrive_relaxed();  // waited for before the first push
   }
   // thread tid adds and stores entries 4 tid + 4 NT p + c (c < 4) of
   // [ACC][lane] (accumulator e / 32 of lane e % 32): one output column n
@@ -639,18 +613,18 @@ dec_kn_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ w,
     }
   }
   if (split > 1 && rank > 0) {  // push to rank 0 and leave
-    cluster_wait();  // rank 0's barrier is ready
-    const uint32_t bar = mapa(rt::smem_addr(&pushed), 0);
+    rt::cluster_wait();  // rank 0's barrier is ready
+    const uint32_t bar = rt::mapa(rt::smem_addr(&pushed), 0);
 #pragma unroll
     for (int p = 0; p < PER; ++p)
-      st_async(mapa(rt::smem_addr(slots + (rank - 1) * ACC * 32 +
+      rt::st_async(rt::mapa(rt::smem_addr(slots + (rank - 1) * ACC * 32 +
                                   4 * threadIdx.x + 4 * NT * p),
                     0),
                v[p], bar);
     return;
   }
   if (split > 1) {
-    cluster_wait();
+    rt::cluster_wait();
     rt::mbar_wait(&pushed, 0);
 #pragma unroll
     for (int p = 0; p < PER; ++p)

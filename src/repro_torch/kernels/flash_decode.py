@@ -4,15 +4,23 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_decode.py``
 (``flash_decode``, def at :65, ``pallas_call`` at :84). On the H100 it is
 bound by bytes: it must read the filled K/V prefix, 2·B·(length+1)·K·hd
 elements, at 3.35 TB/s, and does 4 FLOPs per element read. ``length`` is
-read on the device, so a decode step needs no host sync. With one block per
-(batch, KV head) it fills 64 of 132 SMs at the serve shape (B 8, K 8);
-split-KV plus a combine pass is the first fix.
+read on the device, so a decode step needs no host sync.
+
+The Pallas kernel walks the cache in order on one core; one block per
+(batch, KV head) would fill 64 of 132 SMs at the serve shape (B 8, K 8).
+So the kernel splits the cache over a thread block cluster of up to 8
+blocks per (batch, KV head), each streaming its split through a
+``cp.async`` ring, and merges the blocks' softmax statistics and
+accumulators inside the cluster, in a fixed order. ``plan`` chooses the
+split from B, K and S on the host (never from ``length``), so one launch
+serves every prefix length of a cache.
 
 CPU tensors take the plain version (``ref.flash_decode``); a CUDA tensor
 launches the kernel or raises — there is no fallback.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -21,6 +29,37 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels._checks import check_heads, check_tensors
 
 NAME = "flash_decode"
+TILE = 16         # cache positions a tile; splits are multiples of it
+MAX_SPLIT = 8     # blocks a cluster (the portable limit); csrc's MAX_SPLIT
+WARPS = 2         # warps a block, warp w taking its tiles w, w + 2, ...
+WAVE = 2.5        # blocks an SM, at most: every cluster resident at once
+SMS = 132         # the H100's SMs
+_SMS: dict = {}   # torch.device -> its SM count
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, K: int, S: int, sms: int = SMS):
+    """(split, n_split) for a cache of S positions at B·K (batch, KV head)
+    pairs: n_split blocks a pair, as many as keep ``WAVE`` blocks or fewer
+    on each of ``sms`` SMs, at most ``MAX_SPLIT`` (one cluster) and at most
+    one per 16-position tile; each takes ``split`` positions, a multiple of
+    16, the last one the rest. At the serve shape (B 8, K 8, S 576) that is
+    5 blocks of 128 positions: the card holds three such blocks (61 KB of
+    shared memory each) an SM, and every cluster is resident at once (at 8
+    blocks of 80 positions, clusters that must share a GPC leave some of
+    them for a second wave)."""
+    tiles = max(1, -(-S // TILE))
+    n = min(MAX_SPLIT, tiles, max(1, int(WAVE * sms) // max(1, B * K)))
+    split = -(-tiles // n) * TILE
+    return split, max(1, -(-S // split))
+
+
+def _sms(dev) -> int:
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def flash_decode(q, k, v, length):
@@ -44,6 +83,7 @@ def flash_decode(q, k, v, length):
     o = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     if o.numel() == 0 or S == 0:
         return o.zero_()
+    split, n_split = plan(B, K, S, _sms(q.device))
     lib = build.load(NAME)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -53,7 +93,8 @@ def flash_decode(q, k, v, length):
             q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd), stream)
+            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd), split,
+            n_split, stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     return o

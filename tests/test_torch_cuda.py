@@ -100,6 +100,65 @@ def test_flash_decode_kernel_matches_ref(B, H, K, hd, S, frac, dtype,
            ref.flash_decode(q, k, v, length), dtype)
 
 
+def _fd_inputs(rng, B, S, H, K, hd, dtype):
+    return tuple(_randn(rng, s, dtype) for s in
+                 ((B, H, hd), (B, S, K, hd), (B, S, K, hd)))
+
+
+def _fd_check(q, k, v, L, dtype):
+    length = torch.tensor(L, dtype=torch.int32, device="cuda")
+    _check("flash_decode", lambda: ops.flash_decode(q, k, v, length),
+           ref.flash_decode(q, k, v, length), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,K", [(8, 576, 8), (2, 100, 2), (1, 577, 1),
+                                   (3, 1000, 4), (64, 300, 8)])
+def test_flash_decode_kernel_at_the_split_edges(B, S, K, dtype, no_tf32):
+    """length at 0, one split less one, one split, one more, and S - 1: the
+    split rule's boundaries (S 100, 577 and 1000 are not multiples of 16;
+    B 64 x K 8 fills the SMs with fewer splits)."""
+    from repro_torch.kernels.flash_decode import plan
+    split, n_split = plan(B, K, S)
+    q, k, v = _fd_inputs(np.random.default_rng(S + B), B, S, 2 * K, K, 128,
+                         dtype)
+    for L in sorted({0, split - 1, split, split + 1, S - 1}):
+        if L < S:
+            _fd_check(q, k, v, L, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 20])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_decode_kernel_over_groups_and_head_dims(G, hd, dtype,
+                                                       no_tf32):
+    """Query heads a KV head from 1 to 20 (past one 16-head block), at
+    every head dim."""
+    B, S, K = 2, 200, 2
+    q, k, v = _fd_inputs(np.random.default_rng(G * hd), B, S, G * K, K, hd,
+                         dtype)
+    _fd_check(q, k, v, 150, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_on_strided_views_is_deterministic(dtype,
+                                                               no_tf32):
+    """Caches laid out (B, K, S, hd) and viewed as (B, S, K, hd) (a head
+    stride of S * hd, not hd), q a view of a wider row; two calls give the
+    same bits."""
+    rng = np.random.default_rng(7)
+    B, S, H, K, hd = 4, 576, 16, 8, 128
+    k, v = (_randn(rng, (B, K, S, hd), dtype).transpose(1, 2)
+            for _ in range(2))
+    q = _randn(rng, (B, H, hd + 64), dtype)[..., 32:32 + hd]
+    assert k.stride(2) == S * hd and not q.is_contiguous()
+    length = torch.tensor(S - 7, dtype=torch.int32, device="cuda")
+    _check("flash_decode", lambda: ops.flash_decode(q, k, v, length),
+           ref.flash_decode(q, k, v, length), dtype)
+    first, again = (ops.flash_decode(q, k, v, length) for _ in range(2))
+    assert torch.equal(first, again)
+
+
 def test_flash_decode_length_must_be_a_device_tensor():
     q = torch.zeros(1, 4, 32, device="cuda")
     k = torch.zeros(1, 8, 2, 32, device="cuda")
