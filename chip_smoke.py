@@ -14,7 +14,7 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  prints each kernel's registers and spills (none allowed in
                  the serve-path instances), and ``cuobjdump -sass`` of the
                  built libraries counts tensor-core (HMMA, HGMMA) and
-                 asynchronous-copy (LDGSTS, UBLKCP, UTMALDG) instructions
+                 asynchronous-copy (LDGSTS, UTMALDG) instructions
                  by instance (``SASS_NEEDS`` says which each must have)
   3. parity      each kernel against its plain PyTorch version on the card at
                  the serve and training shapes and edge shapes: attention
@@ -156,7 +156,8 @@ from repro_torch.envs.ocean_host import OCEAN_HOST  # noqa: E402
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
-from repro_torch.kernels.flash_decode import plan as fd_plan  # noqa: E402
+from repro_torch.kernels.flash_decode import (  # noqa: E402
+    max_clusters as fd_max_clusters, plan as fd_plan)
 from repro_torch.kernels.gae import gae  # noqa: E402
 from repro_torch.kernels.pack import MAX_LEAVES, pack  # noqa: E402
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
@@ -376,7 +377,7 @@ INSTANCES = {
 # SASS each instance must hold, by label prefix: (count of instances,
 # groups of instructions of which each group needs one)
 SASS_NEEDS = {
-    "flash_decode": {"bf16": (4, (("HMMA",), ("LDGSTS", "UBLKCP")))},
+    "flash_decode": {"bf16": (4, (("HMMA",), ("LDGSTS",)))},
     "flash_attention": {"bf16": (4, (("HMMA", "HGMMA"),
                                      ("LDGSTS", "UTMALDG")))},
     "quant_matmul": {"bf16 decode": (8, (("HMMA",), ("LDGSTS",))),
@@ -452,8 +453,7 @@ def finish_ptxas_report(name, proc):
                              f"spilling: {spills}")
 
 
-SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UBLKCP", "UTMALDG", "LDSM",
-            "MUFU.EX2")
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM", "MUFU.EX2")
 
 
 def sass_report(name, lib):
@@ -1285,6 +1285,12 @@ def kernel_rows(gen, launches, errs):
               f"{ms / lib_ms:.3f}, bound {bound:.4f} ms by bytes ({nbytes:.4g}"
               f" B; {nbytes / ms / 1e9:.2f} TB/s, {100 * bound / ms:.1f}% of "
               f"the bound)", flush=True)
+    split, n_split = fd_plan(BATCH, K, S)
+    print(f"[kernel] flash_decode plan at the serve shape: {n_split} blocks "
+          f"of {split} positions a (batch, KV head), {BATCH * K} clusters "
+          f"({BATCH * K * n_split} blocks); the card holds "
+          f"{fd_max_clusters(n_split, H // K)} such clusters at once",
+          flush=True)
     q, k, v, n = fd_sets[0]
     print(f"[kernel] flash_decode host time per call at the serve shape "
           f"(checks, plan, the ctypes launch): "

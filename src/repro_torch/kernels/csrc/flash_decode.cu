@@ -18,10 +18,10 @@
 //   cluster of n_split <= 8 blocks per (batch, KV head, group of up to 8
 //   query heads). Block r takes positions [r * split, (r + 1) * split), split
 //   a multiple of 16 chosen on the host from B, K and S (never from
-//   `length`: kernels/flash_decode.py's ``plan``), so that every cluster is
-//   resident at once; a block whose split starts past `length` loads
-//   nothing and contributes m = -1e30, l = 0. At the serve shape: 320
-//   blocks of 128 positions (61 KB of shared memory each, three an SM).
+//   `length`: kernels/flash_decode.py's ``plan``), about one block an SM;
+//   a block whose split starts past `length` loads nothing and contributes
+//   m = -1e30, l = 0. At the serve shape: 128 blocks of 288 positions
+//   (54 KB of shared memory each), in clusters of 2.
 // - An asynchronous ring. A block's two warps each own every other 16-
 //   position tile and stream its K and V rows through their own 3-stage
 //   cp.async ring (16 bytes a lane), issued before any math; tile i + 2's
@@ -50,6 +50,7 @@ constexpr int NT = 32 * WARPS;
 constexpr int R = 3;          // ring stages a warp
 constexpr int GB = 8;         // query heads a block: rows 0-7 of an m16 tile
 constexpr int MAX_SPLIT = 8;  // blocks a cluster (the portable limit)
+constexpr int NP = MAX_SPLIT * WARPS;  // parts of a cluster, at most
 constexpr float LOG2E = 1.4426950408889634f;
 
 // A warp's part: (m, l) a head (log2 units), then acc[head][HD], all f32. A
@@ -67,7 +68,7 @@ struct Layout {
   static constexpr int WARP_RING_B = R * STAGE * (int)sizeof(T);
   static constexpr int RING_B = WARPS * WARP_RING_B;
   static constexpr int PART_B = (2 * GB + GB * HD) * 4;
-  static constexpr int WTS_B = GB * MAX_SPLIT * WARPS * 4;  // merge weights
+  static constexpr int WTS_B = GB * NP * 4;   // the merge weights
   // bf16: a warp's part overwrites its own ring once it is done, the merge
   // weights follow warp 0's part. f32: the warps' parts hold their
   // accumulators through the loop, then each warp's P (GB x TP) and rescale
@@ -95,47 +96,46 @@ constexpr int smem_bytes(int n_split, int gb) {
          (n_split - 1) * WARPS * (2 * GB + gb * HD) * 4;
 }
 
-// Weights of n <= N parts for each of the block's gb heads, in part order:
-// wts[g][r] = 2^(m_r - M) / max(L, 1e-30), M the parts' max and
+// Weights of the first n parts for each of the block's gb heads, in part
+// order: wts[g][r] = 2^(m_r - M) / max(L, 1e-30), M the parts' max and
 // L = sum_r 2^(m_r - M) l_r.
-template <int N>
-__device__ __forceinline__ void merge_weights(const float* const (&p)[N],
+__device__ __forceinline__ void merge_weights(const float* const (&p)[NP],
                                               int n, int gb, float* wts) {
   for (int g = threadIdx.x; g < gb; g += NT) {
-    float m[N], M = rt::NEG_INF;
+    float m[NP], M = rt::NEG_INF;
 #pragma unroll
-    for (int r = 0; r < N; ++r)
+    for (int r = 0; r < NP; ++r)
       if (r < n) {
         m[r] = p[r][2 * g];
         M = fmaxf(M, m[r]);
       }
-    float a[N], L = 0.f;
+    float a[NP], L = 0.f;
 #pragma unroll
-    for (int r = 0; r < N; ++r)
+    for (int r = 0; r < NP; ++r)
       if (r < n) {
         a[r] = rt::exp2_approx(m[r] - M);
         L = fmaf(a[r], p[r][2 * g + 1], L);
       }
     const float inv = 1.f / fmaxf(L, 1e-30f);
 #pragma unroll
-    for (int r = 0; r < N; ++r)
-      if (r < n) wts[g * N + r] = a[r] * inv;
+    for (int r = 0; r < NP; ++r)
+      if (r < n) wts[g * NP + r] = a[r] * inv;
   }
 }
 
-// sink(e, sum_r wts[g][r] acc_r[e]) for each element e = g * HD + d of the
-// gb heads, the parts added in order.
-template <int N, int HD, typename Sink>
-__device__ __forceinline__ void merge_values(const float* const (&p)[N],
+// out[e] = sum_r wts[g][r] acc_r[e] for each element e = g * HD + d of the
+// gb heads, the first n parts added in order.
+template <typename T, int HD>
+__device__ __forceinline__ void merge_values(const float* const (&p)[NP],
                                              int n, int gb, const float* wts,
-                                             Sink sink) {
+                                             T* __restrict__ out) {
   for (int e = threadIdx.x; e < gb * HD; e += NT) {
     const int g = e / HD;
     float acc = 0.f;
 #pragma unroll
-    for (int r = 0; r < N; ++r)
-      if (r < n) acc = fmaf(wts[g * N + r], p[r][2 * GB + e], acc);
-    sink(e, acc);
+    for (int r = 0; r < NP; ++r)
+      if (r < n) acc = fmaf(wts[g * NP + r], p[r][2 * GB + e], acc);
+    out[e] = rt::Elem<T>::from_float(acc);
   }
 }
 
@@ -383,9 +383,9 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       rt::cluster_wait();  // rank 0's barrier is ready
       const uint32_t bar = rt::mapa(rt::smem_addr(&pushed), 0);
       const uint32_t dst = rt::mapa(slot, 0);
-      for (int g = lane; g < gb; g += 32)
-        rt::st_async(dst + 8 * g, make_float2(part[2 * g], part[2 * g + 1]),
-                     bar);
+      if (lane < gb)
+        rt::st_async(dst + 8 * lane,
+                     make_float2(part[2 * lane], part[2 * lane + 1]), bar);
       for (int c = lane; c < gb * HD / 4; c += 32)
         rt::st_async(dst + 4 * (2 * GB + 4 * c),
                      *reinterpret_cast<const float4*>(pacc + 4 * c), bar);
@@ -401,7 +401,7 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     rt::mbar_wait(&pushed, 0);
   }
   __syncthreads();  // both warps' parts are in place
-  const float* pp[MAX_SPLIT * WARPS];
+  const float* pp[NP];
 #pragma unroll
   for (int r = 0; r < MAX_SPLIT; ++r)
 #pragma unroll
@@ -412,12 +412,10 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  : reinterpret_cast<const float*>(smem + Lay::SLOTS_OFF) +
                        ((r - 1) * WARPS + w) * slot_n;
   float* wts = reinterpret_cast<float*>(smem + Lay::WTS_OFF);
-  merge_weights<MAX_SPLIT * WARPS>(pp, n_split * WARPS, gb, wts);
+  merge_weights(pp, n_split * WARPS, gb, wts);
   __syncthreads();
-  T* ob = o + ((long long)b * H + h0) * HD;
-  merge_values<MAX_SPLIT * WARPS, HD>(
-      pp, n_split * WARPS, gb, wts,
-      [&](int e, float x) { ob[e] = E::from_float(x); });
+  merge_values<T, HD>(pp, n_split * WARPS, gb, wts,
+                      o + ((long long)b * H + h0) * HD);
 }
 
 // raise a kernel's dynamic shared-memory limit once a device
@@ -464,6 +462,30 @@ int launch(const void* q, const void* k, const void* v, const void* length,
       v_ss, v_sh, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Clusters of n_split blocks (G query heads a KV head) that the card holds
+// at once (cudaOccupancyMaxActiveClusters), or minus the cudaError_t.
+template <typename T, int HD>
+int max_clusters(int n_split, int G) {
+  static unsigned long long done = 0;
+  auto kern = fd_kernel<T, HD>;
+  cudaError_t err = allow_smem(kern, Layout<T, HD>::MAX_B, done);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem_bytes<T, HD>(n_split, G < GB ? G : GB);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 template <typename T>
@@ -522,4 +544,24 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   return launch_hd<float>(hd, q, k, v, length, o, B, S, H, K, q_sb, q_sh,
                           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
                           n_split, st);
+}
+
+// Clusters of a launch at (hd, dtype, n_split, G) that the card holds at
+// once, or minus the cudaError_t: a grid of more clusters runs in waves.
+extern "C" int flash_decode_max_clusters(int hd, int is_bf16, int n_split,
+                                         int G) {
+  using bf16 = __nv_bfloat16;
+  if (n_split < 1 || n_split > MAX_SPLIT || G < 1)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  switch (2 * hd + (is_bf16 != 0)) {
+    case 32: return max_clusters<float, 16>(n_split, G);
+    case 33: return max_clusters<bf16, 16>(n_split, G);
+    case 64: return max_clusters<float, 32>(n_split, G);
+    case 65: return max_clusters<bf16, 32>(n_split, G);
+    case 128: return max_clusters<float, 64>(n_split, G);
+    case 129: return max_clusters<bf16, 64>(n_split, G);
+    case 256: return max_clusters<float, 128>(n_split, G);
+    case 257: return max_clusters<bf16, 128>(n_split, G);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -618,9 +618,9 @@ dec_kn_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ w,
 #pragma unroll
     for (int p = 0; p < PER; ++p)
       rt::st_async(rt::mapa(rt::smem_addr(slots + (rank - 1) * ACC * 32 +
-                                  4 * threadIdx.x + 4 * NT * p),
-                    0),
-               v[p], bar);
+                                          4 * threadIdx.x + 4 * NT * p),
+                            0),
+                   v[p], bar);
     return;
   }
   if (split > 1) {

@@ -20,6 +20,7 @@ launches the kernel or raises — there is no fallback.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -32,7 +33,7 @@ NAME = "flash_decode"
 TILE = 16         # cache positions a tile; splits are multiples of it
 MAX_SPLIT = 8     # blocks a cluster (the portable limit); csrc's MAX_SPLIT
 WARPS = 2         # warps a block, warp w taking its tiles w, w + 2, ...
-WAVE = 2.5        # blocks an SM, at most: every cluster resident at once
+WAVE = 1          # blocks an SM, at most, unless one a pair exceeds it
 SMS = 132         # the H100's SMs
 _SMS: dict = {}   # torch.device -> its SM count
 
@@ -44,14 +45,29 @@ def plan(B: int, K: int, S: int, sms: int = SMS):
     on each of ``sms`` SMs, at most ``MAX_SPLIT`` (one cluster) and at most
     one per 16-position tile; each takes ``split`` positions, a multiple of
     16, the last one the rest. At the serve shape (B 8, K 8, S 576) that is
-    5 blocks of 128 positions: the card holds three such blocks (61 KB of
-    shared memory each) an SM, and every cluster is resident at once (at 8
-    blocks of 80 positions, clusters that must share a GPC leave some of
-    them for a second wave)."""
+    2 blocks of 288 positions, 128 blocks for 132 SMs. A block streams
+    near the card's rate by itself, and more blocks an SM measured slower
+    (tools/flash_decode_plans.py): more parts to merge, and past about
+    2.5 blocks an SM clusters that must share a GPC no longer fit at once
+    and run in a second wave."""
     tiles = max(1, -(-S // TILE))
     n = min(MAX_SPLIT, tiles, max(1, int(WAVE * sms) // max(1, B * K)))
     split = -(-tiles // n) * TILE
     return split, max(1, -(-S // split))
+
+
+def max_clusters(n_split: int, G: int, hd: int = 128,
+                 dtype=torch.bfloat16) -> int:
+    """Clusters of ``n_split`` blocks (G query heads a KV head) that the
+    current card holds at once, by the launcher's
+    ``cudaOccupancyMaxActiveClusters``: a grid of more runs in waves."""
+    fn = build.load(NAME).flash_decode_max_clusters
+    fn.argtypes = [ctypes.c_int] * 4
+    n = fn(hd, int(dtype == torch.bfloat16), n_split, G)
+    if n < 0:
+        raise RuntimeError(f"{NAME}: occupancy query failed with "
+                           f"cudaError_t {-n}")
+    return n
 
 
 def _sms(dev) -> int:

@@ -33,13 +33,14 @@ LOG2E = 1.4426950408889634
 
 
 @pytest.mark.parametrize("B,K,S,want", [
-    (8, 8, 576, (128, 5)),      # qwen3-0.6b's serve step: 320 blocks
-    (8, 8, 8192, (1648, 5)),    # a cache past the L2
+    (8, 8, 576, (288, 2)),      # qwen3-0.6b's serve step: 128 blocks
+    (8, 8, 8192, (4096, 2)),    # a cache past the L2
+    (4, 8, 576, (144, 4)),      # half the batch: twice the splits
     (2, 2, 100, (16, 7)),       # S not a multiple of 16: one tile a block
     (1, 1, 577, (80, 8)),       # one pair: a whole cluster
     (1, 1, 15, (16, 1)),        # S < 16: one block
     (1, 1, 1, (16, 1)),         # S = 1
-    (33, 4, 576, (288, 2)),     # B·K = 132: two blocks a pair
+    (33, 4, 576, (576, 1)),     # B·K = 132: a block a pair fills the SMs
     (64, 8, 300, (304, 1)),     # B·K = 512 fills the card unsplit
 ])
 def test_plan(B, K, S, want):

@@ -15,12 +15,22 @@ checkouts' wrappers then run on the same tensors:
 - host µs per call of each wrapper, and of ``torch.cat`` and
   ``scaled_dot_product_attention`` on the same inputs (controls that no
   checkout touches: they read the host's own speed), over back-to-back
-  calls, the median of 5 rounds taken in turns;
-- device ms per call by CUDA-graph replay, in turns (old, new, new, old
-  within each of 5 rounds), at the host tier's act shape and a full-size
-  trajectory for ``pack``, and at qwen3-0.6b's last serve step (B 8, S 576,
-  L 574, H 16, K 8, hd 128, bf16) and a cache past the L2 (S 8192) for
-  ``flash_decode``; each with the medians and the rounds' ranges.
+  calls;
+- device ms per call by CUDA-graph replay, at the host tier's act shape
+  and a full-size trajectory for ``pack``, and at qwen3-0.6b's last serve
+  step (B 8, S 576, L 574, H 16, K 8, hd 128, bf16) and a cache past the
+  L2 (S 8192) for ``flash_decode``.
+
+Each measurement runs in turns: 5 rounds, each calling old, new and the
+control in order and then in reverse; it prints the median of the 10
+readings and their range.
+
+Then qwen3-0.6b at full width (random weights from seed 0, batch 8,
+prompt 512), in bf16 and with int8 weights: a prefill and 63 decode steps,
+the old and the new ``flash_decode`` registered with the dispatcher in
+turns (old, new, new, old, 3 rounds) in this one process, so the host's
+speed falls on both alike: decode wall ms a token, and the device ms of a
+decode step from the profiler.
 
 The card's name and power limit come first; then one JSON line.
 """
@@ -103,13 +113,79 @@ def graph_ms(fn, arg_sets, calls, replays=5):
 
 def in_turns(fns, rounds=5):
     """{name: (median, min, max)} over ``rounds`` rounds of calling each of
-    ``fns`` (name -> zero-argument timer) in the given order, then reversed."""
+    ``fns`` (name -> zero-argument timer) in the given order, then
+    reversed."""
     got = {k: [] for k in fns}
     for _ in range(rounds):
         order = list(fns) + list(reversed(fns))
         for k in order:
             got[k].append(fns[k]())
     return {k: (statistics.median(v), min(v), max(v)) for k, v in got.items()}
+
+
+def device_ms(fn, steps):
+    """Device ms per call of ``fn`` from the profiler's kernel events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+
+
+def decode_turns(mods, gen, rounds=3, new_tokens=64):
+    """qwen3-0.6b decode with the old and the new flash_decode in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.policy import BackbonePolicy
+    from repro_torch.rl import actor
+    impl = {"old": mods["flash_decode"].flash_decode,
+            "new": new_fd.flash_decode}
+    cfg = get_config("qwen3-0.6b")
+    out = {}
+    for quantize in (None, "int8"):
+        policy = BackbonePolicy(cfg, generator=gen, quantize=quantize)
+        prompt = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen,
+                               device="cuda")
+        prefill = actor.make_prefill_step(policy, 512 + new_tokens)
+        serve = actor.make_serve_step(policy)
+        wall = {"old": [], "new": []}
+        dev = {"old": [], "new": []}
+        try:
+            for _ in range(rounds):
+                for name in ("old", "new", "new", "old"):
+                    dispatch.register("flash_decode",
+                                      dispatch.CUDA)(impl[name])
+                    state = list(prefill(prompt, gen))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(new_tokens - 1):
+                        state[0], _, state[2] = serve(state[0], state[2],
+                                                      gen)
+                    torch.cuda.synchronize()
+                    wall[name].append((time.perf_counter() - t0) * 1e3 /
+                                      (new_tokens - 1))
+                    state = list(prefill(prompt, gen))
+
+                    def step():
+                        state[0], _, state[2] = serve(state[0], state[2],
+                                                      gen)
+                    dev[name].append(device_ms(step, 8))
+        finally:
+            dispatch.register("flash_decode", dispatch.CUDA)(
+                new_fd.flash_decode)
+        out[quantize or "bf16"] = {
+            "decode wall ms/token": {k: (statistics.median(v), min(v),
+                                         max(v)) for k, v in wall.items()},
+            "decode device ms/step": {k: (statistics.median(v), min(v),
+                                          max(v)) for k, v in dev.items()}}
+        del policy, state
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -176,6 +252,8 @@ def main():
             "SDPA": lambda: graph_ms(sdpa, sets, calls)})
         del sets
         torch.cuda.empty_cache()
+    out["qwen3-0.6b decode, flash_decode old and new in turns"] = \
+        decode_turns(mods, gen)
     print(json.dumps(out), flush=True)
 
 
