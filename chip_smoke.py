@@ -9,7 +9,7 @@ lines; any failure ends the run with a traceback and a non-zero exit:
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
   2. build       nvcc builds every kernel (one process per source, together);
-                 beside it a second compile of flash_decode.cu,
+                 beside it a second compile of ssd.cu, flash_decode.cu,
                  flash_attention.cu and quant_matmul.cu with ``-Xptxas -v``
                  prints each kernel's registers and spills (none allowed in
                  the serve-path instances), and ``cuobjdump -sass`` of the
@@ -27,10 +27,15 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  576, 100, 577, 1000 and at B 64, 1 to 20 query heads a KV
                  head at every head dim, strided cache and q views whose
                  two calls must agree bit for bit) at the same tolerances;
-                 GAE f32 at 1e-5;
-                 SSD (y and h_last) bf16 at the serve shape at 2e-2, f32 at
-                 edge shapes (ragged T, T = 1, T < chunk, x a strided view,
-                 stride-0 B_/C, two groups) at 1e-4
+                 GAE f32 at 1e-5 (``GAE_CASES``: B 1 to 10,000, T 1 to
+                 1000, two calls bit for bit);
+                 SSD (y and h_last) bf16 at the serve shape at 2e-2 (two
+                 calls bit for bit), f32 at edge shapes (ragged T, T = 1,
+                 T < chunk, x a strided view, stride-0 B_/C, two groups)
+                 at 1e-4, bf16 on the tensor cores (``SSD_TC_CASES``: T 1
+                 to 2048, one and two groups, x a view or dense) at 2e-2,
+                 each call on the route ``ssd.route`` names, as the
+                 launcher counted it
                  quant_matmul (int8 and int4 weights, x in bf16 at 2e-2
                  and f32 at 1e-4) at the seven serve shapes, M = 8 and
                  4096 (the tied unembed, 151936 x 1024 read as (N, K), at
@@ -61,11 +66,13 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  top of qwen3's for the quantised runs, whose quant_matmul
                  routes (as its launcher counted them) must read 63 x 168 +
                  64 decode-kernel launches (every call at M = 8) and 168
-                 wgmma prefill ones; every qwen3 run's greedy tokens (a
+                 wgmma prefill ones, and mamba2's 48 ssd launches must all
+                 take the tensor cores; every run's greedy tokens (a
                  prefill and 16 greedy steps) must repeat exactly in a
                  second run; prints prefill ms, decode ms/token, tok/s,
                  a profile of one prefill and 8 decode steps (device
-                 time, idle share, top kernels), and each kernel's ms beside
+                 time, idle share, top kernels; for mamba2 the ssd
+                 kernel's ms of the prefill's), and each kernel's ms beside
                  its plain version's, its bound and, for attention,
                  ``scaled_dot_product_attention`` (a yardstick the port never
                  calls)
@@ -108,7 +115,9 @@ in turns over 9 rounds by CUDA-graph replay, and the row gives each one's
 median; a line before it does the same at T 2048, where operations bound
 it. flash_decode's row is timed the same way against SDPA over the filled
 prefix at the last serve step, and a line before it at S 8192, whose
-caches exceed the L2. pack's row is timed by CUDA-graph
+caches exceed the L2. ssd's row is the median of 7 CUDA-graph
+replays at mamba2's serve shape, and a line before it times T 2048, a walk
+of 16 chunks. pack's row is timed by CUDA-graph
 replay at the host tier's act shape, with ``torch.cat`` as its library
 call, and a line before it times it at a full-size trajectory's bytes
 emulation, whose inputs exceed the L2. flash_decode and pack also print
@@ -162,7 +171,8 @@ from repro_torch.kernels.gae import gae  # noqa: E402
 from repro_torch.kernels.pack import MAX_LEAVES, pack  # noqa: E402
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
     alignment as qmm_alignment, quant_matmul, route as qmm_route)
-from repro_torch.kernels.ssd import ssd  # noqa: E402
+from repro_torch.kernels.ssd import (  # noqa: E402
+    alignment as ssd_alignment, route as ssd_route, ssd)
 from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
 from repro_torch.rl import actor  # noqa: E402
@@ -205,6 +215,16 @@ FA_LONG = 2048      # a prompt length where operations bound flash_attention
 FD_LONG = 8192      # a cache length whose K/V (268 MB) exceeds the L2
 # mamba2-1.3b's SSD at the serve shape: heads, head dim, state, groups, chunk
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q = 64, 64, 128, 1, 128
+SSD_LONG = 2048     # a prompt length whose chunk walk is 16 chunks
+SSD_PATHS = build.ROUTES["ssd"][1]      # the launcher's routes
+# the tensor-core route's parity cases: T below a tile, about a chunk,
+# ragged, 16 chunks; one and two groups; x a view of the conv output or dense
+SSD_TC_CASES = tuple(itertools.product((1, 15, 127, 128, 129, 300, 2048),
+                                       (1, 2), (True, False)))
+# GAE's parity cases: envs about a warp and past the card's blocks, T of
+# one step, ragged segments, one chunk a segment (64) and streamed (1000)
+GAE_CASES = tuple(itertools.product((1, 31, 33, 4096, 10000),
+                                    (1, 37, 64, 1000), (0.0, 0.1, 0.5)))
 # qwen3-0.6b's quantised products (K, N) per layer: wq, wk, wv, wo, mlp wi,
 # mlp wo; and the tied unembed, the (V, d) table read as (N, K)
 QMM_LAYER = ((1024, 2048), (1024, 1024), (1024, 1024), (2048, 1024),
@@ -335,7 +355,9 @@ def phase_build():
 
 
 # Kernel instances by their mangled names, for the ptxas and SASS reports:
-# flash_decode's bf16 (mma.sync) and f32 (CUDA cores) kernels by head dim;
+# ssd's bf16 tensor-core kernel (every head dim <= 64) and its CUDA-core
+# kernels by dtype and head dim; flash_decode's bf16 (mma.sync) and f32
+# (CUDA cores) kernels by head dim;
 # flash_attention's bf16 kernels on wgmma (head dims 64, 128) or mma.sync
 # (16, 32) and its f32 kernels; quant_matmul's bf16 decode kernels by
 # layout, weight and m-tiles (MT 1 serves M <= 8), its wgmma prefill
@@ -360,7 +382,15 @@ def _qmm_fma(m):
             f"{m.group(4)}")
 
 
+def _ssd_cc(m):
+    return (f"{'f32' if m.group(1) == 'f' else 'bf16'} CUDA cores head dim "
+            f"<= {32 * int(m.group(2))}")
+
+
 INSTANCES = {
+    "ssd": [
+        (re.compile(r"ssd_tc_kernel"), lambda m: "bf16 tensor cores"),
+        (re.compile(r"ssd_kernelI(f|13__nv_bfloat16)Li(\d)E"), _ssd_cc)],
     "flash_decode": [
         (re.compile(r"fd_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
          lambda m: f"{'f32' if m.group(1) == 'f' else 'bf16'} hd "
@@ -377,6 +407,8 @@ INSTANCES = {
 # SASS each instance must hold, by label prefix: (count of instances,
 # groups of instructions of which each group needs one)
 SASS_NEEDS = {
+    "ssd": {"bf16 tensor cores": (1, (("HMMA", "HGMMA"),
+                                      ("LDGSTS", "UTMALDG")))},
     "flash_decode": {"bf16": (4, (("HMMA",), ("LDGSTS",)))},
     "flash_attention": {"bf16": (4, (("HMMA", "HGMMA"),
                                      ("LDGSTS", "UTMALDG")))},
@@ -384,7 +416,8 @@ SASS_NEEDS = {
                      "bf16 wgmma": (2, (("HGMMA",), ("UTMALDG",)))},
 }
 # instances on the serve path, where ptxas must report no spills
-NO_SPILLS = {"flash_decode": ("bf16 hd 128",),
+NO_SPILLS = {"ssd": ("bf16 tensor cores",),     # mamba2's P 64 among them
+             "flash_decode": ("bf16 hd 128",),
              "flash_attention": ("bf16 wgmma hd 128",),
              "quant_matmul": ("bf16 decode (K, N) int8 MT 1",
                               "bf16 decode (K, N) int4 MT 1",
@@ -538,9 +571,20 @@ def phase_parity(gen):
             if B == TRAIN_ENVS:
                 errs["gae"] = max(errs["gae"], err)
             cases += 1
+    # GAE over envs and lengths about its segments; two calls give the
+    # same bits
+    for B, T, done_p in GAE_CASES:
+        r, v, d, lv = gae_inputs(gen, B, T, done_p)
+        got = gae(r.T, v.T, d.T, lv, GAMMA, LAM)
+        check_close(f"gae ({B}, {T}) done_p {done_p}", got,
+                    ref.gae(r.T, v.T, d.T, lv, GAMMA, LAM), 1e-5)
+        if not torch.equal(got, gae(r.T, v.T, d.T, lv, GAMMA, LAM)):
+            raise AssertionError(f"gae ({B}, {T}): two calls differ")
+        cases += 1
     # SSD: the serve shape in bf16 as models/ssm.py hands it over, then
     # edge shapes in f32 (B, T, H, P, N, G, chunk, x a view of the conv
-    # output)
+    # output), each on the route the wrapper's ``route`` names, as the
+    # launcher counted it
     for shape, dtype, tol in (
             ((BATCH, PROMPT, SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q, True),
              torch.bfloat16, 2e-2),
@@ -553,12 +597,21 @@ def phase_parity(gen):
             ((1, 70, 2, 128, 128, 1, 128, False), torch.float32, 1e-4)):
         B, T, H, P, N, G, Q, view = shape
         args = ssd_inputs(gen, B, T, H, P, N, G, dtype, view)
-        (y, h), (ry, rh) = ssd(*args, chunk=Q), ref.ssd(*args)
-        err = max(check_close(f"ssd y {shape} {dtype}", y, ry, tol),
-                  check_close(f"ssd h_last {shape} {dtype}", h, rh, tol))
-        if B == BATCH:
-            errs["ssd"] = err
-        cases += 1
+        cases += ssd_case(f"{shape} {dtype}", args, Q, tol, errs,
+                          B == BATCH)
+    # the tensor-core route at mamba2's widths over lengths, groups and
+    # layouts; the serve shape's two calls give the same bits
+    for T, G, view in SSD_TC_CASES:
+        args = ssd_inputs(gen, 2, T, 4, SSD_P, SSD_N, G, torch.bfloat16,
+                          view)
+        cases += ssd_case(f"(2, {T}, 4, {SSD_P}, {SSD_N}, {G}, {SSD_Q}, "
+                          f"{view}) bf16", args, SSD_Q, 2e-2, errs, False)
+    args = ssd_inputs(gen, BATCH, PROMPT, SSD_H, SSD_P, SSD_N, SSD_G,
+                      torch.bfloat16, True)
+    (y1, h1), (y2, h2) = (ssd(*args, chunk=SSD_Q) for _ in range(2))
+    if not (torch.equal(y1, y2) and torch.equal(h1, h2)):
+        raise AssertionError("ssd at the serve shape: two calls differ")
+    del args, y1, h1, y2, h2
     # quant_matmul: the serve shapes at decode and prefill M, the unembed at
     # decode M, then the edge shapes; int8 and int4, x in bf16 and f32
     errs["quant_matmul"] = 0.0
@@ -600,6 +653,25 @@ def phase_parity(gen):
           f"(bf16; quant_matmul int8), the training shape (gae, f32) and "
           f"the host tier's shapes (pack, exact): {errs}", flush=True)
     return errs
+
+
+def ssd_case(what, args, chunk, tol, errs, serve):
+    """One SSD parity case: y and h_last against the plain version, and the
+    route the launcher counted against the wrapper's rule; 1."""
+    x, _, _, B_, C = args
+    want = ssd_route(x.dtype, x.shape[-1], B_.shape[-1], chunk,
+                     ssd_alignment(x, B_, C))
+    build.routes("ssd", reset=True)
+    (y, h), (ry, rh) = ssd(*args, chunk=chunk), ref.ssd(*args)
+    taken = build.routes("ssd")
+    if taken != {p: int(p == want) for p in SSD_PATHS}:
+        raise AssertionError(f"ssd {what}: the launcher took {taken}, the "
+                             f"route rule names {want}")
+    err = max(check_close(f"ssd y {what}", y, ry, tol),
+              check_close(f"ssd h_last {what}", h, rh, tol))
+    if serve:
+        errs["ssd"] = err
+    return 1
 
 
 def fd_cases():
@@ -812,6 +884,10 @@ def phase_serve(gen, arch, quantize=None):
     if routes != want_routes:
         raise AssertionError(f"quant_matmul routes {routes}, expected "
                              f"{want_routes}")
+    ssd_routes = build.routes("ssd")      # every SSM prefill on the tensor
+    if ssd_routes != {"tensor_core": want["ssd"], "cuda_core": 0}:  # cores
+        raise AssertionError(f"ssd routes {ssd_routes}, expected "
+                             f"{want['ssd']} tensor_core")
     if out.shape != (BATCH, NEW) or out.dtype != torch.int32 or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {out.shape} {out.dtype}")
@@ -836,16 +912,16 @@ def phase_serve(gen, arch, quantize=None):
     print(f"[5 serve] {name} bf16 B{BATCH} prompt {PROMPT} +{NEW} tokens: "
           f"generate {total_s * 1e3:.1f} ms, {tok_s:.1f} tok/s; prefill "
           f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/token; launches "
-          f"{launches}{f'; quant_matmul routes {routes}' if quantize else ''}",
+          f"{launches}{f'; quant_matmul routes {routes}' if quantize else ''}"
+          f"{f'; ssd routes {ssd_routes}' if want['ssd'] else ''}",
           flush=True)
-    if arch == ARCH:
-        first, again = (greedy_tokens(policy, prompt, max_len)
-                        for _ in range(2))
-        if not torch.equal(first, again):
-            raise AssertionError(f"{name}: greedy tokens differ between two "
-                                 f"runs")
-        print(f"[5 serve] {name}: greedy tokens of two runs (prefill + "
-              f"{GREEDY_STEPS} steps) are identical", flush=True)
+    first, again = (greedy_tokens(policy, prompt, max_len)
+                    for _ in range(2))
+    if not torch.equal(first, again):
+        raise AssertionError(f"{name}: greedy tokens differ between two "
+                             f"runs")
+    print(f"[5 serve] {name}: greedy tokens of two runs (prefill + "
+          f"{GREEDY_STEPS} steps) are identical", flush=True)
 
     # where the time goes: one profiled prefill, then 8 profiled decode steps
     state = {}
@@ -858,7 +934,7 @@ def phase_serve(gen, arch, quantize=None):
                                                  gen)
 
     profile_steps("5 serve", f"{name} prefill", run_prefill, 1,
-                  prefill_ms)
+                  prefill_ms, ("ssd_tc_kernel",) if want["ssd"] else ())
     profile_steps("5 serve", f"{name} decode step", run_decode, 8,
                   decode_ms)
     del policy, caches
@@ -887,10 +963,11 @@ def device_times(fn, steps):
     return by_name, len(dev)
 
 
-def profile_steps(tag, label, fn, steps, wall_ms):
+def profile_steps(tag, label, fn, steps, wall_ms, kernels=()):
     """Profile ``steps`` calls of ``fn``; print the device time per step
     against ``wall_ms`` (the same step timed without the profiler), the
-    device's idle share, the kernels run per step and the top kernels."""
+    device's idle share, the kernels run per step and the top kernels, and
+    the device ms per step of each of ``kernels`` beside the step's."""
     by_name, ops = device_times(fn, steps)
     if by_name is None:
         print(f"[{tag}] {label}: device time not measured (the profiler "
@@ -902,6 +979,10 @@ def profile_steps(tag, label, fn, steps, wall_ms):
           f"(idle {100 * (1 - busy / wall_ms):.1f}%), {ops / steps:.0f} "
           f"device ops/step; top: " + ", ".join(
               f"{n[:40]} {t / steps:.3f} ms" for n, t in top), flush=True)
+    for k in kernels:
+        ms = by_name.get(k, 0.0) / steps
+        print(f"[{tag}] {label}: {k} {ms:.3f} ms of the step's {busy:.3f} ms "
+              f"device time ({100 * ms / busy:.1f}%)", flush=True)
 
 
 def phase_train():
@@ -1332,16 +1413,28 @@ def kernel_rows(gen, launches, errs):
           f"computes GAE, so there is no library time", flush=True)
     del gae_sets
 
-    # SSD at mamba2's serve shape, laid out as models/ssm.py gives it: 3
-    # input sets of 36.7 MB (110 MB)
-    ssd_sets = [ssd_inputs(gen, BATCH, PROMPT, SSD_H, SSD_P, SSD_N, SSD_G,
-                           bf, True) for _ in range(3)]
-    flops, nbytes = ssd_work(BATCH, PROMPT, SSD_H, SSD_P, SSD_N, SSD_G,
-                             SSD_Q, 2)
-    rows.append(("ssd", flops, PEAK_FLOPS, nbytes,
-                 cuda_ms(lambda *a: ssd(*a, chunk=SSD_Q), ssd_sets, 20),
-                 cuda_ms(ref.ssd, ssd_sets, 3), None))
-    del ssd_sets
+    # SSD laid out as models/ssm.py gives it, by graph replay (median of 7):
+    # first a line at T 2048 (one input set of 147 MB), a walk of 16 chunks;
+    # then mamba2's serve shape, 3 input sets of 36.7 MB (110 MB)
+    for T in (SSD_LONG, PROMPT):
+        ssd_sets = [ssd_inputs(gen, BATCH, T, SSD_H, SSD_P, SSD_N, SSD_G, bf,
+                               True) for _ in range(1 if T == SSD_LONG else 3)]
+        flops, nbytes = ssd_work(BATCH, T, SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q,
+                                 2)
+        reps = [graph_ms(lambda *a: ssd(*a, chunk=SSD_Q), ssd_sets,
+                         4 if T == SSD_LONG else 12) for _ in range(7)]
+        ms = statistics.median(reps)
+        bound = max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        print(f"[kernel] ssd B {BATCH} T {T} H {SSD_H} P {SSD_P} N {SSD_N} "
+              f"G {SSD_G} chunk {SSD_Q} bf16, x a view, by graph replay: "
+              f"median {ms:.4f} ms (readings {min(reps):.4f}-"
+              f"{max(reps):.4f}), bound {bound:.4f} ms ({flops:.4g} FLOP, "
+              f"{nbytes:.4g} B; {100 * bound / ms:.1f}% of the bound, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+        if T == PROMPT:
+            rows.append(("ssd", flops, PEAK_FLOPS, nbytes, ms,
+                         cuda_ms(ref.ssd, ssd_sets, 3), None))
+        del ssd_sets
 
     rows.append(pack_row(gen))
 

@@ -49,7 +49,7 @@ SIGNATURES = {
         F, F, P]),                  # gamma, lam, stream
     "ssd": ("ssd_fwd", [
         P, P, P, P, P, P, P,        # x, dt, A, B_, C, y, h_last
-        I, I, I, I, I, I,           # B, T, H, hd, ds, chunk
+        I, I, I, I, I, I,           # B, T, H, hd, ds, chunk (any T)
         L, L, L, L, L, L, L, L,     # x (batch, seq, head, elem), dt (b, s, h), A
         L, L, L, L, L, L, L, L,     # B_ and C (batch, seq, head, elem)
         I, P]),                     # is_bf16, stream
@@ -70,7 +70,8 @@ LAUNCHES = {name: 0 for name in SIGNATURES}
 # a kernel with several paths counts its launches by path in its library:
 # kernel name -> (C function that copies out, and with reset zeroes, the
 # counts, path names in its order); ``routes`` reads them
-ROUTES = {"quant_matmul": ("quant_matmul_routes", ("decode", "wgmma", "fma"))}
+ROUTES = {"quant_matmul": ("quant_matmul_routes", ("decode", "wgmma", "fma")),
+          "ssd": ("ssd_routes", ("tensor_core", "cuda_core"))}
 
 _LIBS: dict = {}
 

@@ -326,6 +326,33 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// -- launch helpers (host) ----------------------------------------------------
+
+// SMs of the current device, read once a device
+inline int sm_count() {
+  static int cache[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& n = cache[dev & 63];
+  if (n == 0) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// Raise a kernel's dynamic shared-memory limit once a device (done: a bit
+// per device, one word per kernel instance).
+template <typename F>
+cudaError_t allow_smem(F kern, int bytes, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
 // cuTensorMapEncodeTiled from the driver, found through the runtime (no
 // link against libcuda); null where the driver lacks it.
 inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {

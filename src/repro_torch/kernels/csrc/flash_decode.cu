@@ -418,20 +418,6 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       o + ((long long)b * H + h0) * HD);
 }
 
-// raise a kernel's dynamic shared-memory limit once a device
-template <typename F>
-cudaError_t allow_smem(F kern, int bytes, unsigned long long& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done |= bit;
-  return err;
-}
-
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* length,
            void* o, int B, int S, int H, int K, long long q_sb, long long q_sh,
@@ -440,7 +426,7 @@ int launch(const void* q, const void* k, const void* v, const void* length,
            int n_split, cudaStream_t stream) {
   static unsigned long long done = 0;  // devices with the limit raised
   auto kern = fd_kernel<T, HD>;
-  cudaError_t err = allow_smem(kern, Layout<T, HD>::MAX_B, done);
+  cudaError_t err = rt::allow_smem(kern, Layout<T, HD>::MAX_B, done);
   if (err != cudaSuccess) return err;
   const int G = H / K, HG = (G + GB - 1) / GB;
   cudaLaunchConfig_t cfg = {};
@@ -470,7 +456,7 @@ template <typename T, int HD>
 int max_clusters(int n_split, int G) {
   static unsigned long long done = 0;
   auto kern = fd_kernel<T, HD>;
-  cudaError_t err = allow_smem(kern, Layout<T, HD>::MAX_B, done);
+  cudaError_t err = rt::allow_smem(kern, Layout<T, HD>::MAX_B, done);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split);

@@ -826,29 +826,6 @@ dec_nk_kernel(const bf16* __restrict__ x, const unsigned char* __restrict__ w,
   }
 }
 
-// SMs of the current device, read once a device
-inline int sm_count() {
-  static int cache[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int& n = cache[dev & 63];
-  if (n == 0) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
-
-// raise a kernel's dynamic shared-memory limit once a device
-template <typename F>
-cudaError_t allow_smem(F kern, int bytes, unsigned long long& done) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done & bit) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done |= bit;
-  return err;
-}
-
 template <bool INT4, int MT>
 int launch_kn(const void* x, const void* w, const void* scale, void* out,
               int M, int N, int K, long long sxm, long long sxk, long long ldw,
@@ -860,13 +837,13 @@ int launch_kn(const void* x, const void* w, const void* scale, void* out,
   constexpr int SLOT_B = ACC * 32 * 4;
   static unsigned long long done = 0;
   auto kern = dec_kn_kernel<INT4, MT>;
-  cudaError_t err = allow_smem(kern, BASE + MAX_SPLIT * SLOT_B, done);
+  cudaError_t err = rt::allow_smem(kern, BASE + MAX_SPLIT * SLOT_B, done);
   if (err != cudaSuccess) return err;
   // split K over a cluster as far as one wave of blocks allows, at most
   // MAX_SPLIT ways and never below a k-step a warp
   const int tiles = (N + 127) / 128, KT = (K + 15) / 16;
   int split = 1;
-  while (split < MAX_SPLIT && tiles * (split + 1) <= sm_count() &&
+  while (split < MAX_SPLIT && tiles * (split + 1) <= rt::sm_count() &&
          (split + 1) * WARPS <= KT)
     ++split;
   cudaLaunchConfig_t cfg = {};
@@ -898,11 +875,11 @@ int launch_nk(const void* x, const void* w, const void* scale, void* out,
   constexpr int RING_B = WARPS * RU * 16 * 256;
   static unsigned long long done = 0;
   auto kern = dec_nk_kernel<INT4, MT>;
-  cudaError_t err = allow_smem(kern, KC_MAX * MT * 32 + RING_B, done);
+  cudaError_t err = rt::allow_smem(kern, KC_MAX * MT * 32 + RING_B, done);
   if (err != cudaSuccess) return err;
   const int KC = min(KC_MAX, (K + UK - 1) / UK * UK);
   const int groups = ((N + 15) / 16 + WARPS - 1) / WARPS;
-  const int grid = min(groups, 2 * sm_count());
+  const int grid = min(groups, 2 * rt::sm_count());
   kern<<<grid, NT, KC * MT * 32 + RING_B, stream>>>(
       static_cast<const bf16*>(x), static_cast<const unsigned char*>(w),
       static_cast<const float*>(scale), static_cast<bf16*>(out), M, N, K, sxm,
@@ -1238,7 +1215,7 @@ int launch(const void* x, const void* w, const void* scale, void* out, int M,
   if (err != cudaSuccess) return err;
   static unsigned long long done = 0;
   auto kern = qmm_wg_kernel<INT4>;
-  err = dec::allow_smem(kern, smem_bytes<INT4>(), done);
+  err = rt::allow_smem(kern, smem_bytes<INT4>(), done);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kern<<<grid, NT, smem_bytes<INT4>(), stream>>>(
@@ -1259,7 +1236,7 @@ int launch(const void* x, const void* w, const void* scale, void* out, int M,
   if (C::WK) {
     // split K until there are 4 blocks per SM, at most MAX_SPLIT ways and
     // never past one K step per rank
-    const int sms = dec::sm_count();
+    const int sms = rt::sm_count();
     const long long tiles = (long long)tiles_n * tiles_m;
     while (split < MAX_SPLIT && (split + 1) * C::BK <= K &&
            tiles * split < 4LL * sms)

@@ -1,12 +1,17 @@
 """Mamba2 SSD chunked scan, forward: wrapper of ``csrc/ssd.cu``.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd.py`` (``ssd``, def
-at :69, ``pallas_call`` at :87). On the H100 it is bound by bytes: at the
-serve shape (B 8, T 512, H 64, hd 64, ds 128) it must read x, dt, B_ and C
-and write y and h_last, 87 MB with B_/C counted once per group, 0.026 ms at
-3.35 TB/s, against 2.1e10 FLOP (0.022 ms on the bf16 tensor cores). This
-first kernel does its math in f32 on the CUDA cores: one block per
-(batch, head) walks the chunks with the state in shared memory.
+at :69, ``pallas_call`` at :87). At the serve shape (B 8, T 512, H 64, hd
+64, ds 128) it must read x, dt, B_ and C and write y and h_last, 87 MB with
+B_/C counted once per group, 0.026 ms at 3.35 TB/s, against 2.1e10 FLOP:
+0.022 ms on the bf16 tensor cores, 0.32 ms on the f32 CUDA cores. So bf16
+calls take the tensor cores (``route``): a block walks a (batch, head)'s
+chunks with the state in registers, its four products on ``mma.sync`` and
+the next chunk's loads in flight; the masked scores and the carried state
+enter their products as bf16 hi + lo and x·w rounded once to bf16
+(``csrc/ssd.cu`` states the contract; ``tests/test_torch_ssd_route.py``
+holds it to JAX). f32 calls, and shapes the tiles cannot take, keep the
+CUDA-core kernel.
 
 The kernel reads every input through its strides, so ``models/ssm.py``
 passes x as a view of the conv output and, with one group, B_ and C as
@@ -26,6 +31,7 @@ from repro_torch.kernels._checks import DTYPES
 
 NAME = "ssd"
 MAX_DIM = 128           # chunk, head dim and state size the kernel takes
+TC_MAX_HD = 64          # largest head dim on the tensor cores
 
 
 def _check(x, dt, A, B_, C) -> None:
@@ -47,6 +53,30 @@ def _check(x, dt, A, B_, C) -> None:
         raise ValueError(f"{NAME}: needs T >= 1, got {T}")
 
 
+def alignment(x, B_, C) -> bool:
+    """Whether x, B_ and C each have a unit element stride and 16-byte
+    aligned bases and (batch, seq, head) strides (in bf16: multiples of 8
+    elements), as the tensor cores' 16-byte asynchronous copies need."""
+    return all(t.stride(3) == 1 and t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3])
+               for t in (x, B_, C))
+
+
+def route(dtype, hd: int, ds: int, chunk: int, aligned: bool) -> str:
+    """The kernel a CUDA call takes, by the rule ``ssd_fwd`` of
+    ``csrc/ssd.cu`` applies to the same arguments (it counts the route it
+    took under these names, ``build.routes``): bf16 x with head dim and
+    state size multiples of 16, head dim <= 64, chunk >= 16 and inputs the
+    16-byte copies can read (``alignment``) the tensor cores
+    ("tensor_core"); all else (f32 x, other shapes) the CUDA cores
+    ("cuda_core"). T does not enter: a chunk shorter than 16 steps (T <
+    16) is padded."""
+    if (dtype == torch.bfloat16 and hd % 16 == 0 and hd <= TC_MAX_HD
+            and ds % 16 == 0 and chunk >= 16 and aligned):
+        return "tensor_core"
+    return "cuda_core"
+
+
 def ssd(x, dt, A, B_, C, chunk: int = 128):
     """x: (B,T,H,hd); dt: (B,T,H) f32; A: (H,) f32; B_, C: (B,T,H,ds) in
     x's dtype. Returns (y (B,T,H,hd) in x.dtype, h_last (B,H,hd,ds) f32),
@@ -66,7 +96,6 @@ def ssd(x, dt, A, B_, C, chunk: int = 128):
                             f"{want} with x {x.dtype}")
     Bb, T, H, hd = x.shape
     ds = B_.shape[-1]
-    Q = min(int(chunk), T)
     for name, n in (("chunk", chunk), ("head dim", hd), ("d_state", ds)):
         if not 1 <= n <= MAX_DIM:
             raise ValueError(f"{NAME}: {name} {n} outside [1, {MAX_DIM}]")
@@ -81,7 +110,8 @@ def ssd(x, dt, A, B_, C, chunk: int = 128):
         err = lib.ssd_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
             C.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-            Bb, T, H, hd, ds, Q, *x.stride(), *dt.stride(), A.stride(0),
+            Bb, T, H, hd, ds, int(chunk), *x.stride(), *dt.stride(),
+            A.stride(0),
             *B_.stride(), *C.stride(), int(x.dtype == torch.bfloat16),
             stream)
     build.check(err, NAME)

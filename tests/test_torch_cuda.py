@@ -8,8 +8,8 @@ it also runs where JAX is not installed:
 
 Tolerances: bf16 2e-2; f32 1e-4 with TF32 off (the kernels sum in another
 order than the plain version's einsum or matmul; SSD chunks where the plain
-version steps); GAE 1e-5 (the kernel contracts
-products into FMAs); one whole learn atol 1e-5, rtol 1e-4 (cuBLAS and the
+version steps); GAE 1e-5 (the kernel contracts products into FMAs and
+combines segments of T through their composed maps); one whole learn atol 1e-5, rtol 1e-4 (cuBLAS and the
 CPU reduce in another order); pack exactly (it copies bytes).
 """
 import numpy as np
@@ -24,6 +24,7 @@ from repro_torch.envs import ocean
 from repro_torch.envs.ocean_host import HostBandit, HostTeam
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import quant_matmul as qmm
+from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.models.policy import BackbonePolicy
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.rl import actor
@@ -228,13 +229,68 @@ def test_ssd_kernel_matches_ref(B, T, H, hd, ds, chunk, layout, dtype,
     x, dt, A, B_, C = _ssd_inputs(rng, B, T, H, hd, ds, dtype, layout)
     want_y, want_h = ref.ssd(x, dt, A, B_, C)
     before = build.LAUNCHES["ssd"]
+    build.load("ssd")
+    build.routes("ssd", reset=True)
     y, h = ops.ssd(x, dt, A, B_, C, chunk=chunk)
     assert build.LAUNCHES["ssd"] == before + 1
     torch.cuda.synchronize()
+    want = ssd_mod.route(dtype, hd, ds, chunk, ssd_mod.alignment(x, B_, C))
+    assert build.routes("ssd") == {r: int(r == want) for r in
+                                   build.ROUTES["ssd"][1]}
     assert y.dtype == dtype and h.dtype == torch.float32
     tol = TOL[dtype]
     torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, want_h, atol=tol, rtol=tol)
+
+
+def _conv_inputs(rng, B, T, H, hd, ds, G, view):
+    """bf16 SSD inputs as models/ssm.py hands them over: B_ and C slices of
+    one (B, T, H*hd + 2*G*ds) conv-output row, head h reading group
+    h // (H/G) (stride 0 over heads), and x a slice of the same row
+    (``view``) or a dense tensor of its own."""
+    bf = torch.bfloat16
+    buf = _randn(rng, (B, T, H * hd + 2 * G * ds), bf) * 0.5
+    x = buf[..., :H * hd].unflatten(-1, (H, hd)) if view else \
+        _randn(rng, (B, T, H, hd), bf) * 0.5
+    bc = [buf[..., H * hd + i * G * ds:H * hd + (i + 1) * G * ds]
+          .unflatten(-1, (G, ds)).unsqueeze(-2)
+          .expand(B, T, G, H // G, ds).flatten(-3, -2) for i in range(2)]
+    dt = torch.nn.functional.softplus(_randn(rng, (B, T, H), torch.float32))
+    A = -torch.exp(_randn(rng, (H,), torch.float32) * 0.3)
+    return x, dt, A, bc[0], bc[1]
+
+
+@pytest.mark.parametrize("view", [True, False], ids=["x_view", "x_dense"])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("T", [1, 15, 127, 128, 129, 300, 2048])
+def test_ssd_tensor_core_route_matches_ref(T, G, view):
+    """mamba2's head dim, state and chunk on the tensor cores: T below a
+    tile, about a chunk, ragged, and 16 chunks; one and two groups; x a view
+    of the conv output or dense. The launcher must count the route."""
+    rng = np.random.default_rng(T + 10 * G + view)
+    args = _conv_inputs(rng, 2, T, 4, 64, 128, G, view)
+    x, _, _, B_, C = args
+    assert ssd_mod.route(torch.bfloat16, 64, 128, 128,
+                         ssd_mod.alignment(x, B_, C)) == "tensor_core"
+    build.load("ssd")
+    build.routes("ssd", reset=True)
+    y, h = ops.ssd(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert build.routes("ssd") == {"tensor_core": 1, "cuda_core": 0}
+    want_y, want_h = ref.ssd(*args)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, want_h, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_is_deterministic(dtype):
+    """Two calls give the same bits, on either route."""
+    rng = np.random.default_rng(5)
+    x, dt, A, B_, C = _conv_inputs(rng, 2, 300, 4, 64, 128, 1, True)
+    x, B_, C = x.to(dtype), B_.to(dtype), C.to(dtype)
+    (y1, h1), (y2, h2) = (ops.ssd(x, dt, A, B_, C) for _ in range(2))
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 def test_ssd_kernel_raises_on_what_it_does_not_take():
@@ -379,6 +435,23 @@ def test_gae_kernel_matches_ref_on_time_major_inputs(B, T, done_p):
     lv = _randn(rng, (B,), torch.float32)
     _check("gae", lambda: ops.gae(r.T, v.T, d.T, lv, 0.99, 0.95),
            ref.gae(r.T, v.T, d.T, lv, 0.99, 0.95), "gae")
+
+
+@pytest.mark.parametrize("done_p", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("T", [1, 37, 64, 1000])
+@pytest.mark.parametrize("B", [1, 31, 33, 4096, 10000])
+def test_gae_kernel_over_envs_and_lengths(B, T, done_p):
+    """Envs about a warp and past the card's blocks, T of one step, ragged
+    segments, one chunk a segment (64) and streamed segments (1000); two
+    calls give the same bits."""
+    rng = np.random.default_rng(B + 7 * T + int(10 * done_p))
+    r, v = (_randn(rng, (T, B), torch.float32) for _ in range(2))
+    d = torch.from_numpy(rng.random((T, B)) < done_p).cuda()
+    lv = _randn(rng, (B,), torch.float32)
+    got = ops.gae(r.T, v.T, d.T, lv, 0.99, 0.95)
+    _check("gae", lambda: ops.gae(r.T, v.T, d.T, lv, 0.99, 0.95),
+           ref.gae(r.T, v.T, d.T, lv, 0.99, 0.95), "gae")
+    assert torch.equal(got, ops.gae(r.T, v.T, d.T, lv, 0.99, 0.95))
 
 
 def test_gae_kernel_raises_on_what_it_does_not_take():

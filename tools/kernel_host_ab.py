@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""The parent's ``pack`` and ``flash_decode`` against this checkout's, in
-one process on one card: host microseconds per wrapper call and device
-milliseconds per kernel call.
+"""The parent's kernel wrappers against this checkout's, in one process on
+one card: host microseconds per wrapper call and device milliseconds per
+kernel call.
 
-    python3 tools/kernel_host_ab.py OLD_DIR
+    python3 tools/kernel_host_ab.py OLD_DIR [--only SECTIONS]
 
 Run from the root of the new checkout. OLD_DIR is another checkout of the
 repo (the parent, unpacked with ``git archive``). Its ``kernels/build.py``
 is loaded as a second module, so its libraries build from its own
 ``csrc/`` into its own ``_build/`` with its own C signatures, and its
-``pack.py`` and ``flash_decode.py`` are loaded over that module. Both
-checkouts' wrappers then run on the same tensors:
+``ssd.py``, ``gae.py``, ``pack.py`` and ``flash_decode.py`` are loaded over
+that module. ``--only`` names the sections to run, comma-separated, of
+ssd, gae, pack, flash_decode and decode (all by default). Both checkouts'
+wrappers then run on the same tensors:
 
+- device ms per call of ``ssd`` by CUDA-graph replay at mamba2-1.3b's
+  serve shape (B 8, T 512, H 64, hd 64, ds 128, one group, chunk 128, bf16,
+  x, B_ and C views of one conv-output buffer) and at T 2048, and of
+  ``gae`` at the full-size update (4096 envs x 64 steps, (B, T) views of
+  (T, B) tensors), with no control (no PyTorch call computes either);
 - host µs per call of each wrapper, and of ``torch.cat`` and
   ``scaled_dot_product_attention`` on the same inputs (controls that no
   checkout touches: they read the host's own speed), over back-to-back
@@ -36,6 +43,7 @@ The card's name and power limit come first; then one JSON line.
 """
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import json
 import statistics
@@ -51,7 +59,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import flash_decode as new_fd  # noqa: E402
+from repro_torch.kernels import gae as new_gae  # noqa: E402
 from repro_torch.kernels import pack as new_pack  # noqa: E402
+from repro_torch.kernels import ssd as new_ssd  # noqa: E402
 
 BF = torch.bfloat16
 
@@ -63,13 +73,16 @@ def load_module(name, path):
     return mod
 
 
+WRAPPED = ("ssd", "gae", "pack", "flash_decode")
+
+
 def old_wrappers(old: Path):
-    """OLD_DIR's pack and flash_decode modules, bound to its own build."""
+    """OLD_DIR's wrapper modules, bound to its own build."""
     kdir = old / "src/repro_torch/kernels"
     old_build = load_module("old_build", kdir / "build.py")
-    old_build.build_all(["pack", "flash_decode"])
+    old_build.build_all(WRAPPED)
     mods = {}
-    for name in ("pack", "flash_decode"):
+    for name in WRAPPED:
         mods[name] = load_module(f"old_{name}", kdir / f"{name}.py")
         mods[name].build = old_build
     return mods
@@ -188,21 +201,73 @@ def decode_turns(mods, gen, rounds=3, new_tokens=64):
     return out
 
 
-def main():
-    old = Path(sys.argv[1]).resolve()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
-    mods = old_wrappers(old)
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def ssd_inputs(gen, B, T, H, P, N, G):
+    """x, dt, A, B_, C as models/ssm.py hands them over: x, B_ and C slices
+    of one (B, T, H*P + 2*G*N) bf16 conv-output buffer, B_/C expanded over
+    heads."""
+    buf = torch.randn((B, T, H * P + 2 * G * N), generator=gen,
+                      device="cuda").to(BF) * 0.5
+    x = buf[..., :H * P].unflatten(-1, (H, P))
+    bc = [buf[..., H * P + i * G * N:H * P + (i + 1) * G * N]
+          .unflatten(-1, (G, N)).unsqueeze(-2).expand(B, T, G, H // G, N)
+          .flatten(-3, -2) for i in range(2)]
+    dt = F.softplus(torch.randn((B, T, H), generator=gen, device="cuda"))
+    A = -torch.exp(0.3 * torch.randn(H, generator=gen, device="cuda"))
+    return x, dt, A, bc[0], bc[1]
+
+
+def kernel_turns(mods, gen, only):
+    """ssd and gae, old against new, device ms by graph replay."""
+    out = {}
+    if "ssd" in only:
+        for T, nsets, calls in ((512, 3, 12), (2048, 1, 4)):
+            sets = [ssd_inputs(gen, 8, T, 64, 64, 128, 1)
+                    for _ in range(nsets)]
+            out[f"ssd device ms, T {T}"] = in_turns({
+                "old": lambda: graph_ms(mods["ssd"].ssd, sets, calls),
+                "new": lambda: graph_ms(new_ssd.ssd, sets, calls)})
+            del sets
+            torch.cuda.empty_cache()
+    if "gae" in only:
+        B, T = 4096, 64
+        sets = []
+        for _ in range(24):         # 57 MB, past the L2
+            r, v = (torch.randn((T, B), generator=gen, device="cuda")
+                    for _ in range(2))
+            d = torch.rand((T, B), generator=gen, device="cuda") < 0.1
+            lv = torch.randn(B, generator=gen, device="cuda")
+            sets.append((r.T, v.T, d.T, lv))
+        out["gae device ms, (4096, 64)"] = in_turns({
+            "old": lambda: graph_ms(
+                lambda *a: mods["gae"].gae(*a, 0.95, 0.95), sets, 96),
+            "new": lambda: graph_ms(lambda *a: new_gae.gae(*a, 0.95, 0.95),
+                                    sets, 96)})
+    return out
+
+
+def host_tier_turns(mods, gen, only):
+    """pack and flash_decode, old against new, with their controls; then
+    qwen3-0.6b decode with the two flash_decodes in turns."""
 
     def u8(B, n):
         return torch.randint(0, 256, (B, n), generator=gen, device="cuda",
                              dtype=torch.uint8)
 
-    out = {"card": smi}
-    # pack: the host tier's act shape (B 64, leaves of 4, 4 and 4 bytes)
+    out = {}
+    if "pack" in only:
+        out.update(pack_turns(mods, u8))
+    if "flash_decode" in only:
+        out.update(flash_decode_turns(mods, gen))
+    if "decode" in only:
+        out["qwen3-0.6b decode, flash_decode old and new in turns"] = \
+            decode_turns(mods, gen)
+    return out
+
+
+def pack_turns(mods, u8):
+    """pack at the host tier's act shape and a full-size trajectory."""
+    out = {}
+    # the host tier's act shape (B 64, leaves of 4, 4 and 4 bytes)
     act = [(u8(64, 4), u8(64, 4), u8(64, 4)) for _ in range(16)]
     big = [(u8(262144, 16), u8(262144, 36)) for _ in range(4)]
     leaves = act[0]
@@ -218,9 +283,13 @@ def main():
                                     calls),
             "torch.cat": lambda: graph_ms(lambda *l: torch.cat(l, dim=-1),
                                           sets, calls)})
-    del act, big
+    return out
 
-    # flash_decode: qwen3-0.6b's last serve step, then a cache past the L2
+
+def flash_decode_turns(mods, gen):
+    """flash_decode at qwen3-0.6b's last serve step, then a cache past the
+    L2, with SDPA as the control."""
+    out = {}
     B, H, K, hd = 8, 16, 8, 128
     for S, nsets, calls in ((576, 6, 64), (8192, 2, 8)):
         L = S - 2
@@ -252,8 +321,26 @@ def main():
             "SDPA": lambda: graph_ms(sdpa, sets, calls)})
         del sets
         torch.cuda.empty_cache()
-    out["qwen3-0.6b decode, flash_decode old and new in turns"] = \
-        decode_turns(mods, gen)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("old")
+    ap.add_argument("--only", default="ssd,gae,pack,flash_decode,decode")
+    args = ap.parse_args()
+    old = Path(args.old).resolve()
+    only = set(args.only.split(","))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    mods = old_wrappers(old)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"card": smi}
+    out.update(kernel_turns(mods, gen, only))
+    if only & {"pack", "flash_decode", "decode"}:
+        out.update(host_tier_turns(mods, gen, only))
     print(json.dumps(out), flush=True)
 
 
