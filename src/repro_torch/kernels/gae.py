@@ -4,11 +4,17 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/gae_scan.py`` (``gae``,
 def at :56, ``pallas_call`` at :69). On the H100 it is bound by bytes: it
 reads rewards, values (f32), dones (one byte) and ``last_value`` once and
 writes the advantages once, 13 bytes per element for about 8 FLOP; at the
-full-size update (B 4096, T 64) that is 3.4 MB, about 1 µs at 3.35 TB/s.
+full-size update (B 4096, T 64) that is 3.4 MB, about 1 µs at 3.35 TB/s. A
+walk of T steps in one thread waits on device memory at every few steps,
+so the kernel cuts T into ``SEGMENTS`` segments, one per warp, issues all
+of a segment's loads at once, composes each segment's affine map of the
+carry, combines the maps in a fixed order and walks each segment again from
+its carry (``csrc/gae.cu`` states the summation order;
+``tests/test_torch_ssd_route.py`` emulates it against JAX).
 
 The kernel reads every input through its strides, so the learner passes the
 ``(B, T)`` transposed views of its ``(T, B)`` trajectory without a copy, and
-consecutive threads read consecutive envs. The output is allocated as a
+consecutive lanes read consecutive envs. The output is allocated as a
 ``(T, B)``-contiguous buffer and returned as its ``(B, T)`` view, which the
 learner transposes back for free.
 
@@ -22,6 +28,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 NAME = "gae"
+SEGMENTS = 8            # segments of T the kernel scans at once (SEG)
 
 
 def _check(rewards, values, dones, last_value) -> None:

@@ -1,5 +1,6 @@
-"""The ssd wrapper's route rule, and the arithmetic of its tensor-core
-redesign emulated on the CPU against JAX.
+"""The ssd wrapper's route rule, and the arithmetic of the kernels'
+redesigns (``ssd`` on the tensor cores, ``gae`` as a segmented scan)
+emulated on the CPU against JAX.
 
 ``ssd.route`` names the kernel a CUDA call takes, by the rule the launcher
 in csrc/ssd.cu applies (the card tests hold the launcher's own count to
@@ -18,6 +19,11 @@ to JAX's ``ssd`` (the Pallas body in interpret mode, and the step-by-step
 ``ref``) at 2e-2 in bf16, over T that spans four chunks so that the carried
 state's rounding is exercised.
 
+The GAE emulation repeats csrc/gae.cu's order: T cut into ``gae.SEGMENTS``
+segments of ceil(T / SEGMENTS) steps; each segment's affine map A_in =
+a + b·A_out composed from A_out = 0 backward; the carries combined from the
+last segment down; then each segment's recurrence rerun from its carry. It
+is held to JAX's ``gae`` at 1e-5.
 """
 import math
 
@@ -206,3 +212,73 @@ def test_tensor_core_arithmetic_on_ragged_lengths_matches_jax_ref(T, chunk):
     np.testing.assert_allclose(h.numpy(), np.asarray(jh, np.float32),
                                atol=2e-2, rtol=2e-2)
 
+
+# -- gae: the segmented scan's order ------------------------------------------
+
+def _emulate_gae(r, v, d, lv, gamma, lam):
+    """csrc/gae.cu's arithmetic for (B, T) rewards, values, dones and (B,)
+    last values, in f32."""
+    B, T = r.shape
+    S = gae_mod.SEGMENTS
+    L = -(-T // S)
+    nt = 1.0 - d.float()
+    gl = torch.tensor(gamma * lam, dtype=torch.float32)
+    gamma = torch.tensor(gamma, dtype=torch.float32)
+    v_after = torch.cat([v[:, 1:], lv[:, None]], dim=1)    # V_{t+1}
+    delta = r + gamma * v_after * nt - v
+    bounds = [(min(s * L, T), min(s * L + L, T)) for s in range(S)]
+    maps = []
+    for t0, t1 in bounds:                # A_in = a + c A_out, from A_out = 0
+        a, c = torch.zeros(B), torch.ones(B)
+        for t in range(t1 - 1, t0 - 1, -1):
+            a = delta[:, t] + gl * nt[:, t] * a
+            c = gl * nt[:, t] * c
+        maps.append((a, c))
+    out = torch.empty_like(r)
+    for s, (t0, t1) in enumerate(bounds):
+        adv = torch.zeros(B)
+        for k in range(S - 1, s, -1):    # the later maps, last first
+            adv = maps[k][0] + maps[k][1] * adv
+        for t in range(t1 - 1, t0 - 1, -1):
+            adv = delta[:, t] + gl * nt[:, t] * adv
+            out[:, t] = adv
+    return out
+
+
+@pytest.mark.parametrize("jax_mode", ["interpret", "ref"])
+@pytest.mark.parametrize("B,T,block_t", [
+    (33, 64, 16),     # the full-size update's T: one chunk a segment
+    (3, 1000, 200),   # segments of 125 steps, streamed in chunks
+    (5, 37, 37),      # ragged segments, the last one short
+    (4, 1, 1),        # one step: seven empty segments
+    (2, 9, 9),        # segments of 2 steps, the last three empty
+])
+@pytest.mark.parametrize("done_p", [0.0, 0.1, 0.5])
+def test_segmented_gae_matches_jax(B, T, block_t, done_p, jax_mode):
+    rng = np.random.default_rng(B * T + int(10 * done_p))
+    r = rng.standard_normal((B, T), dtype=np.float32)
+    v = rng.standard_normal((B, T), dtype=np.float32)
+    d = rng.random((B, T)) < done_p
+    lv = rng.standard_normal(B, dtype=np.float32)
+    args = (jnp.asarray(r), jnp.asarray(v), jnp.asarray(d), jnp.asarray(lv))
+    if jax_mode == "ref":
+        want = jref.gae(*args, GAMMA, LAM)
+    else:
+        want = jops.gae(*args, GAMMA, LAM, mode="interpret", block_t=block_t)
+    got = _emulate_gae(*(torch.from_numpy(a) for a in (r, v, d, lv)),
+                       GAMMA, LAM)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_segmented_gae_last_segment_is_the_plain_walk():
+    """With carry 0 the last segment repeats the step-by-step recurrence."""
+    rng = np.random.default_rng(1)
+    r, v = (torch.from_numpy(rng.standard_normal((6, 64), np.float32))
+            for _ in range(2))
+    d = torch.from_numpy(rng.random((6, 64)) < 0.1)
+    lv = torch.from_numpy(rng.standard_normal(6, np.float32))
+    got = _emulate_gae(r, v, d, lv, GAMMA, LAM)
+    want = ref.gae(r, v, d, lv, GAMMA, LAM)
+    torch.testing.assert_close(got[:, 56:], want[:, 56:], atol=0, rtol=0)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
