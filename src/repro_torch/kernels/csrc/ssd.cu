@@ -23,8 +23,9 @@
 // products (C B^T, the masked scores times x, C h^T and (x w)^T B), so the
 // bf16 route puts them on the tensor cores and keeps the next chunk's loads
 // in flight behind them. What is left is latency and shared-memory traffic:
-// two warps a sub-partition, each ldmatrix and mma.sync waiting ~25 cycles
-// for its result, and every 16-row tile reading all of the carried h.
+// two warps a sub-partition, each ldmatrix and mma.sync waiting tens of
+// cycles for its result, and every 16-row tile reading all of the carried
+// h.
 //
 // Two routes; the launcher counts the one each call took (ssd_routes):
 //
@@ -42,8 +43,8 @@
 //   strides, h folded into the base pointer, so x may be a view of the conv
 //   output and B_/C stride-0 expansions over heads. Rows past the chunk and
 //   columns past P or N are zero-filled (src-size 0), so no product needs
-//   a bound. (TMA in place of cp.async measured 2% slower in a one-role
-//   version of this kernel: the copies' issue does not bound it.)
+//   a bound. (TMA in place of cp.async measured 2% slower on an H100 in a
+//   one-role version of this kernel: the copies' issue does not bound it.)
 // - Two roles, one warp of each a sub-partition. 4 y warps: warp w owns
 //   row tiles w and 7 - w of the chunk (16 rows each, the same causal work
 //   for all four), one after the other: the carried state's term
@@ -56,11 +57,12 @@
 //   x_j w_j into shared memory, then h = exp(cum_last) h + (x w)^T B, warp
 //   m owning rows 16m .. 16m + 15 of h in f32 registers from chunk to
 //   chunk; after the y warps are done with the last h they write the new
-//   one for the next chunk's C h^T. Measured at the serve shape (back-to-
-//   back events): one role of 8 warps, the state update after the y
-//   phase, 0.150 ms; 8 y warps beside 4 state warps, 0.127 ms, but 12
-//   warps leave 168 registers a thread and the y warps spilled; these 8
-//   warps, 0.135 ms, 218 registers and no spills.
+//   one for the next chunk's C h^T. At the serve shape on an H100
+//   (tools/kernel_host_ab.py, graph replay): one role of 8 warps, the
+//   state update after the y phase, 0.143 ms; 8 y warps beside 4 state
+//   warps, 0.121 ms, but three warps a sub-partition leave 168 registers
+//   a thread and the y warps spilled; these 8 warps, 0.130 ms with 218
+//   registers and no spills.
 // - Every loop of products runs to fixed bounds (tiles of P 64, N 128 and
 //   128 rows, zeros where the inputs end): a bound tested inside such a
 //   loop became a branch and a warp sync around each ldmatrix and mma.sync,
@@ -76,10 +78,11 @@
 //   masked scores enter S x as bf16 hi + lo (two products); the state is
 //   carried from chunk to chunk in f32 and read by C h^T as bf16 hi + lo;
 //   x_j w_j is rounded once to bf16 for the state update; h_last is the f32
-//   state. (One rounding of S and h, emulated on the CPU at an eighth of
-//   the serve shape, left y at up to 0.83 of the 2e-2 gate; hi + lo at
-//   0.37, near the 0.30 of exact products.) tests/test_torch_ssd_route.py
-//   holds a CPU emulation of exactly this arithmetic to JAX.
+//   state. (tools/ssd_rounding_margin.py, on the CPU at an eighth of the
+//   serve shape: one rounding of S and h left y at up to 0.83 of the 2e-2
+//   gate; hi + lo at 0.37, near the 0.30 of exact products.)
+//   tests/test_torch_ssd_route.py holds a CPU emulation of exactly this
+//   arithmetic to JAX.
 //
 // CUDA cores (f32 x, which the f32 gates need in f32 arithmetic, and shapes
 // the tiles cannot take): one block per (b, h) with the state in shared
