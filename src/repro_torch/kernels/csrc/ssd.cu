@@ -24,8 +24,7 @@
 // bf16 route puts them on the tensor cores and keeps the next chunk's loads
 // in flight behind them. What is left is latency and shared-memory traffic:
 // two warps a sub-partition, each ldmatrix and mma.sync waiting tens of
-// cycles for its result, and every 16-row tile reading all of the carried
-// h.
+// cycles for its result, and every warp reading all of the carried h.
 //
 // Two routes; the launcher counts the one each call took (ssd_routes):
 //
@@ -47,8 +46,9 @@
 //   one-role version of this kernel: the copies' issue does not bound it.)
 // - Two roles, one warp of each a sub-partition. 4 y warps: warp w owns
 //   row tiles w and 7 - w of the chunk (16 rows each, the same causal work
-//   for all four), one after the other: the carried state's term
-//   exp(cum_i) C h^T by mma.sync m16n8k16 (C's rows as A fragments); then
+//   for all four): the carried state's term exp(cum_i) C h^T by mma.sync
+//   m16n8k16 for both tiles in one k-loop (C's rows as A fragments; each
+//   fragment of h read once for the two); then, a tile at a time,
 //   S = C B^T in groups of two 16-column blocks up to the diagonal (groups
 //   wholly above it are skipped, a group's block above it comes out masked
 //   to 0), the mask and exp(cum_i - cum_j) dt_j applied to the
@@ -62,7 +62,8 @@
 //   state update after the y phase, 0.143 ms; 8 y warps beside 4 state
 //   warps, 0.121 ms, but three warps a sub-partition leave 168 registers
 //   a thread and the y warps spilled; these 8 warps, 0.130 ms with 218
-//   registers and no spills.
+//   registers and no spills, and 0.127 ms (230 registers) once the two
+//   tiles' C h^T shared their h fragments.
 // - Every loop of products runs to fixed bounds (tiles of P 64, N 128 and
 //   128 rows, zeros where the inputs end): a bound tested inside such a
 //   loop became a branch and a warp sync around each ldmatrix and mma.sync,
@@ -681,10 +682,60 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     const float* cum = sm.cum[s];
     const float* dts = sm.dt[s];
 
-    // y for this warp's two 16-row tiles, one after the other
-#pragma unroll 1
-    for (int tt = 0; tt < 2; ++tt) {
-      const int tile = tt == 0 ? warp : 7 - warp;
+    // y for this warp's two 16-row tiles (t 0: tile warp, t 1: tile
+    // 7 - warp): both tiles' C h^T in one k-loop, so each h fragment is
+    // read once for both, then each tile's S x
+    float yacc[2][2 * PT][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int n = 0; n < 2 * PT; ++n)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) yacc[t][n][k] = 0.f;
+    if (c0 > 0 && warp * 16 < qv) {  // exp(cum_i) C_i h^T (h is 0 before)
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t cf[2][4], bh[PT][4], bl[PT][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          rt::ldsm_x4(cf[t], &S.c[((t ? 7 - warp : warp) * 16 + ar) * BLD +
+                                  kk * 16 + ak]);
+#pragma unroll
+        for (int pb = 0; pb < PT; ++pb) {
+          rt::ldsm_x4(bh[pb], &sm.hhi[hsw(pb * 16 + bn, kk * 16 + bk)]);
+          rt::ldsm_x4(bl[pb], &sm.hlo[hsw(pb * 16 + bn, kk * 16 + bk)]);
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int pb = 0; pb < PT; ++pb) {
+            rt::mma_bf16(yacc[t][2 * pb], cf[t], bh[pb]);
+            rt::mma_bf16(yacc[t][2 * pb + 1], cf[t], bh[pb] + 2);
+          }
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int pb = 0; pb < PT; ++pb) {
+            rt::mma_bf16(yacc[t][2 * pb], cf[t], bl[pb]);
+            rt::mma_bf16(yacc[t][2 * pb + 1], cf[t], bl[pb] + 2);
+          }
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int r0 = (t ? 7 - warp : warp) * 16;
+        const float e0 = ex2(cum[r0 + g]), e1 = ex2(cum[r0 + g + 8]);
+#pragma unroll
+        for (int n = 0; n < 2 * PT; ++n) {
+          yacc[t][n][0] *= e0;
+          yacc[t][n][1] *= e0;
+          yacc[t][n][2] *= e1;
+          yacc[t][n][3] *= e1;
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int tile = t ? 7 - warp : warp;
       const int r0 = tile * 16;
       if (r0 < qv) {
         const float ci0 = cum[r0 + g], ci1 = cum[r0 + g + 8];
@@ -694,42 +745,6 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         auto c_frag = [&](int kk, uint32_t (&cf)[4]) {
           rt::ldsm_x4(cf, &S.c[(r0 + ar) * BLD + kk * 16 + ak]);
         };
-        float yacc[2 * PT][4];
-#pragma unroll
-        for (int n = 0; n < 2 * PT; ++n)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) yacc[n][k] = 0.f;
-
-        if (c0 > 0) {                // exp(cum_i) C_i h^T (h is 0 before)
-#pragma unroll
-          for (int kk = 0; kk < NK; ++kk) {
-            uint32_t cf[4], bh[PT][4], bl[PT][4];
-            c_frag(kk, cf);
-#pragma unroll
-            for (int pb = 0; pb < PT; ++pb) {
-              rt::ldsm_x4(bh[pb], &sm.hhi[hsw(pb * 16 + bn, kk * 16 + bk)]);
-              rt::ldsm_x4(bl[pb], &sm.hlo[hsw(pb * 16 + bn, kk * 16 + bk)]);
-            }
-#pragma unroll
-            for (int pb = 0; pb < PT; ++pb) {
-              rt::mma_bf16(yacc[2 * pb], cf, bh[pb]);
-              rt::mma_bf16(yacc[2 * pb + 1], cf, bh[pb] + 2);
-            }
-#pragma unroll
-            for (int pb = 0; pb < PT; ++pb) {
-              rt::mma_bf16(yacc[2 * pb], cf, bl[pb]);
-              rt::mma_bf16(yacc[2 * pb + 1], cf, bl[pb] + 2);
-            }
-          }
-          const float e0 = ex2(ci0), e1 = ex2(ci1);
-#pragma unroll
-          for (int n = 0; n < 2 * PT; ++n) {
-            yacc[n][0] *= e0;
-            yacc[n][1] *= e0;
-            yacc[n][2] *= e1;
-            yacc[n][3] *= e1;
-          }
-        }
 
         // S = C B^T in groups of JG column blocks up to the diagonal (a
         // group's blocks above it come out masked to 0), then S x
@@ -783,13 +798,13 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
             }
 #pragma unroll
             for (int pb = 0; pb < PT; ++pb) {
-              rt::mma_bf16(yacc[2 * pb], ah, bx[pb]);
-              rt::mma_bf16(yacc[2 * pb + 1], ah, bx[pb] + 2);
+              rt::mma_bf16(yacc[t][2 * pb], ah, bx[pb]);
+              rt::mma_bf16(yacc[t][2 * pb + 1], ah, bx[pb] + 2);
             }
 #pragma unroll
             for (int pb = 0; pb < PT; ++pb) {
-              rt::mma_bf16(yacc[2 * pb], al, bx[pb]);
-              rt::mma_bf16(yacc[2 * pb + 1], al, bx[pb] + 2);
+              rt::mma_bf16(yacc[t][2 * pb], al, bx[pb]);
+              rt::mma_bf16(yacc[t][2 * pb + 1], al, bx[pb] + 2);
             }
           }
         }
@@ -800,10 +815,10 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
           if (p >= P) continue;
           if (i0 < qv)
             *reinterpret_cast<uint32_t*>(yb + (c0 + i0) * syt + p) =
-                rt::pack_bf16(yacc[n][0], yacc[n][1]);
+                rt::pack_bf16(yacc[t][n][0], yacc[t][n][1]);
           if (i1 < qv)
             *reinterpret_cast<uint32_t*>(yb + (c0 + i1) * syt + p) =
-                rt::pack_bf16(yacc[n][2], yacc[n][3]);
+                rt::pack_bf16(yacc[t][n][2], yacc[t][n][3]);
         }
       }
     }
