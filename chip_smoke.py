@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs nine phases, each printing its
+``src/repro_torch/kernels/csrc`` and runs eleven phases, each printing its
 lines; any failure ends the run with a traceback and a non-zero exit:
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
@@ -33,7 +33,8 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  calls bit for bit), f32 at edge shapes (ragged T, T = 1,
                  T < chunk, x a strided view, stride-0 B_/C, two groups)
                  at 1e-4, bf16 on the tensor cores (``SSD_TC_CASES``: T 1
-                 to 2048, one and two groups, x a view or dense) at 2e-2,
+                 to 2048, one and two groups, x a view or dense; head dim
+                 48, state 32 and chunk 100 at T 300) at 2e-2,
                  each call on the route ``ssd.route`` names, as the
                  launcher counted it
                  quant_matmul (int8 and int4 weights, x in bf16 at 2e-2
@@ -108,6 +109,26 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  squared; then squared on the proc backend through the
                  launcher in a subprocess (N 8, M 16 spawned workers, 4
                  updates), whose printed counters must agree the same way
+ 10. checkpoint  path A, the jit tier at the squared preset: two
+                 uninterrupted runs of 10 updates must be bitwise equal;
+                 then 5 updates, a save, a new engine from another seed, a
+                 restore and 5 more must leave the generator, params, AdamW
+                 state and rollout carry ``torch.equal`` to the
+                 uninterrupted run's, with one gae launch per update after
+                 the restore; an async save of a live engine must hold the
+                 values at its call; prints save and restore ms and bytes
+ 11. async       path B, the async actor–learner tier through the launcher,
+                 each run a subprocess in its own session (its 2 actors are
+                 spawned processes acting on the card, each with its own
+                 CUDA context): (a) bandit must print SOLVED with one gae
+                 launch per learner update, and the actors' device must be
+                 the card; (b) a 40-update full-budget run in which actor 1
+                 is killed (SIGKILL) after the first update must reshard
+                 and finish all 40; (c) a 40-update run stopped by SIGINT
+                 after update 11 and rerun with ``--ckpt-dir --resume``
+                 must end at update 40; prints sps, the learner's idle
+                 share, fragment ages, dropped fragments, each actor's
+                 device and steps/s, and ``torch.cuda.mem_get_info``
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. flash_attention and SDPA are timed
@@ -140,10 +161,14 @@ import json
 import math
 import os
 import re
+import queue
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -156,6 +181,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.bridge import make_host_engine  # noqa: E402
+from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.configs import get_config, with_overrides  # noqa: E402
 from repro_torch.configs.ocean import ocean_tcfg, preset  # noqa: E402
 from repro_torch.core.emulation import (Emulated, emulate,  # noqa: E402
@@ -217,10 +243,14 @@ FD_LONG = 8192      # a cache length whose K/V (268 MB) exceeds the L2
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q = 64, 64, 128, 1, 128
 SSD_LONG = 2048     # a prompt length whose chunk walk is 16 chunks
 SSD_PATHS = build.ROUTES["ssd"][1]      # the launcher's routes
-# the tensor-core route's parity cases: T below a tile, about a chunk,
-# ragged, 16 chunks; one and two groups; x a view of the conv output or dense
-SSD_TC_CASES = tuple(itertools.product((1, 15, 127, 128, 129, 300, 2048),
-                                       (1, 2), (True, False)))
+# the tensor-core route's parity cases (T, G, x a view, P, N, chunk): at
+# mamba2's widths T below a tile, about a chunk, ragged, 16 chunks; one and
+# two groups; x a view of the conv output or dense; then head dim 48, state
+# 32 and a chunk of 100, which is not a multiple of the 16-row tiles
+SSD_TC_CASES = tuple(
+    (T, G, view, SSD_P, SSD_N, SSD_Q) for T, G, view in itertools.product(
+        (1, 15, 127, 128, 129, 300, 2048), (1, 2), (True, False))) + (
+    (300, 1, False, 48, 32, 100),)
 # GAE's parity cases: envs about a warp and past the card's blocks, T of
 # one step, ragged segments, one chunk a segment (64) and streamed (1000)
 GAE_CASES = tuple(itertools.product((1, 31, 33, 4096, 10000),
@@ -257,6 +287,8 @@ HOST_N = 64                             # the host tier's preset batch (M 128)
 PACK_LEAVES = (1, 3, 8, 32, 33, 75)     # pack's leaf counts about its tables
 PACK_ROWS = (1, 31, 33, 64)             # pack's B about a warp
 PROC_N, PROC_UPDATES = 8, 4             # the proc-backend run: M 16 workers
+CKPT_U = 5                              # path A: updates before the stop
+ASYNC_UPDATES = 40                      # path B: full-budget runs' updates
 
 
 def sync():
@@ -601,11 +633,10 @@ def phase_parity(gen):
                           B == BATCH)
     # the tensor-core route at mamba2's widths over lengths, groups and
     # layouts; the serve shape's two calls give the same bits
-    for T, G, view in SSD_TC_CASES:
-        args = ssd_inputs(gen, 2, T, 4, SSD_P, SSD_N, G, torch.bfloat16,
-                          view)
-        cases += ssd_case(f"(2, {T}, 4, {SSD_P}, {SSD_N}, {G}, {SSD_Q}, "
-                          f"{view}) bf16", args, SSD_Q, 2e-2, errs, False)
+    for T, G, view, P, N, Q in SSD_TC_CASES:
+        args = ssd_inputs(gen, 2, T, 4, P, N, G, torch.bfloat16, view)
+        cases += ssd_case(f"(2, {T}, 4, {P}, {N}, {G}, {Q}, {view}) bf16",
+                          args, Q, 2e-2, errs, False)
     args = ssd_inputs(gen, BATCH, PROMPT, SSD_H, SSD_P, SSD_N, SSD_G,
                       torch.bfloat16, True)
     (y1, h1), (y2, h2) = (ssd(*args, chunk=SSD_Q) for _ in range(2))
@@ -1300,6 +1331,252 @@ def phase_host():
     return launches
 
 
+def engine_state(eng):
+    """Every tensor of an engine's resumable state, in a fixed order: the
+    generator's state, the TrainState (params, AdamW moments and steps)
+    and the rollout carry."""
+    return ([eng.generator.get_state()]
+            + [leaf for _, leaf in ckpt._flatten_with_names(eng.ts)]
+            + [leaf for _, leaf in ckpt._flatten_with_names(eng.rc)])
+
+
+def equal_states(a, b):
+    sa, sb = engine_state(a), engine_state(b)
+    return len(sa) == len(sb) and all(
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+        for x, y in zip(sa, sb))
+
+
+def phase_checkpoint():
+    """Path A: a jit-tier run at the squared preset that is stopped, saved,
+    restored into a new engine and resumed ends bitwise equal to an
+    uninterrupted run (generator, params, AdamW state, rollout carry), and
+    two uninterrupted runs are bitwise equal first; an async save of a live
+    engine holds the values at its call. Returns the gae launches of the
+    resumed half, one per update."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p = preset("squared")
+    tcfg = ocean_tcfg("squared", checkpoint_every=CKPT_U)
+
+    def engine(seed=0):
+        return Trainer(OCEAN["squared"](), tcfg, hidden=p.hidden,
+                       seed=seed).engine
+
+    a, a2 = engine(), engine()
+    spu = a.steps_per_update
+    a.run(2 * CKPT_U * spu)
+    a2.run(2 * CKPT_U * spu)
+    sync()
+    if not equal_states(a, a2):
+        raise AssertionError("two uninterrupted jit-tier runs differ")
+    with tempfile.TemporaryDirectory() as d:
+        b = engine()
+        b.checkpoint_dir = d
+        b.run(CKPT_U * spu)            # saves at update CKPT_U, async
+        sync()
+        t0 = time.perf_counter()
+        path = b.save_checkpoint(CKPT_U, async_=False)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        c = engine(seed=7)
+        t0 = time.perf_counter()
+        got = c.restore(d)
+        sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if got != CKPT_U:
+            raise AssertionError(f"restored update {got}, saved {CKPT_U}")
+        build.reset_launches()
+        hist, _ = c.run(2 * CKPT_U * spu)
+        sync()
+        launches = check_launches("checkpoint resume", {
+            "gae": len(hist), "pack": 0, "flash_attention": 0,
+            "flash_decode": 0, "ssd": 0, "quant_matmul": 0})
+        if len(hist) != CKPT_U or not equal_states(a, c):
+            raise AssertionError(f"stopped-and-resumed run ({len(hist)} "
+                                 f"updates after the restore) is not "
+                                 f"bitwise equal to the uninterrupted one")
+        print(f"[10 checkpoint] squared preset ({tcfg.num_envs} envs x "
+              f"{tcfg.unroll_length} steps, hidden {p.hidden}): two "
+              f"uninterrupted runs of {2 * CKPT_U} updates bitwise equal; "
+              f"{CKPT_U} updates, save, new engine, restore, {CKPT_U} more: "
+              f"generator, params, AdamW state and rollout carry bitwise "
+              f"equal to the uninterrupted run ({len(engine_state(a))} "
+              f"tensors); save {save_ms:.2f} ms (synchronous), restore "
+              f"{restore_ms:.2f} ms, {nbytes} bytes in "
+              f"{len(list(Path(path).iterdir()))} files; launches after the "
+              f"restore {launches}", flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        e = engine()
+        e.checkpoint_dir = d
+        e.run(CKPT_U * spu)
+        sync()
+        want = [x.clone() for x in engine_state(e)]
+        t0 = time.perf_counter()
+        handle = e.save_checkpoint(CKPT_U, async_=True)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        e.run(CKPT_U * spu)            # the live engine moves on
+        handle.join()
+        sync()
+        r = engine(seed=3)
+        r.restore(d)
+        got = engine_state(r)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError("the async save wrote other values than "
+                                 "the engine's at its call")
+        if all(torch.equal(x, y) for x, y in zip(engine_state(e), want)):
+            raise AssertionError("the live engine did not move on")
+        print(f"[10 checkpoint] async save of a live engine: the call took "
+              f"{call_ms:.2f} ms (device-to-host copy), {CKPT_U} more "
+              f"updates ran while it wrote, and the checkpoint holds the "
+              f"values at the call", flush=True)
+    del a, a2, b, c, e, r
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_launcher(tag, args, timeout, on_line=None):
+    """``python -m repro_torch.launch.train`` with ``args`` in a subprocess
+    of its own session, its lines read as they come; ``on_line(line,
+    proc)`` may act on each. Every process of the session is stopped at
+    the end. Returns (exit code, stdout lines)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
+    proc = subprocess.Popen(
+        cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "PYTHONUNBUFFERED": "1"})
+    lines = queue.Queue()
+
+    def read():
+        for ln in proc.stdout:
+            lines.put(ln)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    out, deadline = [], time.monotonic() + timeout
+    try:
+        while True:
+            try:
+                ln = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"[{tag}] launcher still running after "
+                                     f"{timeout} s:\n" + "".join(out[-40:]))
+            if ln is None:
+                break
+            out.append(ln)
+            if on_line is not None:
+                on_line(ln, proc)
+        rc = proc.wait(timeout=60)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)     # any process left over
+        except ProcessLookupError:
+            pass
+        proc.wait(timeout=60)
+    return rc, out
+
+
+def async_summary(tag, out):
+    """The numbers of one async launcher run: (updates this run, last
+    update, launches, the async line, the actor lines)."""
+    line = next((ln for ln in out if "last_update=" in ln), None)
+    if line is None:
+        raise AssertionError(f"[{tag}] no result line:\n" + "".join(out[-40:]))
+    got = re.search(r"updates=(\d+) last_update=(\d+) launches=(\{.*\})",
+                    line)
+    stats = next(ln for ln in out if ln.startswith("  async:"))
+    actors = [ln.strip() for ln in out if ln.startswith("  actor ")]
+    mem = [ln.strip() for ln in out if "mem_get_info" in ln]
+    return (int(got.group(1)), int(got.group(2)),
+            ast.literal_eval(got.group(3)), line.strip(), stats.strip(),
+            actors, mem)
+
+
+def phase_async():
+    """Path B: the async actor–learner tier through the launcher, each run
+    in a subprocess (its actors are spawned processes, each with its own
+    CUDA context). (a) bandit with 2 actors solves, one gae launch per
+    update on the learner; (b) a full-budget run in which one actor is
+    killed (SIGKILL) after the first update reshards and finishes every
+    update; (c) a learner stopped (SIGINT) after update 11 and resumed
+    with --ckpt-dir --resume ends at the same update count as (b)'s
+    uninterrupted learner. Returns the gae launches of (a)."""
+    base = ["--ocean", "bandit", "--engine-backend", "async", "--num-actors",
+            "2"]
+    t0 = time.perf_counter()
+    rc, out = run_launcher("11 async", base, timeout=600)
+    wall = time.perf_counter() - t0
+    if rc != 0 or not any("-> SOLVED" in ln for ln in out):
+        raise AssertionError(f"async bandit did not solve (exit {rc}):\n"
+                             + "".join(out[-40:]))
+    n, last, launches, line, stats, actors, mem = async_summary("11 async",
+                                                                out)
+    if launches["gae"] != n or n != last or any(
+            launches[k] for k in launches if k != "gae"):
+        raise AssertionError(f"async launches {launches} over {n} updates")
+    if len(actors) != 2 or not all("device=cuda" in a for a in actors):
+        raise AssertionError(f"actor devices: {actors}")
+    print(f"[11 async] (a) bandit, 2 actors, through the launcher in "
+          f"{wall:.1f} s wall (interpreter, spawn and CUDA contexts "
+          f"included):{line.split('->')[1]}", flush=True)
+    print(f"[11 async] (a) {stats}", flush=True)
+    for a in actors + mem:
+        print(f"[11 async] (a) {a}", flush=True)
+
+    steps = ASYNC_UPDATES * 64 * 64
+    full = base + ["--full-budget", "--total-env-steps", str(steps)]
+    killed = {}
+
+    def kill_actor(ln, proc):
+        if "pids=[" in ln:
+            killed["pids"] = ast.literal_eval(ln.split("pids=")[1]
+                                              .split("]")[0] + "]")
+        if ln.startswith("  upd") and "done" not in killed:
+            os.kill(killed["pids"][1], signal.SIGKILL)
+            killed["done"] = ln.split()[1]
+
+    rc, out = run_launcher("11 async", full, timeout=600, on_line=kill_actor)
+    n, last, launches, line, stats, actors, _ = async_summary("11 async", out)
+    if rc != 0 or n != ASYNC_UPDATES or "reshards=1" not in stats or \
+            "dead=[1]" not in stats or launches["gae"] != n:
+        raise AssertionError(f"actor-kill run (exit {rc}): {line} {stats}")
+    print(f"[11 async] (b) actor 1 killed after update "
+          f"{killed['done']}: resharded and finished {n} of {ASYNC_UPDATES}"
+          f" updates; {stats}", flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = full + ["--ckpt-dir", d, "--save-every", "5"]
+        stop = {}
+
+        def interrupt(ln, proc):
+            if ln.startswith("  upd   10") and "sent" not in stop:
+                proc.send_signal(signal.SIGINT)
+                stop["sent"] = True
+
+        rc1, out1 = run_launcher("11 async", ck, timeout=600,
+                                 on_line=interrupt)
+        if rc1 == 0 or "sent" not in stop:
+            raise AssertionError(f"the learner was not stopped (exit {rc1})")
+        saved = ckpt.step_of(ckpt.latest(os.path.join(d, "bandit")))
+        rc2, out2 = run_launcher("11 async", ck + ["--resume"], timeout=600)
+        n2, last2, launches2, line2, _, _, _ = async_summary("11 async",
+                                                             out2)
+        resumed = [ln.strip() for ln in out2 if "resumed at update" in ln]
+        if rc2 != 0 or last2 != last or n2 != last2 - saved or \
+                launches2["gae"] != n2:
+            raise AssertionError(f"kill-then-resume ended at update {last2} "
+                                 f"({n2} after {resumed}), uninterrupted "
+                                 f"{last}")
+        print(f"[11 async] (c) learner stopped by SIGINT after update 11 "
+              f"(exit {rc1}), newest checkpoint at update {saved}; "
+              f"{resumed[0]}, {n2} more updates, ends at update {last2} as "
+              f"the uninterrupted learner did; gae {launches2['gae']}",
+              flush=True)
+    return launches
+
+
 def kernel_rows(gen, launches, errs):
     """Times at the main paths' shapes: kernel, plain version, library call
     (SDPA for attention; none for GAE and SSD), and bound."""
@@ -1710,6 +1987,8 @@ def main():
     phase_emulation(gen)
     phase_pool()
     launches["pack"] = phase_host()["pack"]
+    phase_checkpoint()
+    phase_async()
     rows = kernel_rows(gen, launches, errs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

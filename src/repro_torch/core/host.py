@@ -1,8 +1,7 @@
 """Host-environment pool — the paper's Python EnvPool, faithfully.
 
-The counterpart of ``repro/core/host.py``, without the span tracing (it
-comes with the telemetry slice). The device pool (core/pool.py) covers the
-batched torch envs. Real
+The counterpart of ``repro/core/host.py``. The device pool (core/pool.py)
+covers the batched torch envs. Real
 deployments also wrap *host* environments (NetHack, Pokémon Red — stateful
 Python/C processes). This module reproduces the paper's mechanism for those:
 simulate M envs on workers, return batches of N ≪ M from the **first
@@ -50,6 +49,8 @@ from typing import Callable, List, Sequence
 import numpy as np
 
 from repro_torch.core import shm as _shm
+from repro_torch.telemetry import span as _span
+from repro_torch.telemetry import traceprop as _traceprop
 from repro_torch.telemetry.procstats import HOST_FIELDS, StatSlab
 
 
@@ -211,25 +212,26 @@ class HostPool:
             timeout = self.recv_timeout
         deadline = None if timeout is None else time.monotonic() + timeout
         items = []
-        for _ in range(self.N):
-            try:
-                if deadline is None:
-                    # explicit timeout=None: a deliberate wait-forever
-                    it = self._ready.get()
-                else:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        raise queue.Empty
-                    it = self._ready.get(timeout=remaining)
-            except queue.Empty:
-                raise TimeoutError(
-                    f"HostPool.recv timed out after {timeout}s with "
-                    f"{len(items)}/{self.N} envs ready (slow or "
-                    f"deadlocked worker?)") from None
-            if isinstance(it, _WorkerFailure):
-                raise HostEnvError(it.env_index, it.op,
-                                   it.exc) from it.exc
-            items.append(it)
+        with _span("host.recv"):
+            for _ in range(self.N):
+                try:
+                    if deadline is None:
+                        # explicit timeout=None: a deliberate wait-forever
+                        it = self._ready.get()
+                    else:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            raise queue.Empty
+                        it = self._ready.get(timeout=remaining)
+                except queue.Empty:
+                    raise TimeoutError(
+                        f"HostPool.recv timed out after {timeout}s with "
+                        f"{len(items)}/{self.N} envs ready (slow or "
+                        f"deadlocked worker?)") from None
+                if isinstance(it, _WorkerFailure):
+                    raise HostEnvError(it.env_index, it.op,
+                                       it.exc) from it.exc
+                items.append(it)
         return self._assemble(items)
 
     def _assemble(self, items):
@@ -284,19 +286,20 @@ class HostPool:
         """Queue one step per env. Bounded: an unbounded ``put`` on the
         size-1 inbox of a worker that died mid-step blocked forever; now the
         put re-checks worker liveness and raises ``HostEnvError`` instead."""
-        for a, i in zip(np.asarray(actions), env_ids):
-            i = int(i)
-            while True:
-                try:
-                    self._inboxes[i].put(("step", a), timeout=0.05)
-                    break
-                except queue.Full:
-                    if self._stop:
-                        return              # pool is closing; drop
-                    if not self._threads[i].is_alive():
-                        raise HostEnvError(i, "send", RuntimeError(
-                            "worker thread is dead and its inbox is "
-                            "full; command undeliverable")) from None
+        with _span("host.send"):
+            for a, i in zip(np.asarray(actions), env_ids):
+                i = int(i)
+                while True:
+                    try:
+                        self._inboxes[i].put(("step", a), timeout=0.05)
+                        break
+                    except queue.Full:
+                        if self._stop:
+                            return              # pool is closing; drop
+                        if not self._threads[i].is_alive():
+                            raise HostEnvError(i, "send", RuntimeError(
+                                "worker thread is dead and its inbox is "
+                                "full; command undeliverable")) from None
 
     def liveness(self) -> dict:
         """Per-worker liveness for /healthz: wall-clock beats (ns) plus the
@@ -403,15 +406,20 @@ class ProcHostPool(HostPool):
         self._stats_slab = StatSlab.create(self.M, HOST_FIELDS)
         ctx = get_context("spawn")              # never fork: CUDA parent
         self._procs = []
-        for i in range(self.M):
-            cfg = _shm.WorkerConfig(
-                shm_name=self._seg.name, index=i, M=self.M, seed=seed,
-                spec=slab, spin=self.spin, payload=payloads[i],
-                stats=self._stats_slab.spec)
-            p = ctx.Process(target=_shm.worker_main, args=(cfg,),
-                            daemon=True)
-            p.start()
-            self._procs.append(p)
+        # cross-process trace propagation: when the parent has tracing on
+        # with a run dir, ship a TraceConfig so each worker flushes its own
+        # spans-<pid>.jsonl into the same run (None otherwise — free)
+        trace_cfg = _traceprop.current()
+        with _span("host.spawn"):
+            for i in range(self.M):
+                cfg = _shm.WorkerConfig(
+                    shm_name=self._seg.name, index=i, M=self.M, seed=seed,
+                    spec=slab, spin=self.spin, payload=payloads[i],
+                    stats=self._stats_slab.spec, trace=trace_cfg)
+                p = ctx.Process(target=_shm.worker_main, args=(cfg,),
+                                daemon=True)
+                p.start()
+                self._procs.append(p)
 
     # -- harvesting ---------------------------------------------------------
 
@@ -478,26 +486,32 @@ class ProcHostPool(HostPool):
             timeout = self.recv_timeout
         deadline = None if timeout is None else time.monotonic() + timeout
         wait = _shm.SpinWait(self.spin)
-        while len(self._fifo) < self.N:
-            if self._harvest_ready():
-                wait.reset()
-                continue
-            self._check_liveness()
-            if deadline is not None and time.monotonic() > deadline:
-                raise TimeoutError(
-                    f"HostPool.recv timed out after {timeout}s with "
-                    f"{len(self._fifo)}/{self.N} envs ready (slow or "
-                    f"deadlocked worker?)")
-            wait.pause()
-        items = self._fifo[:self.N]
-        del self._fifo[:self.N]
+        with _span("host.recv"):
+            while len(self._fifo) < self.N:
+                if self._harvest_ready():
+                    wait.reset()
+                    continue
+                self._check_liveness()
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"HostPool.recv timed out after {timeout}s with "
+                        f"{len(self._fifo)}/{self.N} envs ready (slow or "
+                        f"deadlocked worker?)")
+                wait.pause()
+            items = self._fifo[:self.N]
+            del self._fifo[:self.N]
         return self._assemble(items)
 
     def send(self, actions, env_ids):
         """Write action rows and flip ctrl to CMD_STEP. Refuses (with
         ``HostEnvError``) to command a dead or errored worker — the proc
         analogue of the bounded-put liveness check."""
-        for a, i in zip(np.asarray(actions), env_ids):
+        acts = np.asarray(actions)
+        with _span("host.send"):
+            self._send_rows(acts, env_ids)
+
+    def _send_rows(self, acts, env_ids):
+        for a, i in zip(acts, env_ids):
             i = int(i)
             st = int(self._v["ctrl"][i])        # no view locals: see harvest
             if st == _shm.ERROR:

@@ -27,8 +27,7 @@ sleeping would add milliseconds of latency per step — the ladder gives
 sub-100 µs reaction when the peer is fast and ~``max_sleep_us`` polling when
 it is slow.
 
-The counterpart of ``repro/core/shm.py``, without the span tracing (it
-comes with the telemetry slice).
+The counterpart of ``repro/core/shm.py``.
 
 IMPORTANT: this module (the spawn-worker entrypoint) must stay importable
 without torch — a CUDA context does not survive a fork, and importing torch
@@ -139,6 +138,21 @@ class SpinWait:
         self._sleep = min(self._sleep * 2, cap / 1e6)
 
 
+def spin_until(pred: Callable[[], bool], spin: SpinConfig = None, *,
+               timeout: float) -> bool:
+    """Busy-wait the ladder until ``pred()`` is truthy; returns False on
+    timeout. The ``timeout`` is mandatory: every shared-memory wait is
+    bounded, so a dead peer is an error and never a hung run."""
+    w = SpinWait(spin or SpinConfig())
+    deadline = time.monotonic() + timeout
+    while True:
+        if pred():
+            return True
+        if time.monotonic() > deadline:
+            return False
+        w.pause()
+
+
 def _section(offset: int, shape, dtype) -> Tuple[int, int]:
     n = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
     start = ((offset + _ALIGN - 1) // _ALIGN) * _ALIGN
@@ -214,6 +228,7 @@ class WorkerConfig:
     spin: SpinConfig = field(default_factory=SpinConfig)
     payload: bytes = b""                 # pickled env factory
     stats: object = None                 # telemetry.procstats.StatSpec | None
+    trace: object = None                 # telemetry.traceprop.TraceConfig | None
 
 
 def _write_error(views: dict, i: int, op: str, exc: BaseException) -> None:
@@ -283,6 +298,18 @@ def worker_main(cfg: WorkerConfig) -> None:
         from repro_torch.telemetry.procstats import StatSlab
         slab = StatSlab.attach(cfg.stats)
         srow = slab.row(i)
+    # per-process tracing (telemetry.traceprop): the parent ships its
+    # TraceConfig only when tracing is on, so the default pays nothing.
+    # The tracer writes spans-<pid>.jsonl with its meta header eagerly;
+    # periodic and final flushes keep a killed worker's output mergeable.
+    from repro_torch.telemetry.spans import CachedSpan
+    tracer = None
+    t_flush = time.monotonic()
+    if cfg.trace is not None:
+        from repro_torch.telemetry import traceprop
+        tracer = traceprop.init_worker(cfg.trace, role=f"host-worker-{i}")
+    step_span = CachedSpan("worker.step")
+    reset_span = CachedSpan("worker.reset")
     beat_i = 0
     try:
         while True:
@@ -308,35 +335,39 @@ def worker_main(cfg: WorkerConfig) -> None:
                 srow.add("wait_ns", t_busy - t_wait)
             op = "reset"
             try:
-                if env is None:
-                    env = pickle.loads(cfg.payload)()
-                if cmd == CMD_RESET:
-                    obs = env.reset(int(v["seed"][i]))
-                    rew, done, score, has_score, is_step = \
-                        0.0, False, 0.0, 0, 0
-                else:
-                    op = "step"
-                    obs, rew, done, info = env.step(v["act"][i].copy())
-                    is_step = 1
-                    info = info if isinstance(info, dict) else {}
-                    has_score = 1 if "score" in info else 0
-                    score = float(info.get("score", 0.0))
-                    if done:
-                        episode += 1
-                        op = "reset"
-                        obs = env.reset(cfg.seed + i + cfg.M * episode)
-                v["obs"][i] = np.asarray(obs, v["obs"].dtype).reshape(
-                    cfg.spec.obs_shape)
-                v["rew"][i] = np.asarray(rew, np.float32)
-                v["done"][i] = np.uint8(bool(done))
-                v["score"][i] = np.float32(score)
-                v["meta"][i, 0] = np.uint8(is_step)
-                v["meta"][i, 1] = np.uint8(has_score)
-                v["ctrl"][i] = READY
+                with (step_span if cmd == CMD_STEP else reset_span):
+                    if env is None:
+                        env = pickle.loads(cfg.payload)()
+                    if cmd == CMD_RESET:
+                        obs = env.reset(int(v["seed"][i]))
+                        rew, done, score, has_score, is_step = \
+                            0.0, False, 0.0, 0, 0
+                    else:
+                        op = "step"
+                        obs, rew, done, info = env.step(v["act"][i].copy())
+                        is_step = 1
+                        info = info if isinstance(info, dict) else {}
+                        has_score = 1 if "score" in info else 0
+                        score = float(info.get("score", 0.0))
+                        if done:
+                            episode += 1
+                            op = "reset"
+                            obs = env.reset(cfg.seed + i + cfg.M * episode)
+                    v["obs"][i] = np.asarray(obs, v["obs"].dtype).reshape(
+                        cfg.spec.obs_shape)
+                    v["rew"][i] = np.asarray(rew, np.float32)
+                    v["done"][i] = np.uint8(bool(done))
+                    v["score"][i] = np.float32(score)
+                    v["meta"][i, 0] = np.uint8(is_step)
+                    v["meta"][i, 1] = np.uint8(has_score)
+                    v["ctrl"][i] = READY
                 if srow is not None:
                     srow.add("steps" if is_step else "resets")
                     srow.add("busy_ns", time.monotonic_ns() - t_busy)
                     srow.set("last_beat_ns", time.time_ns())
+                if tracer is not None and time.monotonic() - t_flush > 0.25:
+                    tracer.flush()
+                    t_flush = time.monotonic()
             except Exception as e:   # noqa: BLE001 — forwarded to the parent
                 _write_error(v, i, op, e)
                 v["ctrl"][i] = ERROR
@@ -348,6 +379,13 @@ def worker_main(cfg: WorkerConfig) -> None:
         if callable(close):
             try:
                 close()
+            except Exception:
+                pass
+        if tracer is not None:
+            # crash-safe: clean exit, stop-flag exit, and the ERROR return
+            # all pass through here before the process dies
+            try:
+                tracer.flush()
             except Exception:
                 pass
         del v, srow                              # release buffer views

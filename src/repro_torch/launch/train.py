@@ -1,11 +1,15 @@
-"""Ocean PPO launcher: the jit and pool tiers on the batched envs, the host
-tier on bridged host envs.
+"""Ocean PPO launcher: the jit, pool and async tiers on the batched envs,
+the host tier on bridged host envs.
 
   PYTHONPATH=src python -m repro_torch.launch.train --ocean bandit,squared
   PYTHONPATH=src python -m repro_torch.launch.train --ocean squared \\
       --engine-backend pool
+  PYTHONPATH=src python -m repro_torch.launch.train --ocean bandit \\
+      --engine-backend async --num-actors 2
   PYTHONPATH=src python -m repro_torch.launch.train --host-env bandit \\
       [--host-backend proc]
+  PYTHONPATH=src python -m repro_torch.launch.train --ocean squared \\
+      --ckpt-dir ckpts --save-every 10 [--resume] [--run-dir runs/sq]
 
 ``--ocean`` trains each named env (or ``all``: the eight of
 ``envs/ocean.py``) with its ``configs/ocean.py`` preset; ``--host-env``
@@ -13,16 +17,22 @@ trains the numpy mirrors of ``envs/ocean_host.py`` (or ``all``) through
 ``bridge.make_host_engine`` on the host tier, M = 2N envs on worker threads
 or spawned processes. Each prints ``SOLVED`` or ``unsolved``, the score, the
 env steps and the steps per second; host runs also print the act steps and
-the kernel launches. Runs on the card unless ``--device cpu``. The
-counterpart of the ``--ocean`` and ``--host-env`` branches of
-``repro/launch/train.py``.
+the kernel launches, async runs the updates, the launches, the learner's
+idle share, the fragments' ages, and each actor's device and steps per
+second. ``--ckpt-dir`` saves each ``--ocean`` env's resumable state under
+``<dir>/<env>`` every ``--save-every`` updates and ``--resume`` continues
+from the newest one; ``--run-dir`` turns on span tracing into that
+directory and writes the metrics log there. Runs on the card unless
+``--device cpu``. The counterpart of the ``--ocean`` and ``--host-env``
+branches of ``repro/launch/train.py``.
 
-The module imports no torch at its top: ``--host-backend proc`` spawns
-workers, and spawn re-imports this module in every one of them.
+The module imports no torch at its top: ``--host-backend proc`` and the
+async tier spawn processes, and spawn re-imports this module in each.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def _parser():
@@ -34,9 +44,23 @@ def _parser():
                          "(envs/ocean_host.py), trained through bridge.wrap "
                          "on the host tier")
     ap.add_argument("--engine-backend", default=None,
-                    choices=("jit", "pool", "host"),
+                    choices=("jit", "pool", "host", "async"),
                     help="TrainEngine tier (default: jit for --ocean; "
-                         "--host-env always runs the host tier)")
+                         "--host-env always runs the host tier; 'async' is "
+                         "the actor–learner split: spawned actors stream "
+                         "rollout fragments, the learner consumes at its "
+                         "own rate)")
+    ap.add_argument("--num-actors", type=int, default=None,
+                    help="async tier: spawned actor processes (default 2)")
+    ap.add_argument("--max-staleness", type=int, default=None,
+                    help="async tier: max learner-version lag before a "
+                         "fragment is dropped or importance-clipped "
+                         "(default 2)")
+    ap.add_argument("--staleness-mode", default=None,
+                    choices=("drop", "vtrace"),
+                    help="async tier: stale-fragment policy — 'drop' "
+                         "discards, 'vtrace' keeps them under truncated "
+                         "importance weights (default drop)")
     ap.add_argument("--host-backend", default=None,
                     choices=("thread", "proc"),
                     help="host-tier workers: 'thread' (default) or 'proc' "
@@ -52,6 +76,16 @@ def _parser():
     ap.add_argument("--full-budget", action="store_true",
                     help="train the whole step budget: no early exit when "
                          "the preset's target score is reached")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="--ocean: save each env's resumable state under "
+                         "<dir>/<env> (default: no checkpoints)")
+    ap.add_argument("--save-every", type=int, default=50,
+                    help="updates between checkpoints")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest checkpoint in --ckpt-dir")
+    ap.add_argument("--run-dir", default=None,
+                    help="--ocean: span tracing and the metrics log into "
+                         "this directory")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -110,34 +144,121 @@ def _train_host(args, ap, dev):
     return results
 
 
+def _async_report(eng, h):
+    """The async tier's lines: the learner's idle share, the fragments'
+    ages and drops, reshards, and each actor's device and steps/s (from
+    its stat row: steps over its busy and waiting time)."""
+    st = eng.stats()["rollouts"]
+    waits = eng.collect_waits
+    idle = sum(waits) / eng.run_s if eng.run_s else 0.0
+    # after the first batch: the actors' start-up left out
+    after = eng.run_s - eng.first_batch_s
+    idle_after = sum(waits[1:]) / after if after > 0 else 0.0
+    # every update's learn falls after the first batch's arrival
+    sps_after = (len(waits) * eng.steps_per_update / after
+                 if after > 0 else 0.0)
+    lines = [f"  async: learner_idle={idle:.4f} "
+             f"learner_idle_after_first_batch={idle_after:.4f} "
+             f"first_batch_s={eng.first_batch_s:.2f} "
+             f"sps_after_first_batch={sps_after:.0f} "
+             f"frag_age_mean={h.get('frag_age_mean', 0.0):.3f} "
+             f"frag_age_max={h.get('frag_age_max', 0.0):.0f} "
+             f"dropped={h.get('dropped_fragments', 0)} "
+             f"reshards={st['reshards']} "
+             f"actors_alive={len(eng.rollouts.alive_actors())} "
+             f"dead={st['dead']}"]
+    per = st["actors"]["per_worker"]
+    for a, devname in enumerate(st["devices"]):
+        busy_s = (per["busy_ns"][a] + per["wait_ns"][a]) / 1e9
+        sps = per["steps"][a] / busy_s if busy_s else 0.0
+        lines.append(f"  actor {a}: device={devname} steps={per['steps'][a]}"
+                     f" fragments={per['fragments'][a]} sps={sps:.0f}")
+    return "\n".join(lines)
+
+
 def _train_ocean(args, ap, dev):
+    from repro_torch import telemetry
     from repro_torch.configs.ocean import ocean_tcfg, preset
     from repro_torch.envs.ocean import OCEAN
+    from repro_torch.kernels import build
     from repro_torch.rl.trainer import Trainer
 
     backend = args.engine_backend or "jit"
     if backend == "host":
         ap.error("--engine-backend host trains --host-env envs")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume needs --ckpt-dir")
+    async_overrides = {
+        k: v for k, v in (("num_actors", args.num_actors),
+                          ("max_staleness", args.max_staleness),
+                          ("staleness_mode", args.staleness_mode))
+        if v is not None}
+    if async_overrides and backend != "async":
+        ap.error("--num-actors/--max-staleness/--staleness-mode are async-"
+                 "tier knobs; pass --engine-backend async")
+    if backend == "async" and args.updates_per_launch != 1:
+        ap.error("-K/--updates-per-launch is the jit tier's knob; the async "
+                 "tier's learner runs one update per fragment batch (K=1)")
     names = list(OCEAN) if args.ocean == "all" \
         else [n.strip() for n in args.ocean.split(",")]
     unknown = [n for n in names if n not in OCEAN]
     if unknown:
         ap.error(f"unknown ocean env(s) {unknown}; have {list(OCEAN)}")
+    if args.run_dir:
+        telemetry.enable(args.run_dir)
     results = {}
-    for name in names:
-        p = preset(name)
-        over = {"num_envs": args.num_envs} if args.num_envs else {}
-        tcfg = ocean_tcfg(name, engine_backend=backend,
-                          updates_per_launch=args.updates_per_launch, **over)
-        tr = Trainer(OCEAN[name](), tcfg, hidden=p.hidden,
-                     recurrent=p.recurrent, conv=p.conv, seed=args.seed,
-                     device=dev)
-        steps = args.total_env_steps or p.total_steps
-        print(f"=== {name} (recurrent={p.recurrent}, backend={backend}, "
-              f"device={dev}) ===", flush=True)
-        m = tr.train(steps, log_every=10, target_score=_target(args, p))
-        print(_report(m, p.target_score), flush=True)
-        results[name] = m
+    try:
+        for name in names:
+            p = preset(name)
+            over = {"num_envs": args.num_envs} if args.num_envs else {}
+            tcfg = ocean_tcfg(name, engine_backend=backend,
+                              updates_per_launch=args.updates_per_launch,
+                              checkpoint_every=args.save_every,
+                              **async_overrides, **over)
+            tr = Trainer(OCEAN[name](), tcfg, hidden=p.hidden,
+                         recurrent=p.recurrent, conv=p.conv, seed=args.seed,
+                         device=dev, log_dir=args.run_dir)
+            eng = tr.engine
+            steps = args.total_env_steps or p.total_steps
+            extra = ""
+            if backend == "async":
+                extra = (f", actors={tcfg.num_actors} pids="
+                         f"{[pr.pid for pr in eng.rollouts._procs]} "
+                         f"staleness={tcfg.staleness_mode}<="
+                         f"{tcfg.max_staleness}")
+            print(f"=== {name} (recurrent={p.recurrent}, backend={backend}, "
+                  f"device={dev}{extra}) ===", flush=True)
+            ckdir = os.path.join(args.ckpt_dir, name) if args.ckpt_dir \
+                else None
+            build.reset_launches()
+            try:
+                m = tr.train(steps, log_every=10,
+                             target_score=_target(args, p),
+                             checkpoint_dir=ckdir, resume=args.resume)
+                if not m:
+                    print("  -> resumed past the step budget; nothing to do",
+                          flush=True)
+                    continue
+                line = _report(m, p.target_score)
+                if backend == "async":
+                    line += (f" updates={len(tr.history)} "
+                             f"last_update={eng._resume_update} "
+                             f"launches={dict(build.LAUNCHES)}\n"
+                             f"{_async_report(eng, m)}")
+                    if dev.type == "cuda":
+                        import torch
+                        free, total = torch.cuda.mem_get_info(dev)
+                        line += (f"\n  learner mem_get_info: free "
+                                 f"{free / 2**30:.2f} GiB of "
+                                 f"{total / 2**30:.2f} GiB")
+                print(line, flush=True)
+            finally:
+                eng.close()          # async tier: actor processes + slab
+                tr.logger.close()    # the metrics log's final flush
+            results[name] = m
+    finally:
+        if args.run_dir:
+            telemetry.flush()
     return results
 
 

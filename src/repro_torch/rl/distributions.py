@@ -89,6 +89,10 @@ class Dist:
         self.kind, self.nvec, self.cont_dim = kind, tuple(nvec), cont_dim
         self.num_outputs = (sum(self.nvec) if kind == "categorical"
                             else 2 * cont_dim)
+        # action components per agent row, and their dtype's name
+        self.action_dim = (len(self.nvec) if kind == "categorical"
+                           else cont_dim)
+        self.action_dtype = "int32" if kind == "categorical" else "float32"
 
     def sample(self, generator, out):
         if self.kind == "categorical":

@@ -23,12 +23,34 @@ tiers:
                pool's ``env_ids``, so GAE bootstraps and recurrent carries
                stay per-env correct whatever subset each batch holds.
 
-The ``shard_map`` and ``async`` tiers, self-play, checkpoints and the
-telemetry spans come with later slices.
+  * ``async`` — decoupled actor–learner (``distributed/actor_learner.py``):
+               N spawned actor processes act and step disjoint env shards on
+               the engine's device and stream version-tagged fragments
+               through a shared-memory slab; the learner batches one
+               fragment per shard, applies the staleness policy
+               (``tcfg.staleness_mode``: drop stale fragments, or keep them
+               under V-trace clamps), learns (GAE through the ``gae``
+               kernel in drop mode), and seqlock-publishes the new params.
+               The loop runs through ``distributed/fault.ResilientLoop``,
+               dead actors are resharded to survivors, and slow ones are
+               straggler-flagged.
+
+Checkpoints fire at update boundaries: with ``checkpoint_dir`` set, every
+``tcfg.checkpoint_every`` updates the resumable state saves asynchronously
+(copied to the host at the call, written on a thread): the TrainState, the
+generator's state (where the reference saves its PRNG key) and, on the jit
+tier, the rollout carry (env states, obs, recurrent carry). ``restore()``
+resumes a run so that on the jit tier interrupted-then-resumed is bitwise
+equal to uninterrupted; the pool, host and async tiers resume the learner
+and the generator, and re-seed their env states, as the reference does.
+
+The ``shard_map`` tier and self-play come with later slices.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
+from types import SimpleNamespace
 from typing import Callable, Optional
 
 import numpy as np
@@ -36,22 +58,27 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.bridge.adapters import np_unemulate_bytes
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import spaces as sp
 from repro_torch.core.emulation import emulate, flat_spec
 from repro_torch.core.pool import Pool
 from repro_torch.core.vector import VecEnv
-from repro_torch.rl.learner import (init_train_state, make_ocean_learn,
-                                    make_ocean_update)
+from repro_torch.rl.learner import (TrainState, init_train_state,
+                                    make_ocean_learn, make_ocean_update,
+                                    make_vtrace_adv)
 from repro_torch.rl.rollout import RolloutCarry, Trajectory
 from repro_torch.telemetry import TierTimer
+from repro_torch.telemetry import enabled as tel_enabled
+from repro_torch.telemetry import flush as tel_flush
+from repro_torch.telemetry import registry as tel_registry
+from repro_torch.telemetry import span as tel_span
 
 METRIC_KEYS = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl",
                "clipfrac", "grad_norm", "score", "episode_return", "episodes")
 
-_LATER = {"shard_map": "the data-parallel slice",
-          "async": "the async actor-learner slice (with checkpoints)"}
-_TIERS = ("jit", "pool", "host")
+_LATER = {"shard_map": "the data-parallel slice"}
+_TIERS = ("jit", "pool", "host", "async")
 
 
 def pack_metrics(m: dict) -> torch.Tensor:
@@ -99,7 +126,8 @@ class TrainEngine:
     distributions.Dist. One generator on ``device``, seeded with ``seed``,
     draws the parameters, the env states and then every update's randomness
     in order, so K updates in one launch equal K launches of one update.
-    ``device=None`` means CUDA (raises without a Hopper card)."""
+    ``device=None`` means CUDA (raises without a Hopper card). On the async
+    tier ``seed`` also seeds the actors' (shard, epoch) streams."""
 
     def __init__(self, env, policy, tcfg: TrainConfig, dist, *,
                  seed: int = 0, device=None, backend: str = None,
@@ -122,6 +150,9 @@ class TrainEngine:
                 f"updates_per_launch={self.K} is the jit tier's knob; the "
                 f"{self.backend} tier runs one update per trajectory (K=1)")
         self.checkpoint_dir = checkpoint_dir
+        self._ckpt_thread = None
+        self._resume_update = 0     # updates done before this run (restore)
+        self._saved_upto = 0
         self.act_steps = 0          # pool/host tiers: act steps taken
         if self.backend == "host":
             for attr in ("recv", "send", "batch_envs", "num_agents"):
@@ -135,10 +166,44 @@ class TrainEngine:
                     f"HostVecEnv batches {env.batch_envs} envs but "
                     f"tcfg.num_envs={tcfg.num_envs}; size the bridge batch "
                     f"to the training config")
+        if self.backend == "async":
+            if tcfg.staleness_mode not in ("drop", "vtrace"):
+                raise ValueError(
+                    f"staleness_mode={tcfg.staleness_mode!r}; expected "
+                    f"'drop' (discard fragments older than max_staleness) "
+                    f"or 'vtrace' (importance-clip them)")
+            for attr in ("init", "step", "reset"):
+                if not hasattr(env, attr):
+                    raise ValueError(
+                        "backend='async' takes a batched (Emulated) env "
+                        "whose actors rebuild it in their processes, got "
+                        f"{type(env).__name__} without {attr!r}")
         self.device = _device.resolve(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.ts = init_train_state(policy.init(self.generator))
         self.rc = None
+        if self.backend == "async":
+            from repro_torch.distributed.actor_learner import AsyncRollouts
+            A = getattr(env, "num_agents", 1)
+            # batch bookkeeping only: the envs live in the actor processes
+            self.vec = SimpleNamespace(batch_size=tcfg.num_envs * A,
+                                       num_envs=tcfg.num_envs, num_agents=A)
+            adv = (make_vtrace_adv(policy, dist, tcfg,
+                                   rho_clip=tcfg.vtrace_rho,
+                                   c_clip=tcfg.vtrace_c)
+                   if tcfg.staleness_mode == "vtrace" else None)
+            self._learn = make_ocean_learn(policy, tcfg, dist, adv_fn=adv)
+            self.rollouts = AsyncRollouts(env, policy, dist, tcfg,
+                                          params0=self.ts.params, seed=seed,
+                                          device=self.device)
+            self._dropped = 0
+            self._version = 0
+            self._last_ages = []
+            # the last run's learner wall time in all, until its first
+            # batch (the actors' start-up), and waiting on each batch
+            self.run_s = self.first_batch_s = 0.0
+            self.collect_waits = []
+            return
         if self.backend == "host":
             self.hvec = self.vec = env
             self._learn = make_ocean_learn(policy, tcfg, dist)
@@ -169,26 +234,81 @@ class TrainEngine:
         return self.tcfg.unroll_length * self.vec.batch_size
 
     def stats(self) -> dict:
-        """Live snapshot: the backend name, and on the host tier the host
-        pool's counters and liveness."""
+        """Live snapshot: the backend name, on the host tier the host pool's
+        counters and liveness, on the async tier the actors' slab rows,
+        liveness, reshards and straggler monitors."""
         out = {"backend": self.backend}
         if self.backend == "host":
             out["pool"] = self.hvec.pool.stats()
+        if self.backend == "async":
+            out["rollouts"] = self.rollouts.stats()
         return out
 
     def close(self):
-        """Release the host tier's worker threads or processes."""
+        """Release the host tier's worker threads or processes, or the
+        async tier's actor processes and slab; join a pending save."""
+        self._join_checkpoint()
         if self.backend == "host":
             self.hvec.close()
+        if self.backend == "async":
+            self.rollouts.close()
+
+    # -- checkpoints -------------------------------------------------------------
+    def _ckpt_tree(self, update: int) -> dict:
+        tree = {"ts": self.ts, "generator": self.generator.get_state(),
+                "update": np.asarray(update, np.int64)}
+        if self.rc is not None:
+            tree["rc"] = self.rc
+        return tree
+
+    def _ckpt_like(self) -> dict:
+        return self._ckpt_tree(0)
+
+    def save_checkpoint(self, update: int = None, async_: bool = False):
+        """Save the resumable state (TrainState, the generator's state, the
+        update count and, on the jit tier, the rollout carry) under
+        ``checkpoint_dir``. Every tensor is copied to the host at this call;
+        async mode writes the files on a thread, and a previous async save
+        joins first. Returns the committed path or the thread."""
+        if self.checkpoint_dir is None:
+            raise ValueError("engine has no checkpoint_dir")
+        self._join_checkpoint()
+        update = self._saved_upto if update is None else update
+        out = ckpt.save(self.checkpoint_dir, self._ckpt_tree(update),
+                        step=update, async_=async_,
+                        keep=self.tcfg.keep_checkpoints)
+        if async_:
+            self._ckpt_thread = out
+        return out
+
+    def restore(self, directory: Optional[str] = None) -> int:
+        """Restore the newest committed checkpoint and return the update
+        count it was taken at; ``run`` then continues from there."""
+        directory = directory or self.checkpoint_dir
+        if directory is None:
+            raise ValueError("engine has no checkpoint_dir to restore from")
+        tree = ckpt.restore(directory, self._ckpt_like())
+        self.ts = TrainState(*tree["ts"])
+        if self.rc is not None:
+            self.rc = tree["rc"]
+        self.generator.set_state(tree["generator"])
+        self._resume_update = self._saved_upto = int(tree["update"])
+        return self._resume_update
 
     def _maybe_checkpoint(self, updates_done: int):
-        """The update-boundary checkpoint hook of the pool and host tiers:
-        nothing without a checkpoint directory."""
-        if self.checkpoint_dir is not None:
-            raise NotImplementedError("checkpoints come with the checkpoint "
-                                      "slice (checkpoint/ckpt.py)")
+        """The update-boundary checkpoint hook: an async save every
+        ``tcfg.checkpoint_every`` updates when there is a directory."""
+        ce = self.tcfg.checkpoint_every
+        if self.checkpoint_dir is None or ce <= 0:
+            return
+        if updates_done // ce > self._saved_upto // ce:
+            self._saved_upto = updates_done
+            self.save_checkpoint(updates_done, async_=True)
 
-    _join_checkpoint = _maybe_checkpoint
+    def _join_checkpoint(self):
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
 
     # -- jit tier --------------------------------------------------------------
     def launch(self, k: int) -> torch.Tensor:
@@ -203,25 +323,42 @@ class TrainEngine:
 
     def run(self, total_steps: int, *, target_score: Optional[float] = None,
             on_update: Optional[Callable] = None,
-            on_launch: Optional[Callable] = None):
-        """Train until env interactions ≥ total_steps (or solved).
+            on_launch: Optional[Callable] = None, logger=None):
+        """Train until env interactions ≥ total_steps (or solved). A
+        restored engine continues from its update count.
 
         Returns ``(history, solved)``: per-update metric dicts with the
         ``env_steps``/``sps``/``launch_ms``/``fetch_ms`` keys.
         ``on_update(u, metrics)`` fires per update once its metrics are
         fetched; ``on_launch(updates_dispatched)`` right after each launch
-        (jit) or update (pool, host) is enqueued."""
-        runner = {"pool": self._run_pool,
-                  "host": self._run_host}.get(self.backend, self._run_fused)
-        return runner(total_steps, target_score=target_score,
-                      on_update=on_update, on_launch=on_launch)
+        (jit) or update (pool, host, async) is enqueued. ``logger`` (a
+        ``utils.metrics.MetricsLogger``) streams every fetched record and
+        is flushed on any exit; with span tracing on, a registry snapshot
+        is appended after a clean run."""
+        runner = {"pool": self._run_pool, "host": self._run_host,
+                  "async": self._run_async}.get(self.backend,
+                                                self._run_fused)
+        try:
+            with tel_span("engine.run"):
+                history, solved = runner(
+                    total_steps, target_score=target_score,
+                    on_update=on_update, on_launch=on_launch, logger=logger)
+            if logger is not None and history and tel_enabled():
+                tel_registry().emit(logger, int(history[-1]["env_steps"]))
+            return history, solved
+        finally:
+            if logger is not None:
+                logger.flush()
+            tel_flush()
 
     def _run_fused(self, total_steps, *, target_score=None, on_update=None,
-                   on_launch=None):
+                   on_launch=None, logger=None):
         spu = self.steps_per_update
         num_updates = max(1, total_steps // spu)
         history, pending, solved = [], deque(), None
-        timer = TierTimer(spu)
+        # resumed runs: sps counts only this run's work
+        timer = TierTimer(spu, self._resume_update * spu)
+        upd_ctr = tel_registry().counter("engine.updates", tier=self.backend)
 
         def drain_one():
             nonlocal solved
@@ -232,20 +369,26 @@ class TrainEngine:
                 md = unpack_metrics(rows[i])
                 timer.stamp(md, (u0 + i + 1) * spu)
                 history.append(md)
+                upd_ctr.inc()
+                if logger is not None:
+                    logger.log(md["env_steps"], md, flush=False)
                 if on_update is not None:
                     on_update(u0 + i, md)
                 if (target_score is not None and solved is None
                         and md["episodes"] > 0
                         and md["score"] >= target_score):
                     solved = md
+            if logger is not None:
+                logger.flush()
 
-        u = 0
+        u = self._resume_update
         while u < num_updates:
             k = min(self.K, num_updates - u)
             with timer.launch():
                 host, done = _to_host(self.launch(k))
             pending.append((u, k, host, done))
             u += k
+            self._maybe_checkpoint(u)
             if on_launch is not None:
                 on_launch(u)
             if target_score is not None:
@@ -257,6 +400,7 @@ class TrainEngine:
                 drain_one()
         while pending:
             drain_one()
+        self._join_checkpoint()
         return history, solved
 
     # -- pool and host tiers ---------------------------------------------------
@@ -281,11 +425,12 @@ class TrainEngine:
         return boot
 
     def _metrics_drainer(self, pending, history, timer, on_update,
-                         target_score, st):
+                         target_score, st, logger=None):
         """Shared pool/host-tier drain: fetch one update's metrics row
         (waits only on that update's learn), stamp the telemetry keys, fire
         ``on_update``, and latch the solving update into ``st["solved"]``.
         ``pending`` holds ``(update, host row, event)``."""
+        upd_ctr = tel_registry().counter("engine.updates", tier=self.backend)
 
         def drain_one():
             uu, host, done = pending.popleft()
@@ -293,6 +438,9 @@ class TrainEngine:
                 md = unpack_metrics(_fetch(host, done))
             timer.stamp(md, (uu + 1) * timer.spu)
             history.append(md)
+            upd_ctr.inc()
+            if logger is not None:
+                logger.log(md["env_steps"], md)
             if on_update is not None:
                 on_update(uu, md)
             if (target_score is not None and st["solved"] is None
@@ -316,7 +464,7 @@ class TrainEngine:
             drain_one()
 
     def _run_pool(self, total_steps, *, target_score=None, on_update=None,
-                  on_launch=None):
+                  on_launch=None, logger=None):
         """Host loop over the double-buffered pool. Each buffer's trajectory
         accumulates as in-flight device tensors; when a buffer reaches T
         steps its update is enqueued while the other buffers' env steps
@@ -331,12 +479,14 @@ class TrainEngine:
         carry0 = list(carry)
         recs = [[] for _ in range(nb)]
         history, pending, st = [], deque(), {"solved": None}
-        timer = TierTimer(spu)
+        timer = TierTimer(spu, self._resume_update * spu)
         drain_one = self._metrics_drainer(pending, history, timer,
-                                          on_update, target_score, st)
-        u = 0
+                                          on_update, target_score, st,
+                                          logger)
+        u = self._resume_update
         while u < num_updates and st["solved"] is None:
-            obs, rew, done, info, b = pool.recv()
+            with tel_span("pool.recv"):
+                obs, rew, done, info, b = pool.recv()
             if recs[b]:
                 recs[b][-1] = recs[b][-1] + (rew, done, info)
             if len(recs[b]) == T and len(recs[b][-1]) == 8:
@@ -369,7 +519,7 @@ class TrainEngine:
             pool.send(action, b)
         while pending:
             drain_one()
-        self._join_checkpoint(u)
+        self._join_checkpoint()
         return history, st["solved"]
 
     def _act_to_host(self, spec, obs, carry, done, staging):
@@ -395,7 +545,7 @@ class TrainEngine:
         return out["action"], out["logp"], out["value"], pc
 
     def _run_host(self, total_steps, *, target_score=None, on_update=None,
-                  on_launch=None):
+                  on_launch=None, logger=None):
         """First-finisher loop over the bridged ``HostVecEnv``: each recv is
         the N (of M = pool_buffers·N) envs that finished stepping first;
         while the device computes their actions, the other M−N envs keep
@@ -417,14 +567,15 @@ class TrainEngine:
         recs = [[] for _ in range(M)]
         ready = deque()
         history, pending, st = [], deque(), {"solved": None}
-        timer = TierTimer(spu)
+        timer = TierTimer(spu, self._resume_update * spu)
         drain_one = self._metrics_drainer(pending, history, timer,
-                                          on_update, target_score, st)
+                                          on_update, target_score, st,
+                                          logger)
         spec = act_transfer_spec(hv.act_spec)
         staging = (torch.empty((Nb * A, spec.total), dtype=torch.uint8,
                                pin_memory=True)
                    if self.device.type == "cuda" else None)
-        u = 0
+        u = self._resume_update
         while u < num_updates and st["solved"] is None:
             obs, rew, done, info, ids = hv.recv(
                 timeout=tcfg.host_recv_timeout)
@@ -473,7 +624,135 @@ class TrainEngine:
                 u += 1
         while pending:
             drain_one()
-        self._join_checkpoint(u)
+        self._join_checkpoint()
+        return history, st["solved"]
+
+    # -- async actor–learner tier ----------------------------------------------
+    def _collect_fragments(self, nf: int) -> list:
+        """``nf`` fresh-enough fragments from the actors. In drop mode,
+        fragments older than ``max_staleness`` learner versions are
+        discarded before batching (the actors keep producing, so this
+        converges); in vtrace mode every fragment batches and the
+        importance clamps do the correcting."""
+        tcfg = self.tcfg
+        out = []
+        while len(out) < nf:
+            got = self.rollouts.wait_fragments(
+                nf - len(out), timeout=tcfg.async_recv_timeout)
+            for f in got:
+                if (tcfg.staleness_mode == "drop"
+                        and self._version - f.version > tcfg.max_staleness):
+                    self._dropped += 1
+                    continue
+                out.append(f)
+        return out
+
+    def _run_async(self, total_steps, *, target_score=None, on_update=None,
+                   on_launch=None, logger=None):
+        """The learner half of the actor–learner split, through the
+        ResilientLoop: collect one update's fragments from the slab, learn,
+        publish the new params version. Fragments are a live stream, so
+        recovery retries the current batch and restores only a checkpoint
+        at ``steps_done``. Checkpoints are the engine's {ts, generator,
+        update} tree, so ``restore()`` + ``run()`` resumes a killed learner
+        at its update count (the actors re-seed from the published params,
+        as the pool and host tiers re-seed their env states)."""
+        from repro_torch.distributed.actor_learner import stack_fragments
+        from repro_torch.distributed.fault import ResilientLoop
+        tcfg, ro = self.tcfg, self.rollouts
+        spu = self.steps_per_update
+        num_updates = max(1, total_steps // spu)
+        nf = ro.spec.num_shards          # one fragment per env shard
+        history, st = [], {"solved": None}
+        timer = TierTimer(spu, self._resume_update * spu)
+        reg = tel_registry()
+        upd_ctr = reg.counter("engine.updates", tier="async")
+        age_hist = reg.histogram("async.frag_age",
+                                 edges=(0.0, 1.0, 2.0, 4.0, 8.0))
+        self.first_batch_s, self.collect_waits = 0.0, []
+        t_run = time.perf_counter()
+
+        self._version = self._resume_update
+        ro.publish(self.ts.params, self._version)
+
+        def step_fn(state, frags):
+            # the generator's state travels in ``state`` (the reference's
+            # key), so a restore inside the loop restores it too
+            self.generator.set_state(state["generator"])
+            with tel_span("engine.stack_fragments"):
+                traj, last_value = stack_fragments(frags)
+            with timer.launch():
+                traj = self._to_device(traj)
+                last_value = torch.from_numpy(last_value).to(self.device)
+                ts, m = self._learn(TrainState(*state["ts"]), None, traj,
+                                    last_value, self.generator)
+            u = int(state["update"]) + 1
+            # publish inside the step: the host copy of a poisoned update
+            # raises before the slab is touched, so actors only ever see
+            # committed params
+            ro.publish(ts.params, u)
+            return ({"ts": ts, "generator": self.generator.get_state(),
+                     "update": np.asarray(u, np.int64)}, m)
+
+        loop = ResilientLoop(
+            step_fn, self.checkpoint_dir,
+            save_every=(tcfg.checkpoint_every
+                        if self.checkpoint_dir is not None else 0),
+            async_save=True, keep=tcfg.keep_checkpoints)
+        loop.steps_done = self._resume_update
+        state = self._ckpt_tree(self._resume_update)
+
+        def frag_stream():
+            while loop.steps_done < num_updates and st["solved"] is None:
+                t0 = time.perf_counter()
+                with tel_span("engine.collect"):
+                    batch = self._collect_fragments(nf)
+                t1 = time.perf_counter()
+                self.collect_waits.append(t1 - t0)
+                if not self.first_batch_s:
+                    self.first_batch_s = t1 - t_run
+                self._last_ages = [self._version - f.version for f in batch]
+                for a in self._last_ages:
+                    age_hist.observe(a)
+                yield batch
+
+        def on_metrics(u, m):
+            self._version = ro.version    # published by step_fn
+            with timer.fetch():
+                md = unpack_metrics(torch.stack(
+                    [m[k].float().reshape(()) for k in METRIC_KEYS]).tolist())
+            timer.stamp(md, u * spu)
+            ages = self._last_ages
+            md["frag_age_mean"] = float(np.mean(ages)) if ages else 0.0
+            md["frag_age_max"] = float(np.max(ages)) if ages else 0.0
+            md["dropped_fragments"] = self._dropped
+            md["stragglers"] = int(np.sum(ro.straggler_flags))
+            md["actors_alive"] = len(ro.alive_actors())
+            md["reshards"] = len(ro.events)
+            history.append(md)
+            upd_ctr.inc()
+            if logger is not None:
+                logger.log(md["env_steps"], md)
+            if on_update is not None:
+                on_update(u - 1, md)
+            if on_launch is not None:
+                on_launch(u)
+            if (target_score is not None and st["solved"] is None
+                    and md["episodes"] > 0 and md["score"] >= target_score):
+                st["solved"] = md
+
+        try:
+            state = loop.run(state, frag_stream(), on_metrics=on_metrics)
+        finally:
+            self.run_s = time.perf_counter() - t_run
+            loop.join_save()    # an interrupted run still commits its save
+        self.ts = TrainState(*state["ts"])
+        self.generator.set_state(state["generator"])
+        self._resume_update = self._saved_upto = int(state["update"])
+        if self.checkpoint_dir is not None:
+            # final commit: kill-then-resume ends at the same update count
+            # (and params) as an uninterrupted run
+            self.save_checkpoint(self._resume_update, async_=False)
         return history, st["solved"]
 
     def _to_device(self, traj: Trajectory) -> Trajectory:

@@ -9,9 +9,10 @@ LSTM-state handling the paper singles out as the common bug).
 GAE goes through the kernel registry (``kernels.ops.gae``): the CUDA kernel
 for CUDA tensors, the plain version on the CPU. The epoch permutations come
 from the generator, or are given (``perms``) so that a test can feed the
-reference's. Nothing here syncs with the host. The data-parallel layout
-(``axis_name``, ``num_shards``) and the off-policy advantage (``adv_fn``,
-V-trace) come with the data-parallel and async slices.
+reference's. Nothing here syncs with the host. ``adv_fn`` replaces GAE
+with an off-policy advantage (``make_vtrace_adv``, the async tier's
+V-trace). The data-parallel layout (``axis_name``, ``num_shards``) comes
+with the data-parallel slice.
 """
 from __future__ import annotations
 
@@ -58,19 +59,66 @@ def epoch_perms(generator: torch.Generator, n: int, epochs: int,
         .reshape(minibatches, n // minibatches) for _ in range(epochs)])
 
 
-def make_ocean_learn(policy, tcfg: TrainConfig, dist):
+def make_vtrace_adv(policy, dist, tcfg: TrainConfig,
+                    rho_clip: float = 1.0, c_clip: float = 1.0):
+    """V-trace advantages and value targets (IMPALA) for the async tier's
+    off-policy fragments: truncated importance weights correct for the
+    policy-version lag between the actor that produced a fragment and the
+    learner consuming it. Plugs into ``make_ocean_learn(adv_fn=...)``.
+
+    rho and c are exp(logpi_current − logpi_behavior) per sample, clamped
+    at ``rho_clip`` / ``c_clip``; on-policy fragments give rho = c = 1. The
+    reverse recursion over T is a plain loop (a ``lax.scan`` in the
+    reference, not a Pallas kernel). Non-recurrent policies only: the
+    fragment slab ships no carries."""
+    if policy.recurrent:
+        raise ValueError("make_vtrace_adv supports non-recurrent policies "
+                         "(fragments carry no recurrent state)")
+
+    @torch.no_grad()
+    def adv_fn(params, traj: Trajectory, last_value):
+        # one forward pass under the *current* policy over the whole batch
+        logits, values, _ = policy.seq(params, traj.obs, None, traj.resets)
+        newlogp = dist.log_prob(logits, traj.actions)
+        rho = torch.exp(newlogp - traj.logprobs)
+        rho_c = rho.clamp(max=rho_clip)
+        c = rho.clamp(max=c_clip)
+        nd = 1.0 - traj.dones.float()            # no bootstrap across
+        v_next = torch.cat([values[1:], last_value[None]])
+        delta = rho_c * (traj.rewards + tcfg.gamma * v_next * nd - values)
+        acc = torch.zeros_like(last_value)
+        out = []
+        for t in range(delta.shape[0] - 1, -1, -1):
+            acc = delta[t] + tcfg.gamma * nd[t] * c[t] * acc
+            out.append(acc)
+        vs = values + torch.stack(out[::-1])
+        vs_next = torch.cat([vs[1:], last_value[None]])
+        adv = rho_c * (traj.rewards + tcfg.gamma * vs_next * nd - values)
+        # both are fixed targets for the PPO epochs (from pre-update params)
+        return adv, vs
+
+    return adv_fn
+
+
+def make_ocean_learn(policy, tcfg: TrainConfig, dist, adv_fn=None):
     """The post-rollout half of the update: GAE → minibatched clipped-PPO
     epochs. Returns ``learn(ts, carry0, traj, last_value, generator,
-    perms=None) → (ts, metrics)``; ``metrics`` are 0-dim device tensors."""
+    perms=None) → (ts, metrics)``; ``metrics`` are 0-dim device tensors.
+    ``adv_fn(params, traj, last_value) → (adv, returns)`` replaces GAE
+    (``make_vtrace_adv``), computed once per update from the pre-update
+    params, where GAE runs."""
     E, M = tcfg.update_epochs, tcfg.num_minibatches
 
     def learn(ts: TrainState, carry0, traj: Trajectory, last_value,
               generator: torch.Generator = None, perms=None):
         T, B = traj.rewards.shape
-        # the kernel reads the (B, T) views through their strides
-        adv = kops.gae(traj.rewards.T, traj.values.T, traj.dones.T,
-                       last_value, tcfg.gamma, tcfg.gae_lambda).T  # (T, B)
-        returns = adv + traj.values
+        if adv_fn is None:
+            # the kernel reads the (B, T) views through their strides
+            adv = kops.gae(traj.rewards.T, traj.values.T, traj.dones.T,
+                           last_value, tcfg.gamma, tcfg.gae_lambda).T
+            returns = adv + traj.values                         # (T, B)
+        else:
+            adv, returns = adv_fn(ts.params, traj, last_value)
 
         def terms(logits, newv, actions, logprobs, a, values, ret):
             newlogp = dist.log_prob(logits, actions)

@@ -2,14 +2,16 @@
 ``rl.engine.TrainEngine``.
 
 The counterpart of ``repro/rl/trainer.py``: construction from a raw env,
-``train`` and the history. The engine owns the device-resident state and
-the K-updates-per-launch loop. Checkpoints (``save``/``restore``) and the
-metrics log (``log_dir``) come with the checkpoint and telemetry slices.
+``train`` (with periodic checkpoints and resume), ``save``/``restore`` of
+the params and optimizer state, the history, and the metrics log
+(``log_dir``: one JSONL record per update). The engine owns the
+device-resident state and the K-updates-per-launch loop.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import spaces as sp
 from repro_torch.core.emulation import Emulated
@@ -17,6 +19,7 @@ from repro_torch.models.policy import OceanPolicy
 from repro_torch.rl.distributions import Dist
 from repro_torch.rl.engine import TrainEngine
 from repro_torch.rl.learner import TrainState
+from repro_torch.utils.metrics import MetricsLogger
 
 
 def ocean_policy_stack(env, hidden: int = 128, recurrent: bool = False,
@@ -57,9 +60,8 @@ class Trainer:
                  log_dir: str = None,
                  backend: str = None, updates_per_launch: int = None,
                  conv: bool = None, device=None):
-        if log_dir is not None:
-            raise NotImplementedError(
-                "the metrics log (log_dir) comes with the telemetry slice")
+        self.logger = MetricsLogger(log_dir,
+                                    run_name=type(env).__name__.lower())
         self.tcfg = tcfg or TrainConfig()
         self.em, self.dist, self.policy = ocean_policy_stack(
             env, hidden=hidden, recurrent=recurrent, conv=conv)
@@ -86,11 +88,22 @@ class Trainer:
         return self.engine.steps_per_update
 
     def train(self, total_steps: int, log_every: int = 0,
-              target_score: Optional[float] = None, on_launch=None):
+              target_score: Optional[float] = None,
+              checkpoint_dir: Optional[str] = None, resume: bool = False,
+              on_launch=None):
         """Run until total env interactions ≥ total_steps (or solved).
         ``target_score`` is checked at launch boundaries (identical to
-        per-update for K = 1). Returns the solving update's metrics, else
-        the last update's."""
+        per-update for K = 1). With ``checkpoint_dir`` the engine saves its
+        resumable state every ``tcfg.checkpoint_every`` updates (async, at
+        the update boundary); ``resume=True`` restores the newest committed
+        checkpoint first and continues from its update count. Metrics
+        stream into ``self.logger``. Returns the solving update's metrics,
+        else the last update's ({} when a resumed run had nothing left)."""
+        if checkpoint_dir:
+            self.engine.checkpoint_dir = checkpoint_dir
+            if resume and ckpt.latest(checkpoint_dir) is not None:
+                u0 = self.engine.restore(checkpoint_dir)
+                print(f"  resumed at update {u0}")
 
         def on_update(u, m):
             self.history.append(m)
@@ -102,15 +115,22 @@ class Trainer:
                       f"sps {m['sps']:.0f}")
 
         _, solved = self.engine.run(total_steps, target_score=target_score,
-                                    on_update=on_update, on_launch=on_launch)
+                                    on_update=on_update,
+                                    on_launch=on_launch, logger=self.logger)
         if solved is not None:
             return solved
         return self.history[-1] if self.history else {}
 
     def save(self, ckpt_dir: str):
-        raise NotImplementedError("checkpoints come with the checkpoint "
-                                  "slice (checkpoint/ckpt.py)")
+        """Save the params, the optimizer state and the step count: the
+        reference's ``{"params", "opt", "step"}`` tree, so either package
+        restores the params the other saved."""
+        return ckpt.save(ckpt_dir, {"params": self.ts.params,
+                                    "opt": self.ts.opt, "step": self.ts.step})
 
     def restore(self, ckpt_dir: str):
-        raise NotImplementedError("checkpoints come with the checkpoint "
-                                  "slice (checkpoint/ckpt.py)")
+        tree = ckpt.restore(ckpt_dir, {"params": self.ts.params,
+                                       "opt": self.ts.opt,
+                                       "step": self.ts.step})
+        self.engine.ts = TrainState(tree["params"], tree["opt"],
+                                    tree["step"])

@@ -218,6 +218,7 @@ SSD_EDGES = [  # (B, T, H, hd, ds, chunk, layout)
     (2, 64, 3, 16, 32, 16, "dense"),
     (1, 16, 1, 8, 8, 4, "dense"),
     (1, 70, 2, 128, 128, 128, "dense"),    # largest head dim and state
+    (2, 300, 4, 48, 32, 100, "dense"),     # tensor cores at hd 48, chunk 100
 ]
 
 

@@ -8,6 +8,7 @@ launcher solves bandit on both tiers (``SOLVED``). On the CPU GAE and
 ``pack`` take their plain versions.
 """
 import contextlib
+import dataclasses
 import io
 
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ import torch
 
 from repro.rl.engine import TrainEngine as JTrainEngine
 from repro_torch.bridge import make_host_engine, wrap
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import TrainConfig
 from repro_torch.envs import ocean
 from repro_torch.envs.ocean_host import HostBandit, HostSquared, HostTeam
@@ -137,7 +139,7 @@ def test_host_tier_target_score_early_exit():
         e.close()
 
 
-def test_tier_validation():
+def test_tier_validation(tmp_path):
     # K > 1 is the jit tier's knob
     with pytest.raises(ValueError, match="host tier"):
         _host(HostBandit, TrainConfig(num_envs=8, unroll_length=8,
@@ -156,14 +158,14 @@ def test_tier_validation():
             TrainEngine(v, pol, TCFG, dist, device="cpu", backend="host")
     finally:
         v.close()
-    # checkpoints come with their slice
-    e = _host(HostBandit)
+    # the host tier checkpoints at update boundaries (learner + generator)
+    e = _host(HostBandit, dataclasses.replace(TCFG, checkpoint_every=1))
     try:
-        e.checkpoint_dir = "unused"
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            e.run(e.steps_per_update)
+        e.checkpoint_dir = str(tmp_path)
+        e.run(e.steps_per_update)
     finally:
         e.close()
+    assert ckpt.step_of(ckpt.latest(str(tmp_path))) == 1
 
 
 def _fragments(rng, Nb, T, A, recurrent, carry):

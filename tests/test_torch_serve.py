@@ -93,6 +93,12 @@ def test_port_imports_no_jax_and_no_repro():
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 20, mods\n"
+        "new = {'repro_torch.checkpoint.ckpt', 'repro_torch.utils.metrics',"
+        " 'repro_torch.distributed.fault',"
+        " 'repro_torch.distributed.actor_learner',"
+        " 'repro_torch.telemetry.spans', 'repro_torch.telemetry.traceprop',"
+        " 'repro_torch.telemetry.registry'}\n"
+        "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,

@@ -167,6 +167,7 @@ def _emulate_ssd(x, dt, A, B_, C, chunk):
     (2, 128, 2, 32, 32, 32),     # four chunks at wider tiles
     (1, 128, 1, 64, 128, 128),   # mamba2's head dim, state and chunk
     (2, 48, 3, 16, 48, 16),      # three chunks, a state of 48
+    (2, 300, 4, 48, 32, 100),    # head dim 48, a chunk of 100 (not 16k)
 ])
 def test_tensor_core_arithmetic_matches_jax(B, T, H, hd, ds, chunk,
                                             jax_mode):

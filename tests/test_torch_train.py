@@ -4,6 +4,7 @@ accounting, the Trainer solving the preset envs, and the launcher.
 The counterparts of tests/test_engine.py (fused vs sequential, accounting)
 and of the JAX Trainer smokes; on the CPU GAE takes its plain version.
 """
+import dataclasses
 import math
 import os
 import subprocess
@@ -92,11 +93,15 @@ def test_every_env_trains_one_update(name):
     assert all(math.isfinite(m[k]) for k in METRIC_KEYS)
 
 
-def test_unported_backends_and_checkpoints_raise():
+def test_unported_backends_and_checkpoints_raise(tmp_path):
     em, dist, pol = ocean_policy_stack(ocean.Bandit(), hidden=8)
-    for backend in ("shard_map", "async"):
-        with pytest.raises(ValueError, match="slice"):
-            TrainEngine(em, pol, TCFG, dist, device="cpu", backend=backend)
+    with pytest.raises(ValueError, match="slice"):
+        TrainEngine(em, pol, TCFG, dist, device="cpu", backend="shard_map")
+    # the async tier is ported: its config is checked before any actor
+    # spawns (16 envs do not split into 3 shards)
+    with pytest.raises(ValueError, match="num_shards"):
+        TrainEngine(em, pol, dataclasses.replace(TCFG, num_actors=3), dist,
+                    device="cpu", backend="async")
     # the pool tier takes the batched env; the host tier a HostVecEnv only
     assert TrainEngine(em, pol, TCFG, dist, device="cpu",
                        backend="pool").pool.num_buffers == 2
@@ -108,11 +113,14 @@ def test_unported_backends_and_checkpoints_raise():
         assert eng.hvec is hv
     finally:
         hv.close()
+    # checkpoints and the metrics log are ported: save writes a committed
+    # checkpoint and log_dir opens the run's JSONL stream
     tr = Trainer(ocean.Bandit(), TCFG, hidden=8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tr.save("unused")
-    with pytest.raises(NotImplementedError):
-        Trainer(ocean.Bandit(), TCFG, log_dir="unused", device="cpu")
+    assert tr.save(str(tmp_path / "ck")).endswith("step_0")
+    lg = Trainer(ocean.Bandit(), TCFG, log_dir=str(tmp_path / "log"),
+                 device="cpu").logger
+    assert lg.path.endswith("bandit.jsonl")
+    lg.close()
 
 
 @pytest.mark.slow
