@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs eleven phases, each printing its
+``src/repro_torch/kernels/csrc`` and runs thirteen phases, each printing its
 lines; any failure ends the run with a traceback and a non-zero exit:
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
@@ -80,8 +80,8 @@ lines; any failure ends the run with a traceback and a non-zero exit:
   6. train       Ocean PPO through ``rl.trainer.Trainer`` on the card, f32:
                  (a) bandit and squared solve (score >= 0.9) at their presets
                  (64 envs x 64 steps, hidden 64, seed 0) within 150k / 300k
-                 steps; (b) each of the eight envs runs 2 updates at 4096
-                 envs x 64 steps with finite metrics; (c) full size: squared
+                 steps; (b) each of the 13 envs of ``OCEAN`` runs 2 updates
+                 at 4096 envs x 64 steps with finite metrics; (c) full size: squared
                  at 4096 envs x 64 steps (262,144 transitions per update),
                  4 epochs x 4 minibatches, hidden 128, K = 1: 2 warm-up and
                  5 timed updates, one launch under
@@ -129,6 +129,28 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  must end at update 40; prints sps, the learner's idle
                  share, fragment ages, dropped fragments, each actor's
                  device and steps/s, and ``torch.cuda.mem_get_info``
+ 12. ocean2      path C, Ocean II through the Trainer on the card: pong,
+                 drone, tagteam and maze each train at their unchanged
+                 ``configs/ocean.py`` preset (64 envs x 64 steps, hidden 64)
+                 to their target score on seed 0, with one gae launch per
+                 update; an env that stalls is re-run over seeds 0-5 and
+                 passes only if 5 of 6 solve; pong's line counts the calls
+                 of the conv frontend, maze's the distinct wall layouts of
+                 env 0's first 64 episodes (random actions), which must be
+                 more than 1; prints env steps, wall time and sps
+ 13. selfplay    path D, league self-play on the jit tier: (a) the launcher
+                 with ``--ocean duel --selfplay --league-dir`` in a
+                 subprocess at the duel preset (300k steps) must reach a
+                 winrate of >= 0.9 against the random policy, with one gae
+                 launch per update; prints the store's versions and the
+                 leaderboard; (b) a full-size self-play update, duel at
+                 4096 envs x 64 steps (8,192 agent rows, 4,096 learner
+                 rows): 2 warm-up and 5 timed updates, one launch under sync
+                 debug mode "error" (the opponent is loaded and copied
+                 before it), gae == updates, and a profile of one update;
+                 (c) ``Arena.vs_pool`` over 4 stored versions (1024 envs a
+                 match) must give the same outcomes as
+                 ``vs_pool_sequential``; prints both times
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. flash_attention and SDPA are timed
@@ -199,6 +221,7 @@ from repro_torch.kernels.quant_matmul import (  # noqa: E402
     alignment as qmm_alignment, quant_matmul, route as qmm_route)
 from repro_torch.kernels.ssd import (  # noqa: E402
     alignment as ssd_alignment, route as ssd_route, ssd)
+from repro_torch.league import Arena, build_league  # noqa: E402
 from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
 from repro_torch.rl import actor  # noqa: E402
@@ -288,6 +311,8 @@ PACK_LEAVES = (1, 3, 8, 32, 33, 75)     # pack's leaf counts about its tables
 PACK_ROWS = (1, 31, 33, 64)             # pack's B about a warp
 PROC_N, PROC_UPDATES = 8, 4             # the proc-backend run: M 16 workers
 CKPT_U = 5                              # path A: updates before the stop
+OCEAN2 = ("pong", "drone", "tagteam", "maze")   # path C, at their presets
+POOL_K, POOL_ENVS = 4, 1024             # path D: the arena's pool
 ASYNC_UPDATES = 40                      # path B: full-budget runs' updates
 
 
@@ -1577,6 +1602,230 @@ def phase_async():
     return launches
 
 
+def ocean2_solve(name, seed):
+    """One Ocean II env at its preset through the Trainer on the card:
+    returns (trainer, final metrics, wall s, gae launches, conv frontend
+    calls)."""
+    p = preset(name)
+    tr = Trainer(OCEAN[name](), ocean_tcfg(name), hidden=p.hidden,
+                 recurrent=p.recurrent, conv=p.conv, seed=seed)
+    conv_calls = [0]
+    if tr.policy.conv_shape:
+        frontend = tr.policy._conv_frontend
+
+        def counted(params, obs):
+            conv_calls[0] += 1
+            return frontend(params, obs)
+        tr.policy._conv_frontend = counted
+    build.reset_launches()
+    t0 = time.perf_counter()
+    m = tr.train(p.total_steps, target_score=p.target_score)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = check_launches(f"12 ocean2 {name}", {
+        "gae": len(tr.history), "pack": 0, "flash_attention": 0,
+        "flash_decode": 0, "ssd": 0, "quant_matmul": 0})
+    return tr, m, wall, launches["gae"], conv_calls[0]
+
+
+def maze_layouts(eng, episodes=64):
+    """Distinct wall layouts over the first ``episodes`` episodes of env 0
+    of the engine's VecEnv (random actions, on the card): the walls and
+    done flags of every step stay on the device until the end."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    vec = eng.vec
+    state, _ = vec.init(gen)
+    walls, dones = [state["walls"][0].clone()], []
+    steps = episodes * vec.env.env.horizon
+    for _ in range(steps):
+        act = torch.randint(0, 5, (vec.batch_size, 1), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        state, _, _, done, _ = vec.step(state, act, gen)
+        walls.append(state["walls"][0].clone())
+        dones.append(done[0])
+    walls = torch.stack(walls).cpu().numpy()
+    ends = torch.stack(dones).cpu().numpy().nonzero()[0]
+    if len(ends) < episodes - 1:
+        raise AssertionError(f"env 0 ended {len(ends)} episodes in {steps} "
+                             f"steps")
+    # episode e + 1 starts at the state after the step that ended e
+    firsts = [walls[0]] + [walls[i + 1] for i in ends[:episodes - 1]]
+    return len({w.tobytes() for w in firsts}), len(firsts)
+
+
+def phase_ocean2():
+    """Path C, Ocean II: pong, drone, tagteam and maze at their
+    ``configs/ocean.py`` presets through the Trainer on the card, each to
+    its target score on seed 0 (a stall re-runs the preset over seeds 0-5
+    and passes only if 5 of 6 solve), one gae launch per update; pong must
+    run the conv frontend, and maze must draw a new layout per episode.
+    Returns {env: (updates, gae launches)}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name in OCEAN2:
+        p = preset(name)
+        tr, m, wall, gae_n, conv_calls = ocean2_solve(name, 0)
+        n = len(tr.history)
+        status = "SOLVED" if m["score"] >= p.target_score else "stalled"
+        extra = ""
+        if name == "pong":
+            if tr.policy.conv_shape != (6, 6) or not conv_calls:
+                raise AssertionError(f"pong did not run the conv frontend "
+                                     f"({conv_calls} calls)")
+            extra = (f"; conv frontend {tr.policy.conv_shape} with "
+                     f"{tr.policy.CONV_FILTERS} filters ran {conv_calls} "
+                     f"times ({conv_calls / n:.0f} per update)")
+        if name == "maze":
+            distinct, eps = maze_layouts(tr.engine)
+            if distinct <= 1:
+                raise AssertionError(f"maze replayed one layout over {eps} "
+                                     f"episodes")
+            extra = (f"; env 0's first {eps} episodes drew {distinct} "
+                     f"distinct wall layouts")
+        print(f"[12 ocean2] {name} {status} score {m['score']:.3f} at "
+              f"{m['env_steps']} env steps (budget {p.total_steps}, seed 0) "
+              f"in {wall:.2f} s wall, {n} updates "
+              f"({m['env_steps'] / wall:.0f} sps), gae launches {gae_n} == "
+              f"updates{extra}", flush=True)
+        if status != "SOLVED":
+            solved = 0
+            for seed in range(6):
+                trs, ms, walls, _, _ = (tr, m, wall, gae_n, 0) if seed == 0 \
+                    else ocean2_solve(name, seed)
+                ok = ms["score"] >= p.target_score
+                solved += ok
+                print(f"[12 ocean2] {name} seed {seed}: "
+                      f"{'SOLVED' if ok else 'stalled'} score "
+                      f"{ms['score']:.3f} at {ms['env_steps']} env steps in "
+                      f"{walls:.2f} s", flush=True)
+                del trs
+            if solved < 5:
+                raise AssertionError(f"{name} solved on {solved} of 6 seeds")
+        out[name] = (n, gae_n)
+        del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_selfplay():
+    """Path D, league self-play: (a) the launcher with --selfplay on duel at
+    its preset in a subprocess, winrate against random >= 0.9, one gae a
+    learner update; (b) a full-size self-play update (duel, 4096 envs x 64
+    steps), one launch under sync debug mode "error"; (c) the arena's
+    batched pool against its one-pass-per-opponent form. Returns the gae
+    launches of (b)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p = preset("duel")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        rc, out = run_launcher("13 selfplay", [
+            "--ocean", "duel", "--selfplay", "--league-dir", d], timeout=600)
+        wall = time.perf_counter() - t0
+        line = next((ln for ln in out if "winrate_vs_random=" in ln), None)
+        if rc != 0 or line is None:
+            raise AssertionError(f"selfplay launcher exit {rc}:\n"
+                                 + "".join(out[-40:]))
+        got = re.search(r"winrate_vs_random=([0-9.]+) versions=(\[.*\]) "
+                        r"updates=(\d+) steps=(\d+) launches=(\{.*\})", line)
+        wr, versions = float(got.group(1)), ast.literal_eval(got.group(2))
+        n, steps = int(got.group(3)), int(got.group(4))
+        launches = ast.literal_eval(got.group(5))
+        if wr < p.target_score or launches["gae"] != n or any(
+                launches[k] for k in launches if k != "gae"):
+            raise AssertionError(f"selfplay: {line}")
+        board = out[out.index(line) + 1:]
+        print(f"[13 selfplay] (a) duel through the launcher (preset "
+              f"{p.total_steps} steps, K 1, snapshots every 10 updates) in "
+              f"{wall:.1f} s wall, interpreter start included: winrate vs "
+              f"random {wr:.3f} (>= {p.target_score}), {n} updates, {steps} "
+              f"env steps, gae launches {launches['gae']} == updates, store "
+              f"versions {versions}; leaderboard: "
+              + " | ".join(" ".join(b.split()) for b in board[1:]),
+              flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        tcfg = ocean_tcfg("duel", num_envs=TRAIN_ENVS)
+        eng, store, _, sampler, arena = build_league(
+            OCEAN["duel"](), tcfg, league_dir=d, hidden=p.hidden, seed=0)
+        spu = eng.steps_per_update
+        eng.run(2 * spu)                                # warm-up
+        sync()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        hist, _ = eng.run(5 * spu)
+        sync()
+        wall = time.perf_counter() - t0
+        opp = sampler.next_params()       # store load and copy: outside
+        sync()
+        torch.cuda.set_sync_debug_mode("error")         # no sync in a launch
+        try:
+            ring = eng.launch(1, opp)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync()
+        updates = len(hist) + 1
+        sp_launches = check_launches("13 selfplay (b)", {
+            "gae": updates, "pack": 0, "flash_attention": 0,
+            "flash_decode": 0, "ssd": 0, "quant_matmul": 0})
+        if not (bool(torch.isfinite(ring).all()) and all(
+                math.isfinite(h[k]) for h in hist for k in METRIC_KEYS)):
+            raise AssertionError("non-finite metrics in the self-play run")
+        update_ms = wall * 1e3 / len(hist)
+        A, L = eng.vec.num_agents, eng._sp_agents
+        print(f"[13 selfplay] (b) duel full size: {TRAIN_ENVS} envs x "
+              f"{tcfg.unroll_length} steps, {TRAIN_ENVS * A} agent rows "
+              f"({TRAIN_ENVS * L} learner rows), hidden {p.hidden}, "
+              f"{tcfg.update_epochs} epochs x {tcfg.num_minibatches} "
+              f"minibatches, K 1: {len(hist) * spu / wall:.0f} sps (all "
+              f"rows), {update_ms:.2f} ms/update (launch "
+              f"{sum(h['launch_ms'] for h in hist) / len(hist):.2f} ms); a "
+              f"launch ran under sync debug mode 'error'; launches "
+              f"{sp_launches} over {updates} updates", flush=True)
+        profile_steps("13 selfplay", "(b) full-size self-play update",
+                      lambda: eng.launch(1, opp), 1, update_ms)
+
+        # (c) K opponents from the store: the batched pass against one
+        # pass per opponent, in turns (pooled, sequential, sequential,
+        # pooled), each from the same generator seed
+        for _ in range(POOL_K - 1):
+            eng.launch(1, opp)
+            store.add(eng.ts.params)
+        versions = store.versions()[-POOL_K:]
+        stacked = store.load_stacked(versions, sampler.like)
+        pa = eng.ts.params
+        pool_arena = Arena(arena.em, arena.policy, arena.dist,
+                           num_envs=POOL_ENVS)
+        times, results = {"pooled": [], "sequential": []}, {}
+        for kind in ("pooled", "sequential", "sequential", "pooled"):
+            fn = (pool_arena.vs_pool if kind == "pooled"
+                  else pool_arena.vs_pool_sequential)
+            g = torch.Generator(device="cuda").manual_seed(5)
+            sync()
+            t0 = time.perf_counter()
+            res = fn(pa, stacked, g)
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+            if results.setdefault(kind, res) != res:
+                raise AssertionError(f"arena {kind} is not repeatable")
+        if results["pooled"] != results["sequential"]:
+            raise AssertionError(f"vs_pool {results['pooled']} != "
+                                 f"vs_pool_sequential "
+                                 f"{results['sequential']}")
+        print(f"[13 selfplay] (c) arena vs_pool over {POOL_K} stored "
+              f"versions {versions}, {POOL_ENVS} envs a match x "
+              f"{pool_arena.steps} steps: outcomes equal to "
+              f"vs_pool_sequential "
+              f"{[round(r['outcome'], 4) for r in results['pooled']]} "
+              f"({sum(r['episodes'] for r in results['pooled']):.0f} "
+              f"episodes); pooled {min(times['pooled']):.1f} ms, sequential "
+              f"{min(times['sequential']):.1f} ms (best of 2 in turns, "
+              f"host wall with the final copy)", flush=True)
+        del eng, store, sampler, arena, pool_arena, stacked
+    torch.cuda.empty_cache()
+    return sp_launches
+
+
 def kernel_rows(gen, launches, errs):
     """Times at the main paths' shapes: kernel, plain version, library call
     (SDPA for attention; none for GAE and SSD), and bound."""
@@ -1989,6 +2238,8 @@ def main():
     launches["pack"] = phase_host()["pack"]
     phase_checkpoint()
     phase_async()
+    phase_ocean2()
+    phase_selfplay()
     rows = kernel_rows(gen, launches, errs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,6 @@
 """Per-env training presets for the Ocean suite: a copy of
-``repro/configs/ocean.py`` (original eight + Ocean II; the port registers the
-original eight envs so far).
+``repro/configs/ocean.py`` (the original eight, Ocean II and the league's
+duel — all 13 envs the port registers).
 
 One place records the knobs each scenario needs to solve (score > 0.9) in a
 CI-smoke budget: policy width, LSTM for the memory env, the CNN frontend for

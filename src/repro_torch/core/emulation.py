@@ -175,3 +175,18 @@ class Emulated:
     def unemulate_obs(self, flat):
         """First line of your model's forward pass."""
         return unemulate(self.obs_spec, flat)
+
+
+def pad_agents(obs, mask, num_agents: int, axis: int = 0):
+    """Pad agent-major data to a fixed agent count (paper §3.1). ``mask``
+    marks live agents; padded rows are zero. The agent axis is ``axis`` of
+    ``obs`` and the last axis of ``mask``: 0 for one env's ``(A, …)`` rows,
+    as in the reference, or 1 for a batch of envs' ``(N, A, …)``."""
+    cur = obs.shape[axis]
+    if cur == num_agents:
+        return obs, mask
+    pad = list(obs.shape)
+    pad[axis] = num_agents - cur
+    mpad = tuple(mask.shape[:-1]) + (num_agents - cur,)
+    return (torch.cat([obs, obs.new_zeros(pad)], dim=axis),
+            torch.cat([mask, mask.new_zeros(mpad)], dim=-1))

@@ -10,8 +10,11 @@ the host tier on bridged host envs.
       [--host-backend proc]
   PYTHONPATH=src python -m repro_torch.launch.train --ocean squared \\
       --ckpt-dir ckpts --save-every 10 [--resume] [--run-dir runs/sq]
+  PYTHONPATH=src python -m repro_torch.launch.train --ocean duel \\
+      --selfplay --league-dir league [--snapshot-every 10] \\
+      [--strategy prioritized]
 
-``--ocean`` trains each named env (or ``all``: the eight of
+``--ocean`` trains each named env (or ``all``: the 13 of
 ``envs/ocean.py``) with its ``configs/ocean.py`` preset; ``--host-env``
 trains the numpy mirrors of ``envs/ocean_host.py`` (or ``all``) through
 ``bridge.make_host_engine`` on the host tier, M = 2N envs on worker threads
@@ -22,9 +25,15 @@ idle share, the fragments' ages, and each actor's device and steps per
 second. ``--ckpt-dir`` saves each ``--ocean`` env's resumable state under
 ``<dir>/<env>`` every ``--save-every`` updates and ``--resume`` continues
 from the newest one; ``--run-dir`` turns on span tracing into that
-directory and writes the metrics log there. Runs on the card unless
-``--device cpu``. The counterpart of the ``--ocean`` and ``--host-env``
-branches of ``repro/launch/train.py``.
+directory and writes the metrics log there. ``--selfplay`` trains a
+multi-agent ``--ocean`` env under league self-play on the jit tier:
+frozen opponents sampled (``--strategy``) from the policy store in
+``--league-dir``, a snapshot every ``--snapshot-every`` updates rated in
+the arena; it prints the final winrate against the random policy, the
+store's versions, the updates and kernel launches, and the leaderboard.
+Runs on the card unless ``--device cpu``. The counterpart of the
+``--ocean``, ``--selfplay`` and ``--host-env`` branches of
+``repro/launch/train.py``.
 
 The module imports no torch at its top: ``--host-backend proc`` and the
 async tier spawn processes, and spawn re-imports this module in each.
@@ -86,6 +95,18 @@ def _parser():
     ap.add_argument("--run-dir", default=None,
                     help="--ocean: span tracing and the metrics log into "
                          "this directory")
+    ap.add_argument("--selfplay", action="store_true",
+                    help="train --ocean env(s) under league self-play: "
+                         "frozen opponents sampled from the policy store "
+                         "in --league-dir (multi-agent envs only)")
+    ap.add_argument("--league-dir", default=None,
+                    help="policy-league directory (store + ratings); "
+                         "required with --selfplay")
+    ap.add_argument("--snapshot-every", type=int, default=10,
+                    help="selfplay: updates between store snapshots")
+    ap.add_argument("--strategy", default="prioritized",
+                    choices=("latest", "uniform", "prioritized"),
+                    help="selfplay opponent sampling strategy")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -174,6 +195,44 @@ def _async_report(eng, h):
         lines.append(f"  actor {a}: device={devname} steps={per['steps'][a]}"
                      f" fragments={per['fragments'][a]} sps={sps:.0f}")
     return "\n".join(lines)
+
+
+def _train_selfplay(args, ap, dev):
+    from repro_torch.configs.ocean import ocean_tcfg, preset
+    from repro_torch.envs.ocean import OCEAN
+    from repro_torch.kernels import build
+    from repro_torch.league import run_selfplay
+
+    names = [n.strip() for n in args.ocean.split(",")]
+    unknown = [n for n in names if n not in OCEAN]
+    if unknown:
+        ap.error(f"unknown ocean env(s) {unknown}; have {list(OCEAN)}")
+    results = {}
+    for name in names:
+        p = preset(name)
+        over = {"num_envs": args.num_envs} if args.num_envs else {}
+        tcfg = ocean_tcfg(name, engine_backend="jit",
+                          updates_per_launch=args.updates_per_launch, **over)
+        steps = args.total_env_steps or p.total_steps
+        ldir = os.path.join(args.league_dir, name) if len(names) > 1 \
+            else args.league_dir
+        print(f"=== selfplay/{name} (league={ldir}, device={dev}) ===",
+              flush=True)
+        build.reset_launches()
+        res = run_selfplay(
+            OCEAN[name](), tcfg, league_dir=ldir, total_steps=steps,
+            snapshot_every=args.snapshot_every, hidden=p.hidden,
+            recurrent=p.recurrent, conv=p.conv, strategy=args.strategy,
+            seed=args.seed, device=dev, log_every=10)
+        status = ("SOLVED" if res.winrate_random >= p.target_score
+                  else "unsolved")
+        print(f"  -> {status} winrate_vs_random={res.winrate_random:.3f} "
+              f"versions={res.store.versions()} updates={len(res.history)} "
+              f"steps={res.history[-1]['env_steps']} "
+              f"launches={dict(build.LAUNCHES)}", flush=True)
+        print(res.ranker.leaderboard(), flush=True)
+        results[name] = res
+    return results
 
 
 def _train_ocean(args, ap, dev):
@@ -265,12 +324,30 @@ def _train_ocean(args, ap, dev):
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
+    if args.selfplay:
+        if args.engine_backend == "async":
+            ap.error("--selfplay drives the device-resident tiers (frozen "
+                     "opponents live in the fused update); the async tier "
+                     "does not ship opponent params through the slab")
+        if args.engine_backend not in (None, "jit"):
+            ap.error(f"--selfplay runs on the jit tier, not "
+                     f"--engine-backend {args.engine_backend}")
+        if not args.ocean:
+            ap.error("--selfplay requires --ocean <name(s)> (e.g. duel)")
+        if not args.league_dir:
+            ap.error("--selfplay requires --league-dir")
+        if args.ckpt_dir or args.resume or args.run_dir:
+            ap.error("--ckpt-dir/--resume/--run-dir are not taken with "
+                     "--selfplay: the store in --league-dir is the league's "
+                     "durable state")
     if (args.ocean is None) == (args.host_env is None):
         ap.error("pass exactly one of --ocean and --host-env")
     from repro_torch import device as _device
     dev = _device.resolve(args.device)
     if args.host_env is not None:
         return _train_host(args, ap, dev)
+    if args.selfplay:
+        return _train_selfplay(args, ap, dev)
     return _train_ocean(args, ap, dev)
 
 

@@ -107,6 +107,17 @@ class OceanPolicy(nn.Module):
         """A parameter dict drawn from ``generator``, on its device."""
         return init_params(self.spec(), generator, dtype)
 
+    def abstract(self, device=None, dtype=torch.float32) -> dict:
+        """A parameter dict of the policy's shapes, uninitialised, on
+        ``device`` — the ``like`` template of checkpoint and PolicyStore
+        restores (its values are never read)."""
+        def like(spec):
+            if isinstance(spec, dict):
+                return {k: like(v) for k, v in spec.items()}
+            return torch.empty(spec.shape, dtype=spec.dtype or dtype,
+                               device=device)
+        return like(self.spec())
+
     def initial_carry(self, batch: int, device=None):
         if not self.recurrent:
             return None
@@ -135,7 +146,7 @@ class OceanPolicy(nn.Module):
         if not self.recurrent:
             return h, None
         if reset is not None:
-            m = 1.0 - reset.float()[:, None]
+            m = 1.0 - reset.float()[..., None]
             carry = (carry[0] * m, carry[1] * m)
         return lstm_step(params["lstm"], h, carry)
 
@@ -153,6 +164,31 @@ class OceanPolicy(nn.Module):
 
     forward = step
 
+    def step_stacked(self, params, obs, carry, reset=None):
+        """``step`` of K param sets stacked on a leading axis, each over its
+        own rows: ``obs`` (K, R, obs), ``carry`` (K, R, hidden) pairs and
+        ``reset`` (K, R). One batched product a layer (the arena's opponent
+        pool), where K ``step`` calls would take K."""
+        p = _bias_rows(params)
+        if self.conv_shape:
+            obs = self._conv_stacked(params, obs)
+        h = torch.tanh(obs @ p["enc1"] + p["b1"])
+        h = torch.tanh(h @ p["enc2"] + p["b2"])
+        h, carry = self.recurrent_cell(p, h, carry, reset)
+        logits, value = self.decode(p, h)
+        return logits, value, carry
+
+    def _conv_stacked(self, params, obs):
+        """The conv frontend of K stacked param sets as one grouped conv:
+        (K, R, H·W) → (K, R, H·W·filters), each set over its own rows."""
+        H, W = self.conv_shape
+        K, R, F_ = obs.shape[0], obs.shape[1], self.CONV_FILTERS
+        x = obs.permute(1, 0, 2).reshape(R, K, H, W)
+        w = params["conv"].reshape(K * F_, 1, 3, 3)
+        x = F.conv2d(x, w, padding=1, groups=K).reshape(R, K, F_, H, W)
+        x = torch.tanh(x + params["b_conv"].reshape(1, K, F_, 1, 1))
+        return x.permute(1, 0, 3, 4, 2).reshape(K, R, H * W * F_)
+
     def seq(self, params, obs_seq, carry, resets):
         """obs_seq: (T, B, obs); resets: (T, B). Runs the cell over time,
         resetting the carry at episode starts."""
@@ -166,6 +202,20 @@ class OceanPolicy(nn.Module):
             logits.append(lg)
             values.append(v)
         return torch.stack(logits), torch.stack(values), carry
+
+
+def _bias_rows(params: dict) -> dict:
+    """Stacked params with a row axis on every bias, (K, n) → (K, 1, n),
+    so that ``x @ w + b`` broadcasts over each set's rows."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = _bias_rows(v)
+        elif k.startswith("b") and k != "b_conv":
+            out[k] = v[:, None]
+        else:
+            out[k] = v
+    return out
 
 
 # -- LM backbone policy ---------------------------------------------------------

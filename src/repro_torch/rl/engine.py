@@ -44,7 +44,15 @@ resumes a run so that on the jit tier interrupted-then-resumed is bitwise
 equal to uninterrupted; the pool, host and async tiers resume the learner
 and the generator, and re-seed their env states, as the reference does.
 
-The ``shard_map`` tier and self-play come with later slices.
+Self-play (``league/``): construct with ``selfplay=SelfPlay(next_opponent,
+L)`` on the jit tier. Agent rows [0, L) are the learner, rows [L, A) act
+under frozen params that ``next_opponent()`` returns (e.g. from the
+``PolicyStore``), called on the host once per launch, so the K updates of a
+launch face one opponent; PPO and GAE run over the learner rows only. The
+rollout carry is a ``SelfPlayCarry`` (the opponent rows' recurrent carry
+beside the learner's), saved and restored like any rollout carry.
+
+The ``shard_map`` tier comes with the data-parallel slice.
 """
 from __future__ import annotations
 
@@ -132,7 +140,7 @@ class TrainEngine:
     def __init__(self, env, policy, tcfg: TrainConfig, dist, *,
                  seed: int = 0, device=None, backend: str = None,
                  updates_per_launch: int = None,
-                 checkpoint_dir: Optional[str] = None):
+                 checkpoint_dir: Optional[str] = None, selfplay=None):
         self.env, self.policy, self.tcfg, self.dist = env, policy, tcfg, dist
         self.backend = backend or tcfg.engine_backend
         if self.backend in _LATER:
@@ -149,6 +157,23 @@ class TrainEngine:
             raise ValueError(
                 f"updates_per_launch={self.K} is the jit tier's knob; the "
                 f"{self.backend} tier runs one update per trajectory (K=1)")
+        self.selfplay = selfplay
+        if selfplay is not None:
+            if self.backend != "jit":
+                raise ValueError(
+                    f"selfplay runs on the device-resident tiers (here the "
+                    f"jit tier: the opponent swap is a launch-boundary "
+                    f"decision), not backend={self.backend!r}")
+            A = getattr(env, "num_agents", 1)
+            if A < 2:
+                raise ValueError(
+                    f"selfplay needs a multi-agent env to split rows "
+                    f"between learner and opponent; num_agents={A}")
+            self._sp_agents = selfplay.learner_agents or A // 2
+            if not 0 < self._sp_agents < A:
+                raise ValueError(
+                    f"learner_agents={self._sp_agents} must split "
+                    f"num_agents={A} into two non-empty sides")
         self.checkpoint_dir = checkpoint_dir
         self._ckpt_thread = None
         self._resume_update = 0     # updates done before this run (restore)
@@ -220,9 +245,19 @@ class TrainEngine:
         self.vec = VecEnv(env, tcfg.num_envs)
         env_state, obs = self.vec.init(self.generator)
         B = self.vec.batch_size
+        done0 = torch.zeros(B, dtype=torch.bool, device=self.device)
+        if selfplay is not None:
+            from repro_torch.league.selfplay import (SelfPlayCarry,
+                                                     make_selfplay_update)
+            N, A, L = tcfg.num_envs, self.vec.num_agents, self._sp_agents
+            self.rc = SelfPlayCarry(
+                env_state, obs, policy.initial_carry(N * L, self.device),
+                policy.initial_carry(N * (A - L), self.device), done0)
+            self.update = make_selfplay_update(policy, self.vec.step, tcfg,
+                                               dist, N, A, L)
+            return
         self.rc = RolloutCarry(
-            env_state, obs, policy.initial_carry(B, self.device),
-            torch.zeros(B, dtype=torch.bool, device=self.device))
+            env_state, obs, policy.initial_carry(B, self.device), done0)
         self.update = make_ocean_update(policy, self.vec.step, tcfg, dist)
 
     @property
@@ -311,12 +346,17 @@ class TrainEngine:
             self._ckpt_thread = None
 
     # -- jit tier --------------------------------------------------------------
-    def launch(self, k: int) -> torch.Tensor:
+    def launch(self, k: int, opp_params=None) -> torch.Tensor:
         """Enqueue ``k`` updates; returns their (k, 10) metrics on the
-        device. No host sync."""
+        device. No host sync. In self-play all ``k`` face ``opp_params``
+        (a param dict on the engine's device; by default
+        ``selfplay.next_opponent()``, called here, once)."""
+        if self.selfplay is not None and opp_params is None:
+            opp_params = self.selfplay.next_opponent()
+        extra = () if self.selfplay is None else (opp_params,)
         rows = []
         for _ in range(k):
-            self.ts, self.rc, m = self.update(self.ts, self.rc,
+            self.ts, self.rc, m = self.update(self.ts, self.rc, *extra,
                                               self.generator)
             rows.append(pack_metrics(m))
         return torch.stack(rows)

@@ -97,7 +97,10 @@ def test_port_imports_no_jax_and_no_repro():
         " 'repro_torch.distributed.fault',"
         " 'repro_torch.distributed.actor_learner',"
         " 'repro_torch.telemetry.spans', 'repro_torch.telemetry.traceprop',"
-        " 'repro_torch.telemetry.registry'}\n"
+        " 'repro_torch.telemetry.registry', 'repro_torch.league',"
+        " 'repro_torch.league.arena', 'repro_torch.league.ranker',"
+        " 'repro_torch.league.selfplay', 'repro_torch.league.store',"
+        " 'repro_torch.league.__main__'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
