@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs thirteen phases, each printing its
-lines; any failure ends the run with a traceback and a non-zero exit:
+``src/repro_torch/kernels/csrc`` and runs fourteen phases, each printing its
+lines; any failure ends the run with a traceback and a non-zero exit
+(``--phase 14`` runs phases 1, 2 and 14 alone, a rehearsal of the newest):
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
   2. build       nvcc builds every kernel (one process per source, together);
@@ -151,6 +152,29 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  (c) ``Arena.vs_pool`` over 4 stored versions (1024 envs a
                  match) must give the same outcomes as
                  ``vs_pool_sequential``; prints both times
+ 14. lm train    path E, LM-backbone PPO: (a) flash_attention_bwd
+                 (``FA_BWD_CASES``: qwen3's training shape B 8, T 256, H 16,
+                 K 8, hd 128, every head dim, MQA, an odd group, S != T,
+                 non-causal, ragged T, T = 1) and ssd_bwd
+                 (``SSD_BWD_CASES``: mamba2's training shape B 8, T 256,
+                 H 64, P 64, N 128, ragged T, T = 1, stride-0 B_/C, x a
+                 view, two and three groups, dh_last given) in bf16 at 2e-2
+                 and f32 at 1e-4 (TF32 off) of the largest gradient, against
+                 their plain versions (autograd of the plain forwards) in f32
+                 on the same inputs, two calls bit for bit, and the
+                 forward's LSE against the plain one at 1e-4; (b) one
+                 ``make_lm_train_step`` of qwen3-0.6b and of mamba2-1.3b at
+                 full width in f32, B 2 x T 64: the cuda ops against
+                 ``dispatch.using("ref")`` from the same params and batch
+                 (for mamba2 with the SSD forward held to the kernel's:
+                 see ``lm_gate``), loss and grad_norm within 1e-3
+                 relative, the updated params within 1e-3; (c) both archs
+                 through the launcher in
+                 bf16, ``--batch 8 --seq 256 --steps 10``: finite loss,
+                 grad_norm > 0, params moved, and a step's launches 56
+                 flash_attention, 28 flash_attention_bwd (qwen3) or 96 ssd,
+                 48 ssd_bwd (mamba2), and 1 gae; prints ms per step, tokens
+                 per second, max_memory_allocated and a profile of one step
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. flash_attention and SDPA are timed
@@ -170,7 +194,11 @@ over one int8 ``generate`` of its device times at each serve shape (printed
 on the lines before it, timed by CUDA-graph replay), beside the same totals
 of the plain version, the bound and ``torch.matmul`` on the
 already-dequantised bf16 weight, and a line splits it into prefill, decode
-projections and unembed.
+projections and unembed. The backward kernels' rows are at the training
+shapes (B 8, T 256), the median of 5 CUDA-graph replays, beside their plain
+versions and, for attention, the device time of
+``scaled_dot_product_attention``'s backward by the profiler; their launches
+are a train step's.
 
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seed 0.
@@ -211,7 +239,8 @@ from repro_torch.core.emulation import (Emulated, emulate,  # noqa: E402
 from repro_torch.envs.ocean import OCEAN  # noqa: E402
 from repro_torch.envs.ocean_host import OCEAN_HOST  # noqa: E402
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     max_clusters as fd_max_clusters, plan as fd_plan)
@@ -220,7 +249,13 @@ from repro_torch.kernels.pack import MAX_LEAVES, pack  # noqa: E402
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
     alignment as qmm_alignment, quant_matmul, route as qmm_route)
 from repro_torch.kernels.ssd import (  # noqa: E402
-    alignment as ssd_alignment, route as ssd_route, ssd)
+    alignment as ssd_alignment, route as ssd_route, ssd, ssd_bwd, ssd_fwd)
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.data.buffer import random_batch  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.rl.learner import (  # noqa: E402
+    init_train_state, make_lm_train_step)
 from repro_torch.league import Arena, build_league  # noqa: E402
 from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
@@ -248,6 +283,14 @@ KERNELS = {
                      "src/repro/kernels/quant_matmul.py:43"),
     "pack": ("src/repro_torch/kernels/csrc/pack.cu",
              "src/repro/kernels/pack.py:29"),
+    # the backward kernels replace no Pallas kernel: JAX differentiates the
+    # jnp program around each forward-only kernel; they stand for the
+    # gradients of these
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:74"),
+    "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu",
+                "src/repro/kernels/ssd.py:69"),
 }
 # attention parity cases (B, T, S, H, K, hd, causal): the serve shape, ragged
 # tails, one row, one row past a tile, S > T and S < T, non-causal, MQA, MHA
@@ -314,6 +357,29 @@ CKPT_U = 5                              # path A: updates before the stop
 OCEAN2 = ("pong", "drone", "tagteam", "maze")   # path C, at their presets
 POOL_K, POOL_ENVS = 4, 1024             # path D: the arena's pool
 ASYNC_UPDATES = 40                      # path B: full-budget runs' updates
+# path E, LM-backbone PPO: the launcher's defaults, B 8 x T 256, 10 steps
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 256, 10
+LM_GATE_B, LM_GATE_T = 2, 64            # the full-width f32 gate
+# qwen3's attention at the training shape (B, T, H, K, hd), and the
+# backward's edge cases (B, T, S, H, K, hd, causal): every head dim, MQA,
+# an odd group, S != T, non-causal, ragged T, T = 1
+FA_TRAIN = (LM_BATCH, LM_SEQ, 16, 8, 128)
+FA_BWD_CASES = (
+    (LM_BATCH, LM_SEQ, LM_SEQ, 16, 8, 128, True),
+    (2, 200, 200, 4, 2, 32, True), (1, 130, 130, 8, 2, 64, True),
+    (2, 64, 64, 4, 1, 16, True), (2, 1, 1, 16, 8, 128, True),
+    (2, 65, 65, 16, 8, 128, True), (2, 100, 300, 8, 2, 128, True),
+    (2, 130, 200, 8, 4, 64, False), (2, 200, 70, 4, 4, 32, False),
+    (2, 96, 96, 4, 1, 128, True), (2, 300, 150, 6, 2, 64, True))
+# mamba2's SSD at the training shape (B, T) and the backward's edge cases
+# (B, T, H, P, N, G, x a view, dh_last given): ragged T, T = 1, stride-0
+# B_/C, x a view, two and three groups, head dim and state 128
+SSD_BWD_CASES = (
+    (LM_BATCH, LM_SEQ, SSD_H, SSD_P, SSD_N, SSD_G, True, False),
+    (2, 300, 4, 64, 128, 1, True, False), (2, 1, 4, 64, 128, 1, True, True),
+    (3, 50, 4, 16, 16, 1, False, True), (2, 96, 4, 16, 16, 2, True, False),
+    (2, 64, 3, 16, 32, 3, False, False), (1, 70, 2, 128, 128, 1, False, True),
+    (2, 129, 4, 48, 32, 2, True, False))
 
 
 def sync():
@@ -454,6 +520,14 @@ INSTANCES = {
                    f"{m.group(2)}")],
     "flash_attention": [
         (re.compile(r"flash_attention_(wg|tc)?_?kernelI(f)?Li(\d+)E"), _fa)],
+    "flash_attention_bwd": [
+        (re.compile(r"fa_bwd_(dq|dkdv)_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
+         lambda m: f"{'f32' if m.group(2) == 'f' else 'bf16'} {m.group(1)} "
+                   f"hd {m.group(3)}")],
+    "ssd_bwd": [
+        (re.compile(r"ssd_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E"),
+         lambda m: f"{'f32' if m.group(1) == 'f' else 'bf16'} rows "
+                   f"{m.group(2)} a warp, columns {32 * int(m.group(3))}")],
     "quant_matmul": [
         (re.compile(r"dec_(kn|nk)_kernelILb([01])ELi(\d)E"), _qmm_dec),
         (re.compile(r"qmm_wg_kernelILb([01])E"),
@@ -471,6 +545,9 @@ SASS_NEEDS = {
                                      ("LDGSTS", "UTMALDG")))},
     "quant_matmul": {"bf16 decode": (8, (("HMMA",), ("LDGSTS",))),
                      "bf16 wgmma": (2, (("HGMMA",), ("UTMALDG",)))},
+    # the backward kernels run on the CUDA cores (their Hopper redesign
+    # is later work): nothing to require yet
+    "flash_attention_bwd": {}, "ssd_bwd": {},
 }
 # instances on the serve path, where ptxas must report no spills
 NO_SPILLS = {"ssd": ("bf16 tensor cores",),     # mamba2's P 64 among them
@@ -481,7 +558,8 @@ NO_SPILLS = {"ssd": ("bf16 tensor cores",),     # mamba2's P 64 among them
                               "bf16 decode (N, K) int8 MT 1",
                               "bf16 decode (N, K) int4 MT 1",
                               "bf16 wgmma prefill int8",
-                              "bf16 wgmma prefill int4")}
+                              "bf16 wgmma prefill int4"),
+             "flash_attention_bwd": (), "ssd_bwd": ()}
 
 
 def instance(name, mangled):
@@ -886,7 +964,8 @@ def serve_launches(cfg, quantize=None):
                    + 2 * cfg.num_layers * (cfg.d_ff > 0) + 1)
     return {"flash_attention": attn, "flash_decode": attn * (NEW - 1),
             "ssd": cfg.num_layers - attn, "gae": 0, "pack": 0,
-            "quant_matmul": NEW * per_forward if quantize else 0}
+            "quant_matmul": NEW * per_forward if quantize else 0,
+            "flash_attention_bwd": 0, "ssd_bwd": 0}
 
 
 def serve_routes(cfg, quantize=None):
@@ -1826,6 +1905,268 @@ def phase_selfplay():
     return sp_launches
 
 
+def grad_err(name, got, want, tol, scale=None):
+    """max |got - want| within ``tol`` of ``scale`` (default the largest
+    |want|); returns the max abs error."""
+    err = max_err(got, want)
+    scale = scale or max(float(want.float().abs().max()), 1e-6)
+    if not (err <= tol * scale and bool(torch.isfinite(got.float()).all())):
+        raise AssertionError(f"{name}: max abs err {err} beyond {tol} of "
+                             f"{scale}")
+    return err
+
+
+def fa_bwd_case(gen, shape, dtype, tol):
+    """flash_attention_bwd at one shape against the plain version in f32 on
+    the same inputs, the forward's LSE against the plain one, and two calls
+    bit for bit; returns the max abs error of dq, dk, dv."""
+    B, T, S, H, K, hd, causal = shape
+    q = randn(gen, (B, T, H, hd), dtype)
+    k, v = (randn(gen, (B, S, K, hd), dtype) for _ in range(2))
+    do = randn(gen, (B, T, H, hd), dtype)
+    o, lse = flash_attention_fwd(q, k, v, causal, with_lse=True)
+    check_close(f"flash_attention lse {shape} {dtype}", lse,
+                ref.flash_attention_lse(q, k, causal), 1e-4)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                   do.float(), causal=causal)
+    scale = max(float(w.abs().max()) for w in want)   # dq is 0 at T = 1
+    err = max(grad_err(f"flash_attention_bwd {n} {shape} {dtype}", g, w,
+                       tol, scale) for n, g, w in zip("qkv", got, want))
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {shape} {dtype}: two "
+                             f"calls differ")
+    return err
+
+
+def ssd_bwd_case(gen, shape, dtype, tol):
+    """ssd_bwd at one shape (inputs laid out as models/ssm.py gives them)
+    against the plain version in f32 on the same inputs, and two calls bit
+    for bit; returns the max abs error over its five gradients."""
+    B, T, H, P, N, G, view, dh = shape
+    x, dt, A, B_, C = ssd_inputs(gen, B, T, H, P, N, G, dtype, view)
+    dy = randn(gen, (B, T, H, P), dtype)
+    dh_last = randn(gen, (B, H, P, N), torch.float32) if dh else None
+    got = ssd_bwd(x, dt, A, B_, C, dy, dh_last)
+    want = ref.ssd_bwd(x.float(), dt, A, B_.float(), C.float(), dy.float(),
+                       dh_last)
+    err = max(grad_err(f"ssd_bwd {n} {shape} {dtype}", g, w, tol)
+              for n, g, w in zip(("dx", "ddt", "dA", "dB_", "dC"), got,
+                                 want))
+    again = ssd_bwd(x, dt, A, B_, C, dy, dh_last)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"ssd_bwd {shape} {dtype}: two calls differ")
+    return err
+
+
+class SSDHeldForward(torch.autograd.Function):
+    """The SSD op of the f32 gate's plain run on an SSM arch: the forward
+    kernel's output, so that its rounding is the cuda run's, and the plain
+    version's backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C, chunk):
+        ctx.save_for_backward(x, dt, A, B_, C)
+        return ssd_fwd(x, dt, A, B_, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        return (*ref.ssd_bwd(*ctx.saved_tensors, dy, dh), None)
+
+
+def lm_gate(gen, arch):
+    """One make_lm_train_step at full width in f32 (TF32 off), B 2 x T 64,
+    through the cuda ops and through ``dispatch.using("ref")`` from the
+    same params and batch: loss and grad_norm within 1e-3 relative and the
+    updated params within 1e-3. Also prints how far the first moments (the
+    gradients × 0.1) lie apart, relative to each leaf's largest: the worst
+    leaf, and the worst of the first and of the last layer.
+
+    On an arch with SSM layers the gated plain run takes its SSD forward
+    from the forward kernel (``SSDHeldForward``; its backward stays plain):
+    mamba2's f32 gradient amplifies the SSD forward's rounding ~1e3-fold at
+    some inputs, so that there any f32 forward parts from an f64 one by
+    over 1e-3: at this script's input (on an H100) the cuda run's
+    grad_norm read 238.671, the all-plain run's 237.838 with its SSD
+    stepped in f32 and 234.338 in f64, with losses equal to 2e-6
+    (``tools/lm_gate_spread.py`` shows the same at other inputs). The gate
+    would measure that rounding, not the train step. The forward kernel is
+    held to its plain version by phase 3 and at full width by phase 4; the
+    all-plain run is printed beside."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = with_overrides(get_config(arch), dtype="float32",
+                         param_dtype="float32")
+    policy = BackbonePolicy(cfg, generator=gen)
+    tcfg = TrainConfig(warmup_steps=0)      # the first step at the peak rate
+    step = make_lm_train_step(policy, tcfg, loss_chunk=LM_GATE_T)
+    state = init_train_state(policy.params())
+    batch = random_batch(cfg, LM_GATE_B, LM_GATE_T, gen)
+    build.reset_launches()
+    got, gm = step(state, batch)
+    sync()
+    launches = dict(build.LAUNCHES)
+    got = (got.params, got.opt.m)           # drop v: room for the ref run
+    with dispatch.using("ref"):
+        want, wm = step(state, batch)
+    sync()
+    ssm = not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    plain = ""
+    if ssm:                                 # the all-plain run, for the record
+        plain = (f"; the all-plain run (SSD forward the f64 step recurrence): "
+                 f"loss {float(wm['loss']):.6f}, grad_norm "
+                 f"{float(wm['grad_norm']):.6f}")
+        del want, wm
+        torch.cuda.empty_cache()
+        saved = dispatch._REGISTRY["ssd"]["ref"]
+        dispatch._REGISTRY["ssd"]["ref"] = (
+            lambda x, dt, A, B_, C, chunk=128:
+            SSDHeldForward.apply(x, dt, A, B_, C, chunk))
+        try:
+            with dispatch.using("ref"):
+                want, wm = step(state, batch)
+        finally:
+            dispatch._REGISTRY["ssd"]["ref"] = saved
+        sync()
+    for k in ("loss", "grad_norm"):
+        a, b = float(gm[k]), float(wm[k])
+        if not (math.isfinite(a) and abs(a - b) <= 1e-3 * abs(b)):
+            raise AssertionError(f"{arch} f32 gate: {k} cuda {a} ref {b}"
+                                 f"{plain}")
+    p_err = max(max_err(a, b) for a, b in zip(tree_leaves(got[0]),
+                                              tree_leaves(want.params)))
+    if not p_err <= 1e-3:
+        raise AssertionError(f"{arch} f32 gate: params max abs err {p_err}")
+    m_rel = {n: max_err(a, b) / max(float(b.abs().max()), 1e-30)
+             for (n, a), (_, b) in zip(named_leaves(got[1]),
+                                       named_leaves(want.opt.m))}
+    worst = max(m_rel, key=m_rel.get)
+    by_layer = [max(v for n, v in m_rel.items()
+                    if n.startswith(f"backbone.layers.{i}."))
+                for i in (0, cfg.num_layers - 1)]
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    want_l = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+              "ssd": 2 * (cfg.num_layers - attn),
+              "ssd_bwd": cfg.num_layers - attn, "gae": 1}
+    if any(launches[k] != n for k, n in want_l.items()):
+        raise AssertionError(f"{arch} f32 gate: launches {launches}, "
+                             f"expected {want_l}")
+    print(f"[14 lm train] (b) {cfg.name} f32 {cfg.num_layers}L d"
+          f"{cfg.d_model} B {LM_GATE_B} T {LM_GATE_T}, one train step cuda "
+          f"vs ref{' (SSD forward held)' if ssm else ''}: loss "
+          f"{float(gm['loss']):.6f} / {float(wm['loss']):.6f}, grad_norm "
+          f"{float(gm['grad_norm']):.6f} / {float(wm['grad_norm']):.6f}, "
+          f"params max abs err {p_err:.3g}; first moments apart by "
+          f"{m_rel[worst]:.3g} of their leaf's largest at worst ({worst}), "
+          f"{by_layer[0]:.3g} in layer 0 and {by_layer[1]:.3g} in layer "
+          f"{cfg.num_layers - 1}; launches "
+          f"{ {k: launches[k] for k in want_l} }{plain}", flush=True)
+    del policy, state, got, want, batch
+    torch.cuda.empty_cache()
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted name, tensor) of each leaf of a nested dict, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_launcher_run(arch):
+    """LM PPO through the launcher at full width in bf16, B 8 x T 256, 10
+    steps; then one more step profiled. Returns the launches per step."""
+    cfg = get_config(arch)
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    per_step = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+                "ssd": 2 * (cfg.num_layers - attn),
+                "ssd_bwd": cfg.num_layers - attn, "gae": 1,
+                "flash_decode": 0, "quant_matmul": 0, "pack": 0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run = launch_train.main(["--arch", arch, "--batch", str(LM_BATCH),
+                             "--seq", str(LM_SEQ), "--steps", str(LM_STEPS)])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches[k] != n * LM_STEPS for k, n in per_step.items()):
+        raise AssertionError(f"{arch}: launches {launches} over {LM_STEPS} "
+                             f"steps, expected {per_step} a step")
+    m = run.metrics
+    if not (math.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0):
+        raise AssertionError(f"{arch}: loss {float(m['loss'])}, grad_norm "
+                             f"{float(m['grad_norm'])}")
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(run.state.params), tree_leaves(run.policy.params())))
+    if not moved:
+        raise AssertionError(f"{arch}: no parameter moved in {LM_STEPS} "
+                             f"steps")
+    step_ms = run.loop.monitor.median * 1e3
+    print(f"[14 lm train] (c) {cfg.name} bf16 {cfg.num_layers}L d"
+          f"{cfg.d_model} B {LM_BATCH} T {LM_SEQ} through the launcher: "
+          f"{LM_STEPS} steps in {wall:.1f} s (build of the policy and state "
+          f"included), median step {step_ms:.2f} ms, "
+          f"{LM_BATCH * LM_SEQ / step_ms * 1e3:.0f} tokens/s; last loss "
+          f"{float(m['loss']):+.4f} grad_norm {float(m['grad_norm']):.3f}; "
+          f"{moved} of {len(tree_leaves(run.state.params))} param leaves "
+          f"moved; max_memory_allocated {peak / 2**30:.2f} GiB; launches a "
+          f"step {per_step}", flush=True)
+    batch = next(run.batches(0))
+    state = {"ts": run.state}
+
+    def one():
+        state["ts"], _ = run.step(state["ts"], batch)
+
+    profile_steps("14 lm train", f"{cfg.name} train step", one, 1, step_ms,
+                  ("fa_bwd_dq_kernel", "fa_bwd_dkdv_kernel",
+                   "flash_attention_wg_kernel", "ssd_bwd_kernel",
+                   "ssd_tc_kernel", "gae_kernel"))
+    del run, state, batch
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def phase_lm_train(gen):
+    """Path E, LM-backbone PPO: (a) the backward kernels against their plain
+    versions, (b) the full-width f32 gate, (c) the bf16 launcher runs.
+    Returns (launches a train step, max abs errors at the training
+    shapes)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    errs, cases = {}, 0
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for shape in FA_BWD_CASES:
+            err = fa_bwd_case(gen, shape, dtype, tol)
+            if shape == FA_BWD_CASES[0] and dtype == torch.bfloat16:
+                errs["flash_attention_bwd"] = err
+            cases += 1
+        for shape in SSD_BWD_CASES:
+            err = ssd_bwd_case(gen, shape, dtype, tol)
+            if shape == SSD_BWD_CASES[0] and dtype == torch.bfloat16:
+                errs["ssd_bwd"] = err
+            cases += 1
+    sync()
+    print(f"[14 lm train] (a) {cases} backward cases pass (bf16 at 2e-2 and "
+          f"f32 at 1e-4 of the largest gradient, against the plain versions "
+          f"in f32; the forward's LSE at 1e-4; two calls bit for bit) in "
+          f"{time.perf_counter() - t0:.1f} s; max abs err at the training "
+          f"shapes (bf16): {errs}", flush=True)
+    for arch in (ARCH, SSM_ARCH):
+        lm_gate(gen, arch)
+    launches = {}
+    for arch in (ARCH, SSM_ARCH):
+        per_step = lm_launcher_run(arch)
+        for k in ("flash_attention_bwd", "ssd_bwd"):
+            launches[k] = launches.get(k) or per_step[k]
+    return launches, errs
+
+
 def kernel_rows(gen, launches, errs):
     """Times at the main paths' shapes: kernel, plain version, library call
     (SDPA for attention; none for GAE and SSD), and bound."""
@@ -1964,22 +2305,105 @@ def kernel_rows(gen, launches, errs):
 
     rows.append(pack_row(gen))
 
-    out = []
-    for name, flops, peak, nbytes, ms, plain_ms, lib_ms in rows:
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        src, replaces = KERNELS[name]
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": max(t_ops, t_bytes),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": lib_ms})
-        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"library {lib}, bound {max(t_ops, t_bytes):.4f} ms by "
-              f"{out[-1]['bound_by']}: {flops:.4g} FLOP, {nbytes:.4g} B)",
-              flush=True)
+    out = [kernel_row(r, launches, errs) for r in rows]
     out.append(qmm_row(gen, launches, errs))
+    return out
+
+
+def bwd_rows(gen, launches, errs):
+    """The backward kernels at the training shapes, bf16: device ms per call
+    by CUDA-graph replay (median of 5), the plain version's ms, the bound
+    and, for attention, the backward of ``scaled_dot_product_attention``
+    (a yardstick the port never calls)."""
+    bf = torch.bfloat16
+    rows = []
+    B, T, H, K, hd = FA_TRAIN
+    fa_sets = []
+    for _ in range(4):                    # 4 sets of 29 MB: past the L2
+        q = randn(gen, (B, T, H, hd), bf)
+        k, v = (randn(gen, (B, T, K, hd), bf) for _ in range(2))
+        do = randn(gen, (B, T, H, hd), bf)
+        o, lse = flash_attention_fwd(q, k, v, True, with_lse=True)
+        fa_sets.append((q, k, v, o, lse, do))
+    reps = [graph_ms(flash_attention_bwd, fa_sets, 8) for _ in range(5)]
+    ms = statistics.median(reps)
+    plain_ms = cuda_ms(lambda q, k, v, o, lse, do: ref.flash_attention_bwd(
+        q, k, v, do), fa_sets, 4)
+    # SDPA's backward alone, by the profiler's device time over 20 calls of
+    # autograd.grad on one retained forward (host-bound back to back)
+    q, k, v, _, _, do = fa_sets[0]
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qg, kg, vg)                    # (B, H, T, hd)
+    do_t = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out, (qg, kg, vg), do_t, retain_graph=True)
+
+    for _ in range(3):
+        sdpa_bwd()
+    by_name, _ = device_times(sdpa_bwd, 20)
+    if by_name is None:
+        raise AssertionError("the profiler saw no device time of SDPA's "
+                             "backward")
+    lib_ms = sum(by_name.values()) / 20
+    # the four products the gradient needs over the causal pairs (dV = P^T
+    # dO, dP = dO V^T, dQ = dS K, dK = dS^T Q), and q, k, v, o, do, lse read
+    # and dq, dk, dv written once
+    flops = 4 * B * H * hd * T * (T + 1)
+    nbytes = 2 * (4 * B * T * H * hd + 4 * B * T * K * hd) + 4 * B * H * T
+    print(f"[kernel] flash_attention_bwd B {B} T {T} H {H} K {K} hd {hd} "
+          f"causal bf16 by graph replay: median {ms:.4f} ms (readings "
+          f"{min(reps):.4f}-{max(reps):.4f}); SDPA's backward "
+          f"{lib_ms:.4f} ms; plain {plain_ms:.4f} ms; {flops / ms / 1e9:.1f} "
+          f"TFLOP/s", flush=True)
+    rows.append(("flash_attention_bwd", flops, PEAK_FLOPS, nbytes, ms,
+                 plain_ms, lib_ms))
+    del fa_sets, out, qg, kg, vg, do_t, by_name
+
+    ssd_sets = []
+    for _ in range(2):                    # 2 sets of 60 MB: past the L2
+        args = ssd_inputs(gen, LM_BATCH, LM_SEQ, SSD_H, SSD_P, SSD_N, SSD_G,
+                          bf, True)
+        ssd_sets.append(args + (randn(gen, (LM_BATCH, LM_SEQ, SSD_H,
+                                            SSD_P), bf),))
+    reps = [graph_ms(ssd_bwd, ssd_sets, 4) for _ in range(5)]
+    ms = statistics.median(reps)
+    plain_ms = cuda_ms(ref.ssd_bwd, ssd_sets, 2)
+    fwd_flops, _ = ssd_work(LM_BATCH, LM_SEQ, SSD_H, SSD_P, SSD_N, SSD_G,
+                            SSD_Q, 2)
+    # each of the forward's four products has two products of its size in
+    # the backward; x, dt, B_ and C (once a group), dy read, dx, ddt, dB_
+    # and dC (dense over heads), dA written once
+    flops = 2 * fwd_flops
+    Bn, Tn, Hn = LM_BATCH, LM_SEQ, SSD_H
+    nbytes = (2 * 2 * Bn * Tn * Hn * SSD_P + 4 * 2 * Bn * Tn * Hn
+              + 2 * 2 * Bn * Tn * SSD_G * SSD_N
+              + 2 * 2 * Bn * Tn * Hn * SSD_N + 4 * Hn)
+    print(f"[kernel] ssd_bwd B {Bn} T {Tn} H {Hn} P {SSD_P} N {SSD_N} G "
+          f"{SSD_G} bf16, x a view, by graph replay: median {ms:.4f} ms "
+          f"(readings {min(reps):.4f}-{max(reps):.4f}); plain "
+          f"{plain_ms:.4f} ms; no single PyTorch call computes it",
+          flush=True)
+    rows.append(("ssd_bwd", flops, PEAK_FLOPS, nbytes, ms, plain_ms, None))
+    del ssd_sets
+    return [kernel_row(r, launches, errs) for r in rows]
+
+
+def kernel_row(row, launches, errs):
+    """One entry of the kernels JSON line, printed beside it."""
+    name, flops, peak, nbytes, ms, plain_ms, lib_ms = row
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    src, replaces = KERNELS[name]
+    out = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches[name],
+           "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib_ms}
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+          f"{lib}, bound {max(t_ops, t_bytes):.4f} ms by {out['bound_by']}: "
+          f"{flops:.4g} FLOP, {nbytes:.4g} B)", flush=True)
     return out
 
 
@@ -2216,7 +2640,18 @@ def ssd_work(B, T, H, P, N, G, Q, elem):
     return flops, nbytes
 
 
-def main():
+def main(argv=None):
+    """All phases with no arguments; ``--phase 14`` runs the device and
+    build phases, then phase 14 and its kernel rows only (a rehearsal of
+    the newest phase)."""
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv == ["--phase", "14"]:
+        only = {14}
+    elif argv:
+        print(f"chip_smoke: unknown arguments {argv}; the one option is "
+              f"--phase 14", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2224,23 +2659,31 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     smi = phase_device()
     phase_build()
-    errs = phase_parity(gen)
-    phase_full_width_f32(gen, ARCH)
-    phase_full_width_f32(gen, SSM_ARCH)
-    phase_full_width_f32(gen, ARCH, quantize="int8")
-    launches = phase_serve(gen, ARCH)
-    launches["ssd"] = phase_serve(gen, SSM_ARCH)["ssd"]
-    launches["quant_matmul"] = phase_serve(gen, ARCH, "int8")["quant_matmul"]
-    phase_serve(gen, ARCH, "int4")
-    launches["gae"] = phase_train()["gae"]
-    phase_emulation(gen)
-    phase_pool()
-    launches["pack"] = phase_host()["pack"]
-    phase_checkpoint()
-    phase_async()
-    phase_ocean2()
-    phase_selfplay()
-    rows = kernel_rows(gen, launches, errs)
+    rows = []
+    if only is None:
+        errs = phase_parity(gen)
+        phase_full_width_f32(gen, ARCH)
+        phase_full_width_f32(gen, SSM_ARCH)
+        phase_full_width_f32(gen, ARCH, quantize="int8")
+        launches = phase_serve(gen, ARCH)
+        launches["ssd"] = phase_serve(gen, SSM_ARCH)["ssd"]
+        launches["quant_matmul"] = phase_serve(gen, ARCH,
+                                               "int8")["quant_matmul"]
+        phase_serve(gen, ARCH, "int4")
+        launches["gae"] = phase_train()["gae"]
+        phase_emulation(gen)
+        phase_pool()
+        launches["pack"] = phase_host()["pack"]
+        phase_checkpoint()
+        phase_async()
+        phase_ocean2()
+        phase_selfplay()
+    if only is None or 14 in only:
+        lm_launches, lm_errs = phase_lm_train(gen)
+    if only is None:
+        rows = kernel_rows(gen, launches, errs)
+    if only is None or 14 in only:
+        rows += bwd_rows(gen, lm_launches, lm_errs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,7 +1,9 @@
 """Build the CUDA C++ kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes):
+interface (no PyTorch headers, so a build takes seconds, not minutes); the
+backward kernels ``flash_attention_bwd`` and ``ssd_bwd`` have files of their
+own, so that they build beside the others:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
@@ -32,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "flash_attention": ("flash_attention_fwd", [
-        P, P, P, P,                 # q, k, v, o
+        P, P, P, P, P,              # q, k, v, o, lse (f32 (B, H, T) or null)
         I, I, I, I, I, I,           # B, T, S, H, K, hd
         L, L, L, L, L, L, L, L, L,  # q/k/v strides (batch, seq, head)
         I, I, F, P]),               # is_bf16, causal, scale, stream
@@ -59,6 +61,22 @@ SIGNATURES = {
         L, L, L,                    # x strides (row, col), w_q row (bytes)
         I, I, I, I, I, I, P]),      # scale length, is_bf16, is_int4,
                                     # transposed, vec16 (w, x), stream
+    "flash_attention_bwd": ("flash_attention_bwd", [
+        P, P, P, P, P, P,           # q, k, v, o, lse, do
+        P, P, P, P,                 # dq, dk, dv, D (f32 (B, H, T) scratch)
+        I, I, I, I, I, I,           # B, T, S, H, K, hd
+        L, L, L, L, L, L, L, L, L,  # q/k/v strides (batch, seq, head)
+        L, L, L, L, L, L,           # o/do strides (batch, seq, head)
+        I, I, F, P]),               # is_bf16, causal, scale, stream
+    "ssd_bwd": ("ssd_bwd", [
+        P, P, P, P, P, P, P,        # x, dt, A, B_, C, dy, dh_last (or null)
+        P, P, P, P, P,              # dx, ddt, dA, dB_, dC
+        P, P,                       # f64 scratch: yd (B, H, T), dA (B, H)
+        I, I, I, I, I,              # B, T, H, hd, ds
+        L, L, L, L, L, L, L, L,     # x (b, s, h, elem), dt (b, s, h), A
+        L, L, L, L, L, L, L, L,     # B_ and C (batch, seq, head, elem)
+        L, L, L, L,                 # dy (batch, seq, head, elem)
+        I, P]),                     # is_bf16, stream
     "pack": ("pack_fwd", [
         P, I,                       # K x (address, row stride, width,
                                     # column) as one host array, K

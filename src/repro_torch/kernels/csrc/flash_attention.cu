@@ -4,7 +4,11 @@
 // (flash_attention, pallas_call at :93). Same contract: q (B,T,H,hd),
 // k/v (B,S,K,hd), query head h reads KV head h / G; causal mask row >= col
 // aligned at 0; masked scores are -1e30; m, l and the accumulator are f32;
-// l is floored at 1e-30; output in q's dtype.
+// l is floored at 1e-30; output in q's dtype. With a non-null lse pointer
+// each kernel also writes the rows' natural log-sum-exp of the scaled,
+// masked scores, m + log(l), f32 (B, H, T), in its epilogue: the backward
+// kernel (flash_attention_bwd.cu) recomputes P from it. The serve path
+// passes null and writes nothing more.
 //
 // What bounds it on the H100: at the serve shape (B 8, T 512, H 16, K 8,
 // hd 128, bf16) moving q, k, v and o once takes 15 us at 3.35 TB/s and the
@@ -78,7 +82,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int T_,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int T_,
                        int S, int H, int G, long long q_sb, long long q_st,
                        long long q_sh, long long k_sb, long long k_ss,
                        long long k_sh, long long v_sb, long long v_ss,
@@ -193,6 +198,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= T_) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * T_ + row] = m[i] + logf(denom);
     T* orow = o + ((long long)(b * T_ + row) * H + h) * HD;
 #pragma unroll
     for (int d = 0; d < DJ; ++d)
@@ -239,6 +246,7 @@ __global__ void __launch_bounds__(NT, 2)
 flash_attention_tc_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse,
                           int T_, int S, int H, int G, long long q_sb,
                           long long q_st, long long q_sh, long long k_sb,
                           long long k_ss, long long k_sh, long long v_sb,
@@ -390,6 +398,11 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    // m is in log2 units: ln(sum) = (m + log2 l) ln 2
+    const int row = row0 + 8 * r;
+    if (lse != nullptr && t == 0 && row < T_)
+      lse[((long long)b * H + h) * T_ + row] =
+          (m[r] + log2f(fmaxf(l[r], 1e-30f))) * 0.6931471805599453f;
   }
   bf16* sO = sQ + warp * 16 * LD;
 #pragma unroll
@@ -567,7 +580,8 @@ __global__ void __launch_bounds__(NT, 1)
 flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          bf16* __restrict__ o, int T_, int S, int H, int G,
+                          bf16* __restrict__ o, float* __restrict__ lse,
+                          int T_, int S, int H, int G,
                           int hpb, int q_ord, int k_ord, int v_ord,
                           int causal, float scale_log2) {
   constexpr int KS = HD / 16;  // k-steps of Q K^T
@@ -787,6 +801,11 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    // m is in log2 units: ln(sum) = (m + log2 l) ln 2
+    const int row = row0 + 8 * r;
+    if (lse != nullptr && t == 0 && row < T_)
+      lse[((long long)b * H + h) * T_ + row] =
+          (m[r] + log2f(fmaxf(l[r], 1e-30f))) * 0.6931471805599453f;
   }
   unsigned char* sO = sQ + w * QTILE<HD>;
 #pragma unroll
@@ -850,11 +869,11 @@ cudaError_t make_map(CUtensorMap* map, int* ord, const void* base, int hd,
 }  // namespace wg
 
 template <int HD>
-int launch_wg(const void* q, const void* k, const void* v, void* o, int B,
-              int T_, int S, int H, int K, long long q_sb, long long q_st,
-              long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-              long long v_sb, long long v_ss, long long v_sh, int causal,
-              float scale, cudaStream_t stream) {
+int launch_wg(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int T_, int S, int H, int K, long long q_sb,
+              long long q_st, long long q_sh, long long k_sb, long long k_ss,
+              long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+              int causal, float scale, cudaStream_t stream) {
   using wg::bf16;
   CUtensorMap tq, tk, tv;
   int q_ord, k_ord, v_ord;
@@ -875,17 +894,17 @@ int launch_wg(const void* q, const void* k, const void* v, void* o, int B,
   const int bq = 64 * (wg::CONSUMERS / hpb);
   const dim3 grid(H / hpb, B, (T_ + bq - 1) / bq);
   kern<<<grid, wg::NT, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), T_, S, H, G, hpb, q_ord, k_ord,
+      tq, tk, tv, static_cast<bf16*>(o), lse, T_, S, H, G, hpb, q_ord, k_ord,
       v_ord, causal, scale * 1.4426950408889634f);  // log2 units, for exp2f
   return cudaGetLastError();
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int T_, int S, int H, int K, long long q_sb, long long q_st,
-              long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-              long long v_sb, long long v_ss, long long v_sh, int causal,
-              float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int T_, int S, int H, int K, long long q_sb,
+              long long q_st, long long q_sh, long long k_sb, long long k_ss,
+              long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+              int causal, float scale, cudaStream_t stream) {
   using tc::bf16;
   auto kern = tc::flash_attention_tc_kernel<HD>;
   const size_t smem = tc::smem_bytes<HD>();
@@ -895,24 +914,27 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(H, B, (T_ + BQ - 1) / BQ);
   kern<<<grid, tc::NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), T_, S, H, H / K,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, T_, S, H,
+      H / K,
       q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
       scale * 1.4426950408889634f);  // scores in log2 units, for exp2f
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int T_, int S, int H, int K, long long q_sb, long long q_st,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int T_, int S, int H, int K, long long q_sb, long long q_st,
            long long q_sh, long long k_sb, long long k_ss, long long k_sh,
            long long v_sb, long long v_ss, long long v_sh, int causal,
            float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 64) {
-    return launch_wg<HD>(q, k, v, o, B, T_, S, H, K, q_sb, q_st, q_sh, k_sb,
-                         k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, stream);
+    return launch_wg<HD>(q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st, q_sh,
+                         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale,
+                         stream);
   } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_tc<HD>(q, k, v, o, B, T_, S, H, K, q_sb, q_st, q_sh, k_sb,
-                         k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, stream);
+    return launch_tc<HD>(q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st, q_sh,
+                         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale,
+                         stream);
   } else {
     auto kern = flash_attention_kernel<T, HD>;
     const size_t smem = smem_bytes<T, HD>();
@@ -922,7 +944,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     const dim3 grid((T_ + BQ - 1) / BQ, H, B);
     kern<<<grid, NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), T_, S, H, H / K, q_sb,
+        static_cast<const T*>(v), static_cast<T*>(o), lse, T_, S, H, H / K,
+        q_sb,
         q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
     return cudaGetLastError();
   }
@@ -930,22 +953,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-              int B, int T_, int S, int H, int K, long long q_sb,
+              float* lse, int B, int T_, int S, int H, int K, long long q_sb,
               long long q_st, long long q_sh, long long k_sb, long long k_ss,
               long long k_sh, long long v_sb, long long v_ss, long long v_sh,
               int causal, float scale, cudaStream_t st) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, T_, S, H, K, q_sb, q_st, q_sh, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, st);
+      return launch<T, 16>(q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st,
+                           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
+                           scale, st);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, T_, S, H, K, q_sb, q_st, q_sh, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, st);
+      return launch<T, 32>(q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st,
+                           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
+                           scale, st);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, T_, S, H, K, q_sb, q_st, q_sh, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, st);
+      return launch<T, 64>(q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st,
+                           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
+                           scale, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, T_, S, H, K, q_sb, q_st, q_sh,
+      return launch<T, 128>(q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st, q_sh,
                             k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale,
                             st);
     default:
@@ -957,9 +983,11 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 // Returns the cudaError_t of the launch (0 on success). Strides are in
 // elements; the last dimension of q, k and v is contiguous; o is a
-// contiguous (B, T, H, hd) tensor.
+// contiguous (B, T, H, hd) tensor; lse, null or a contiguous f32 (B, H, T)
+// tensor, receives each row's log-sum-exp.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int T_,
+                                   const void* v, void* o, void* lse_, int B,
+                                   int T_,
                                    int S, int H, int K, int hd,
                                    long long q_sb, long long q_st,
                                    long long q_sh, long long k_sb,
@@ -968,11 +996,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    long long v_sh, int is_bf16, int causal,
                                    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_);
   if (is_bf16)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, T_, S, H, K, q_sb,
+    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, T_, S, H, K, q_sb,
                                     q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                                     v_sh, causal, scale, st);
-  return launch_hd<float>(hd, q, k, v, o, B, T_, S, H, K, q_sb, q_st, q_sh,
+  return launch_hd<float>(hd, q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st, q_sh,
                           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale,
                           st);
 }

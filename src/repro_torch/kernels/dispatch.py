@@ -18,6 +18,7 @@ tensors raises.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from contextlib import contextmanager
 from typing import Callable, Dict
@@ -74,13 +75,29 @@ def using(mode: str):
         stack.pop()
 
 
+def scope():
+    """The innermost ``using`` mode of this thread, or None."""
+    stack = getattr(_TLS, "stack", None)
+    return stack[-1] if stack else None
+
+
+def recompute_context():
+    """``context_fn`` of ``torch.utils.checkpoint``: (the forward's context,
+    the recomputation's). Autograd runs a CUDA graph's backward, and so a
+    checkpoint's recomputation, on a thread of its own, where this thread's
+    ``using`` scope does not reach: the recomputation re-enters the scope
+    the forward ran under, so that both take the same backend (and save
+    the same tensors)."""
+    mode = scope()
+    return (contextlib.nullcontext(),
+            using(mode) if mode else contextlib.nullcontext())
+
+
 def resolve(op: str, device: torch.device, mode: str = None) -> str:
     """Pick the backend for ``op`` on tensors that live on ``device``."""
     names = implementations(op)
     if mode is None:
-        stack = getattr(_TLS, "stack", None)
-        mode = stack[-1] if stack else (CUDA if device.type == "cuda"
-                                        else REF)
+        mode = scope() or (CUDA if device.type == "cuda" else REF)
     if mode not in names:
         raise KeyError(f"{op}: no backend {mode!r}; have {names}")
     if mode == CUDA and device.type != "cuda":

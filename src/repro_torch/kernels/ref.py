@@ -12,22 +12,50 @@ import math
 import torch
 
 
-def flash_attention(q, k, v, causal: bool = True, scale: float = None):
-    """q: (B,T,H,hd); k,v: (B,S,K,hd) with H = K*G (GQA). f32 softmax;
-    causal mask ``row >= col`` aligned at 0. Returns (B,T,H,hd) in q.dtype."""
+def _scores(q, k, causal: bool, scale: float):
+    """The scaled scores (B, K, G, T, S) in f32, -1e30 where the causal
+    mask ``row >= col`` (aligned at 0) hides them."""
     B, T, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
-    G = H // K
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, T, K, G, hd)
+    qg = q.reshape(B, T, K, H // K, hd)
     s = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float()) * scale
     if causal:
         mask = (torch.arange(T, device=q.device)[:, None]
                 >= torch.arange(S, device=q.device)[None, :])
         s = s.masked_fill(~mask, -1e30)
-    w = torch.softmax(s, dim=-1)
+    return s
+
+
+def flash_attention(q, k, v, causal: bool = True, scale: float = None):
+    """q: (B,T,H,hd); k,v: (B,S,K,hd) with H = K*G (GQA). f32 softmax;
+    causal mask ``row >= col`` aligned at 0. Returns (B,T,H,hd) in q.dtype."""
+    B, T, H, hd = q.shape
+    w = torch.softmax(_scores(q, k, causal, scale), dim=-1)
     o = torch.einsum("bkgts,bskh->btkgh", w, v.float())
     return o.reshape(B, T, H, hd).to(q.dtype)
+
+
+def flash_attention_lse(q, k, causal: bool = True, scale: float = None):
+    """The rows' natural log-sum-exp of the scaled, masked scores of
+    ``flash_attention``, f32 (B, H, T): what the forward kernel writes for
+    its backward."""
+    B, T, H, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal, scale),
+                           dim=-1).reshape(B, H, T)
+
+
+def flash_attention_bwd(q, k, v, do, causal: bool = True,
+                        scale: float = None):
+    """(dq, dk, dv) of ``flash_attention`` at output gradient ``do``, by
+    ``torch.autograd.grad`` of the plain forward, in the inputs' dtype (pass
+    f32 copies for an f32 yardstick of bf16 inputs). The plain version of
+    ``csrc/flash_attention_bwd.cu``; dk and dv sum over a KV head's query
+    heads."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        o = flash_attention(q, k, v, causal=causal, scale=scale)
+        return torch.autograd.grad(o, (q, k, v), do)
 
 
 def flash_decode(q, k, v, length):
@@ -72,18 +100,21 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float):
 
 def ssd(x, dt, A, B_, C, h0=None):
     """Mamba2 selective-state recurrence, the step-by-step oracle of
-    ``repro/kernels/ref.py::ssd``, in f32.
+    ``repro/kernels/ref.py::ssd``, carried in f64.
 
     x: (B,T,H,hd); dt: (B,T,H) positive step sizes (post-softplus); A: (H,)
     negative decay rates; B_, C: (B,T,H,ds) head-expanded gates; h0:
     optional (B,H,hd,ds) initial state. Returns y (B,T,H,hd) in x.dtype and
-    h_last (B,H,hd,ds) in f32."""
+    h_last (B,H,hd,ds) in f32. The reference steps in f32; the port's
+    oracle steps in f64 because in f32 its rounding over 48 Mamba2 layers
+    moved a full-width mamba2 gradient 1.1e-3 from an f64 one, 13x as far
+    as the CUDA kernels' (tools/lm_gate_spread.py on an H100)."""
     Bb, T, H, hd = x.shape
     ds = B_.shape[-1]
     in_dtype = x.dtype
-    x, dt, B_, C, A = (t.float() for t in (x, dt, B_, C, A))
-    h = h0.float() if h0 is not None else torch.zeros(
-        (Bb, H, hd, ds), dtype=torch.float32, device=x.device)
+    x, dt, B_, C, A = (t.double() for t in (x, dt, B_, C, A))
+    h = h0.double() if h0 is not None else torch.zeros(
+        (Bb, H, hd, ds), dtype=torch.float64, device=x.device)
     ys = []
     for t in range(T):
         decay = torch.exp(dt[:, t] * A[None])                     # (B,H)
@@ -92,7 +123,23 @@ def ssd(x, dt, A, B_, C, h0=None):
         h = h * decay[..., None, None] + upd
         ys.append(torch.einsum("bhds,bhs->bhd", h, C[:, t]))
     y = torch.stack(ys, dim=1) if ys else x.new_zeros((Bb, 0, H, hd))
-    return y.to(in_dtype), h
+    return y.to(in_dtype), h.float()
+
+
+def ssd_bwd(x, dt, A, B_, C, dy, dh_last=None):
+    """(dx, ddt, dA, dB_, dC) of ``ssd`` at the gradients ``dy`` of y and
+    ``dh_last`` of h_last (None: h_last unused), by ``torch.autograd.grad``
+    of the step-by-step oracle, in the inputs' dtypes. The plain version of
+    ``csrc/ssd_bwd.cu``: dB_ and dC are the dense (B, T, H, ds) gradients
+    of the head-expanded gates."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_() for t in (x, dt, A, B_, C))
+        y, h = ssd(*ins)
+        outs, grads = [y], [dy]
+        if dh_last is not None:
+            outs.append(h)
+            grads.append(dh_last)
+        return torch.autograd.grad(outs, ins, grads)
 
 
 def pack(leaves):

@@ -19,8 +19,19 @@ stride-0 expansions over heads, without a copy. It takes any ``T >= 1``
 (the Pallas kernel needs ``T % chunk == 0``), chunks of 1 to 128 steps, and
 head dim and state size up to 128.
 
-CPU tensors take the plain version (``ref.ssd``); a CUDA tensor launches the
-kernel or raises — there is no fallback.
+The backward (``ssd_bwd``, ``csrc/ssd_bwd.cu``) has no Pallas counterpart:
+JAX differentiates the jnp program around its forward-only kernel. On the
+card ``ssd`` is an autograd ``Function`` when a gradient is needed: its
+forward launches the forward kernel, its backward ``ssd_bwd`` (dx, ddt,
+dA, dB_, dC; dA summed over batch and time in a fixed order). It reads its
+inputs through their strides as the forward does and returns dense
+(B, T, H, ds) gradients of B_ and C, whose stride-0 expansion over heads
+autograd then sums per group. With no gradient needed (serving) it is the
+forward launch alone, as before.
+
+CPU tensors take the plain versions (``ref.ssd``, ``ref.ssd_bwd``; autograd
+differentiates the first); a CUDA tensor launches the kernel or raises —
+there is no fallback.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels._checks import DTYPES
 
 NAME = "ssd"
+BWD = "ssd_bwd"
 MAX_DIM = 128           # chunk, head dim and state size the kernel takes
 TC_MAX_HD = 64          # largest head dim on the tensor cores
 
@@ -80,10 +92,34 @@ def route(dtype, hd: int, ds: int, chunk: int, aligned: bool) -> str:
 def ssd(x, dt, A, B_, C, chunk: int = 128):
     """x: (B,T,H,hd); dt: (B,T,H) f32; A: (H,) f32; B_, C: (B,T,H,ds) in
     x's dtype. Returns (y (B,T,H,hd) in x.dtype, h_last (B,H,hd,ds) f32),
-    from a zero initial state."""
+    from a zero initial state, differentiable in all five inputs."""
     _check(x, dt, A, B_, C)
     if x.device.type == "cpu":
         return ref.ssd(x, dt, A, B_, C)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_, C)):
+        return _SSD.apply(x, dt, A, B_, C, chunk)
+    return ssd_fwd(x, dt, A, B_, C, chunk)
+
+
+class _SSD(torch.autograd.Function):
+    """The forward kernel, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B_, C)
+        return ssd_fwd(x, dt, A, B_, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, A, B_, C = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return (*ssd_bwd(x, dt, A, B_, C, dy, dh_last), None)
+
+
+def _check_types(x, dt, A, B_, C) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {x.device}")
     if x.dtype not in DTYPES:
@@ -94,6 +130,15 @@ def ssd(x, dt, A, B_, C, chunk: int = 128):
         if t.dtype != want:
             raise TypeError(f"{NAME}: {name} is {t.dtype}; the kernel takes "
                             f"{want} with x {x.dtype}")
+
+
+def ssd_fwd(x, dt, A, B_, C, chunk: int = 128):
+    """The forward launch: (y, h_last), as ``ssd`` returns them. No
+    autograd."""
+    _check(x, dt, A, B_, C)
+    if x.device.type == "cpu":
+        return ref.ssd(x, dt, A, B_, C)
+    _check_types(x, dt, A, B_, C)
     Bb, T, H, hd = x.shape
     ds = B_.shape[-1]
     for name, n in (("chunk", chunk), ("head dim", hd), ("d_state", ds)):
@@ -117,3 +162,57 @@ def ssd(x, dt, A, B_, C, chunk: int = 128):
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     return y, h_last
+
+
+def ssd_bwd(x, dt, A, B_, C, dy, dh_last=None):
+    """(dx, ddt, dA, dB_, dC): the gradients of ``ssd(x, dt, A, B_, C)`` at
+    ``dy`` (B,T,H,hd) in x's dtype and ``dh_last`` (B,H,hd,ds) f32 or None
+    (h_last unused). dx, dB_, dC in x's dtype and ddt, dA in f32, all
+    contiguous; dB_ and dC are dense (B,T,H,ds)."""
+    _check(x, dt, A, B_, C)
+    Bb, T, H, hd = x.shape
+    ds = B_.shape[-1]
+    if tuple(dy.shape) != (Bb, T, H, hd) or dy.device != x.device:
+        raise ValueError(f"{BWD}: dy is {tuple(dy.shape)} on {dy.device}; "
+                         f"expected {(Bb, T, H, hd)} on {x.device}")
+    if dh_last is not None and (tuple(dh_last.shape) != (Bb, H, hd, ds)
+                                or dh_last.device != x.device):
+        raise ValueError(f"{BWD}: dh_last is {tuple(dh_last.shape)} on "
+                         f"{dh_last.device}; expected {(Bb, H, hd, ds)}")
+    if x.device.type == "cpu":
+        return ref.ssd_bwd(x, dt, A, B_, C, dy, dh_last)
+    _check_types(x, dt, A, B_, C)
+    if dy.dtype != x.dtype:
+        raise TypeError(f"{BWD}: dy is {dy.dtype}; the kernel takes "
+                        f"{x.dtype} with x {x.dtype}")
+    for name, n in (("head dim", hd), ("d_state", ds)):
+        if not 1 <= n <= MAX_DIM:
+            raise ValueError(f"{BWD}: {name} {n} outside [1, {MAX_DIM}]")
+    if dh_last is not None:
+        dh_last = dh_last.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((Bb, T, H, hd), dtype=x.dtype, device=x.device)
+    dB = torch.empty((Bb, T, H, ds), dtype=x.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    ddt = torch.empty((Bb, T, H), **f32)
+    dA = torch.zeros((H,), **f32)
+    if dx.numel() == 0:                 # B or H is 0: nothing to launch
+        return dx, ddt, dA, dB.zero_(), dC.zero_()
+    f64 = dict(dtype=torch.float64, device=x.device)
+    yd = torch.empty((Bb, H, T), **f64)        # the kernel's f64 scratch
+    part = torch.empty((Bb, H), **f64)
+    lib = build.load(BWD)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), yd.data_ptr(), part.data_ptr(),
+            Bb, T, H, hd, ds, *x.stride(), *dt.stride(), A.stride(0),
+            *B_.stride(), *C.stride(), *dy.stride(),
+            int(x.dtype == torch.bfloat16), stream)
+    build.check(err, BWD)
+    build.LAUNCHES[BWD] += 1
+    return dx, ddt, dA, dB, dC

@@ -1,5 +1,5 @@
-"""Ocean PPO launcher: the jit, pool and async tiers on the batched envs,
-the host tier on bridged host envs.
+"""Training launcher: Ocean PPO (the jit, pool and async tiers on the
+batched envs, the host tier on bridged host envs) or LM-backbone PPO.
 
   PYTHONPATH=src python -m repro_torch.launch.train --ocean bandit,squared
   PYTHONPATH=src python -m repro_torch.launch.train --ocean squared \\
@@ -13,6 +13,8 @@ the host tier on bridged host envs.
   PYTHONPATH=src python -m repro_torch.launch.train --ocean duel \\
       --selfplay --league-dir league [--snapshot-every 10] \\
       [--strategy prioritized]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --batch 8 --seq 256 --steps 20 [--smoke] [--ckpt-dir ckpts --resume]
 
 ``--ocean`` trains each named env (or ``all``: the 13 of
 ``envs/ocean.py``) with its ``configs/ocean.py`` preset; ``--host-env``
@@ -31,9 +33,16 @@ frozen opponents sampled (``--strategy``) from the policy store in
 ``--league-dir``, a snapshot every ``--snapshot-every`` updates rated in
 the arena; it prints the final winrate against the random policy, the
 store's versions, the updates and kernel launches, and the leaderboard.
-Runs on the card unless ``--device cpu``. The counterpart of the
-``--ocean``, ``--selfplay`` and ``--host-env`` branches of
-``repro/launch/train.py``.
+``--arch`` trains that LM backbone (``--smoke``: its reduced config) with
+PPO on random token rollouts of ``--batch`` × ``--seq`` for ``--steps``
+steps of ``rl.learner.make_lm_train_step`` through
+``distributed.fault.ResilientLoop``, printing the reference's ``step``
+lines and ``done:`` line; with ``--ckpt-dir`` it saves the train state
+every ``--save-every`` steps and ``--resume`` continues from the newest
+(there is no default directory: the reference's is ``/tmp/repro_ckpt``).
+Runs on the card unless ``--device cpu``. The counterpart of
+``repro/launch/train.py`` without its ``--mesh``/``--devices`` (the
+data-parallel tier is not ported).
 
 The module imports no torch at its top: ``--host-backend proc`` and the
 async tier spawn processes, and spawn re-imports this module in each.
@@ -42,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import os
+from typing import NamedTuple
 
 
 def _parser():
@@ -107,9 +117,86 @@ def _parser():
     ap.add_argument("--strategy", default="prioritized",
                     choices=("latest", "uniform", "prioritized"),
                     help="selfplay opponent sampling strategy")
+    ap.add_argument("--arch", default=None,
+                    help="LM-backbone PPO on this arch (repro_torch.configs)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config for --arch")
+    ap.add_argument("--steps", type=int, default=100,
+                    help="--arch: train steps")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="--arch: sequences per step")
+    ap.add_argument("--seq", type=int, default=256,
+                    help="--arch: tokens per sequence")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+class LMRun(NamedTuple):
+    """What ``_train_lm`` leaves: the final state, the last step's metrics,
+    the step function, the batch source (``batches(start) → iterator``),
+    the loop and the policy."""
+    state: object
+    metrics: dict
+    step: object
+    batches: object
+    loop: object
+    policy: object
+
+
+def _train_lm(args, ap, dev):
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.buffer import random_batch
+    from repro_torch.distributed.fault import ResilientLoop
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.policy import BackbonePolicy
+    from repro_torch.rl.learner import init_train_state, make_lm_train_step
+
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume needs --ckpt-dir")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    tcfg = TrainConfig()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    policy = BackbonePolicy(cfg, device=dev, generator=gen)
+    state = init_train_state(policy.params(),
+                             dtype_of(tcfg.optimizer_state_dtype))
+    step = make_lm_train_step(policy, tcfg,
+                              loss_chunk=min(256, args.seq))
+    loop = ResilientLoop(step, args.ckpt_dir, save_every=args.save_every)
+    if args.resume:
+        state, start = loop.resume_or_init(state)
+        loop.steps_done = start
+        print(f"resumed at step {start}", flush=True)
+
+    def batches(start):
+        # batch i drives step i + 1: its own seed, so a replay or a resumed
+        # run sees the same data
+        for i in range(start, args.steps):
+            g = torch.Generator(device=dev).manual_seed(
+                args.seed * 1_000_003 + 1000 + i)
+            yield random_batch(cfg, args.batch, args.seq, g)
+
+    last = {}
+
+    def on_metrics(i, m):
+        last.update(m)
+        if i % 5 == 0 or i == 1:
+            print(f"step {i:5d} loss {float(m['loss']):+.4f} "
+                  f"kl {float(m['approx_kl']):.4f} "
+                  f"gnorm {float(m['grad_norm']):.2f} "
+                  f"median_step {loop.monitor.median * 1e3:.0f}ms",
+                  flush=True)
+
+    print(f"=== {cfg.name} LM PPO (layers={cfg.num_layers} "
+          f"d_model={cfg.d_model}, batch={args.batch} seq={args.seq}, "
+          f"device={dev}) ===", flush=True)
+    state = loop.run(state, batches, on_metrics)
+    print(f"done: {loop.steps_done} steps, {loop.recoveries} recoveries, "
+          f"{loop.monitor.flagged} straggler flags", flush=True)
+    return LMRun(state, last, step, batches, loop, policy)
 
 
 def _report(m, target):
@@ -340,10 +427,13 @@ def main(argv=None):
             ap.error("--ckpt-dir/--resume/--run-dir are not taken with "
                      "--selfplay: the store in --league-dir is the league's "
                      "durable state")
-    if (args.ocean is None) == (args.host_env is None):
-        ap.error("pass exactly one of --ocean and --host-env")
+    if sum(x is not None for x in (args.ocean, args.host_env,
+                                   args.arch)) != 1:
+        ap.error("pass exactly one of --ocean, --host-env and --arch")
     from repro_torch import device as _device
     dev = _device.resolve(args.device)
+    if args.arch is not None:
+        return _train_lm(args, ap, dev)
     if args.host_env is not None:
         return _train_host(args, ap, dev)
     if args.selfplay:

@@ -14,6 +14,14 @@ returns, as numpy arrays (``jax.tree.map(np.asarray, params)``), and gives a
 the Mamba2 leaves included: ``ssm.in_proj``, ``conv_w`` and ``out_proj`` in
 the parameter dtype, ``ssm.A_log``, ``D``, ``dt_bias`` and ``norm`` in f32.
 
+``backbone_tree_from_jax(tree)`` gives the same parameters as the plain
+nested dict that ``BackbonePolicy.params()`` returns and the learner trains
+(``{"backbone": {"layers": {"0": …}, …}, "value": …}``), and
+``train_state_from_jax(state)`` turns the reference's LM ``TrainState``
+(``repro.rl.learner.init_train_state``; params, AdamW moments laid out like
+them, step counts) into the port's, so that both packages train from the
+same numbers.
+
 bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects; they go through their 16-bit pattern, bit for bit. A quantised tree
 (``repro.models.params.quantize_params``) loads into a ``BackbonePolicy``
@@ -68,6 +76,42 @@ def params_from_jax(tree: dict) -> dict:
         if k != "backbone":
             _flatten({k: v}, "", out)
     return out
+
+
+def nest(flat: dict) -> dict:
+    """``{"a.b.c": x}`` → ``{"a": {"b": {"c": x}}}``."""
+    out: dict = {}
+    for name, x in flat.items():
+        node = out
+        *path, last = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = x
+    return out
+
+
+def backbone_tree_from_jax(tree: dict) -> dict:
+    """JAX ``BackbonePolicy`` parameter tree (numpy leaves) → the port's
+    plain parameter tree (CPU tensors, the JAX dtypes), layers unstacked."""
+    return nest(params_from_jax(tree))
+
+
+def train_state_from_jax(state):
+    """The reference's LM ``TrainState`` (numpy leaves: ``params``, ``opt``
+    with ``step``, ``m``, ``v``, and ``step``) → the port's
+    ``rl.learner.TrainState`` on the CPU."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.rl.learner import TrainState
+
+    def step(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.int32).copy())
+
+    opt = state.opt
+    return TrainState(backbone_tree_from_jax(state.params),
+                      AdamWState(step(opt.step),
+                                 backbone_tree_from_jax(opt.m),
+                                 backbone_tree_from_jax(opt.v)),
+                      step(state.step))
 
 
 def _leaves(tree):

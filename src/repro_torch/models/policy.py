@@ -10,7 +10,10 @@ Mamba2 (SSM) layers. Both are the counterparts of ``repro/models/policy.py``.
 ``OceanPolicy`` is trained, so it keeps the reference's functional form: its
 methods take the parameter dict (``init`` makes one), and the learner
 differentiates through them and updates the dict with AdamW.
-``BackbonePolicy`` serves, and owns its parameters.
+``BackbonePolicy`` serves from the parameters it owns, and trains in the
+same functional form: ``params()`` gives its parameters as a plain tree
+(``models/convert.py::backbone_tree_from_jax`` gives the reference's),
+and ``seq(params, tokens)`` and ``_value(params, hidden)`` read such a tree.
 """
 from __future__ import annotations
 
@@ -265,21 +268,46 @@ class BackbonePolicy(nn.Module):
         s = self._float_spec()
         return quantize_spec(s, self.quantize) if self.quantize else s
 
-    def _value(self, hidden):
+    def _own(self) -> dict:
+        """The policy's own parameters as the tree ``seq`` and ``_value``
+        read (the backbone as its module, which reads like a dict)."""
+        own = {"backbone": self.backbone}
+        for k in ("value", "value_scale"):
+            if hasattr(self, k):
+                own[k] = getattr(self, k)
+        return own
+
+    def params(self) -> dict:
+        """The parameters as a plain nested dict of detached tensors (the
+        policy's own storage): the tree the learner trains
+        (``rl.learner.init_train_state``)."""
+        def plain(node):
+            if isinstance(node, Params):
+                return {k: plain(v) for k, v in
+                        [*node._parameters.items(), *node._modules.items()]}
+            return node.detach()
+        return {k: plain(v) for k, v in self._own().items()}
+
+    def _value(self, params, hidden):
+        """The critic on ``hidden`` with the head of the tree ``params``."""
         if not self.cfg.value_head:
             return torch.zeros(hidden.shape[:-1], device=hidden.device)
         # A quantised head is read as its raw integers without value_scale,
         # as the reference reads it (repro/models/policy.py:220-221).
-        w = stored(self.value, getattr(self, "value_scale", None))
+        w = stored(params["value"], params.get("value_scale"))
         # dot in hidden.dtype, upcast after
         return (hidden @ w.to(hidden.dtype))[..., 0].float()
 
-    def seq(self, tokens):
-        """Full-sequence forward. tokens: (B, T). Returns (logits (B,T,V),
-        values (B,T), aux)."""
-        hidden, aux = tr.forward(self.backbone, tokens, self.cfg)
-        logits = tr.logits_from_hidden(self.backbone, hidden, self.cfg)
-        return logits, self._value(hidden), aux
+    def seq(self, params, tokens=None):
+        """Full-sequence forward, the training path. ``seq(params, tokens)``
+        reads the tree ``params`` (``params()``, or one being trained);
+        ``seq(tokens)`` the policy's own parameters. tokens: (B, T). Returns
+        (logits (B,T,V), values (B,T), aux)."""
+        if tokens is None:
+            params, tokens = self._own(), params
+        hidden, aux = tr.forward(params["backbone"], tokens, self.cfg)
+        logits = tr.logits_from_hidden(params["backbone"], hidden, self.cfg)
+        return logits, self._value(params, hidden), aux
 
     @torch.no_grad()
     def prefill(self, tokens, max_len: int):
@@ -289,7 +317,7 @@ class BackbonePolicy(nn.Module):
                                     max_len=max_len)
         last = hidden[:, -1:]
         logits = tr.logits_from_hidden(self.backbone, last, self.cfg)
-        return logits[:, 0], self._value(last)[:, 0], caches
+        return logits[:, 0], self._value(self._own(), last)[:, 0], caches
 
     @torch.no_grad()
     def decode(self, tokens, caches):
@@ -298,7 +326,7 @@ class BackbonePolicy(nn.Module):
         caches)."""
         hidden, caches = tr.decode(self.backbone, tokens, self.cfg, caches)
         logits = tr.logits_from_hidden(self.backbone, hidden, self.cfg)
-        return logits[:, 0], self._value(hidden)[:, 0], caches
+        return logits[:, 0], self._value(self._own(), hidden)[:, 0], caches
 
     def init_caches(self, batch: int, max_len: int):
         return tr.init_caches(self.cfg, batch, max_len,

@@ -4,19 +4,28 @@ Counterpart of ``repro/models/transformer.py``. JAX scans a stacked
 ``(n_periods, …)`` parameter tree; the port keeps one parameter tree per
 layer (``layers.0`` … ``layers.{L-1}``) and runs a Python loop over layers.
 Each layer's mixer is attention or a Mamba2 block by
-``cfg.is_attn_layer(i)``; MoE layers arrive with the LM-backbone training
-slice and raise ``NotImplementedError`` until then.
+``cfg.is_attn_layer(i)``; MoE layers arrive with the MoE archs
+(``models/moe.py``, not yet ported) and raise ``NotImplementedError`` until
+then.
 
-Three entry points: ``forward`` (full sequence), ``prefill`` (build caches),
-``decode`` (one token against caches).
+Three entry points: ``forward`` (full sequence; differentiable, the
+training path), ``prefill`` (build caches), ``decode`` (one token against
+caches). Under autograd ``forward`` runs each layer as ``cfg.remat`` says,
+as the reference's ``_remat`` does: ``"full"`` under
+``torch.utils.checkpoint`` (nothing of the layer saved, its forward run
+again in the backward, under the kernel backend the forward ran with:
+``dispatch.recompute_context``), ``"none"`` plainly; ``"dots"`` (save the
+matmul outputs) is not ported and raises.
 """
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_mod
@@ -26,8 +35,8 @@ from repro_torch.models.params import ParamSpec
 def layer_kinds(cfg: ModelConfig, i: int):
     if cfg.is_moe_layer(i):
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers arrive with the LM-backbone training "
-            f"slice of the port")
+            f"{cfg.name}: MoE layers arrive with the MoE archs "
+            f"(models/moe.py is not ported yet)")
     mixer = "attn" if cfg.is_attn_layer(i) else "ssm"
     return mixer, (None if cfg.d_ff == 0 else "mlp")
 
@@ -62,18 +71,29 @@ def _ffn(p, x, cfg: ModelConfig):
     return x + L.mlp_apply(p["mlp"], h, cfg)
 
 
+def _layer(p, x, cfg: ModelConfig):
+    h = L.rms_norm(x, p["ln_mix"], cfg.norm_eps)
+    if "attn" in p:
+        x = x + attn.attend_full(p["attn"], h, cfg)
+    else:
+        x = x + ssm_mod.ssm_apply(p["ssm"], h, cfg)
+    return _ffn(p, x, cfg)
+
+
 def forward(params, tokens, cfg: ModelConfig):
     """Full-sequence forward. tokens: (B, T). Returns (hidden (B,T,d),
     aux dict)."""
+    remat = torch.is_grad_enabled() and cfg.remat != "none"
+    if remat and cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported; the port trains with "
+            f"'full' or 'none'")
     x = L.embed_tokens(params["embedding"], tokens, cfg)
     for i in range(cfg.num_layers):
         p = params["layers"][str(i)]
-        h = L.rms_norm(x, p["ln_mix"], cfg.norm_eps)
-        if "attn" in p:
-            x = x + attn.attend_full(p["attn"], h, cfg)
-        else:
-            x = x + ssm_mod.ssm_apply(p["ssm"], h, cfg)
-        x = _ffn(p, x, cfg)
+        x = (checkpoint(_layer, p, x, cfg, use_reentrant=False,
+                        context_fn=dispatch.recompute_context) if remat
+             else _layer(p, x, cfg))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, {"moe_aux": torch.zeros((), device=x.device)}
 

@@ -1,6 +1,6 @@
-"""The Ocean PPO learner (Clean PuffeRL) on one device.
+"""The PPO learners (Clean PuffeRL) on one device: Ocean and LM backbone.
 
-The counterpart of the Ocean half of ``repro/rl/learner.py``: rollout →
+The counterpart of ``repro/rl/learner.py``. The Ocean half: rollout →
 GAE → minibatched clipped-PPO epochs with AdamW. Recurrent policies
 minibatch over envs and recompute hidden states through whole stored
 sequences from the rollout's first carry, with per-step reset masking (the
@@ -13,6 +13,13 @@ reference's. Nothing here syncs with the host. ``adv_fn`` replaces GAE
 with an off-policy advantage (``make_vtrace_adv``, the async tier's
 V-trace). The data-parallel layout (``axis_name``, ``num_shards``) comes
 with the data-parallel slice.
+
+The LM-backbone half (``lm_batch_fields``, ``make_lm_train_step``): one PPO
+update on a token rollout through ``BackbonePolicy``'s functional path,
+the backbone's layers recomputed in the backward (``cfg.remat``) and the
+loss taken chunk by chunk (``ppo.chunked_token_loss``). On the card the
+backward runs through the attention and SSD backward kernels
+(``kernels/flash_attention.py``, ``kernels/ssd.py``).
 """
 from __future__ import annotations
 
@@ -20,9 +27,10 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.optim import adamw
+from repro_torch.models import transformer as tr
+from repro_torch.optim import adamw, schedule
 from repro_torch.rl import ppo
 from repro_torch.rl.rollout import RolloutCarry, Trajectory, rollout
 
@@ -217,3 +225,111 @@ def make_ocean_update(policy, step_fn, tcfg: TrainConfig, dist):
 
     update.collect, update.learn = collect, learn
     return update
+
+
+# =============================== LM backbone =================================
+
+def lm_batch_fields(cfg: ModelConfig, batch_size: int, seq_len: int):
+    """(shape, torch dtype) of each field of one LM PPO rollout batch, as
+    ``repro/rl/learner.py::lm_batch_fields`` gives them (``prefix`` for
+    archs with a frontend)."""
+    P = cfg.frontend_prefix if cfg.frontend else 0
+    f = {
+        "tokens": ((batch_size, seq_len - P), torch.int32),
+        "actions": ((batch_size, seq_len), torch.int32),
+        "old_logprob": ((batch_size, seq_len), torch.float32),
+        "old_values": ((batch_size, seq_len), torch.float32),
+        "rewards": ((batch_size, seq_len), torch.float32),
+        "dones": ((batch_size, seq_len), torch.bool),
+        "last_value": ((batch_size,), torch.float32),
+    }
+    if P:
+        f["prefix"] = ((batch_size, P, cfg.d_model), torch.bfloat16)
+    return f
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """(loss, stats, grads) of ``loss_fn(params, batch)``, the gradients in
+    the params' tree and dtypes."""
+    with torch.enable_grad():
+        p = adamw.tree_map(lambda x: x.detach().requires_grad_(), params)
+        loss, stats = loss_fn(p, batch)
+        grads = iter(torch.autograd.grad(loss, adamw.tree_leaves(p)))
+    grads = adamw.tree_map(lambda _: next(grads), p)
+    return loss.detach(), {k: v.detach() for k, v in stats.items()}, grads
+
+
+def make_lm_train_step(policy, tcfg: TrainConfig, total_steps: int = 10_000,
+                       loss_chunk: int = 256, num_microbatches: int = 1):
+    """One PPO update on a token rollout:
+    ``train_step(ts, batch) → (ts, metrics)``, ``metrics`` 0-dim device
+    tensors (nothing syncs with the host).
+
+    GAE runs through ``kops.gae`` once per loss evaluation, without a
+    gradient (the advantages are constants of the batch); the loss is the
+    clipped token-level PPO term of ``ppo.chunked_token_loss``, the value
+    loss and ``0.01 · moe_aux``. ``num_microbatches > 1`` accumulates f32
+    gradients over that many slices of the batch, as the reference's scan
+    does. The rate is ``warmup_cosine`` of the state's step, then AdamW
+    with ``tcfg.max_grad_norm``."""
+    cfg = policy.cfg
+
+    def loss_fn(params, batch):
+        if "prefix" in batch:
+            raise NotImplementedError(
+                f"{cfg.name}: frontend prefixes arrive with "
+                f"models/frontends.py (not ported yet)")
+        hidden, aux = tr.forward(params["backbone"], batch["tokens"], cfg)
+        values = policy._value(params, hidden)                 # (B, T)
+        with torch.no_grad():
+            adv = kops.gae(batch["rewards"], batch["old_values"],
+                           batch["dones"], batch["last_value"], tcfg.gamma,
+                           tcfg.gae_lambda)
+            returns = adv + batch["old_values"]
+            adv = ppo.normalize_adv(adv, tcfg.norm_adv)
+        pg, ent, kl, cf = ppo.chunked_token_loss(
+            params["backbone"], hidden, batch["actions"],
+            batch["old_logprob"], adv, cfg, tcfg, chunk=loss_chunk)
+        vl = ppo.value_loss(values, batch["old_values"], returns, tcfg)
+        loss = (pg - tcfg.ent_coef * ent + tcfg.vf_coef * vl
+                + 0.01 * aux["moe_aux"])
+        return loss, {"pg_loss": pg, "v_loss": vl, "entropy": ent,
+                      "approx_kl": kl, "clipfrac": cf,
+                      "moe_aux": aux["moe_aux"]}
+
+    def train_step(ts: TrainState, batch):
+        m = num_microbatches
+        if m > 1:
+            n = next(iter(batch.values())).shape[0]
+            if n % m:
+                raise ValueError(f"batch {n} is not divisible by "
+                                 f"num_microbatches={m}")
+            size = n // m
+            gacc = adamw.tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), ts.params)
+            losses, all_stats = [], []
+            for i in range(m):
+                one = {k: v[i * size:(i + 1) * size]
+                       for k, v in batch.items()}
+                loss, stats, g = _value_and_grad(loss_fn, ts.params, one)
+                gacc = adamw.tree_map(lambda a, b: a + b.float(), gacc, g)
+                losses.append(loss)
+                all_stats.append(stats)
+            grads = adamw.tree_map(lambda g: g / m, gacc)
+            loss = torch.stack(losses).mean()
+            stats = {k: torch.stack([s[k] for s in all_stats]).mean()
+                     for k in all_stats[0]}
+        else:
+            loss, stats, grads = _value_and_grad(loss_fn, ts.params, batch)
+        lr = schedule.warmup_cosine(ts.step, peak_lr=tcfg.learning_rate,
+                                    warmup_steps=tcfg.warmup_steps,
+                                    total_steps=total_steps)
+        params, opt, gstats = adamw.update(
+            grads, ts.opt, ts.params, lr=lr, b1=tcfg.adam_b1,
+            b2=tcfg.adam_b2, eps=tcfg.adam_eps,
+            weight_decay=tcfg.weight_decay, max_grad_norm=tcfg.max_grad_norm)
+        metrics = dict(stats, loss=loss, lr=lr,
+                       grad_norm=gstats["grad_norm"])
+        return TrainState(params, opt, ts.step + 1), metrics
+
+    return train_step

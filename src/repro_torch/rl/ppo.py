@@ -1,17 +1,26 @@
 """PPO objective (Clean PuffeRL): the clipped policy-gradient terms, the
 clipped value loss and minibatch advantage normalization.
 
-The counterpart of ``repro/rl/ppo.py`` on one device. ``chunked_token_loss``
-(the LM-backbone loss) comes with the LM-training slice, and the
-data-parallel statistics of ``normalize_adv`` with the data-parallel one.
+The counterpart of ``repro/rl/ppo.py`` on one device. Two loss entry
+points:
+  * ``ppo_terms`` — the clipped objective on precomputed log-probs;
+  * ``chunked_token_loss`` — the LM-backbone path: the unembed, softmax and
+    PPO terms per sequence chunk, each chunk under
+    ``torch.utils.checkpoint``, so that the full (B, T, vocab) logits never
+    exist and the backward recomputes a chunk's.
+The data-parallel statistics of ``normalize_adv`` come with the
+data-parallel slice.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.kernels import dispatch
+from repro_torch.models import transformer as tr
 
 
 class PPOStats(NamedTuple):
@@ -52,3 +61,50 @@ def normalize_adv(adv, enabled: bool):
     if not enabled:
         return adv
     return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+
+
+def chunked_token_loss(backbone_params, hidden, actions, old_logp, adv,
+                       cfg: ModelConfig, tcfg: TrainConfig,
+                       chunk: int = 256):
+    """Token-level PPO over an LM backbone without the full logits.
+
+    hidden: (B, T, d); actions, old_logp, adv: (B, T). Returns (pg_loss,
+    entropy, approx_kl, clipfrac), each summed over the chunks and divided
+    by B·T. A chunk's logits are (B, chunk, vocab) f32; under autograd each
+    chunk's terms run under ``checkpoint`` (in place of the reference's
+    ``jax.checkpoint``), so only one chunk's logits live at a time in the
+    forward and in the backward. ``gather`` picks the taken token's logit
+    where the reference contracts a one-hot (kept there for a vocab-sharded
+    layout the port does not have): the same value."""
+    B, T, _ = hidden.shape
+    chunk = min(chunk, T)
+    if T % chunk:
+        raise ValueError(f"T {T} is not a multiple of the loss chunk "
+                         f"{chunk}")
+
+    def chunk_terms(h_c, a_c, olp_c, adv_c):
+        logits = tr.logits_from_hidden(backbone_params, h_c, cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        tok = logits.gather(-1, a_c.long()[..., None])[..., 0]
+        new_logp = tok - lse
+        p = torch.softmax(logits, dim=-1)
+        ent = lse - (p * logits).sum(-1)
+        logratio = new_logp - olp_c
+        ratio = torch.exp(logratio)
+        pg1 = -adv_c * ratio
+        pg2 = -adv_c * ratio.clamp(1 - tcfg.clip_coef, 1 + tcfg.clip_coef)
+        return torch.stack([
+            torch.maximum(pg1, pg2).sum(), ent.sum(),
+            ((ratio - 1.0) - logratio).sum(),
+            ((ratio - 1.0).abs() > tcfg.clip_coef).float().sum()])
+
+    grad = torch.is_grad_enabled()
+    total = torch.zeros(4, device=hidden.device)
+    for c0 in range(0, T, chunk):
+        args = tuple(x[:, c0:c0 + chunk]
+                     for x in (hidden, actions, old_logp, adv))
+        total = total + (checkpoint(chunk_terms, *args, use_reentrant=False,
+                                    context_fn=dispatch.recompute_context)
+                         if grad else chunk_terms(*args))
+    pg, ent, kl, cf = total / float(B * T)
+    return pg, ent, kl, cf

@@ -649,3 +649,155 @@ def test_pool_tier_update_launches_gae_once_and_no_pack():
     assert build.LAUNCHES["gae"] == 2
     assert all(build.LAUNCHES[k] == 0 for k in (
         "pack", "flash_attention", "flash_decode", "ssd", "quant_matmul"))
+
+
+# -- backward kernels (flash_attention_bwd, ssd_bwd) and the LSE output -------
+# Held to their plain versions (``ref.*_bwd``: autograd of the plain forward)
+# run in f32 on the same inputs (f32 copies of bf16 ones), at a tolerance
+# relative to the largest gradient: bf16 2e-2 (the outputs are rounded to
+# bf16, and D uses the forward's bf16 output), f32 1e-4 with TF32 off.
+
+FA_BWD_CASES = [
+    (8, 256, 256, 16, 8, 128, True),     # qwen3's training shape
+    (2, 200, 200, 4, 2, 32, True), (1, 130, 130, 8, 2, 64, True),
+    (2, 64, 64, 4, 1, 16, True),         # MQA at hd 16
+    (2, 1, 1, 16, 8, 128, True),         # one row
+    (2, 65, 65, 16, 8, 128, True),       # one row past a 64-row tile
+    (2, 100, 300, 8, 2, 128, True),      # S > T
+    (2, 130, 200, 8, 4, 64, False),      # non-causal, S > T
+    (2, 200, 70, 4, 4, 32, False),       # non-causal, S < T
+    (2, 96, 96, 4, 1, 128, True),        # MQA at hd 128
+    (2, 300, 150, 6, 2, 64, True)]       # an odd group (3), S < T
+
+
+def _grad_close(name, got, want, tol, scale=None):
+    """max |got - want| within tol of ``scale``, by default the largest
+    |want|."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = scale or max(float(want.float().abs().max()), 1e-6)
+    assert torch.isfinite(got.float()).all(), name
+    assert err <= tol * scale, f"{name}: max abs err {err}, max |grad| " \
+                               f"{scale}, tol {tol} of it"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,K,hd,causal", FA_BWD_CASES)
+def test_flash_attention_lse_matches_ref(B, T, S, H, K, hd, causal, dtype,
+                                         no_tf32):
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    rng = np.random.default_rng(T + S + hd)
+    q, k, v = (_randn(rng, s, dtype) for s in
+               ((B, T, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    o, lse = flash_attention_fwd(q, k, v, causal, with_lse=True)
+    o2, none = flash_attention_fwd(q, k, v, causal)
+    assert none is None and torch.equal(o, o2)
+    want = ref.flash_attention_lse(q, k, causal)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,K,hd,causal", FA_BWD_CASES)
+def test_flash_attention_bwd_matches_ref(B, T, S, H, K, hd, causal, dtype,
+                                         no_tf32):
+    """Through autograd: ops.flash_attention launches the forward kernel
+    (with its LSE) and, in backward, the backward kernel, once each."""
+    rng = np.random.default_rng(T * S + hd)
+    q, k, v = (_randn(rng, s, dtype).requires_grad_() for s in
+               ((B, T, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    do = _randn(rng, (B, T, H, hd), dtype)
+    before = dict(build.LAUNCHES)
+    o = ops.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert build.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                   do.float(), causal=causal)
+    # relative to the largest of the three (dq is 0 where a row sees one
+    # key, as at T = 1: its error there is rounding in do . (v - o))
+    scale = max(float(w.abs().max()) for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _grad_close(name, g, w, TOL[dtype], scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_is_deterministic(dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    rng = np.random.default_rng(3)
+    q, k, v = (_randn(rng, s, dtype) for s in
+               ((4, 256, 16, 128), (4, 256, 8, 128), (4, 256, 8, 128)))
+    do = _randn(rng, (4, 256, 16, 128), dtype)
+    o, lse = flash_attention_fwd(q, k, v, True, with_lse=True)
+    first, again = (flash_attention_bwd(q, k, v, o, lse, do)
+                    for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _ssd_train_inputs(rng, B, T, H, hd, ds, G, view, dtype):
+    """SSD inputs as models/ssm.py hands them over in training, in
+    ``dtype``: B_ and C slices of one conv-output row expanded over heads
+    (stride 0 with one group), x a slice of the same row or dense."""
+    buf = _randn(rng, (B, T, H * hd + 2 * G * ds), dtype) * 0.5
+    x = buf[..., :H * hd].unflatten(-1, (H, hd)) if view else \
+        _randn(rng, (B, T, H, hd), dtype) * 0.5
+    bc = [buf[..., H * hd + i * G * ds:H * hd + (i + 1) * G * ds]
+          .unflatten(-1, (G, ds)).unsqueeze(-2)
+          .expand(B, T, G, H // G, ds).flatten(-3, -2) for i in range(2)]
+    dt = torch.nn.functional.softplus(_randn(rng, (B, T, H), torch.float32))
+    A = -torch.exp(_randn(rng, (H,), torch.float32) * 0.3)
+    return x, dt, A, bc[0], bc[1]
+
+
+SSD_BWD_CASES = [  # B, T, H, hd, ds, G, x a view, dh_last given
+    (8, 256, 64, 64, 128, 1, True, False),     # mamba2's training shape
+    (2, 300, 4, 64, 128, 1, True, False), (2, 1, 4, 64, 128, 1, True, True),
+    (3, 50, 4, 16, 16, 1, False, True), (2, 96, 4, 16, 16, 2, True, False),
+    (2, 64, 3, 16, 32, 3, False, False), (1, 70, 2, 128, 128, 1, False, True),
+    (2, 129, 4, 48, 32, 2, True, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd,ds,G,view,dh", SSD_BWD_CASES)
+def test_ssd_bwd_matches_ref(B, T, H, hd, ds, G, view, dh, dtype, no_tf32):
+    """Through autograd: ops.ssd launches the forward kernel and, in
+    backward, the backward kernel, once each; the gradients of the
+    stride-0 B_ and C reach their group's columns."""
+    rng = np.random.default_rng(T + hd + ds)
+    x, dt, A, B_, C = _ssd_train_inputs(rng, B, T, H, hd, ds, G, view,
+                                        dtype)
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A)]
+    bc = [t.detach()[..., ::H // G, :].contiguous().requires_grad_()
+          for t in (B_, C)]      # one row a group: the heads' expansion
+    expand = lambda t: t.unsqueeze(-2).expand(
+        B, T, G, H // G, ds).flatten(-3, -2)
+    dy = _randn(rng, (B, T, H, hd), dtype)
+    dh_last = _randn(rng, (B, H, hd, ds), torch.float32) if dh else None
+    before = dict(build.LAUNCHES)
+    y, h = ops.ssd(*leaves, expand(bc[0]), expand(bc[1]))
+    outs, grads = ([y, h], [dy, dh_last]) if dh else ([y], [dy])
+    got = torch.autograd.grad(outs, leaves + bc, grads)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ssd"] == before["ssd"] + 1
+    assert build.LAUNCHES["ssd_bwd"] == before["ssd_bwd"] + 1
+    f = [t.detach().float().requires_grad_() for t in leaves + bc]
+    with torch.enable_grad():
+        wy, wh = ref.ssd(*f[:3], expand(f[3]), expand(f[4]))
+        want = torch.autograd.grad(
+            [wy, wh] if dh else [wy], f,
+            [dy.float(), dh_last] if dh else [dy.float()])
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.shape == w.shape
+        _grad_close(name, g, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_is_deterministic(dtype):
+    rng = np.random.default_rng(9)
+    args = _ssd_train_inputs(rng, 4, 256, 8, 64, 128, 1, True, dtype)
+    dy = _randn(rng, (4, 256, 8, 64), dtype)
+    first, again = (ssd_mod.ssd_bwd(*args, dy) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))

@@ -205,8 +205,9 @@ def test_wrappers_check_arguments():
 
 def test_build_paths_carry_the_source_hash():
     paths = {n: build.library_path(n) for n in build.SIGNATURES}
-    assert set(paths) == {"flash_attention", "flash_decode", "gae",
-                          "ssd", "quant_matmul", "pack"}
+    assert set(paths) == {"flash_attention", "flash_attention_bwd",
+                          "flash_decode", "gae", "ssd", "ssd_bwd",
+                          "quant_matmul", "pack"}
     for name, p in paths.items():
         assert p.parent == build.BUILD_DIR and p.name.startswith(name + "-")
     assert set(build.LAUNCHES) == set(build.SIGNATURES)
