@@ -5,8 +5,7 @@
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
 ``src/repro_torch/kernels/csrc`` and runs fourteen phases, each printing its
-lines; any failure ends the run with a traceback and a non-zero exit
-(``--phase 14`` runs phases 1, 2 and 14 alone, a rehearsal of the newest):
+lines; any failure ends the run with a traceback and a non-zero exit:
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
   2. build       nvcc builds every kernel (one process per source, together);
@@ -164,12 +163,14 @@ lines; any failure ends the run with a traceback and a non-zero exit
                  on the same inputs, two calls bit for bit, and the
                  forward's LSE against the plain one at 1e-4; (b) one
                  ``make_lm_train_step`` of qwen3-0.6b and of mamba2-1.3b at
-                 full width in f32, B 2 x T 64: the cuda ops against
-                 ``dispatch.using("ref")`` from the same params and batch
-                 (for mamba2 with the SSD forward held to the kernel's:
-                 see ``lm_gate``), loss and grad_norm within 1e-3
-                 relative, the updated params within 1e-3; (c) both archs
-                 through the launcher in
+                 full width in f32, B 2 x T 64, from ``LM_GATE_SEED``: the
+                 cuda ops against ``dispatch.using("ref")`` from the same
+                 params and batch, loss and grad_norm within 1e-3
+                 relative, each leaf's gradient within 1e-3 of its largest,
+                 the updated params within 1e-3; for mamba2 also each
+                 leaf within 1e-4 of a plain run that takes the SSD
+                 forward kernel's output (the backward kernel alone: see
+                 ``lm_gate``); (c) both archs through the launcher in
                  bf16, ``--batch 8 --seq 256 --steps 10``: finite loss,
                  grad_norm > 0, params moved, and a step's launches 56
                  flash_attention, 28 flash_attention_bwd (qwen3) or 96 ssd,
@@ -360,6 +361,7 @@ ASYNC_UPDATES = 40                      # path B: full-budget runs' updates
 # path E, LM-backbone PPO: the launcher's defaults, B 8 x T 256, 10 steps
 LM_BATCH, LM_SEQ, LM_STEPS = 8, 256, 10
 LM_GATE_B, LM_GATE_T = 2, 64            # the full-width f32 gate
+LM_GATE_SEED = 0           # the gate's own generator (tools/ reruns it)
 # qwen3's attention at the training shape (B, T, H, K, hd), and the
 # backward's edge cases (B, T, S, H, K, hd, causal): every head dim, MQA,
 # an odd group, S != T, non-causal, ragged T, T = 1
@@ -1961,9 +1963,9 @@ def ssd_bwd_case(gen, shape, dtype, tol):
 
 
 class SSDHeldForward(torch.autograd.Function):
-    """The SSD op of the f32 gate's plain run on an SSM arch: the forward
-    kernel's output, so that its rounding is the cuda run's, and the plain
-    version's backward."""
+    """An SSD op with the forward kernel's output and the plain version's
+    backward: a run of the plain path whose forward rounds as the cuda
+    run's does."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B_, C, chunk):
@@ -1975,94 +1977,124 @@ class SSDHeldForward(torch.autograd.Function):
         return (*ref.ssd_bwd(*ctx.saved_tensors, dy, dh), None)
 
 
-def lm_gate(gen, arch):
-    """One make_lm_train_step at full width in f32 (TF32 off), B 2 x T 64,
-    through the cuda ops and through ``dispatch.using("ref")`` from the
-    same params and batch: loss and grad_norm within 1e-3 relative and the
-    updated params within 1e-3. Also prints how far the first moments (the
-    gradients × 0.1) lie apart, relative to each leaf's largest: the worst
-    leaf, and the worst of the first and of the last layer.
+def held_ssd(x, dt, A, B_, C, chunk=128):
+    return SSDHeldForward.apply(x, dt, A, B_, C, chunk)
 
-    On an arch with SSM layers the gated plain run takes its SSD forward
-    from the forward kernel (``SSDHeldForward``; its backward stays plain):
-    mamba2's f32 gradient amplifies the SSD forward's rounding ~1e3-fold at
-    some inputs, so that there any f32 forward parts from an f64 one by
-    over 1e-3: at this script's input (on an H100) the cuda run's
-    grad_norm read 238.671, the all-plain run's 237.838 with its SSD
-    stepped in f32 and 234.338 in f64, with losses equal to 2e-6
-    (``tools/lm_gate_spread.py`` shows the same at other inputs). The gate
-    would measure that rounding, not the train step. The forward kernel is
-    held to its plain version by phase 3 and at full width by phase 4; the
-    all-plain run is printed beside."""
+
+def lm_gate_inputs(arch, seed=LM_GATE_SEED):
+    """(cfg, tcfg, step, state, batch) of the f32 gate: full width in f32
+    (TF32 off), B 2 x T 64, params and batch drawn from a generator of
+    their own, so that ``tools/lm_gate_spread.py`` takes the same input."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = with_overrides(get_config(arch), dtype="float32",
                          param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     policy = BackbonePolicy(cfg, generator=gen)
     tcfg = TrainConfig(warmup_steps=0)      # the first step at the peak rate
     step = make_lm_train_step(policy, tcfg, loss_chunk=LM_GATE_T)
     state = init_train_state(policy.params())
     batch = random_batch(cfg, LM_GATE_B, LM_GATE_T, gen)
+    return cfg, tcfg, step, state, batch
+
+
+def step_grads(step, state, batch, tcfg):
+    """(metrics as floats, updated params, {leaf name: gradient}) of one
+    step; the gradients are those before clipping, read back from the
+    first moments (m = (1 - b1) · clip · g after one step)."""
+    out, m = step(state, batch)
+    clip = 1.0
+    if tcfg.max_grad_norm:
+        clip = (tcfg.max_grad_norm / m["grad_norm"].clamp(min=1e-12)
+                ).clamp(max=1.0)
+    grads = {n: g / ((1 - tcfg.adam_b1) * clip)
+             for n, g in named_leaves(out.opt.m)}
+    sync()
+    return {k: float(v) for k, v in m.items()}, out.params, grads
+
+
+def leaf_rel(got, want):
+    """{leaf: max |got - want| / max |want|}."""
+    return {n: max_err(got[n], want[n]) / max(float(want[n].abs().max()),
+                                              1e-30) for n in want}
+
+
+def lm_gate(arch):
+    """One make_lm_train_step at full width in f32 (TF32 off), B 2 x T 64,
+    through the cuda ops and through ``dispatch.using("ref")`` (every op
+    plain, its SSD stepped in f64) from the same params and batch: loss and
+    grad_norm within 1e-3 relative, every leaf's gradient within 1e-3 of
+    its largest, and the updated params within 1e-3.
+
+    On an arch with SSM layers that margin is thin: mamba2's f32 gradient
+    moves up to ~1e4 times as far as the SSD forward's output (at this input
+    a 1e-6 relative change of the plain SSD's output moves leaves of every
+    SSM kind by up to 9e-3 of their largest, ``tools/lm_gate_spread.py``).
+    So the cuda run is also held, every leaf's gradient within 1e-4 of its
+    largest, against a plain run whose SSD forward is the kernel's output
+    (``held_ssd``): the backward kernel against the plain backward from one
+    forward."""
+    cfg, tcfg, step, state, batch = lm_gate_inputs(arch)
     build.reset_launches()
-    got, gm = step(state, batch)
-    sync()
+    gm, got, gg = step_grads(step, state, batch, tcfg)
     launches = dict(build.LAUNCHES)
-    got = (got.params, got.opt.m)           # drop v: room for the ref run
     with dispatch.using("ref"):
-        want, wm = step(state, batch)
-    sync()
-    ssm = not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
-    plain = ""
-    if ssm:                                 # the all-plain run, for the record
-        plain = (f"; the all-plain run (SSD forward the f64 step recurrence): "
-                 f"loss {float(wm['loss']):.6f}, grad_norm "
-                 f"{float(wm['grad_norm']):.6f}")
-        del want, wm
-        torch.cuda.empty_cache()
-        saved = dispatch._REGISTRY["ssd"]["ref"]
-        dispatch._REGISTRY["ssd"]["ref"] = (
-            lambda x, dt, A, B_, C, chunk=128:
-            SSDHeldForward.apply(x, dt, A, B_, C, chunk))
-        try:
-            with dispatch.using("ref"):
-                want, wm = step(state, batch)
-        finally:
-            dispatch._REGISTRY["ssd"]["ref"] = saved
-        sync()
+        wm, want, wg = step_grads(step, state, batch, tcfg)
+    p_err = max(max_err(a, b) for a, b in zip(tree_leaves(got),
+                                              tree_leaves(want)))
+    del got, want
+    rel = leaf_rel(gg, wg)
+    del wg
+    worst = max(rel, key=rel.get)
+    fails = [f"{n} gradient {rel[n]}" for n in rel if not rel[n] <= 1e-3]
     for k in ("loss", "grad_norm"):
-        a, b = float(gm[k]), float(wm[k])
-        if not (math.isfinite(a) and abs(a - b) <= 1e-3 * abs(b)):
-            raise AssertionError(f"{arch} f32 gate: {k} cuda {a} ref {b}"
-                                 f"{plain}")
-    p_err = max(max_err(a, b) for a, b in zip(tree_leaves(got[0]),
-                                              tree_leaves(want.params)))
+        if not (math.isfinite(gm[k]) and abs(gm[k] - wm[k]) <= 1e-3 * abs(
+                wm[k])):
+            fails.append(f"{k} cuda {gm[k]} ref {wm[k]}")
     if not p_err <= 1e-3:
-        raise AssertionError(f"{arch} f32 gate: params max abs err {p_err}")
-    m_rel = {n: max_err(a, b) / max(float(b.abs().max()), 1e-30)
-             for (n, a), (_, b) in zip(named_leaves(got[1]),
-                                       named_leaves(want.opt.m))}
-    worst = max(m_rel, key=m_rel.get)
-    by_layer = [max(v for n, v in m_rel.items()
-                    if n.startswith(f"backbone.layers.{i}."))
-                for i in (0, cfg.num_layers - 1)]
+        fails.append(f"params max abs err {p_err}")
+    held = ""
+    ssm = not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    if ssm:
+        torch.cuda.empty_cache()
+        with dispatch.replaced("ssd", "ref", held_ssd), \
+                dispatch.using("ref"):
+            hm, _, hg = step_grads(step, state, batch, tcfg)
+        h_rel = leaf_rel(gg, hg)
+        del hg
+        h_worst = max(h_rel, key=h_rel.get)
+        fails += [f"{n} gradient against the held forward {h_rel[n]}"
+                  for n in h_rel if not h_rel[n] <= 1e-4]
+        if not abs(gm["grad_norm"] - hm["grad_norm"]) <= 1e-4 * hm[
+                "grad_norm"]:
+            fails.append(f"grad_norm cuda {gm['grad_norm']} held forward "
+                         f"{hm['grad_norm']}")
+        held = (f"; against the plain run with the held SSD forward: "
+                f"grad_norm {hm['grad_norm']:.6f}, gradients apart by "
+                f"{h_rel[h_worst]:.3g} of their leaf's largest at worst "
+                f"({h_worst})")
     attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
     want_l = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
               "ssd": 2 * (cfg.num_layers - attn),
               "ssd_bwd": cfg.num_layers - attn, "gae": 1}
     if any(launches[k] != n for k, n in want_l.items()):
-        raise AssertionError(f"{arch} f32 gate: launches {launches}, "
-                             f"expected {want_l}")
-    print(f"[14 lm train] (b) {cfg.name} f32 {cfg.num_layers}L d"
-          f"{cfg.d_model} B {LM_GATE_B} T {LM_GATE_T}, one train step cuda "
-          f"vs ref{' (SSD forward held)' if ssm else ''}: loss "
-          f"{float(gm['loss']):.6f} / {float(wm['loss']):.6f}, grad_norm "
-          f"{float(gm['grad_norm']):.6f} / {float(wm['grad_norm']):.6f}, "
-          f"params max abs err {p_err:.3g}; first moments apart by "
-          f"{m_rel[worst]:.3g} of their leaf's largest at worst ({worst}), "
-          f"{by_layer[0]:.3g} in layer 0 and {by_layer[1]:.3g} in layer "
-          f"{cfg.num_layers - 1}; launches "
-          f"{ {k: launches[k] for k in want_l} }{plain}", flush=True)
-    del policy, state, got, want, batch
+        fails.append(f"launches {launches}, expected {want_l}")
+    by_layer = [max(v for n, v in rel.items()
+                    if n.startswith(f"backbone.layers.{i}."))
+                for i in (0, cfg.num_layers - 1)]
+    line = (f"{cfg.name} f32 {cfg.num_layers}L d{cfg.d_model} B {LM_GATE_B} "
+            f"T {LM_GATE_T} (seed {LM_GATE_SEED}), one train step cuda vs "
+            f"all-plain: loss {gm['loss']:.6f} / {wm['loss']:.6f}, "
+            f"grad_norm {gm['grad_norm']:.6f} / {wm['grad_norm']:.6f}, "
+            f"gradients apart by {rel[worst]:.3g} of their leaf's largest at "
+            f"worst ({worst}), {by_layer[0]:.3g} in layer 0 and "
+            f"{by_layer[1]:.3g} in layer {cfg.num_layers - 1}, params max "
+            f"abs err {p_err:.3g}{held}; launches "
+            f"{ {k: launches[k] for k in want_l} }")
+    if fails:
+        raise AssertionError(f"{arch} f32 gate: {fails}; {line}")
+    print(f"[14 lm train] (b) {line}", flush=True)
+    del state, gg, batch, step
     torch.cuda.empty_cache()
 
 
@@ -2158,7 +2190,7 @@ def phase_lm_train(gen):
           f"{time.perf_counter() - t0:.1f} s; max abs err at the training "
           f"shapes (bf16): {errs}", flush=True)
     for arch in (ARCH, SSM_ARCH):
-        lm_gate(gen, arch)
+        lm_gate(arch)
     launches = {}
     for arch in (ARCH, SSM_ARCH):
         per_step = lm_launcher_run(arch)
@@ -2376,7 +2408,7 @@ def bwd_rows(gen, launches, errs):
     # and dC (dense over heads), dA written once
     flops = 2 * fwd_flops
     Bn, Tn, Hn = LM_BATCH, LM_SEQ, SSD_H
-    nbytes = (2 * 2 * Bn * Tn * Hn * SSD_P + 4 * 2 * Bn * Tn * Hn
+    nbytes = (3 * 2 * Bn * Tn * Hn * SSD_P + 4 * 2 * Bn * Tn * Hn
               + 2 * 2 * Bn * Tn * SSD_G * SSD_N
               + 2 * 2 * Bn * Tn * Hn * SSD_N + 4 * Hn)
     print(f"[kernel] ssd_bwd B {Bn} T {Tn} H {Hn} P {SSD_P} N {SSD_N} G "
@@ -2640,18 +2672,7 @@ def ssd_work(B, T, H, P, N, G, Q, elem):
     return flops, nbytes
 
 
-def main(argv=None):
-    """All phases with no arguments; ``--phase 14`` runs the device and
-    build phases, then phase 14 and its kernel rows only (a rehearsal of
-    the newest phase)."""
-    argv = sys.argv[1:] if argv is None else argv
-    only = None
-    if argv == ["--phase", "14"]:
-        only = {14}
-    elif argv:
-        print(f"chip_smoke: unknown arguments {argv}; the one option is "
-              f"--phase 14", file=sys.stderr)
-        return 2
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2659,31 +2680,25 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
     smi = phase_device()
     phase_build()
-    rows = []
-    if only is None:
-        errs = phase_parity(gen)
-        phase_full_width_f32(gen, ARCH)
-        phase_full_width_f32(gen, SSM_ARCH)
-        phase_full_width_f32(gen, ARCH, quantize="int8")
-        launches = phase_serve(gen, ARCH)
-        launches["ssd"] = phase_serve(gen, SSM_ARCH)["ssd"]
-        launches["quant_matmul"] = phase_serve(gen, ARCH,
-                                               "int8")["quant_matmul"]
-        phase_serve(gen, ARCH, "int4")
-        launches["gae"] = phase_train()["gae"]
-        phase_emulation(gen)
-        phase_pool()
-        launches["pack"] = phase_host()["pack"]
-        phase_checkpoint()
-        phase_async()
-        phase_ocean2()
-        phase_selfplay()
-    if only is None or 14 in only:
-        lm_launches, lm_errs = phase_lm_train(gen)
-    if only is None:
-        rows = kernel_rows(gen, launches, errs)
-    if only is None or 14 in only:
-        rows += bwd_rows(gen, lm_launches, lm_errs)
+    errs = phase_parity(gen)
+    phase_full_width_f32(gen, ARCH)
+    phase_full_width_f32(gen, SSM_ARCH)
+    phase_full_width_f32(gen, ARCH, quantize="int8")
+    launches = phase_serve(gen, ARCH)
+    launches["ssd"] = phase_serve(gen, SSM_ARCH)["ssd"]
+    launches["quant_matmul"] = phase_serve(gen, ARCH, "int8")["quant_matmul"]
+    phase_serve(gen, ARCH, "int4")
+    launches["gae"] = phase_train()["gae"]
+    phase_emulation(gen)
+    phase_pool()
+    launches["pack"] = phase_host()["pack"]
+    phase_checkpoint()
+    phase_async()
+    phase_ocean2()
+    phase_selfplay()
+    lm_launches, lm_errs = phase_lm_train(gen)
+    rows = kernel_rows(gen, launches, errs) + bwd_rows(gen, lm_launches,
+                                                       lm_errs)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -75,6 +75,21 @@ def using(mode: str):
         stack.pop()
 
 
+@contextmanager
+def replaced(op: str, name: str, fn: Callable):
+    """Backend ``name`` of ``op`` is ``fn`` inside the block, for every
+    thread: a measurement's way to run one op differently (another
+    precision, a held forward) through the unchanged model code. The
+    registered backend comes back on exit."""
+    if name not in implementations(op):
+        raise KeyError(f"{op}: no backend {name!r} to replace")
+    saved, _REGISTRY[op][name] = _REGISTRY[op][name], fn
+    try:
+        yield
+    finally:
+        _REGISTRY[op][name] = saved
+
+
 def scope():
     """The innermost ``using`` mode of this thread, or None."""
     stack = getattr(_TLS, "stack", None)

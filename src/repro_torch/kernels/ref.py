@@ -98,9 +98,9 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float):
     return torch.stack(out, dim=1)
 
 
-def ssd(x, dt, A, B_, C, h0=None):
+def ssd(x, dt, A, B_, C, h0=None, step_dtype=torch.float64):
     """Mamba2 selective-state recurrence, the step-by-step oracle of
-    ``repro/kernels/ref.py::ssd``, carried in f64.
+    ``repro/kernels/ref.py::ssd``, carried in ``step_dtype``.
 
     x: (B,T,H,hd); dt: (B,T,H) positive step sizes (post-softplus); A: (H,)
     negative decay rates; B_, C: (B,T,H,ds) head-expanded gates; h0:
@@ -112,9 +112,9 @@ def ssd(x, dt, A, B_, C, h0=None):
     Bb, T, H, hd = x.shape
     ds = B_.shape[-1]
     in_dtype = x.dtype
-    x, dt, B_, C, A = (t.double() for t in (x, dt, B_, C, A))
-    h = h0.double() if h0 is not None else torch.zeros(
-        (Bb, H, hd, ds), dtype=torch.float64, device=x.device)
+    x, dt, B_, C, A = (t.to(step_dtype) for t in (x, dt, B_, C, A))
+    h = h0.to(step_dtype) if h0 is not None else torch.zeros(
+        (Bb, H, hd, ds), dtype=step_dtype, device=x.device)
     ys = []
     for t in range(T):
         decay = torch.exp(dt[:, t] * A[None])                     # (B,H)

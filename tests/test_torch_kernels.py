@@ -189,6 +189,22 @@ def test_dispatch_scope_and_errors():
         tops.pack([leaf], mode="interpret")
 
 
+def test_dispatch_replaced_swaps_one_backend_then_restores():
+    x = torch.arange(6, dtype=torch.uint8).reshape(2, 3)
+    plain = tops.pack([x, x])
+    with dispatch.replaced("pack", "ref", lambda leaves: leaves[0]):
+        assert torch.equal(tops.pack([x, x]), x)
+        assert dispatch.resolve("pack", x.device) == "ref"
+    assert torch.equal(tops.pack([x, x]), plain)
+    with pytest.raises(RuntimeError, match="inside"):
+        with dispatch.replaced("pack", "ref", lambda leaves: leaves[0]):
+            raise RuntimeError("inside")
+    assert torch.equal(tops.pack([x, x]), plain)
+    with pytest.raises(KeyError):
+        with dispatch.replaced("pack", "interpret", lambda leaves: None):
+            pass
+
+
 def test_wrappers_check_arguments():
     q = torch.zeros(1, 8, 4, 32)
     k = torch.zeros(1, 8, 2, 32)

@@ -1,167 +1,138 @@
 #!/usr/bin/env python3
-"""Where the full-width f32 LM train step's gradients part on the card.
+"""Which gradients of the full-width f32 LM train step part on the card.
 
-    python3 tools/lm_gate_spread.py [--arch mamba2-1.3b] [--seeds 2]
+    python3 tools/lm_gate_spread.py [--arch mamba2-1.3b] [--seeds 3]
 
 ``chip_smoke.py`` phase 14(b) holds one ``make_lm_train_step`` at full
-width in f32 (TF32 off, B 2 x T 64) through the cuda ops against the plain
-path (for mamba2 with the SSD forward held to the kernel's, because of
-what this measures). This takes the same step from the same params and batch with the SSD
-op swapped, and compares each one's loss, grad_norm and gradients (the
-first moments / (1 - b1)) with the one whose SSD runs in f64 (the
-step-by-step recurrence, forward and autograd backward, cast back to f32
-at its edges): the cuda ops; the plain path (``dispatch.using("ref")``,
-every op plain; its SSD oracle steps in f64 too); the same recurrence
-stepped in f32 (as the reference steps it); the forward kernel with the
-plain backward; the plain forward with the backward kernel. For each it
-prints |grad_norm - the f64 one's| relative, and the gradients' largest
-distance from the f64 ones relative to each leaf's largest, at worst over
-the leaves. Needs a CUDA card; torch only.
+width in f32 (TF32 off, B 2 x T 64) through the cuda ops against the
+all-plain path (``dispatch.using("ref")``, its SSD stepped in f64). This
+takes the same step from the same params and batch (``lm_gate_inputs`` at
+the gate's seed, then the seeds after it) and sets against the all-plain
+run:
+
+  cuda ops        the gated run;
+  held forward    the all-plain run with the SSD forward kernel's output
+                  (``held_ssd``), so only the backward differs from the
+                  cuda run's on an SSM arch;
+  perturbed       the all-plain run with each SSD output multiplied by
+                  1 + 1e-6 · s, s a fixed pattern in [-1, 1]: how far each
+                  gradient moves at a rounding-sized change of the forward,
+                  whatever kernel makes it;
+  f32 steps       the all-plain run with the SSD recurrence stepped in
+                  f32, as the reference steps it (its backward by
+                  autograd in f32 too).
+
+For each it prints loss and grad_norm relative to the all-plain run's and
+the five leaves farthest from it, then a table by leaf kind (the layer
+index replaced by *): each kind's share of the squared grad_norm, each
+variant's gradients' largest distance from the all-plain ones relative to
+each leaf's largest, at worst over the layers, and last the cuda run's
+from the held forward's (the backward kernel's own part).
+Needs a CUDA card; torch only.
 """
 from __future__ import annotations
 
 import argparse
+import re
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-from repro_torch.configs import get_config, with_overrides  # noqa: E402
-from repro_torch.configs.base import TrainConfig  # noqa: E402
-from repro_torch.data.buffer import random_batch  # noqa: E402
-from repro_torch.kernels import dispatch, ops, ref  # noqa: E402,F401
-from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd  # noqa: E402
-from repro_torch.models.policy import BackbonePolicy  # noqa: E402
-from repro_torch.optim.adamw import tree_leaves  # noqa: E402
-from repro_torch.rl.learner import (init_train_state,  # noqa: E402
-                                    make_lm_train_step)
+from chip_smoke import (LM_GATE_B, LM_GATE_SEED, LM_GATE_T,  # noqa: E402
+                        held_ssd, leaf_rel, lm_gate_inputs, step_grads)
+from repro_torch.kernels import dispatch, ref  # noqa: E402
+
+PERTURB = 1e-6
+BWD = "cuda vs held"     # the backward kernel against the plain backward
 
 
-def ssd_steps(x, dt, A, B_, C, dtype=torch.float64):
-    """y and h_last of the recurrence in ``dtype``, from and to the f32
-    edges."""
-    x, dt, A, B_, C = (t.to(dtype) for t in (x, dt, A, B_, C))
-    h = x.new_zeros(x.shape[:1] + x.shape[2:] + B_.shape[-1:])
-    ys = []
-    for t in range(x.shape[1]):
-        h = (h * torch.exp(dt[:, t] * A)[..., None, None]
-             + (dt[:, t, :, None] * x[:, t])[..., None]
-             * B_[:, t, :, None, :])
-        ys.append(torch.einsum("bhpn,bhn->bhp", h, C[:, t]))
-    return torch.stack(ys, 1).float(), h.float()
+def perturbed_ssd(x, dt, A, B_, C, chunk=128):
+    """The plain SSD with its output moved by a relative ``PERTURB`` in a
+    fixed pattern (the same at the checkpoint's recomputation)."""
+    y, h = ref.ssd(x, dt, A, B_, C)
+    i = torch.arange(y.numel(), device=y.device, dtype=torch.float64)
+    s = torch.sin(i * 12.9898 + 78.233).reshape(y.shape)
+    return y * (1 + PERTURB * s).to(y.dtype), h
 
 
-def swapped(fwd, bwd):
-    """An SSD op whose forward is ``fwd`` and whose backward is ``bwd``."""
-    class Op(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x, dt, A, B_, C):
-            ctx.save_for_backward(x, dt, A, B_, C)
-            with torch.no_grad():
-                return fwd(x, dt, A, B_, C)
-
-        @staticmethod
-        def backward(ctx, dy, dh):
-            return bwd(*ctx.saved_tensors, dy, dh)
-
-    return lambda x, dt, A, B_, C, chunk=128: Op.apply(x, dt, A, B_, C)
-
-
-def bwd64(x, dt, A, B_, C, dy, dh):
-    with torch.enable_grad():
-        ins = [t.detach().double().requires_grad_() for t in (x, dt, A, B_,
-                                                               C)]
-        y, h = ssd_steps(*ins)
-        outs, grads = [y], [dy.float()]
-        if dh is not None:
-            outs.append(h)
-            grads.append(dh)
-        return tuple(g.float() for g in torch.autograd.grad(outs, ins,
-                                                             grads))
-
-
-def plain_bwd(x, dt, A, B_, C, dy, dh):
-    return ref.ssd_bwd(x, dt, A, B_, C, dy, dh)
-
-
-def bwd32(x, dt, A, B_, C, dy, dh):
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_() for t in (x, dt, A, B_, C)]
-        y, h = ssd_steps(*ins, dtype=torch.float32)
-        outs, grads = [y], [dy.float()]
-        if dh is not None:
-            outs.append(h)
-            grads.append(dh)
-        return torch.autograd.grad(outs, ins, grads)
+def f32_ssd(x, dt, A, B_, C, chunk=128):
+    """The plain SSD stepped in f32, as the reference steps it."""
+    return ref.ssd(x, dt, A, B_, C, step_dtype=torch.float32)
 
 
 VARIANTS = {
     "cuda ops": None,
-    "plain path": "ref",
-    "f32 step recurrence": swapped(
-        lambda *a: ssd_steps(*a, dtype=torch.float32), bwd32),
-    "kernel fwd, plain bwd": swapped(
-        lambda *a: ssd_fwd(*a), plain_bwd),
-    "plain fwd, kernel bwd": swapped(
-        lambda *a: ref.ssd(*a), lambda *a: ssd_bwd(*a)),
+    "held forward": held_ssd,
+    "perturbed": perturbed_ssd,
+    "f32 steps": f32_ssd,
 }
 
 
-def step_grads(step, state, batch, variant):
-    """(loss, grad_norm, gradients) of one step with the SSD op swapped."""
-    saved = dispatch._REGISTRY["ssd"]["cuda"]
-    try:
-        if callable(variant):
-            dispatch._REGISTRY["ssd"]["cuda"] = variant
-        if variant == "ref":
-            with dispatch.using("ref"):
-                out, m = step(state, batch)
-        else:
-            out, m = step(state, batch)
-    finally:
-        dispatch._REGISTRY["ssd"]["cuda"] = saved
-    torch.cuda.synchronize()
-    grads = [x / 0.1 for x in tree_leaves(out.opt.m)]   # m = (1 - b1) g
-    return float(m["loss"]), float(m["grad_norm"]), grads
+def run(step, state, batch, tcfg, variant):
+    if variant is None:
+        m, _, g = step_grads(step, state, batch, tcfg)
+        return m, g
+    with dispatch.replaced("ssd", "ref", variant), dispatch.using("ref"):
+        m, _, g = step_grads(step, state, batch, tcfg)
+    return m, g
+
+
+def kind(name):
+    return re.sub(r"\.\d+\.", ".*.", name)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-1.3b")
-    ap.add_argument("--seeds", type=int, default=2)
+    ap.add_argument("--seeds", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = with_overrides(get_config(args.arch), dtype="float32",
-                         param_dtype="float32")
-    print(f"{torch.cuda.get_device_name(0)}; {cfg.name} f32 "
-          f"{cfg.num_layers}L d{cfg.d_model}, B 2 x T 64")
-    for seed in range(args.seeds):
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        policy = BackbonePolicy(cfg, generator=gen)
-        step = make_lm_train_step(policy, TrainConfig(warmup_steps=0),
-                                  loss_chunk=64)
-        state = init_train_state(policy.params())
-        batch = random_batch(cfg, 2, 64, gen)
-        f64 = step_grads(step, state, batch, swapped(
-            lambda *a: ssd_steps(*a), bwd64))
-        print(f"  seed {seed}: with the SSD in f64, loss {f64[0]:.6f}, "
-              f"grad_norm {f64[1]:.6f}")
-        for name, variant in VARIANTS.items():
-            loss, gnorm, grads = step_grads(step, state, batch, variant)
-            worst = max(float((g - w).abs().max() / w.abs().max().clamp(
-                min=1e-30)) for g, w in zip(grads, f64[2]))
-            print(f"    {name:>22}: loss {loss:.6f}, grad_norm {gnorm:.6f} "
-                  f"({abs(gnorm - f64[1]) / f64[1]:.3g} from f64), "
-                  f"gradients {worst:.3g} of their leaf's largest from "
-                  f"f64 at worst")
-            del grads
-        del policy, state, batch, f64
+    print(f"{torch.cuda.get_device_name(0)}; {args.arch} f32, B {LM_GATE_B} "
+          f"x T {LM_GATE_T}; the gate's seed is {LM_GATE_SEED}", flush=True)
+    for seed in range(LM_GATE_SEED, LM_GATE_SEED + args.seeds):
+        cfg, tcfg, step, state, batch = lm_gate_inputs(args.arch, seed)
+        with dispatch.using("ref"):
+            wm, _, wg = step_grads(step, state, batch, tcfg)
+        names = list(wg)
+        print(f"  seed {seed}: all-plain loss {wm['loss']:.6f}, grad_norm "
+              f"{wm['grad_norm']:.6f}", flush=True)
+        kinds = sorted({kind(n) for n in names})
+        sq = {n: float(wg[n].double().square().sum()) for n in names}
+        share = {k: sum(v for n, v in sq.items() if kind(n) == k)
+                 / sum(sq.values()) for k in kinds}
+        worst, cuda = {}, None
+        for vname, variant in VARIANTS.items():
+            m, g = run(step, state, batch, tcfg, variant)
+            rel = leaf_rel(g, wg)
+            worst[vname] = {k: max(rel[n] for n in names if kind(n) == k)
+                            for k in kinds}
+            top = sorted(rel, key=rel.get, reverse=True)[:5]
+            d_loss, d_norm = (abs(m[k] - wm[k]) / abs(wm[k])
+                              for k in ("loss", "grad_norm"))
+            print(f"    {vname:>12}: loss {m['loss']:.6f} ({d_loss:.3g}), "
+                  f"grad_norm {m['grad_norm']:.6f} ({d_norm:.3g}); worst "
+                  f"leaves " + ", ".join(f"{n} {rel[n]:.3g}" for n in top),
+                  flush=True)
+            if variant is None:
+                cuda = g
+            elif variant is held_ssd:
+                rel = leaf_rel(cuda, g)
+                worst[BWD] = {k: max(rel[n] for n in names if kind(n) == k)
+                              for k in kinds}
+            del g
+        del cuda
+        columns = list(VARIANTS) + [BWD]
+        print(f"    {'leaf kind':<34} {'share':>9} " + " ".join(
+            f"{v:>12}" for v in columns))
+        for k in sorted(kinds, key=lambda k: -worst["cuda ops"][k]):
+            print(f"    {k:<34} {share[k]:9.3g} " + " ".join(
+                f"{worst[v][k]:12.3g}" for v in columns))
+        del cfg, step, state, batch, wg
         torch.cuda.empty_cache()
 
 
