@@ -10,9 +10,12 @@ lines; any failure ends the run with a traceback and a non-zero exit:
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
   2. build       nvcc builds every kernel (one process per source, together);
                  beside it a second compile of ssd.cu, flash_decode.cu,
-                 flash_attention.cu and quant_matmul.cu with ``-Xptxas -v``
-                 prints each kernel's registers and spills (none allowed in
-                 the serve-path instances), and ``cuobjdump -sass`` of the
+                 flash_attention.cu, quant_matmul.cu, flash_attention_bwd.cu
+                 and ssd_bwd.cu with ``-Xptxas -v`` prints each kernel's
+                 registers and spills
+                 (none allowed in the serve-path instances nor in
+                 flash_attention_bwd's wgmma kernels at hd 128,
+                 ``NO_SPILLS``), and ``cuobjdump -sass`` of the
                  built libraries counts tensor-core (HMMA, HGMMA) and
                  asynchronous-copy (LDGSTS, UTMALDG) instructions
                  by instance (``SASS_NEEDS`` says which each must have)
@@ -154,7 +157,11 @@ lines; any failure ends the run with a traceback and a non-zero exit:
  14. lm train    path E, LM-backbone PPO: (a) flash_attention_bwd
                  (``FA_BWD_CASES``: qwen3's training shape B 8, T 256, H 16,
                  K 8, hd 128, every head dim, MQA, an odd group, S != T,
-                 non-causal, ragged T, T = 1) and ssd_bwd
+                 non-causal, ragged T, T = 1, T and S off the wgmma route's
+                 64- and 128-row tiles; ``FA_BWD_VIEWS``: q, k, v views of a
+                 fused projection and a transposed do, bit for bit against
+                 contiguous copies; each call on the route ``bwd_route``
+                 names, as the launcher counted it) and ssd_bwd
                  (``SSD_BWD_CASES``: mamba2's training shape B 8, T 256,
                  H 64, P 64, N 128, ragged T, T = 1, stride-0 B_/C, x a
                  view, two and three groups, dh_last given) in bf16 at 2e-2
@@ -173,8 +180,9 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  ``lm_gate``); (c) both archs through the launcher in
                  bf16, ``--batch 8 --seq 256 --steps 10``: finite loss,
                  grad_norm > 0, params moved, and a step's launches 56
-                 flash_attention, 28 flash_attention_bwd (qwen3) or 96 ssd,
-                 48 ssd_bwd (mamba2), and 1 gae; prints ms per step, tokens
+                 flash_attention, 28 flash_attention_bwd (qwen3; all on the
+                 wgmma route, ``build.routes``) or 96 ssd, 48 ssd_bwd
+                 (mamba2), and 1 gae; prints ms per step, tokens
                  per second, max_memory_allocated and a profile of one step
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
@@ -198,8 +206,9 @@ already-dequantised bf16 weight, and a line splits it into prefill, decode
 projections and unembed. The backward kernels' rows are at the training
 shapes (B 8, T 256), the median of 5 CUDA-graph replays, beside their plain
 versions and, for attention, the device time of
-``scaled_dot_product_attention``'s backward by the profiler; their launches
-are a train step's.
+``scaled_dot_product_attention``'s backward by the profiler (a line before
+the rows also gives the kernel's own by the profiler and both ratios);
+their launches are a train step's.
 
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seed 0.
@@ -241,7 +250,7 @@ from repro_torch.envs.ocean import OCEAN  # noqa: E402
 from repro_torch.envs.ocean_host import OCEAN_HOST  # noqa: E402
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_bwd, flash_attention_fwd)
+    BWD, bwd_route, flash_attention, flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     max_clusters as fd_max_clusters, plan as fd_plan)
@@ -364,7 +373,9 @@ LM_GATE_B, LM_GATE_T = 2, 64            # the full-width f32 gate
 LM_GATE_SEED = 0           # the gate's own generator (tools/ reruns it)
 # qwen3's attention at the training shape (B, T, H, K, hd), and the
 # backward's edge cases (B, T, S, H, K, hd, causal): every head dim, MQA,
-# an odd group, S != T, non-causal, ragged T, T = 1
+# an odd group, S != T, non-causal, ragged T, T = 1; for the wgmma route's
+# tiling T and S off the 64- and 128-row tiles in both directions, MQA at
+# hd 64, an odd group at hd 128, non-causal at both head dims
 FA_TRAIN = (LM_BATCH, LM_SEQ, 16, 8, 128)
 FA_BWD_CASES = (
     (LM_BATCH, LM_SEQ, LM_SEQ, 16, 8, 128, True),
@@ -372,7 +383,15 @@ FA_BWD_CASES = (
     (2, 64, 64, 4, 1, 16, True), (2, 1, 1, 16, 8, 128, True),
     (2, 65, 65, 16, 8, 128, True), (2, 100, 300, 8, 2, 128, True),
     (2, 130, 200, 8, 4, 64, False), (2, 200, 70, 4, 4, 32, False),
-    (2, 96, 96, 4, 1, 128, True), (2, 300, 150, 6, 2, 64, True))
+    (2, 96, 96, 4, 1, 128, True), (2, 300, 150, 6, 2, 64, True),
+    (1, 129, 129, 8, 2, 128, True), (2, 190, 77, 8, 4, 128, True),
+    (2, 77, 190, 4, 2, 64, True), (2, 150, 150, 8, 1, 64, True),
+    (2, 100, 100, 6, 2, 128, True), (2, 200, 90, 4, 2, 128, False),
+    (1, 70, 250, 4, 4, 64, False))
+# the same with q, k, v views of one fused projection and a transposed,
+# non-contiguous do (TMA reads both as they lie)
+FA_BWD_VIEWS = ((2, 150, 150, 16, 8, 128, True),
+                (2, 150, 150, 16, 2, 64, True))
 # mamba2's SSD at the training shape (B, T) and the backward's edge cases
 # (B, T, H, P, N, G, x a view, dh_last given): ragged T, T = 1, stride-0
 # B_/C, x a view, two and three groups, head dim and state 128
@@ -486,7 +505,8 @@ def phase_build():
 # flash_attention's bf16 kernels on wgmma (head dims 64, 128) or mma.sync
 # (16, 32) and its f32 kernels; quant_matmul's bf16 decode kernels by
 # layout, weight and m-tiles (MT 1 serves M <= 8), its wgmma prefill
-# kernel and its CUDA-core tiles.
+# kernel and its CUDA-core tiles; flash_attention_bwd's dq and dk/dv
+# kernels on wgmma (bf16 at head dims 64, 128) or the CUDA cores.
 FA_ROUTE = {"wg": "bf16 wgmma", "tc": "bf16 mma.sync", None: "f32 CUDA cores"}
 QMM_TYPE = {"0": "int8", "1": "int4"}
 
@@ -523,9 +543,11 @@ INSTANCES = {
     "flash_attention": [
         (re.compile(r"flash_attention_(wg|tc)?_?kernelI(f)?Li(\d+)E"), _fa)],
     "flash_attention_bwd": [
+        (re.compile(r"fa_bwd_wg_(dq|dkdv)_kernelILi(\d+)E"),
+         lambda m: f"bf16 wgmma {m.group(1)} hd {m.group(2)}"),
         (re.compile(r"fa_bwd_(dq|dkdv)_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
-         lambda m: f"{'f32' if m.group(2) == 'f' else 'bf16'} {m.group(1)} "
-                   f"hd {m.group(3)}")],
+         lambda m: f"{'f32' if m.group(2) == 'f' else 'bf16'} CUDA cores "
+                   f"{m.group(1)} hd {m.group(3)}")],
     "ssd_bwd": [
         (re.compile(r"ssd_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E"),
          lambda m: f"{'f32' if m.group(1) == 'f' else 'bf16'} rows "
@@ -547,11 +569,13 @@ SASS_NEEDS = {
                                      ("LDGSTS", "UTMALDG")))},
     "quant_matmul": {"bf16 decode": (8, (("HMMA",), ("LDGSTS",))),
                      "bf16 wgmma": (2, (("HGMMA",), ("UTMALDG",)))},
-    # the backward kernels run on the CUDA cores (their Hopper redesign
-    # is later work): nothing to require yet
-    "flash_attention_bwd": {}, "ssd_bwd": {},
+    # flash_attention_bwd's wgmma route (dq and dk/dv at hd 64 and 128);
+    # ssd_bwd runs on the CUDA cores (its redesign is later work)
+    "flash_attention_bwd": {"bf16 wgmma": (4, (("HGMMA",), ("UTMALDG",)))},
+    "ssd_bwd": {},
 }
-# instances on the serve path, where ptxas must report no spills
+# instances on the serve and training paths, where ptxas must report no
+# spills
 NO_SPILLS = {"ssd": ("bf16 tensor cores",),     # mamba2's P 64 among them
              "flash_decode": ("bf16 hd 128",),
              "flash_attention": ("bf16 wgmma hd 128",),
@@ -561,7 +585,9 @@ NO_SPILLS = {"ssd": ("bf16 tensor cores",),     # mamba2's P 64 among them
                               "bf16 decode (N, K) int4 MT 1",
                               "bf16 wgmma prefill int8",
                               "bf16 wgmma prefill int4"),
-             "flash_attention_bwd": (), "ssd_bwd": ()}
+             "flash_attention_bwd": ("bf16 wgmma dq hd 128",
+                                     "bf16 wgmma dkdv hd 128"),
+             "ssd_bwd": ()}
 
 
 def instance(name, mangled):
@@ -1918,15 +1944,26 @@ def grad_err(name, got, want, tol, scale=None):
     return err
 
 
-def fa_bwd_case(gen, shape, dtype, tol):
+def fa_bwd_case(gen, shape, dtype, tol, view=False):
     """flash_attention_bwd at one shape against the plain version in f32 on
-    the same inputs, the forward's LSE against the plain one, and two calls
-    bit for bit; returns the max abs error of dq, dk, dv."""
+    the same inputs, the forward's LSE against the plain one, two calls bit
+    for bit, each on the route ``bwd_route`` names as the launcher counted
+    it; with ``view``, q, k, v views of one fused projection and a
+    transposed do, also bit for bit against contiguous copies. Returns the
+    max abs error of dq, dk, dv."""
     B, T, S, H, K, hd, causal = shape
-    q = randn(gen, (B, T, H, hd), dtype)
-    k, v = (randn(gen, (B, S, K, hd), dtype) for _ in range(2))
-    do = randn(gen, (B, T, H, hd), dtype)
+    if view:
+        qkv = randn(gen, (B, T, (H + 2 * K) * hd), dtype)
+        q = qkv[..., :H * hd].unflatten(-1, (H, hd))
+        k = qkv[..., H * hd:(H + K) * hd].unflatten(-1, (K, hd))
+        v = qkv[..., (H + K) * hd:].unflatten(-1, (K, hd))
+        do = randn(gen, (B, H, T, hd), dtype).transpose(1, 2)
+    else:
+        q = randn(gen, (B, T, H, hd), dtype)
+        k, v = (randn(gen, (B, S, K, hd), dtype) for _ in range(2))
+        do = randn(gen, (B, T, H, hd), dtype)
     o, lse = flash_attention_fwd(q, k, v, causal, with_lse=True)
+    build.routes(BWD, reset=True)
     check_close(f"flash_attention lse {shape} {dtype}", lse,
                 ref.flash_attention_lse(q, k, causal), 1e-4)
     got = flash_attention_bwd(q, k, v, o, lse, do, causal)
@@ -1939,6 +1976,20 @@ def fa_bwd_case(gen, shape, dtype, tol):
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash_attention_bwd {shape} {dtype}: two "
                              f"calls differ")
+    calls = 2
+    if view:
+        dense = flash_attention_bwd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), o, lse, do.contiguous(),
+                                    causal)
+        calls += 1
+        if not all(torch.equal(a, b) for a, b in zip(got, dense)):
+            raise AssertionError(f"flash_attention_bwd {shape} {dtype}: "
+                                 f"views and contiguous copies differ")
+    want_route = bwd_route(dtype, hd)
+    taken = build.routes(BWD)
+    if taken != {r: calls * (r == want_route) for r in taken}:
+        raise AssertionError(f"flash_attention_bwd {shape} {dtype}: routes "
+                             f"{taken}, expected {calls} on {want_route}")
     return err
 
 
@@ -2125,10 +2176,17 @@ def lm_launcher_run(arch):
     sync()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    bwd_routes = build.routes(BWD)
     peak = torch.cuda.max_memory_allocated()
     if any(launches[k] != n * LM_STEPS for k, n in per_step.items()):
         raise AssertionError(f"{arch}: launches {launches} over {LM_STEPS} "
                              f"steps, expected {per_step} a step")
+    # every attention backward of a bf16 train step on the wgmma route
+    want_routes = {"wgmma": attn * LM_STEPS, "cuda_core": 0}
+    if bwd_routes != want_routes:
+        raise AssertionError(f"{arch}: flash_attention_bwd routes "
+                             f"{bwd_routes} over {LM_STEPS} steps, expected "
+                             f"{want_routes}")
     m = run.metrics
     if not (math.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0):
         raise AssertionError(f"{arch}: loss {float(m['loss'])}, grad_norm "
@@ -2147,7 +2205,8 @@ def lm_launcher_run(arch):
           f"{float(m['loss']):+.4f} grad_norm {float(m['grad_norm']):.3f}; "
           f"{moved} of {len(tree_leaves(run.state.params))} param leaves "
           f"moved; max_memory_allocated {peak / 2**30:.2f} GiB; launches a "
-          f"step {per_step}", flush=True)
+          f"step {per_step}; flash_attention_bwd routes over the {LM_STEPS} "
+          f"steps {bwd_routes}", flush=True)
     batch = next(run.batches(0))
     state = {"ts": run.state}
 
@@ -2155,7 +2214,7 @@ def lm_launcher_run(arch):
         state["ts"], _ = run.step(state["ts"], batch)
 
     profile_steps("14 lm train", f"{cfg.name} train step", one, 1, step_ms,
-                  ("fa_bwd_dq_kernel", "fa_bwd_dkdv_kernel",
+                  ("fa_bwd_wg_dq_kernel", "fa_bwd_wg_dkdv_kernel",
                    "flash_attention_wg_kernel", "ssd_bwd_kernel",
                    "ssd_tc_kernel", "gae_kernel"))
     del run, state, batch
@@ -2177,6 +2236,9 @@ def phase_lm_train(gen):
             err = fa_bwd_case(gen, shape, dtype, tol)
             if shape == FA_BWD_CASES[0] and dtype == torch.bfloat16:
                 errs["flash_attention_bwd"] = err
+            cases += 1
+        for shape in FA_BWD_VIEWS:
+            fa_bwd_case(gen, shape, dtype, tol, view=True)
             cases += 1
         for shape in SSD_BWD_CASES:
             err = ssd_bwd_case(gen, shape, dtype, tol)
@@ -2346,7 +2408,8 @@ def bwd_rows(gen, launches, errs):
     """The backward kernels at the training shapes, bf16: device ms per call
     by CUDA-graph replay (median of 5), the plain version's ms, the bound
     and, for attention, the backward of ``scaled_dot_product_attention``
-    (a yardstick the port never calls)."""
+    (a yardstick the port never calls) by the profiler's device time over
+    20 calls, beside the kernel's own by the same."""
     bf = torch.bfloat16
     rows = []
     B, T, H, K, hd = FA_TRAIN
@@ -2361,23 +2424,38 @@ def bwd_rows(gen, launches, errs):
     ms = statistics.median(reps)
     plain_ms = cuda_ms(lambda q, k, v, o, lse, do: ref.flash_attention_bwd(
         q, k, v, do), fa_sets, 4)
-    # SDPA's backward alone, by the profiler's device time over 20 calls of
-    # autograd.grad on one retained forward (host-bound back to back)
-    q, k, v, _, _, do = fa_sets[0]
+    # SDPA's backward (autograd.grad on one retained forward) and the
+    # kernel on the same inputs, by the profiler's device time over 20
+    # calls of each in one session (host-bound back to back): the kernel's
+    # events by name, SDPA's all the others. A session of this long
+    # process has been seen to miss the ctypes-launched kernels' events:
+    # up to 3 sessions are taken until one holds both; if none does, the
+    # kernel's profiler time is printed as not measured.
+    q, k, v, o, lse, do = fa_sets[0]
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = sdpa(qg, kg, vg)                    # (B, H, T, hd)
     do_t = do.transpose(1, 2)
 
-    def sdpa_bwd():
+    def both():
         torch.autograd.grad(out, (qg, kg, vg), do_t, retain_graph=True)
+        flash_attention_bwd(q, k, v, o, lse, do)
 
     for _ in range(3):
-        sdpa_bwd()
-    by_name, _ = device_times(sdpa_bwd, 20)
-    if by_name is None:
+        both()
+    lib_ms = prof_ms = None
+    for _ in range(3):
+        by_name, _ = device_times(both, 20)
+        kern_names = {n: t for n, t in (by_name or {}).items()
+                      if n.startswith("fa_bwd_")}
+        if by_name and len(by_name) > len(kern_names):
+            lib_ms = sum(t for n, t in by_name.items()
+                         if n not in kern_names) / 20
+        if lib_ms is not None and len(kern_names) == 2:
+            prof_ms = sum(kern_names.values()) / 20
+            break
+    if lib_ms is None:
         raise AssertionError("the profiler saw no device time of SDPA's "
                              "backward")
-    lib_ms = sum(by_name.values()) / 20
     # the four products the gradient needs over the causal pairs (dV = P^T
     # dO, dP = dO V^T, dQ = dS K, dK = dS^T Q), and q, k, v, o, do, lse read
     # and dq, dk, dv written once
@@ -2385,12 +2463,21 @@ def bwd_rows(gen, launches, errs):
     nbytes = 2 * (4 * B * T * H * hd + 4 * B * T * K * hd) + 4 * B * H * T
     print(f"[kernel] flash_attention_bwd B {B} T {T} H {H} K {K} hd {hd} "
           f"causal bf16 by graph replay: median {ms:.4f} ms (readings "
-          f"{min(reps):.4f}-{max(reps):.4f}); SDPA's backward "
-          f"{lib_ms:.4f} ms; plain {plain_ms:.4f} ms; {flops / ms / 1e9:.1f} "
-          f"TFLOP/s", flush=True)
+          f"{min(reps):.4f}-{max(reps):.4f}); by the profiler's device time "
+          f"over 20 calls " + (
+              f"{prof_ms:.4f} ms (" + ", ".join(
+                  f"{n} {t / 20:.4f}" for n, t in sorted(kern_names.items()))
+              + ")" if prof_ms is not None else "not measured (no session "
+              "of 3 saw its events)") +
+          f"; SDPA's backward by the same {lib_ms:.4f} ms; kernel / SDPA: "
+          f"profiler / profiler " + (
+              f"{prof_ms / lib_ms:.3f}" if prof_ms is not None
+              else "not measured") +
+          f", graph replay / profiler {ms / lib_ms:.3f}; plain "
+          f"{plain_ms:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
     rows.append(("flash_attention_bwd", flops, PEAK_FLOPS, nbytes, ms,
                  plain_ms, lib_ms))
-    del fa_sets, out, qg, kg, vg, do_t, by_name
+    del fa_sets, out, qg, kg, vg, do_t, by_name, kern_names
 
     ssd_sets = []
     for _ in range(2):                    # 2 sets of 60 MB: past the L2

@@ -63,7 +63,7 @@ SIGNATURES = {
                                     # transposed, vec16 (w, x), stream
     "flash_attention_bwd": ("flash_attention_bwd", [
         P, P, P, P, P, P,           # q, k, v, o, lse, do
-        P, P, P, P,                 # dq, dk, dv, D (f32 (B, H, T) scratch)
+        P, P, P, P,                 # dq, dk, dv, D (f32 scratch, 2 B H Tp)
         I, I, I, I, I, I,           # B, T, S, H, K, hd
         L, L, L, L, L, L, L, L, L,  # q/k/v strides (batch, seq, head)
         L, L, L, L, L, L,           # o/do strides (batch, seq, head)
@@ -89,7 +89,9 @@ LAUNCHES = {name: 0 for name in SIGNATURES}
 # kernel name -> (C function that copies out, and with reset zeroes, the
 # counts, path names in its order); ``routes`` reads them
 ROUTES = {"quant_matmul": ("quant_matmul_routes", ("decode", "wgmma", "fma")),
-          "ssd": ("ssd_routes", ("tensor_core", "cuda_core"))}
+          "ssd": ("ssd_routes", ("tensor_core", "cuda_core")),
+          "flash_attention_bwd": ("flash_attention_bwd_routes",
+                                  ("wgmma", "cuda_core"))}
 
 _LIBS: dict = {}
 

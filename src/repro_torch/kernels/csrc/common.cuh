@@ -320,6 +320,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       : "memory");
 }
 
+// One bulk copy (no tensor map) of bytes from src to dst, completing on
+// bar; bytes, src and dst multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Make this thread's generic-proxy writes to shared memory visible to the
 // async proxy (wgmma operand reads, TMA) before a barrier hands them over.
 __device__ __forceinline__ void fence_proxy_async() {

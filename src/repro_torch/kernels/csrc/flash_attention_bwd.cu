@@ -17,28 +17,68 @@
 // dk and dv summed over the G query heads of a KV head. Every sum is taken
 // in f32 in a fixed order (no atomics), so two calls give the same bits.
 // Outputs are contiguous, in q's dtype; the inputs are read through their
-// strides (last dimension contiguous).
+// strides (last dimension contiguous). Each kernel recomputes S and dP, as
+// FlashAttention-2's backward does without its atomics.
 //
-// Two kernels, one after the other on the stream:
-//  1. dq: a block per (64-row query tile, head, batch) computes D for its
-//     rows (and writes it to a scratch (B,H,T) buffer), then walks the key
-//     tiles the mask leaves it, recomputing P and dS, and accumulates dq.
-//  2. dk, dv: a block per (64-row key tile, KV head, batch) holds its k and
-//     v tiles and walks the query tiles of every head of the group that can
-//     see them, recomputing P and dS, with dk and dv in registers.
-// Each recomputes S and dP, as FlashAttention-2's backward does without its
-// atomics. A simple first kernel: tiles are staged in shared memory as f32
-// and the products run on the f32 CUDA cores, thread (ty, tx) of a 16 x 16
-// grid owning rows ty + 16 i and columns tx + 16 j of each 64 x 64 score
-// tile and of each 64 x hd accumulator, as flash_attention.cu's f32
-// kernel does. What bounds it on the H100: at qwen3's training shape (B 8,
-// T 256, H 16, K 8, hd 128, causal) it must do about 5.5 GFLOP (four
-// products over the causal pairs; S and dP again in the dq pass) and move
-// q, k, v, o, do, dq, dk, dv once (~42 MB): 0.013 ms on the bf16 tensor
-// cores, 0.08 ms on the f32 CUDA cores at their peak; this kernel runs on
-// the CUDA cores, so operations bound it. Its Hopper redesign (wgmma, TMA)
-// is later work (ROADMAP.md).
+// What bounds it on the H100: at qwen3's training shape (B 8, T 256, H 16,
+// K 8, hd 128, causal, bf16) the seven products over the causal pairs (S
+// and dP in both kernels, dV, dK, dQ) are 7.5 GFLOP, 7.6 us at 989
+// TFLOP/s of bf16 tensor cores, and moving q, k, v, o, do once and writing
+// dq, dk, dv is ~50 MB, 15 us at 3.35 TB/s: bytes bound it. Two routes;
+// the launcher counts the one each call took (flash_attention_bwd_routes):
+//
+// wgmma, bf16 at head dims 64 and 128 (the training path; wgb::), after
+// FlashAttention-3's backward without its dq atomics. Two kernels, one
+// after the other on the stream, each a producer warpgroup and two
+// consumer warpgroups (setmaxnreg: producer 24 registers, consumers 240);
+// one producer lane issues every TMA copy (128-byte swizzle, 64-row boxes,
+// rows past T or S arrive as zeros) into a 2-stage ring paced by mbarriers
+// ("full" per stage, "empty" once all 8 consumer warps are done with it).
+//  1. dq (the forward's layout): each consumer owns 64 query rows of one
+//     head (the two heads of a GQA pair where G is even, else two 64-row
+//     tiles of one head), loads its Q and dO tiles once, computes D for its
+//     rows from dO and the forward's o, and writes D and lse log2 e to a
+//     scratch whose rows are padded to a multiple of 64 (pad: D 0, lse
+//     1e30, so P = 0 there). The producer streams 64-row K and V tiles of
+//     the key range the mask leaves the block. S = Q K^T and dP = dO V^T by
+//     SS wgmma m64n64k16 (both operands K-major), P = exp2(S scale log2 e -
+//     lse log2 e), dS = P (dP - D) on the accumulator fragments; dQ += dS K
+//     by RS wgmma m64nHDk16, dS going from the accumulator fragments to the
+//     A fragments in registers (bf16) and K read MN-major from the same
+//     tile. Query tiles are launched heaviest first.
+//  2. dk, dv: a block owns 128 keys of one KV head; each consumer 64 of
+//     them, whose K and V tiles it loads once. The producer streams 64-row
+//     Q and dO tiles, with their rows of the scratch (lse log2 e and D, by
+//     bulk copy), for every query head of the group and only the query
+//     tiles the causal mask lets see these keys. S^T = K Q^T and dP^T =
+//     V dO^T by SS wgmma, P^T and dS^T on the fragments, then dV += P^T dO
+//     and dK += dS^T Q by RS wgmma (dO and Q read MN-major): P and dS never
+//     go through shared memory. dK and dV stay in f32 registers over the
+//     group's heads and query tiles, in order (at hd 128: 128 values a
+//     thread, S^T and dP^T 32 each).
+// Only tiles that cross the diagonal or the end of T or S are masked; a
+// consumer skips tiles the mask hides from it (but waits for and releases
+// their stage). Epilogues apply scale, stage the tile in shared memory
+// (swizzled) and write it in 16-byte stores. A deliberate difference from
+// the reference: P and dS are rounded to bf16 before the three RS products,
+// as FlashAttention-2 and -3 do (a relative error of at most 2^-8 an
+// element); S, dP, D and every sum stay f32.
+//
+// cuda_core, f32 (the TF32-off gates only) and bf16 at head dims 16 and 32
+// (no full-width arch has them): the first simple kernels, kept as they
+// were. dq: a block per (64-row query tile, head, batch) computes D for its
+// rows (into the scratch), then walks the key tiles the mask leaves it;
+// dk, dv: a block per (64-row key tile, KV head, batch) holds its k and v
+// tiles and walks the query tiles of every head of the group that can see
+// them. Tiles are staged in shared memory as f32 and the products run on
+// the f32 CUDA cores, thread (ty, tx) of a 16 x 16 grid owning rows
+// ty + 16 i and columns tx + 16 j of each 64 x 64 score tile and of each
+// 64 x hd accumulator; operations bound them (0.08 ms at the f32 CUDA
+// cores' peak at the shape above).
+#include <atomic>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -311,6 +351,427 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- bf16 at head dims 64 and 128: TMA ring, warpgroup products (wgmma) ----
+
+namespace wgb {
+
+using namespace hop;  // wgmma_*, tma_tile, make_map (wgmma.cuh)
+using bf16 = __nv_bfloat16;
+constexpr int CONSUMERS = 2;  // warpgroups, each 64 rows
+constexpr int NT = 128 * (1 + CONSUMERS);  // warpgroup 0 is the producer
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(128 * (PRODUCER_REGS + CONSUMERS * CONSUMER_REGS) <= 65536,
+              "the register file holds the block");
+constexpr int STAGES = 2;          // tiles in the shared-memory ring
+constexpr int ROWS = 64;           // rows of every tile (queries or keys)
+constexpr int HALF = ROWS * 128;   // bytes of a tile's 64-column half
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float PAD_LSE = 1e30f;   // lse log2 e of a row past T: P = 0
+
+template <int HD>
+constexpr int TILE = ROWS * HD * 2;  // bytes of a 64-row tile
+
+struct Barriers {
+  uint64_t once, full[STAGES], empty[STAGES];
+};
+
+// Both kernels: two tiles a consumer, two a stage, the dk/dv kernel's
+// scratch rows (lse log2 e and D, 64 each) a stage, the barriers.
+template <int HD>
+constexpr size_t smem_bytes() {
+  return 2 * CONSUMERS * TILE<HD> + 2 * STAGES * TILE<HD> +
+         2 * STAGES * ROWS * sizeof(float) + sizeof(Barriers) +
+         1024;  // + alignment slack
+}
+
+__host__ __device__ inline int padded(int T) {  // scratch row length
+  return (T + ROWS - 1) / ROWS * ROWS;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ void init(Barriers& bar) {
+  if (threadIdx.x == 0) {
+    rt::mbar_init(&bar.once, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      rt::mbar_init(&bar.full[i], 1);
+      rt::mbar_init(&bar.empty[i], 4 * CONSUMERS);  // one per consumer warp
+    }
+    rt::mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// A K-major operand at k-step kk (16 columns) of a 64-row tile, and an
+// MN-major B operand at k-step c (rows 16c..16c+15: two 8-row groups, SBO
+// 1024; the column halves HALF bytes apart, LBO).
+__device__ __forceinline__ uint64_t k_major(const unsigned char* tile,
+                                            int kk) {
+  return rt::wgmma_desc(tile + (kk / 4) * HALF + (kk % 4) * 32, 16, 1024);
+}
+
+__device__ __forceinline__ uint64_t mn_major(const unsigned char* tile,
+                                             int c) {
+  return rt::wgmma_desc(tile + c * 2048, HALF, 1024);
+}
+
+// acc (64 x 64) = A B^T over the head dim: A and B 64-row tiles
+template <int HD>
+__device__ __forceinline__ void issue_abt(float (&acc)[32],
+                                          const unsigned char* a,
+                                          const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss_m64n64(acc, k_major(a, kk), k_major(b, kk), kk > 0);
+}
+
+// acc (64 x HD) += A B: A (64 x 64) as the bf16 fragments of four k-steps,
+// B a 64-row tile read MN-major
+template <int HD>
+__device__ __forceinline__ void issue_ab(float (&acc)[HD / 2],
+                                         const uint32_t (&a)[4][4],
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if constexpr (HD == 128)
+      wgmma_rs_m64n128_t(acc, a[c], mn_major(b, c));
+    else
+      wgmma_rs_m64n64_t(acc, a[c], mn_major(b, c));
+  }
+}
+
+// The bf16 A fragments of a 64 x 64 accumulator: column tiles 2c and
+// 2c + 1 are k-step c.
+__device__ __forceinline__ void to_fragments(uint32_t (&f)[4][4],
+                                             const float (&x)[32]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[c][i] = rt::pack_bf16(x[8 * c + 2 * i], x[8 * c + 2 * i + 1]);
+}
+
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();  // this warp is done with the stage
+  if (lane == 0) rt::mbar_arrive(empty);
+}
+
+// Write acc * mul (a 64 x HD accumulator) as bf16 rows out + r * ld for
+// r < valid: each warp stages its 16 rows in the swizzled tile s, which no
+// wgmma reads any more, and stores them in 16-byte pieces.
+template <int HD>
+__device__ __forceinline__ void store_tile(unsigned char* s,
+                                           const float (&acc)[HD / 2],
+                                           float mul, bf16* out,
+                                           long long ld, int valid, int warp,
+                                           int lane) {
+  constexpr int DN = HD / 8;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int d = 0; d < DN; ++d)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(
+          s + rt::swizzle128<HALF>(warp * 16 + g + 8 * r, d) + 4 * t) =
+          rt::pack_bf16(acc[4 * d + 2 * r] * mul,
+                        acc[4 * d + 2 * r + 1] * mul);
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < DN / 2; ++it) {
+    const int i = lane + it * 32, r = warp * 16 + i / DN, c = i % DN;
+    if (r < valid)
+      *reinterpret_cast<uint4*>(out + r * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(s + rt::swizzle128<HALF>(r, c));
+  }
+}
+
+// dq, and the scratch rows D and L (lse log2 e) of every (batch, head)
+// over padded(T) rows. Block (head pair or head, batch, query tile from the
+// last): consumer w owns head h0 + w % hpb, rows q0 + 64 (w / hpb).
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+fa_bwd_wg_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const bf16* __restrict__ o, const float* __restrict__ lse,
+                    float* __restrict__ D, float* __restrict__ L,
+                    bf16* __restrict__ dq, int T_, int S, int H, int G,
+                    int hpb, int q_ord, int k_ord, int v_ord, int d_ord,
+                    long long o_sb, long long o_st, long long o_sh,
+                    int causal, float scale_log2, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);         // CONSUMERS tiles
+  unsigned char* sdO = sQ + CONSUMERS * TILE<HD>;  // CONSUMERS tiles
+  unsigned char* sRing = sdO + CONSUMERS * TILE<HD>;  // STAGES x (K, V)
+  Barriers& bar = *reinterpret_cast<Barriers*>(
+      sRing + 2 * STAGES * TILE<HD> + 2 * STAGES * ROWS * sizeof(float));
+
+  const int bq = ROWS * (CONSUMERS / hpb);  // query rows per block
+  const int h0 = blockIdx.x * hpb, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * bq;  // heaviest tiles first
+  const int kh = h0 / G;
+  // causal: key tiles past the block's last query row are fully masked
+  const int kv_end = causal ? min(S, min(q0 + bq, T_)) : S;
+  const int nkv = (kv_end + ROWS - 1) / ROWS;
+  const int w = threadIdx.x / 128 - 1;  // consumer warpgroup; -1 producer
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  init(bar);
+
+  if (w < 0) {  // the producer: one lane issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    rt::mbar_expect_tx(&bar.once, 2 * CONSUMERS * TILE<HD>);
+    for (int c = 0; c < CONSUMERS; ++c) {
+      const int h = h0 + c % hpb, row = q0 + ROWS * (c / hpb);
+      tma_tile<HD, HALF>(sQ + c * TILE<HD>, &tq, q_ord, &bar.once, h, row, b);
+      tma_tile<HD, HALF>(sdO + c * TILE<HD>, &tdo, d_ord, &bar.once, h, row,
+                         b);
+    }
+    for (int j = 0; j < nkv; ++j) {
+      const int st = j % STAGES, free = ((j / STAGES) & 1) ^ 1;
+      unsigned char* sKs = sRing + st * 2 * TILE<HD>;
+      rt::mbar_wait(&bar.empty[st], free);
+      rt::mbar_expect_tx(&bar.full[st], 2 * TILE<HD>);
+      tma_tile<HD, HALF>(sKs, &tk, k_ord, &bar.full[st], kh, j * ROWS, b);
+      tma_tile<HD, HALF>(sKs + TILE<HD>, &tv, v_ord, &bar.full[st], kh,
+                         j * ROWS, b);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int h = h0 + w % hpb;
+  const int qw = q0 + ROWS * (w / hpb);  // this warpgroup's first query row
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = qw + warp * 16 + g;  // rows row0 and row0 + 8
+  unsigned char* sQw = sQ + w * TILE<HD>;
+  const unsigned char* sdOw = sdO + w * TILE<HD>;
+  const long long bh = (long long)b * H + h;
+  rt::mbar_wait(&bar.once, 0);
+
+  // D of the warp's 16 rows: lanes 2r and 2r + 1 take the two halves of
+  // row r's head dim (dO from shared memory, o from device memory)
+  float Dr[2], Lr[2];
+  {
+    const int rl = warp * 16 + lane / 2, row = qw + rl;
+    float acc = 0.f;
+    if (row < T_) {
+      const bf16* orow = o + b * o_sb + row * o_st + h * o_sh;
+#pragma unroll
+      for (int i = 0; i < HD / 16; ++i) {
+        const int c = (lane % 2) * (HD / 16) + i;
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(
+            sdOw + rt::swizzle128<HALF>(rl, c));
+        const __nv_bfloat162* o2 =
+            reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 =
+            reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(o2[e]);
+          const float2 y = __bfloat1622float2(d2[e]);
+          acc = fmaf(y.x, x.x, acc);
+          acc = fmaf(y.y, x.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    Dr[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
+    Dr[1] = __shfl_sync(0xffffffffu, acc, 2 * (g + 8));
+    const int Tp = padded(T_);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      Lr[r] = row < T_ ? lse[bh * T_ + row] * LOG2E : PAD_LSE;
+      if (t == 0 && row < Tp) {
+        D[bh * Tp + row] = Dr[r];
+        L[bh * Tp + row] = Lr[r];
+      }
+    }
+  }
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int j = 0; j < nkv; ++j) {
+    const int st = j % STAGES, k0 = j * ROWS;
+    const unsigned char* sKs = sRing + st * 2 * TILE<HD>;
+    rt::mbar_wait(&bar.full[st], (j / STAGES) & 1);
+    if (qw < T_ && !(causal && k0 > qw + ROWS - 1)) {
+      float s[32], dp[32];
+      rt::wgmma_fence();
+      issue_abt<HD>(s, sQw, sKs);
+      issue_abt<HD>(dp, sdOw, sKs + TILE<HD>);
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(s);
+      rt::fence_regs(dp);
+      // element 4n + e: row row0 + 8 (e / 2), key k0 + 8 n + 2 t + e % 2
+      const bool masked =
+          (causal && k0 + ROWS - 1 > qw) || k0 + ROWS > S || qw + ROWS > T_;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i % 4) / 2;
+        float p = rt::exp2_approx(fmaf(s[i], scale_log2, -Lr[r]));
+        if (masked) {
+          const int col = k0 + 8 * (i / 4) + 2 * t + i % 2,
+                    row = row0 + 8 * r;
+          if (col >= S || row >= T_ || (causal && col > row)) p = 0.f;
+        }
+        dp[i] = p * (dp[i] - Dr[r]);
+      }
+      uint32_t df[4][4];
+      to_fragments(df, dp);
+      rt::wgmma_fence();
+      issue_ab<HD>(acc, df, sKs);
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(acc);
+      rt::fence_regs(df);
+    }
+    release(&bar.empty[st], lane);
+  }
+  store_tile<HD>(sQw, acc, scale, dq + ((b * (long long)T_ + qw) * H + h) * HD,
+                 (long long)H * HD, T_ - qw, warp, lane);
+}
+
+// dk and dv. Block (KV head, batch, 128-key tile): consumer w owns keys
+// k0 + 64 w.. of KV head kh; the producer streams (Q, dO, L, D) tiles of
+// query head kh G + hh, rows q0.., for hh over the group and q0 from the
+// first tile the causal mask lets see k0.
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+fa_bwd_wg_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ D,
+                      const float* __restrict__ L, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int T_, int S, int H, int K,
+                      int G, int q_ord, int k_ord, int v_ord, int d_ord,
+                      int causal, float scale_log2, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sK = align1024(smem_raw);          // CONSUMERS tiles
+  unsigned char* sV = sK + CONSUMERS * TILE<HD>;    // CONSUMERS tiles
+  unsigned char* sRing = sV + CONSUMERS * TILE<HD>;  // STAGES x (Q, dO)
+  float* sLD = reinterpret_cast<float*>(sRing + 2 * STAGES * TILE<HD>);
+  Barriers& bar = *reinterpret_cast<Barriers*>(sLD + 2 * STAGES * ROWS);
+
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * CONSUMERS * ROWS;  // heaviest tiles first
+  const int qt0 = causal ? k0 / ROWS : 0;  // causal: earlier rows see none
+  const int nq = max(0, (T_ + ROWS - 1) / ROWS - qt0);
+  const int ntiles = G * nq;
+  const int w = threadIdx.x / 128 - 1;  // consumer warpgroup; -1 producer
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  init(bar);
+
+  if (w < 0) {  // the producer: one lane issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    const int Tp = padded(T_);
+    rt::mbar_expect_tx(&bar.once, 2 * CONSUMERS * TILE<HD>);
+    for (int c = 0; c < CONSUMERS; ++c) {
+      tma_tile<HD, HALF>(sK + c * TILE<HD>, &tk, k_ord, &bar.once, kh,
+                         k0 + ROWS * c, b);
+      tma_tile<HD, HALF>(sV + c * TILE<HD>, &tv, v_ord, &bar.once, kh,
+                         k0 + ROWS * c, b);
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % STAGES, free = ((j / STAGES) & 1) ^ 1;
+      const int h = kh * G + j / nq, q0 = (qt0 + j % nq) * ROWS;
+      unsigned char* sQs = sRing + st * 2 * TILE<HD>;
+      float* sLs = sLD + st * 2 * ROWS;
+      const long long at = ((long long)b * H + h) * Tp + q0;
+      rt::mbar_wait(&bar.empty[st], free);
+      rt::mbar_expect_tx(&bar.full[st],
+                         2 * TILE<HD> + 2 * ROWS * sizeof(float));
+      tma_tile<HD, HALF>(sQs, &tq, q_ord, &bar.full[st], h, q0, b);
+      tma_tile<HD, HALF>(sQs + TILE<HD>, &tdo, d_ord, &bar.full[st], h, q0,
+                         b);
+      rt::bulk_load(sLs, L + at, ROWS * sizeof(float), &bar.full[st]);
+      rt::bulk_load(sLs + ROWS, D + at, ROWS * sizeof(float),
+                    &bar.full[st]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int kw = k0 + ROWS * w;  // this warpgroup's first key
+  const int g = lane / 4, t = lane % 4;
+  const int key0 = kw + warp * 16 + g;  // keys key0 and key0 + 8
+  unsigned char* sKw = sK + w * TILE<HD>;
+  unsigned char* sVw = sV + w * TILE<HD>;
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  rt::mbar_wait(&bar.once, 0);
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % STAGES, q0 = (qt0 + j % nq) * ROWS;
+    const unsigned char* sQs = sRing + st * 2 * TILE<HD>;
+    const unsigned char* sdOs = sQs + TILE<HD>;
+    const float* sL = sLD + st * 2 * ROWS;
+    const float* sD = sL + ROWS;
+    rt::mbar_wait(&bar.full[st], (j / STAGES) & 1);
+    if (kw < S && !(causal && q0 + ROWS - 1 < kw)) {
+      float s[32], dp[32];
+      rt::wgmma_fence();
+      issue_abt<HD>(s, sKw, sQs);
+      issue_abt<HD>(dp, sVw, sdOs);
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(s);
+      rt::fence_regs(dp);
+      // element 4n + e: key key0 + 8 (e / 2), query q0 + 8 n + 2 t + e % 2
+      const bool masked =
+          (causal && kw + ROWS - 1 > q0) || q0 + ROWS > T_ || kw + ROWS > S;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * n + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(sD + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * n + e;
+          float p = rt::exp2_approx(
+              fmaf(s[i], scale_log2, -(e % 2 ? l2.y : l2.x)));
+          if (masked) {
+            const int key = key0 + 8 * (e / 2), qry = q0 + 8 * n + 2 * t + e % 2;
+            if (qry >= T_ || key >= S || (causal && key > qry)) p = 0.f;
+          }
+          s[i] = p;
+          dp[i] = p * (dp[i] - (e % 2 ? d2.y : d2.x));
+        }
+      }
+      uint32_t pf[4][4], df[4][4];
+      to_fragments(pf, s);
+      to_fragments(df, dp);
+      rt::wgmma_fence();
+      issue_ab<HD>(dv_acc, pf, sdOs);
+      issue_ab<HD>(dk_acc, df, sQs);
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(dv_acc);
+      rt::fence_regs(dk_acc);
+      rt::fence_regs(pf);
+      rt::fence_regs(df);
+    }
+    release(&bar.empty[st], lane);
+  }
+  const long long at = ((b * (long long)S + kw) * K + kh) * HD;
+  store_tile<HD>(sKw, dk_acc, scale, dk + at, (long long)K * HD, S - kw, warp,
+                 lane);
+  store_tile<HD>(sVw, dv_acc, 1.f, dv + at, (long long)K * HD, S - kw, warp,
+                 lane);
+}
+
+}  // namespace wgb
+
 struct Args {
   const void *q, *k, *v, *o, *lse, *dO;
   void *dq, *dk, *dv, *D;
@@ -320,6 +781,51 @@ struct Args {
   int causal;
   float scale;
 };
+
+template <int HD>
+int launch_wg(const Args& a, cudaStream_t stream) {
+  using wgb::bf16;
+  constexpr int R = wgb::ROWS;
+  CUtensorMap tq, tk, tv, tdo;
+  int q_ord, k_ord, v_ord, d_ord;
+  cudaError_t err;
+  if ((err = wgb::make_map(&tq, &q_ord, a.q, HD, R, a.H, a.T, a.B, a.q_sh,
+                           a.q_st, a.q_sb)) ||
+      (err = wgb::make_map(&tk, &k_ord, a.k, HD, R, a.K, a.S, a.B, a.k_sh,
+                           a.k_ss, a.k_sb)) ||
+      (err = wgb::make_map(&tv, &v_ord, a.v, HD, R, a.K, a.S, a.B, a.v_sh,
+                           a.v_ss, a.v_sb)) ||
+      (err = wgb::make_map(&tdo, &d_ord, a.dO, HD, R, a.H, a.T, a.B, a.d_sh,
+                           a.d_st, a.d_sb)))
+    return err;
+  auto kdq = wgb::fa_bwd_wg_dq_kernel<HD>;
+  auto kkv = wgb::fa_bwd_wg_dkdv_kernel<HD>;
+  const int smem = (int)wgb::smem_bytes<HD>();
+  static unsigned long long done_dq = 0, done_kv = 0;
+  if ((err = rt::allow_smem(kdq, smem, done_dq)) ||
+      (err = rt::allow_smem(kkv, smem, done_kv)))
+    return err;
+  const int G = a.H / a.K;
+  const int hpb = G % wgb::CONSUMERS == 0 ? wgb::CONSUMERS : 1;
+  const int bq = R * (wgb::CONSUMERS / hpb);
+  float* D = static_cast<float*>(a.D);
+  float* L = D + (size_t)a.B * a.H * wgb::padded(a.T);
+  const float scale_log2 = a.scale * wgb::LOG2E;
+  const dim3 g1(a.H / hpb, a.B, (a.T + bq - 1) / bq);
+  kdq<<<g1, wgb::NT, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const bf16*>(a.o),
+      static_cast<const float*>(a.lse), D, L, static_cast<bf16*>(a.dq), a.T,
+      a.S, a.H, G, hpb, q_ord, k_ord, v_ord, d_ord, a.o_sb, a.o_st, a.o_sh,
+      a.causal, scale_log2, a.scale);
+  if ((err = cudaGetLastError())) return err;
+  const int bk = R * wgb::CONSUMERS;
+  const dim3 g2(a.K, a.B, (a.S + bk - 1) / bk);
+  kkv<<<g2, wgb::NT, smem, stream>>>(
+      tq, tk, tv, tdo, D, L, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.T, a.S, a.H, a.K, G, q_ord, k_ord, v_ord,
+      d_ord, a.causal, scale_log2, a.scale);
+  return cudaGetLastError();
+}
 
 template <typename T, int HD>
 int launch(const Args& a, cudaStream_t stream) {
@@ -355,28 +861,20 @@ int launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_hd(int hd, const Args& a, cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(a, stream);
-    case 32:
-      return launch<T, 32>(a, stream);
-    case 64:
-      return launch<T, 64>(a, stream);
-    case 128:
-      return launch<T, 128>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
+// The routes a call can take (the wrapper's ``bwd_route`` names them), and
+// the launches each has had: the launcher counts the route it took.
+enum Route { WGMMA, CUDA_CORE, ROUTES };
+std::atomic<unsigned long long> taken[ROUTES];
 
 }  // namespace
 
 // Returns the cudaError_t of the launches (0 on success). Strides are in
-// elements (batch, seq, head; the last dimension contiguous); dq is a
-// contiguous (B, T, H, hd) tensor, dk and dv contiguous (B, S, K, hd), lse
-// a contiguous f32 (B, H, T) tensor, D an f32 (B, H, T) scratch buffer.
+// elements (batch, seq, head; the last dimension contiguous; on the wgmma
+// route 16-byte aligned, as TMA reads them); dq is a contiguous
+// (B, T, H, hd) tensor, dk and dv contiguous (B, S, K, hd), lse a
+// contiguous f32 (B, H, T) tensor, D an f32 scratch of 2 B H Tp floats,
+// Tp = T rounded up to a multiple of 64. bf16 at head dims 64 and 128 takes
+// the wgmma route, everything else the CUDA cores.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dO, void* dq, void* dk, void* dv, void* D,
@@ -391,6 +889,46 @@ extern "C" int flash_attention_bwd(
                k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_st, o_sh,
                d_sb, d_st, d_sh, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_hd<__nv_bfloat16>(hd, a, st);
-  return launch_hd<float>(hd, a, st);
+  Route r = CUDA_CORE;
+  int err;
+  switch (is_bf16 ? hd : -hd) {
+    case 128:
+      r = WGMMA;
+      err = launch_wg<128>(a, st);
+      break;
+    case 64:
+      r = WGMMA;
+      err = launch_wg<64>(a, st);
+      break;
+    case 32:
+      err = launch<__nv_bfloat16, 32>(a, st);
+      break;
+    case 16:
+      err = launch<__nv_bfloat16, 16>(a, st);
+      break;
+    case -128:
+      err = launch<float, 128>(a, st);
+      break;
+    case -64:
+      err = launch<float, 64>(a, st);
+      break;
+    case -32:
+      err = launch<float, 32>(a, st);
+      break;
+    case -16:
+      err = launch<float, 16>(a, st);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err == 0) taken[r].fetch_add(1, std::memory_order_relaxed);
+  return err;
+}
+
+// Copies the launches by route (wgmma, cuda_core) since the last reset into
+// counts[2]; with reset, zeroes them.
+extern "C" void flash_attention_bwd_routes(unsigned long long* counts,
+                                           int reset) {
+  for (int r = 0; r < ROUTES; ++r)
+    counts[r] = reset ? taken[r].exchange(0) : taken[r].load();
 }

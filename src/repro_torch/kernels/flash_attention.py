@@ -20,7 +20,12 @@ autograd ``Function`` when a gradient is needed: its forward launches the
 forward kernel with the LSE output, its backward ``flash_attention_bwd``
 (dq, dk, dv; dk and dv summed over a KV head's query heads; deterministic,
 no atomics). With no gradient needed (serving) it is the forward launch
-alone, as before.
+alone, as before. The backward takes one of two routes (``bwd_route``;
+the launcher counts the one each call took, ``build.routes(BWD)``): bf16
+at head dims 64 and 128 (the training path) runs ``wgmma`` fed by TMA,
+rounding P and dS to bf16 before its three products from registers, as
+FlashAttention-2 and -3 do; f32 and bf16 at 16 and 32 run the first
+CUDA-core kernels.
 
 CPU tensors take the plain versions (``ref.flash_attention``,
 ``ref.flash_attention_lse``, ``ref.flash_attention_bwd``; autograd
@@ -118,12 +123,35 @@ def flash_attention_fwd(q, k, v, causal: bool = True, scale: float = None,
     return o, lse
 
 
+def bwd_route(dtype, hd: int) -> str:
+    """The backward kernels a CUDA call takes, by the rule
+    ``flash_attention_bwd`` of ``csrc/flash_attention_bwd.cu`` applies (it
+    counts the route it took under these names, ``build.routes(BWD)``):
+    bf16 at head dims 64 and 128 "wgmma", all else "cuda_core"."""
+    return ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
+            else "cuda_core")
+
+
+def _tma_ready(t) -> bool:
+    """Whether TMA can read ``t`` as it lies: a contiguous last dim, a
+    16-byte aligned base and strides, no broadcast (stride 0) dim."""
+    vec = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % vec == 0 and (st > 0 or n == 1)
+                    for st, n in zip(t.stride()[:-1], t.shape[:-1])))
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         scale: float = None):
     """(dq, dk, dv) in q's dtype, contiguous: the gradients of
     ``flash_attention(q, k, v)`` at output gradient ``do``, given its output
     ``o`` and the LSE of ``flash_attention_fwd(..., with_lse=True)``. dk and
-    dv sum over the query heads of a KV head."""
+    dv sum over the query heads of a KV head.
+
+    q, k, v and o must have the layout the forward takes (else it raises);
+    ``do``, which autograd may hand over in any layout (a broadcast view
+    from a sum, say), is made contiguous first where TMA cannot read it as
+    it lies: a layout copy, not another route."""
     _check(q, k, v)
     B, T, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -141,17 +169,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"{BWD}: lse must be a contiguous f32 "
                          f"{(B, H, T)} tensor on {q.device}")
-    if o.stride(-1) != 1:
-        raise ValueError(f"{BWD}: o needs a contiguous last dim; got "
-                         f"strides {o.stride()}")
-    if do.stride(-1) != 1:          # autograd may hand over any layout
+    check_tensors(BWD, {"q": q, "o": o}, {"q": 4, "o": 4})
+    if not _tma_ready(do):
         do = do.contiguous()
     dq = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, K, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or S == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    D = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    # scratch: D and lse log2 e, rows padded to a multiple of 64
+    Tp = -(-T // 64) * 64
+    D = torch.empty((2, B, H, Tp), dtype=torch.float32, device=q.device)
     lib = build.load(BWD)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

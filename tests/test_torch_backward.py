@@ -129,6 +129,80 @@ def test_flash_attention_bwd_kernel_arithmetic_matches_jax_grad(
         np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=1e-5)
 
 
+def _fa_bwd_wgmma_arithmetic(q, k, v, o, lse, do, causal, scale):
+    """The wgmma route of csrc/flash_attention_bwd.cu (bf16 at head dims 64
+    and 128) on bf16 q, k, v, do and the forward's bf16 o: S and dP from the
+    bf16 operands with f32 sums, P = exp2(S scale log2 e - lse log2 e) and
+    dS = P (dP - D) in f32 with D = rowsum(do * o); P and dS rounded to
+    bf16 before dV = P^T do, dK = dS^T q and dQ = dS k (f32 sums), dk and
+    dv folded over the group. Returns the f32 sums (scale applied) and P,
+    dS for the bound."""
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    kh = k.repeat_interleave(G, dim=2)
+    vh = v.repeat_interleave(G, dim=2)
+    log2e = 1.4426950408889634
+    s = torch.einsum("bthd,bshd->bhts", q, kh)
+    keep = torch.ones(T, S, dtype=torch.bool)
+    if causal:
+        keep = torch.arange(T)[:, None] >= torch.arange(S)[None, :]
+    p = torch.where(keep, torch.exp2(s * (scale * log2e)
+                                      - (lse * log2e)[..., None]), 0.0)
+    D = (do * o).sum(-1).transpose(1, 2)
+    dp = torch.einsum("bthd,bshd->bhts", do, vh)
+    ds = p * (dp - D[..., None])
+    pb, dsb = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dq = scale * torch.einsum("bhts,bshd->bthd", dsb, kh)
+    dk = scale * torch.einsum("bhts,bthd->bshd", dsb, q)
+    dv = torch.einsum("bhts,bthd->bshd", pb, do)
+    fold = lambda x: x.unflatten(2, (K, G)).sum(3)
+    return (dq, fold(dk), fold(dv)), (p, ds)
+
+
+@pytest.mark.parametrize("B,T,S,H,K,hd,causal",
+                         FA_CASES + [(2, 40, 40, 8, 2, 64, True)])
+def test_flash_attention_bwd_bf16_rounding_contract_matches_jax_grad(
+        B, T, S, H, K, hd, causal):
+    """The wgmma route's rounding of P and dS (and of the forward's o, from
+    which D is taken) to bf16 holds to jax.grad of the reference in f32 on
+    the same bf16 values, element by element within the bound that
+    rounding implies: with u = 2^-8 (round to nearest bf16, 8 significant
+    bits) |P' - P| <= u |P| and |dS' - dS| <= u |dS| + u |P| sum_d |do o|
+    (D from the rounded o), so |dv' - dv| <= u |P|^T |do|,
+    |dq' - dq| <= scale E |k| and |dk' - dk| <= scale E^T |q| with E that
+    bound on dS; plus u |sum| for the kernel's bf16 output and 1e-5 of the
+    largest gradient for f32 sums in another order. The error itself stays
+    inside the card's bf16 gate (2e-2 of the largest gradient)."""
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+    q, k, v, do = (bf(x) for x in _fa_inputs(B, T, S, H, K, hd, T * S + hd))
+    want = _jax_fa_grads(*(x.float().numpy() for x in (q, k, v, do)), causal)
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = fa_mod.flash_attention_fwd(q.float(), k.float(), v.float(),
+                                        causal, with_lse=True)
+    o = o.to(torch.bfloat16)             # the forward kernel's bf16 output
+    got, (p, ds) = _fa_bwd_wgmma_arithmetic(q, k, v, o, lse, do, causal,
+                                            scale)
+    u = 2.0 ** -8
+    G = H // K
+    qf, kf, dof = (x.float().abs() for x in (q, k, do))
+    kh = kf.repeat_interleave(G, dim=2)
+    do_o = torch.einsum("bthd,bthd->bht", dof, o.float().abs())
+    e_ds = u * ds.abs() + u * p.abs() * do_o[..., None]
+    fold = lambda x: x.unflatten(2, (K, G)).sum(3)
+    bound = (scale * torch.einsum("bhts,bshd->bthd", e_ds, kh),
+             fold(scale * torch.einsum("bhts,bthd->bshd", e_ds, qf)),
+             fold(u * torch.einsum("bhts,bthd->bshd", p.abs(), dof)))
+    top = max(float(np.abs(w).max()) for w in want)
+    for name, g, w, e in zip(("dq", "dk", "dv"), got, want, bound):
+        out = g.to(torch.bfloat16).float().numpy()   # the kernel's output
+        tol = e.numpy() + u * g.abs().numpy() + 1e-5 * top
+        assert float(np.abs(out - w).max()) <= 2e-2 * top, name
+        np.testing.assert_array_less(np.abs(out - w), tol + 1e-12,
+                                     err_msg=name)
+
+
 SSD_CASES = [  # B, T, H, hd, ds, G, dh_last given
     (2, 37, 4, 16, 16, 1, False),    # T not a multiple of a chunk
     (2, 37, 4, 16, 16, 2, True),     # two groups

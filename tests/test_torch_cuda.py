@@ -667,7 +667,13 @@ FA_BWD_CASES = [
     (2, 130, 200, 8, 4, 64, False),      # non-causal, S > T
     (2, 200, 70, 4, 4, 32, False),       # non-causal, S < T
     (2, 96, 96, 4, 1, 128, True),        # MQA at hd 128
-    (2, 300, 150, 6, 2, 64, True)]       # an odd group (3), S < T
+    (2, 300, 150, 6, 2, 64, True),       # an odd group (3), S < T
+    # the wgmma route's tiling: T and S off the 64- and 128-row tiles in
+    # both directions, MQA at hd 64, an odd group at hd 128, non-causal
+    (1, 129, 129, 8, 2, 128, True), (2, 190, 77, 8, 4, 128, True),
+    (2, 77, 190, 4, 2, 64, True), (2, 150, 150, 8, 1, 64, True),
+    (2, 100, 100, 6, 2, 128, True), (2, 200, 90, 4, 2, 128, False),
+    (1, 70, 250, 4, 4, 64, False)]
 
 
 def _grad_close(name, got, want, tol, scale=None):
@@ -725,16 +731,79 @@ def test_flash_attention_bwd_matches_ref(B, T, S, H, K, hd, causal, dtype,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_is_deterministic(dtype):
+    """At qwen3's training shape (B 8, T 256, H 16, K 8, hd 128)."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
     rng = np.random.default_rng(3)
     q, k, v = (_randn(rng, s, dtype) for s in
-               ((4, 256, 16, 128), (4, 256, 8, 128), (4, 256, 8, 128)))
-    do = _randn(rng, (4, 256, 16, 128), dtype)
+               ((8, 256, 16, 128), (8, 256, 8, 128), (8, 256, 8, 128)))
+    do = _randn(rng, (8, 256, 16, 128), dtype)
     o, lse = flash_attention_fwd(q, k, v, True, with_lse=True)
     first, again = (flash_attention_bwd(q, k, v, o, lse, do)
                     for _ in range(2))
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 32),
+                                      (torch.bfloat16, 16),
+                                      (torch.float32, 128),
+                                      (torch.float32, 64)])
+def test_flash_attention_bwd_routes(dtype, hd):
+    """Every bf16 call at head dims 64 and 128 runs the wgmma kernels, hd
+    16 and 32 and f32 the CUDA-core ones, as the launcher counted them."""
+    from repro_torch.kernels.flash_attention import (BWD, bwd_route,
+                                                     flash_attention_bwd,
+                                                     flash_attention_fwd)
+    rng = np.random.default_rng(hd)
+    q = _randn(rng, (2, 100, 4, hd), dtype)
+    k, v = (_randn(rng, (2, 100, 2, hd), dtype) for _ in range(2))
+    do = _randn(rng, (2, 100, 4, hd), dtype)
+    o, lse = flash_attention_fwd(q, k, v, True, with_lse=True)
+    build.routes(BWD, reset=True)
+    for _ in range(3):
+        flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    want = bwd_route(dtype, hd)
+    assert want == ("wgmma" if dtype == torch.bfloat16 and hd >= 64
+                    else "cuda_core")
+    assert build.routes(BWD) == {r: 3 * (r == want)
+                                 for r in ("wgmma", "cuda_core")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,K", [(128, 8), (64, 2)])
+def test_flash_attention_bwd_on_strided_views(hd, K, dtype, no_tf32):
+    """q, k, v as views of one fused projection (B, T, (H + 2K) hd), and a
+    transposed, non-contiguous do (a (B, H, T, hd) tensor seen as
+    (B, T, H, hd)) that TMA reads as it lies; then a broadcast do (what a
+    sum's backward hands over), made contiguous by the wrapper. Each
+    against the same call on contiguous copies: the same bits."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    rng = np.random.default_rng(hd + K)
+    B, T, H = 2, 150, 16
+    qkv = _randn(rng, (B, T, (H + 2 * K) * hd), dtype)
+    q = qkv[..., :H * hd].unflatten(-1, (H, hd))
+    k = qkv[..., H * hd:(H + K) * hd].unflatten(-1, (K, hd))
+    v = qkv[..., (H + K) * hd:].unflatten(-1, (K, hd))
+    do = _randn(rng, (B, H, T, hd), dtype).transpose(1, 2)
+    assert not (q.is_contiguous() or k.is_contiguous() or do.is_contiguous())
+    o, lse = flash_attention_fwd(q, k, v, True, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    dense = flash_attention_bwd(q.contiguous(), k.contiguous(),
+                                v.contiguous(), o, lse, do.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(got, dense))
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                   do.float())
+    scale = max(float(w.abs().max()) for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _grad_close(name, g, w, TOL[dtype], scale)
+    ones = torch.ones((), dtype=dtype, device="cuda").expand(B, T, H, hd)
+    got = flash_attention_bwd(q, k, v, o, lse, ones)
+    dense = flash_attention_bwd(q, k, v, o, lse, ones.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(got, dense))
 
 
 def _ssd_train_inputs(rng, B, T, H, hd, ds, G, view, dtype):
