@@ -14,8 +14,9 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  and ssd_bwd.cu with ``-Xptxas -v`` prints each kernel's
                  registers and spills
                  (none allowed in the serve-path instances nor in
-                 flash_attention_bwd's wgmma kernels at hd 128,
-                 ``NO_SPILLS``), and ``cuobjdump -sass`` of the
+                 flash_attention_bwd's wgmma kernels at hd 128 nor in
+                 ssd_bwd's tensor-core kernel, ``NO_SPILLS``), and
+                 ``cuobjdump -sass`` of the
                  built libraries counts tensor-core (HMMA, HGMMA) and
                  asynchronous-copy (LDGSTS, UTMALDG) instructions
                  by instance (``SASS_NEEDS`` says which each must have)
@@ -164,7 +165,13 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  names, as the launcher counted it) and ssd_bwd
                  (``SSD_BWD_CASES``: mamba2's training shape B 8, T 256,
                  H 64, P 64, N 128, ragged T, T = 1, stride-0 B_/C, x a
-                 view, two and three groups, dh_last given) in bf16 at 2e-2
+                 view, two and three groups, dh_last given, T 63 to 129
+                 about the tensor cores' 64-step chunks, head dims 16 to
+                 64 and states 16 to 128; ``SSD_BWD_LAYOUTS``: x one
+                 element off 16 bytes, and a transposed dy bit for bit
+                 against a contiguous copy; each call on the route
+                 ``ssd.bwd_route`` names, as the launcher counted it) in
+                 bf16 at 2e-2
                  and f32 at 1e-4 (TF32 off) of the largest gradient, against
                  their plain versions (autograd of the plain forwards) in f32
                  on the same inputs, two calls bit for bit, and the
@@ -182,7 +189,8 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  grad_norm > 0, params moved, and a step's launches 56
                  flash_attention, 28 flash_attention_bwd (qwen3; all on the
                  wgmma route, ``build.routes``) or 96 ssd, 48 ssd_bwd
-                 (mamba2), and 1 gae; prints ms per step, tokens
+                 (mamba2; all on the tensor cores), and 1 gae; prints ms
+                 per step, tokens
                  per second, max_memory_allocated and a profile of one step
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
@@ -207,8 +215,10 @@ projections and unembed. The backward kernels' rows are at the training
 shapes (B 8, T 256), the median of 5 CUDA-graph replays, beside their plain
 versions and, for attention, the device time of
 ``scaled_dot_product_attention``'s backward by the profiler (a line before
-the rows also gives the kernel's own by the profiler and both ratios);
-their launches are a train step's.
+the rows also gives the kernel's own by the profiler and both ratios); the
+ssd_bwd line before its row times the f64 CUDA-core route in turns with
+the tensor cores at the same shape, for the record; their launches are a
+train step's.
 
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seed 0.
@@ -259,7 +269,9 @@ from repro_torch.kernels.pack import MAX_LEAVES, pack  # noqa: E402
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
     alignment as qmm_alignment, quant_matmul, route as qmm_route)
 from repro_torch.kernels.ssd import (  # noqa: E402
-    alignment as ssd_alignment, route as ssd_route, ssd, ssd_bwd, ssd_fwd)
+    BWD as SSD_BWD, BWD_CHUNK as SSD_BWD_CHUNK, alignment as ssd_alignment,
+    bwd_route as ssd_bwd_route, route as ssd_route, ssd, ssd_bwd,
+    ssd_bwd_cuda_core, ssd_fwd)
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.buffer import random_batch  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -394,13 +406,21 @@ FA_BWD_VIEWS = ((2, 150, 150, 16, 8, 128, True),
                 (2, 150, 150, 16, 2, 64, True))
 # mamba2's SSD at the training shape (B, T) and the backward's edge cases
 # (B, T, H, P, N, G, x a view, dh_last given): ragged T, T = 1, stride-0
-# B_/C, x a view, two and three groups, head dim and state 128
+# B_/C, x a view, two and three groups, head dim and state 128; for the
+# tensor-core route's 64-step chunks T 63, 64, 65 and 129, and head dims
+# 16 to 64 beside states 16, 32 and 128
 SSD_BWD_CASES = (
     (LM_BATCH, LM_SEQ, SSD_H, SSD_P, SSD_N, SSD_G, True, False),
     (2, 300, 4, 64, 128, 1, True, False), (2, 1, 4, 64, 128, 1, True, True),
     (3, 50, 4, 16, 16, 1, False, True), (2, 96, 4, 16, 16, 2, True, False),
     (2, 64, 3, 16, 32, 3, False, False), (1, 70, 2, 128, 128, 1, False, True),
-    (2, 129, 4, 48, 32, 2, True, False))
+    (2, 129, 4, 48, 32, 2, True, False), (2, 63, 4, 64, 128, 1, True, True),
+    (2, 64, 4, 32, 128, 2, True, False), (2, 65, 4, 16, 32, 1, False, True),
+    (1, 129, 4, 64, 16, 1, True, True))
+# x a view one element off 16 bytes (the CUDA cores), and dy transposed
+# ((B, H, T, P) seen as (B, T, H, P): the tensor cores read it as it lies)
+SSD_BWD_LAYOUTS = ((2, 130, 4, 64, 128, 1, "x_unaligned"),
+                   (2, 130, 4, 64, 128, 1, "dy_transposed"))
 
 
 def sync():
@@ -549,6 +569,7 @@ INSTANCES = {
          lambda m: f"{'f32' if m.group(2) == 'f' else 'bf16'} CUDA cores "
                    f"{m.group(1)} hd {m.group(3)}")],
     "ssd_bwd": [
+        (re.compile(r"ssd_bwd_tc_kernel"), lambda m: "bf16 tensor cores"),
         (re.compile(r"ssd_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E"),
          lambda m: f"{'f32' if m.group(1) == 'f' else 'bf16'} rows "
                    f"{m.group(2)} a warp, columns {32 * int(m.group(3))}")],
@@ -570,9 +591,10 @@ SASS_NEEDS = {
     "quant_matmul": {"bf16 decode": (8, (("HMMA",), ("LDGSTS",))),
                      "bf16 wgmma": (2, (("HGMMA",), ("UTMALDG",)))},
     # flash_attention_bwd's wgmma route (dq and dk/dv at hd 64 and 128);
-    # ssd_bwd runs on the CUDA cores (its redesign is later work)
+    # ssd_bwd's tensor-core route (mma.sync fed by cp.async)
     "flash_attention_bwd": {"bf16 wgmma": (4, (("HGMMA",), ("UTMALDG",)))},
-    "ssd_bwd": {},
+    "ssd_bwd": {"bf16 tensor cores": (1, (("HMMA", "HGMMA"),
+                                          ("LDGSTS", "UTMALDG")))},
 }
 # instances on the serve and training paths, where ptxas must report no
 # spills
@@ -587,7 +609,7 @@ NO_SPILLS = {"ssd": ("bf16 tensor cores",),     # mamba2's P 64 among them
                               "bf16 wgmma prefill int4"),
              "flash_attention_bwd": ("bf16 wgmma dq hd 128",
                                      "bf16 wgmma dkdv hd 128"),
-             "ssd_bwd": ()}
+             "ssd_bwd": ("bf16 tensor cores",)}     # mamba2's training call
 
 
 def instance(name, mangled):
@@ -1993,23 +2015,46 @@ def fa_bwd_case(gen, shape, dtype, tol, view=False):
     return err
 
 
-def ssd_bwd_case(gen, shape, dtype, tol):
-    """ssd_bwd at one shape (inputs laid out as models/ssm.py gives them)
-    against the plain version in f32 on the same inputs, and two calls bit
-    for bit; returns the max abs error over its five gradients."""
-    B, T, H, P, N, G, view, dh = shape
-    x, dt, A, B_, C = ssd_inputs(gen, B, T, H, P, N, G, dtype, view)
+def ssd_bwd_case(gen, shape, dtype, tol, layout=None):
+    """ssd_bwd at one shape (inputs laid out as models/ssm.py gives them, or
+    with ``layout`` x one element off 16 bytes or dy transposed) against
+    the plain version in f32 on the same inputs, two calls bit for bit, each
+    on the route ``bwd_route`` names as the launcher counted it (a
+    transposed dy also bit for bit against a contiguous copy); returns the
+    max abs error over its five gradients."""
+    B, T, H, P, N, G = shape[:6]
+    x, dt, A, B_, C = ssd_inputs(gen, B, T, H, P, N, G, dtype,
+                                 shape[6] is True)
+    if layout == "x_unaligned":
+        x = randn(gen, (B, T, H * P + 1), dtype)[..., 1:].unflatten(
+            -1, (H, P))
     dy = randn(gen, (B, T, H, P), dtype)
-    dh_last = randn(gen, (B, H, P, N), torch.float32) if dh else None
+    if layout == "dy_transposed":
+        dy = randn(gen, (B, H, T, P), dtype).transpose(1, 2)
+    dh_last = (randn(gen, (B, H, P, N), torch.float32)
+               if shape[7:] == (True,) else None)
+    build.routes(SSD_BWD, reset=True)
     got = ssd_bwd(x, dt, A, B_, C, dy, dh_last)
     want = ref.ssd_bwd(x.float(), dt, A, B_.float(), C.float(), dy.float(),
                        dh_last)
-    err = max(grad_err(f"ssd_bwd {n} {shape} {dtype}", g, w, tol)
+    err = max(grad_err(f"ssd_bwd {n} {shape} {dtype} {layout}", g, w, tol)
               for n, g, w in zip(("dx", "ddt", "dA", "dB_", "dC"), got,
                                  want))
     again = ssd_bwd(x, dt, A, B_, C, dy, dh_last)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"ssd_bwd {shape} {dtype}: two calls differ")
+    calls = 2
+    if layout == "dy_transposed":
+        dense = ssd_bwd(x, dt, A, B_, C, dy.contiguous(), dh_last)
+        calls += 1
+        if not all(torch.equal(a, b) for a, b in zip(got, dense)):
+            raise AssertionError(f"ssd_bwd {shape} {dtype}: a transposed dy "
+                                 f"and its contiguous copy differ")
+    want_route = ssd_bwd_route(dtype, P, N, ssd_alignment(x, B_, C))
+    taken = build.routes(SSD_BWD)
+    if taken != {r: calls * (r == want_route) for r in taken}:
+        raise AssertionError(f"ssd_bwd {shape} {dtype} {layout}: routes "
+                             f"{taken}, expected {calls} on {want_route}")
     return err
 
 
@@ -2177,6 +2222,7 @@ def lm_launcher_run(arch):
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     bwd_routes = build.routes(BWD)
+    ssd_routes = build.routes(SSD_BWD)
     peak = torch.cuda.max_memory_allocated()
     if any(launches[k] != n * LM_STEPS for k, n in per_step.items()):
         raise AssertionError(f"{arch}: launches {launches} over {LM_STEPS} "
@@ -2187,6 +2233,12 @@ def lm_launcher_run(arch):
         raise AssertionError(f"{arch}: flash_attention_bwd routes "
                              f"{bwd_routes} over {LM_STEPS} steps, expected "
                              f"{want_routes}")
+    # and every SSD backward on the tensor cores
+    want_ssd = {"tensor_core": (cfg.num_layers - attn) * LM_STEPS,
+                "cuda_core": 0}
+    if ssd_routes != want_ssd:
+        raise AssertionError(f"{arch}: ssd_bwd routes {ssd_routes} over "
+                             f"{LM_STEPS} steps, expected {want_ssd}")
     m = run.metrics
     if not (math.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0):
         raise AssertionError(f"{arch}: loss {float(m['loss'])}, grad_norm "
@@ -2206,7 +2258,7 @@ def lm_launcher_run(arch):
           f"{moved} of {len(tree_leaves(run.state.params))} param leaves "
           f"moved; max_memory_allocated {peak / 2**30:.2f} GiB; launches a "
           f"step {per_step}; flash_attention_bwd routes over the {LM_STEPS} "
-          f"steps {bwd_routes}", flush=True)
+          f"steps {bwd_routes}, ssd_bwd routes {ssd_routes}", flush=True)
     batch = next(run.batches(0))
     state = {"ts": run.state}
 
@@ -2215,8 +2267,8 @@ def lm_launcher_run(arch):
 
     profile_steps("14 lm train", f"{cfg.name} train step", one, 1, step_ms,
                   ("fa_bwd_wg_dq_kernel", "fa_bwd_wg_dkdv_kernel",
-                   "flash_attention_wg_kernel", "ssd_bwd_kernel",
-                   "ssd_tc_kernel", "gae_kernel"))
+                   "flash_attention_wg_kernel", "ssd_bwd_tc_kernel",
+                   "ssd_bwd_da_kernel", "ssd_tc_kernel", "gae_kernel"))
     del run, state, batch
     torch.cuda.empty_cache()
     return per_step
@@ -2244,6 +2296,9 @@ def phase_lm_train(gen):
             err = ssd_bwd_case(gen, shape, dtype, tol)
             if shape == SSD_BWD_CASES[0] and dtype == torch.bfloat16:
                 errs["ssd_bwd"] = err
+            cases += 1
+        for shape in SSD_BWD_LAYOUTS:
+            ssd_bwd_case(gen, shape, dtype, tol, layout=shape[6])
             cases += 1
     sync()
     print(f"[14 lm train] (a) {cases} backward cases pass (bf16 at 2e-2 and "
@@ -2485,24 +2540,25 @@ def bwd_rows(gen, launches, errs):
                           bf, True)
         ssd_sets.append(args + (randn(gen, (LM_BATCH, LM_SEQ, SSD_H,
                                             SSD_P), bf),))
-    reps = [graph_ms(ssd_bwd, ssd_sets, 4) for _ in range(5)]
+    # the tensor-core route (every call of the row's), in turns with the
+    # f64 CUDA-core walks at the same shape, for the record
+    reps, old = [], []
+    for _ in range(5):
+        reps.append(graph_ms(ssd_bwd, ssd_sets, 4))
+        old.append(graph_ms(ssd_bwd_cuda_core, ssd_sets, 2))
     ms = statistics.median(reps)
     plain_ms = cuda_ms(ref.ssd_bwd, ssd_sets, 2)
-    fwd_flops, _ = ssd_work(LM_BATCH, LM_SEQ, SSD_H, SSD_P, SSD_N, SSD_G,
-                            SSD_Q, 2)
-    # each of the forward's four products has two products of its size in
-    # the backward; x, dt, B_ and C (once a group), dy read, dx, ddt, dB_
-    # and dC (dense over heads), dA written once
-    flops = 2 * fwd_flops
     Bn, Tn, Hn = LM_BATCH, LM_SEQ, SSD_H
-    nbytes = (3 * 2 * Bn * Tn * Hn * SSD_P + 4 * 2 * Bn * Tn * Hn
-              + 2 * 2 * Bn * Tn * SSD_G * SSD_N
-              + 2 * 2 * Bn * Tn * Hn * SSD_N + 4 * Hn)
+    flops, nbytes = ssd_bwd_work(Bn, Tn, Hn, SSD_P, SSD_N, SSD_G,
+                                 SSD_BWD_CHUNK, 2)
     print(f"[kernel] ssd_bwd B {Bn} T {Tn} H {Hn} P {SSD_P} N {SSD_N} G "
-          f"{SSD_G} bf16, x a view, by graph replay: median {ms:.4f} ms "
-          f"(readings {min(reps):.4f}-{max(reps):.4f}); plain "
-          f"{plain_ms:.4f} ms; no single PyTorch call computes it",
-          flush=True)
+          f"{SSD_G} bf16, x a view, by graph replay, tensor cores: median "
+          f"{ms:.4f} ms (readings {min(reps):.4f}-{max(reps):.4f}), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s; "
+          f"the f64 CUDA-core walks in turns with it: median "
+          f"{statistics.median(old):.4f} ms (readings {min(old):.4f}-"
+          f"{max(old):.4f}); plain {plain_ms:.4f} ms; no single PyTorch call "
+          f"computes it", flush=True)
     rows.append(("ssd_bwd", flops, PEAK_FLOPS, nbytes, ms, plain_ms, None))
     del ssd_sets
     return [kernel_row(r, launches, errs) for r in rows]
@@ -2756,6 +2812,22 @@ def ssd_work(B, T, H, P, N, G, Q, elem):
         flops += B * H * (2 * q * q * (N + P) + 4 * q * P * N)
     nbytes = (2 * B * T * H * P * elem + 4 * B * T * H
               + 2 * B * T * G * N * elem + 4 * B * H * P * N)
+    return flops, nbytes
+
+
+def ssd_bwd_work(B, T, H, P, N, G, Q, elem):
+    """(FLOP, bytes) of the chunked SSD backward in chunks of Q steps: per
+    (b, h) and chunk of q steps, over its q (q + 1) / 2 causal pairs C B^T,
+    dy x^T, (S o L)^T dy, dS B and dS^T C (2 (3 N + 2 P) a pair), and five
+    state products of 2 q P N (B dh^T, x dh, dy h_prev, dh_prev and the
+    recomputed state); x, dt, B_ and C (once a group) and dy read, dx, ddt,
+    dB_ and dC (dense over heads) and dA written once."""
+    flops = 0
+    for c0 in range(0, T, Q):
+        q = min(Q, T - c0)
+        flops += B * H * (q * (q + 1) * (3 * N + 2 * P) + 10 * q * P * N)
+    nbytes = (3 * B * T * H * P * elem + 4 * 2 * B * T * H
+              + 2 * B * T * G * N * elem + 2 * B * T * H * N * elem + 4 * H)
     return flops, nbytes
 
 

@@ -72,11 +72,13 @@ SIGNATURES = {
         P, P, P, P, P, P, P,        # x, dt, A, B_, C, dy, dh_last (or null)
         P, P, P, P, P,              # dx, ddt, dA, dB_, dC
         P, P,                       # f64 scratch: yd (B, H, T), dA (B, H)
+        P,                          # f32 scratch: states (B, H, nc - 1, hd,
+                                    # ds), the tensor cores' (or null)
         I, I, I, I, I,              # B, T, H, hd, ds
         L, L, L, L, L, L, L, L,     # x (b, s, h, elem), dt (b, s, h), A
         L, L, L, L, L, L, L, L,     # B_ and C (batch, seq, head, elem)
         L, L, L, L,                 # dy (batch, seq, head, elem)
-        I, P]),                     # is_bf16, stream
+        I, I, P]),                  # is_bf16, cuda_core (force), stream
     "pack": ("pack_fwd", [
         P, I,                       # K x (address, row stride, width,
                                     # column) as one host array, K
@@ -91,7 +93,8 @@ LAUNCHES = {name: 0 for name in SIGNATURES}
 ROUTES = {"quant_matmul": ("quant_matmul_routes", ("decode", "wgmma", "fma")),
           "ssd": ("ssd_routes", ("tensor_core", "cuda_core")),
           "flash_attention_bwd": ("flash_attention_bwd_routes",
-                                  ("wgmma", "cuda_core"))}
+                                  ("wgmma", "cuda_core")),
+          "ssd_bwd": ("ssd_bwd_routes", ("tensor_core", "cuda_core"))}
 
 _LIBS: dict = {}
 

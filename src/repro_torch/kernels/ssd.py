@@ -26,8 +26,11 @@ forward launches the forward kernel, its backward ``ssd_bwd`` (dx, ddt,
 dA, dB_, dC; dA summed over batch and time in a fixed order). It reads its
 inputs through their strides as the forward does and returns dense
 (B, T, H, ds) gradients of B_ and C, whose stride-0 expansion over heads
-autograd then sums per group. With no gradient needed (serving) it is the
-forward launch alone, as before.
+autograd then sums per group. bf16 calls the tiles take (``bwd_route``)
+run the chunked backward on the tensor cores, in chunks of ``BWD_CHUNK``
+steps whatever the forward's chunk, its dl from direct sums; f32 calls and
+other shapes keep the f64 walks on the CUDA cores. With no gradient needed
+(serving) it is the forward launch alone, as before.
 
 CPU tensors take the plain versions (``ref.ssd``, ``ref.ssd_bwd``; autograd
 differentiates the first); a CUDA tensor launches the kernel or raises —
@@ -44,6 +47,7 @@ NAME = "ssd"
 BWD = "ssd_bwd"
 MAX_DIM = 128           # chunk, head dim and state size the kernel takes
 TC_MAX_HD = 64          # largest head dim on the tensor cores
+BWD_CHUNK = 64          # the tensor-core backward's chunk (``QB``)
 
 
 def _check(x, dt, A, B_, C) -> None:
@@ -65,13 +69,16 @@ def _check(x, dt, A, B_, C) -> None:
         raise ValueError(f"{NAME}: needs T >= 1, got {T}")
 
 
+def _vec16(t) -> bool:
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in t.stride()[:3]))
+
+
 def alignment(x, B_, C) -> bool:
     """Whether x, B_ and C each have a unit element stride and 16-byte
     aligned bases and (batch, seq, head) strides (in bf16: multiples of 8
     elements), as the tensor cores' 16-byte asynchronous copies need."""
-    return all(t.stride(3) == 1 and t.data_ptr() % 16 == 0
-               and all(st % 8 == 0 for st in t.stride()[:3])
-               for t in (x, B_, C))
+    return all(_vec16(t) for t in (x, B_, C))
 
 
 def route(dtype, hd: int, ds: int, chunk: int, aligned: bool) -> str:
@@ -85,6 +92,20 @@ def route(dtype, hd: int, ds: int, chunk: int, aligned: bool) -> str:
     16) is padded."""
     if (dtype == torch.bfloat16 and hd % 16 == 0 and hd <= TC_MAX_HD
             and ds % 16 == 0 and chunk >= 16 and aligned):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def bwd_route(dtype, hd: int, ds: int, aligned: bool) -> str:
+    """The backward kernel a CUDA call of ``ssd_bwd`` takes, by the rule
+    ``ssd_bwd`` of ``csrc/ssd_bwd.cu`` applies (it counts the route it took
+    under these names, ``build.routes(BWD)``): bf16 x with head dim and
+    state size multiples of 16, head dim <= 64, state size <= 128 and x, B_
+    and C the 16-byte copies can read (``alignment``) the tensor cores
+    ("tensor_core"); all else the f64 walks on the CUDA cores
+    ("cuda_core"). T and the forward's chunk do not enter."""
+    if (dtype == torch.bfloat16 and hd % 16 == 0 and hd <= TC_MAX_HD
+            and ds % 16 == 0 and ds <= MAX_DIM and aligned):
         return "tensor_core"
     return "cuda_core"
 
@@ -168,7 +189,19 @@ def ssd_bwd(x, dt, A, B_, C, dy, dh_last=None):
     """(dx, ddt, dA, dB_, dC): the gradients of ``ssd(x, dt, A, B_, C)`` at
     ``dy`` (B,T,H,hd) in x's dtype and ``dh_last`` (B,H,hd,ds) f32 or None
     (h_last unused). dx, dB_, dC in x's dtype and ddt, dA in f32, all
-    contiguous; dB_ and dC are dense (B,T,H,ds)."""
+    contiguous; dB_ and dC are dense (B,T,H,ds). A CUDA call takes the
+    route ``bwd_route`` names."""
+    return _bwd(x, dt, A, B_, C, dy, dh_last, cuda_core=False)
+
+
+def ssd_bwd_cuda_core(x, dt, A, B_, C, dy, dh_last=None):
+    """``ssd_bwd`` on the f64 walks of the CUDA cores whatever the call's
+    route, so that a record can time them beside the tensor cores at the
+    same shape."""
+    return _bwd(x, dt, A, B_, C, dy, dh_last, cuda_core=True)
+
+
+def _bwd(x, dt, A, B_, C, dy, dh_last, cuda_core):
     _check(x, dt, A, B_, C)
     Bb, T, H, hd = x.shape
     ds = B_.shape[-1]
@@ -188,6 +221,12 @@ def ssd_bwd(x, dt, A, B_, C, dy, dh_last=None):
     for name, n in (("head dim", hd), ("d_state", ds)):
         if not 1 <= n <= MAX_DIM:
             raise ValueError(f"{BWD}: {name} {n} outside [1, {MAX_DIM}]")
+    tc = not cuda_core and bwd_route(
+        x.dtype, hd, ds, alignment(x, B_, C)) == "tensor_core"
+    # autograd may hand dy over in any layout: copied only where the
+    # tensor cores' 16-byte copies cannot read it as it lies
+    if tc and not _vec16(dy):
+        dy = dy.clone(memory_format=torch.contiguous_format)
     if dh_last is not None:
         dh_last = dh_last.float().contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -199,8 +238,13 @@ def ssd_bwd(x, dt, A, B_, C, dy, dh_last=None):
     if dx.numel() == 0:                 # B or H is 0: nothing to launch
         return dx, ddt, dA, dB.zero_(), dC.zero_()
     f64 = dict(dtype=torch.float64, device=x.device)
-    yd = torch.empty((Bb, H, T), **f64)        # the kernel's f64 scratch
     part = torch.empty((Bb, H), **f64)
+    # the kernels' scratch: the f64 walks' yd; the tensor cores' states
+    # entering chunks 1 .. nc - 1 of BWD_CHUNK steps
+    nc = -(-T // BWD_CHUNK)
+    yd = None if tc else torch.empty((Bb, H, T), **f64)
+    states = (torch.empty((Bb, H, nc - 1, hd, ds), **f32)
+              if tc and nc > 1 else None)
     lib = build.load(BWD)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -209,10 +253,11 @@ def ssd_bwd(x, dt, A, B_, C, dy, dh_last=None):
             C.data_ptr(), dy.data_ptr(),
             None if dh_last is None else dh_last.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), yd.data_ptr(), part.data_ptr(),
+            dC.data_ptr(), None if yd is None else yd.data_ptr(),
+            part.data_ptr(), None if states is None else states.data_ptr(),
             Bb, T, H, hd, ds, *x.stride(), *dt.stride(), A.stride(0),
             *B_.stride(), *C.stride(), *dy.stride(),
-            int(x.dtype == torch.bfloat16), stream)
+            int(x.dtype == torch.bfloat16), int(cuda_core), stream)
     build.check(err, BWD)
     build.LAUNCHES[BWD] += 1
     return dx, ddt, dA, dB, dC

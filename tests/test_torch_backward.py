@@ -6,12 +6,15 @@ vector-Jacobian products of the reference's jnp functions
 (``repro.kernels.ref``), from the same numpy inputs. Then the arithmetic of
 ``csrc/flash_attention_bwd.cu`` (P recomputed from the forward's LSE,
 D = rowsum(do * o), dk and dv summed over a KV head's query heads) and of
-``csrc/ssd_bwd.cu`` (h walked forward for dC and C . dC, G walked backward
-for dx, dB_ and ddt, dt A's gradient carried as the scalar recurrence
-q_t = q_{t+1} + dy_t . y_t - dt_t x_t . u_t), written out in torch step for
-step, against the same (the SSD walks in f64, as the kernel takes them).
-f32 inputs on the CPU; tolerances 1e-5 for attention and 1e-4 for SSD (the
-f32 reference's recurrence over T in another order).
+``csrc/ssd_bwd.cu``'s CUDA-core route (h walked forward for dC and C . dC,
+G walked backward for dx, dB_ and ddt, dt A's gradient carried as the
+scalar recurrence q_t = q_{t+1} + dy_t . y_t - dt_t x_t . u_t), written out
+in torch step for step, against the same (the SSD walks in f64, as the
+kernel takes them), and of its tensor-core route (the chunked backward,
+dt A's gradient from four direct sums), exact at chunks 16, 64 and 128 and
+with the kernel's bf16 roundings within the bound they imply. f32 inputs
+on the CPU; tolerances 1e-5 for attention and 1e-4 for SSD (the f32
+reference's recurrence over T in another order).
 """
 import jax
 import jax.numpy as jnp
@@ -319,6 +322,203 @@ def test_ssd_bwd_kernel_arithmetic_matches_jax_grad(B, T, H, hd, ds, G, dh):
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
         np.testing.assert_allclose(g.numpy(), w, atol=1e-4, rtol=1e-4,
                                    err_msg=name)
+
+
+def _ssd_bwd_chunked(x, dt, A, B_, C, dy, dh_last, Q, rounded=False):
+    """The tensor-core route of csrc/ssd_bwd.cu, in f64 (the kernel's sums
+    are f32): the states entering each chunk of Q steps recomputed forward,
+    then the chunks walked backward carrying dh, with u = (S o L)^T dy +
+    v B dh^T, dC = dS B + e^cum dy h_prev, dB = dS^T C + w x dh, dh_prev =
+    e^{cum_Q} dh + dy^T e^cum C, and dl from its four direct sums (the
+    rectangle sum of M = S dS over i >= t > j, the suffix sum of
+    C_i . dC_state_i, the prefix sum of dt_j x_j . u_state_j, and
+    e^{cum_Q} <dh, h_prev>). With ``rounded``, the kernel's roundings: x w
+    once to bf16 (u = 2^-8), h_prev, dh, S o L, dS and dy e^cum as bf16
+    hi + lo (u^2), dx, dB and dC out in bf16; then it also returns a
+    first-order bound on each output's error from those roundings,
+    propagated through absolute values. Returns (dx, ddt, dA, dB_, dC) in
+    the inputs' layout and the bounds (zeros without ``rounded``)."""
+    u = 2.0 ** -8
+    bf = lambda t: t.to(torch.bfloat16).double()
+    if rounded:
+        one = lambda t: (bf(t), u * t.abs())
+        hilo = lambda t: (bf(t) + bf(t - bf(t)), u * u * t.abs())
+    else:
+        one = hilo = lambda t: (t, torch.zeros_like(t))
+    ab = torch.abs
+    ein = torch.einsum
+    x, dy, Bm, Cm = (t.double().permute(0, 2, 1, 3) for t in (x, dy, B_, C))
+    dt = dt.double().permute(0, 2, 1)
+    A = A.double()
+    Bb, H, T, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-T // Q)
+    pad = nc * Q - T
+    x, dy, Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                     .unflatten(2, (nc, Q)) for t in (x, dy, Bm, Cm))
+    dt = torch.nn.functional.pad(dt, (0, pad)).unflatten(2, (nc, Q))
+    cum = (dt * A[None, :, None, None]).cumsum(-1)      # (B, H, nc, Q)
+    cq = cum[..., -1]
+    idx = torch.arange(Q)
+    low = idx[:, None] >= idx[None, :]                  # i >= j
+    rect = ((idx[None, :, None] >= idx[:, None, None])  # [t, i, j]:
+            & (idx[None, None, :] < idx[:, None, None])).double()  # j<t<=i
+    suffix = (idx[None, :] >= idx[:, None]).double()    # [t, i]: i >= t
+    prefix = (idx[None, :] < idx[:, None]).double()     # [t, j]: j < t
+
+    states, h = [], torch.zeros(Bb, H, P, N, dtype=torch.float64)
+    eh = torch.zeros_like(h)
+    for c in range(nc):                     # the states entering each chunk
+        states.append((h, eh))
+        w = torch.exp(cq[:, :, c, None] - cum[:, :, c]) * dt[:, :, c]
+        xw, exw = one(x[:, :, c] * w[..., None])
+        eq = torch.exp(cq[:, :, c])[..., None, None]
+        h = eq * h + ein("bhjp,bhjn->bhpn", xw, Bm[:, :, c])
+        eh = eq * eh + ein("bhjp,bhjn->bhpn", exw, ab(Bm[:, :, c]))
+
+    outs = [torch.zeros_like(t) for t in (x, dt, Bm, Cm)]  # dx ddt dB dC
+    errs = [torch.zeros_like(t) for t in outs]
+    dA = torch.zeros(H, dtype=torch.float64)
+    edA = torch.zeros_like(dA)
+    dh = (dh_last.double() if dh_last is not None
+          else torch.zeros(Bb, H, P, N, dtype=torch.float64))
+    edh = torch.zeros_like(dh)
+    for c in reversed(range(nc)):
+        xc, yc, bc, cc, dtc, ci = (t[:, :, c] for t in (x, dy, Bm, Cm, dt,
+                                                        cum))
+        hp, ehp = states[c]
+        hpr, ehr = hilo(hp)
+        ehp = ehp + ehr
+        dhr, edr = hilo(dh)
+        edr = edr + edh
+        diff = ci[..., :, None] - ci[..., None, :]
+        L = torch.where(low, torch.exp(torch.where(low, diff, 0.0)), 0.0)
+        S = ein("bhin,bhjn->bhij", cc, bc)
+        G = ein("bhip,bhjp->bhij", yc, xc)
+        dS = G * L * dtc[..., None, :]
+        M = S * dS
+        SLr, eSL = hilo(S * L)
+        dSr, edS = hilo(dS)
+        v = torch.exp(cq[:, :, c, None] - ci)
+        w = v * dtc
+        ust = v[..., None] * ein("bhjn,bhpn->bhjp", bc, dhr)
+        eust = v[..., None] * ein("bhjn,bhpn->bhjp", ab(bc), edr)
+        uu = ein("bhij,bhip->bhjp", SLr, yc) + ust
+        eu = ein("bhij,bhip->bhjp", eSL, ab(yc)) + eust
+        dx, edx = dtc[..., None] * uu, dtc[..., None] * eu
+        xu, exu = (xc * uu).sum(-1), (ab(xc) * eu).sum(-1)
+        dB = (ein("bhij,bhin->bhjn", dSr, cc)
+              + w[..., None] * ein("bhjp,bhpn->bhjn", xc, dhr))
+        edB = (ein("bhij,bhin->bhjn", edS, ab(cc))
+               + w[..., None] * ein("bhjp,bhpn->bhjn", ab(xc), edr))
+        ec = torch.exp(ci)[..., None]
+        dCs = ec * ein("bhip,bhpn->bhin", yc, hpr)
+        edCs = ec * ein("bhip,bhpn->bhin", ab(yc), ehp)
+        dC = ein("bhij,bhjn->bhin", dSr, bc) + dCs
+        edC = ein("bhij,bhjn->bhin", edS, ab(bc)) + edCs
+        ev, eev = (cc * dCs).sum(-1), (ab(cc) * edCs).sum(-1)
+        fv = dtc * (xc * ust).sum(-1)
+        efv = dtc * (ab(xc) * eust).sum(-1)
+        eqc = torch.exp(cq[:, :, c])
+        k4 = eqc * (dh * hpr).sum((-2, -1))
+        ek4 = eqc * ((ab(dh) * ehp).sum((-2, -1))
+                     + (edh * ab(hpr)).sum((-2, -1)))
+        dl = (ein("tij,bhij->bht", rect, M) + ein("ti,bhi->bht", suffix, ev)
+              + ein("tj,bhj->bht", prefix, fv) + k4[..., None])
+        edl = (ein("ti,bhi->bht", suffix, eev)
+               + ein("tj,bhj->bht", prefix, efv) + ek4[..., None])
+        ddt = xu + A[None, :, None] * dl
+        eddt = exu + ab(A)[None, :, None] * edl
+        dA = dA + (dtc * dl).sum((0, 2))
+        edA = edA + (dtc * edl).sum((0, 2))
+        for k, (o, e) in enumerate(((dx, edx), (ddt, eddt), (dB, edB),
+                                    (dC, edC))):
+            outs[k][:, :, c], errs[k][:, :, c] = o, e
+        dye, edye = hilo(yc * ec)
+        dh = eqc[..., None, None] * dh + ein("bhip,bhin->bhpn", dye, cc)
+        edh = (eqc[..., None, None] * edh
+               + ein("bhip,bhin->bhpn", edye, ab(cc)))
+    for k in (0, 2, 3):                     # dx, dB, dC out in bf16
+        if rounded:
+            errs[k] = errs[k] + u * outs[k].abs()
+            outs[k] = bf(outs[k])
+    back = lambda t: t.flatten(2, 3)[:, :, :T].transpose(1, 2)
+    got, bound = ([back(o[0]), back(o[1]), d, back(o[2]), back(o[3])]
+                  for o, d in ((outs, dA), (errs, edA)))
+    return got, bound
+
+
+SSD_CHUNKED_CASES = [  # Q (the backward's chunk), B, T, H, G, dh_last given
+    (16, 2, 32, 6, 1, True), (16, 1, 31, 6, 2, False),
+    (16, 2, 33, 6, 3, True), (16, 1, 5, 6, 1, False), (16, 2, 1, 6, 2, True),
+    (64, 1, 128, 6, 3, False), (64, 2, 63, 6, 1, True),
+    (64, 1, 65, 6, 2, True), (64, 2, 20, 6, 3, False),
+    (64, 1, 1, 6, 1, False),
+    (128, 1, 256, 6, 2, True), (128, 1, 127, 6, 3, False),
+    (128, 2, 129, 6, 1, False), (128, 1, 50, 6, 2, True),
+    (128, 1, 1, 6, 3, True)]
+
+
+@pytest.mark.parametrize("Q,B,T,H,G,dh", SSD_CHUNKED_CASES)
+def test_ssd_bwd_chunked_arithmetic_matches_jax_grad(Q, B, T, H, G, dh):
+    """The tensor-core route's chunked backward, exact (f64, no rounding),
+    at chunks 16, 64 and 128 with T a multiple of the chunk, one off either
+    way, below it and 1; one to three groups; with and without dh_last:
+    its rectangle sums for dl, the state terms and dh_prev give jax.grad."""
+    x, dt, A, Bg, Cg, dy, dh_last = _ssd_inputs(B, T, H, 16, 16, G,
+                                                3 * T + Q + G)
+    want = _jax_ssd_grads(x, dt, A, Bg, Cg, dy,
+                          dh_last if dh else np.zeros_like(dh_last), H)
+    tB, tC = (_expand(torch.from_numpy(t), H) for t in (Bg, Cg))
+    got, _ = _ssd_bwd_chunked(
+        torch.from_numpy(x), torch.from_numpy(dt), torch.from_numpy(A), tB,
+        tC, torch.from_numpy(dy), torch.from_numpy(dh_last) if dh else None,
+        Q)
+    got = list(got[:3]) + [_fold(got[3], G), _fold(got[4], G)]
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B,T,H,hd,ds,G,dh", [
+    (2, 256, 4, 64, 128, 1, False),     # mamba2's widths, 4 chunks of 64
+    (1, 129, 4, 32, 32, 2, True),       # a ragged last chunk
+    (2, 63, 3, 16, 16, 3, True),        # below a chunk
+    (1, 1, 2, 16, 32, 1, False)])       # one step
+def test_ssd_bwd_bf16_rounding_contract_matches_jax_grad(B, T, H, hd, ds, G,
+                                                         dh):
+    """The tensor-core route's roundings (``_ssd_bwd_chunked`` with
+    ``rounded``, at the kernel's chunk ``ssd.BWD_CHUNK``) on bf16 inputs
+    hold to jax.grad of the reference in f32 on the same bf16 values,
+    element by element within the first-order bound those roundings imply,
+    plus 1e-4 of each element and of the output's largest for the f32
+    reference's own sums; each output also within the card's bf16 gate
+    (2e-2 of its largest). dA's error is reported as a fraction of its
+    largest."""
+    x, dt, A, Bg, Cg, dy, dh_last = _ssd_inputs(B, T, H, hd, ds, G, T + hd)
+    x, Bg, Cg, dy = (torch.from_numpy(t * 0.5).to(torch.bfloat16)
+                     for t in (x, Bg, Cg, dy))
+    want = _jax_ssd_grads(*(t.float().numpy() for t in (x,)), dt, A,
+                          Bg.float().numpy(), Cg.float().numpy(),
+                          dy.float().numpy(),
+                          dh_last if dh else np.zeros_like(dh_last), H)
+    got, bound = _ssd_bwd_chunked(
+        x, torch.from_numpy(dt), torch.from_numpy(A), _expand(Bg, H),
+        _expand(Cg, H), dy, torch.from_numpy(dh_last) if dh else None,
+        ssd_mod.BWD_CHUNK, rounded=True)
+    got = list(got[:3]) + [_fold(got[3], G), _fold(got[4], G)]
+    bound = list(bound[:3]) + [_fold(bound[3], G), _fold(bound[4], G)]
+    for name, g, w, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                             bound):
+        g, e = g.numpy(), e.numpy()
+        top = float(np.abs(w).max())
+        err = np.abs(g - w)
+        assert float(err.max()) <= 2e-2 * top, (name, float(err.max()), top)
+        np.testing.assert_array_less(err, e + 1e-4 * (np.abs(w) + top)
+                                     + 1e-30, err_msg=name)
+        if name == "dA":                # 0 at T = 1 without dh_last
+            frac = float(err.max()) / max(top, 1e-30)
+            assert frac <= 2e-2, f"dA max abs err {frac:.3g} of its largest"
 
 
 def test_backward_wrappers_check_their_arguments():

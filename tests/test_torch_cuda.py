@@ -826,15 +826,21 @@ SSD_BWD_CASES = [  # B, T, H, hd, ds, G, x a view, dh_last given
     (2, 300, 4, 64, 128, 1, True, False), (2, 1, 4, 64, 128, 1, True, True),
     (3, 50, 4, 16, 16, 1, False, True), (2, 96, 4, 16, 16, 2, True, False),
     (2, 64, 3, 16, 32, 3, False, False), (1, 70, 2, 128, 128, 1, False, True),
-    (2, 129, 4, 48, 32, 2, True, False)]
+    (2, 129, 4, 48, 32, 2, True, False),
+    # the tensor cores' 64-step chunks: T one short, whole, one past, two
+    # and one past; head dims 16 to 64 beside states 16, 32 and 128
+    (2, 63, 4, 64, 128, 1, True, True), (2, 64, 4, 32, 128, 2, True, False),
+    (2, 65, 4, 16, 32, 1, False, True), (2, 129, 4, 64, 16, 1, True, False),
+    (1, 129, 2, 48, 128, 1, False, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,hd,ds,G,view,dh", SSD_BWD_CASES)
 def test_ssd_bwd_matches_ref(B, T, H, hd, ds, G, view, dh, dtype, no_tf32):
     """Through autograd: ops.ssd launches the forward kernel and, in
-    backward, the backward kernel, once each; the gradients of the
-    stride-0 B_ and C reach their group's columns."""
+    backward, the backward kernel, once each, on the route
+    ``ssd.bwd_route`` names (as the launcher counted it); the gradients of
+    the stride-0 B_ and C reach their group's columns."""
     rng = np.random.default_rng(T + hd + ds)
     x, dt, A, B_, C = _ssd_train_inputs(rng, B, T, H, hd, ds, G, view,
                                         dtype)
@@ -846,12 +852,21 @@ def test_ssd_bwd_matches_ref(B, T, H, hd, ds, G, view, dh, dtype, no_tf32):
     dy = _randn(rng, (B, T, H, hd), dtype)
     dh_last = _randn(rng, (B, H, hd, ds), torch.float32) if dh else None
     before = dict(build.LAUNCHES)
-    y, h = ops.ssd(*leaves, expand(bc[0]), expand(bc[1]))
+    build.load("ssd_bwd")
+    build.routes("ssd_bwd", reset=True)
+    Bx, Cx = expand(bc[0]), expand(bc[1])
+    y, h = ops.ssd(*leaves, Bx, Cx)
     outs, grads = ([y, h], [dy, dh_last]) if dh else ([y], [dy])
     got = torch.autograd.grad(outs, leaves + bc, grads)
     torch.cuda.synchronize()
     assert build.LAUNCHES["ssd"] == before["ssd"] + 1
     assert build.LAUNCHES["ssd_bwd"] == before["ssd_bwd"] + 1
+    want_route = ssd_mod.bwd_route(dtype, hd, ds,
+                                   ssd_mod.alignment(leaves[0], Bx, Cx))
+    assert want_route == ("tensor_core" if dtype == torch.bfloat16
+                          and hd <= 64 else "cuda_core")
+    assert build.routes("ssd_bwd") == {r: int(r == want_route)
+                                       for r in ("tensor_core", "cuda_core")}
     f = [t.detach().float().requires_grad_() for t in leaves + bc]
     with torch.enable_grad():
         wy, wh = ref.ssd(*f[:3], expand(f[3]), expand(f[4]))
@@ -865,8 +880,50 @@ def test_ssd_bwd_matches_ref(B, T, H, hd, ds, G, view, dh, dtype, no_tf32):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_bwd_is_deterministic(dtype):
+    """At mamba2's training shape (B 8, T 256, H 64, P 64, N 128, x a view,
+    stride-0 B_/C): bf16 on the tensor cores, f32 on the CUDA cores."""
     rng = np.random.default_rng(9)
-    args = _ssd_train_inputs(rng, 4, 256, 8, 64, 128, 1, True, dtype)
-    dy = _randn(rng, (4, 256, 8, 64), dtype)
+    args = _ssd_train_inputs(rng, 8, 256, 64, 64, 128, 1, True, dtype)
+    dy = _randn(rng, (8, 256, 64, 64), dtype)
+    build.load("ssd_bwd")
+    build.routes("ssd_bwd", reset=True)
     first, again = (ssd_mod.ssd_bwd(*args, dy) for _ in range(2))
+    torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    assert build.routes("ssd_bwd") == {r: 2 * (r == want)
+                                       for r in ("tensor_core", "cuda_core")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["x_unaligned", "dy_transposed"])
+def test_ssd_bwd_on_strided_layouts(layout, dtype, no_tf32):
+    """x a view one element off 16 bytes takes the CUDA cores whatever its
+    dtype; a transposed dy ((B, H, T, P) seen as (B, T, H, P)) is read as
+    it lies, bit for bit with a contiguous copy, on the route of the call's
+    dtype; both against the plain version."""
+    rng = np.random.default_rng(17)
+    B, T, H, hd, ds = 2, 130, 4, 64, 128
+    x, dt, A, B_, C = _ssd_train_inputs(rng, B, T, H, hd, ds, 1, True, dtype)
+    dy = _randn(rng, (B, T, H, hd), dtype)
+    if layout == "x_unaligned":
+        x = _randn(rng, (B, T, H * hd + 1), dtype)[..., 1:].unflatten(
+            -1, (H, hd))
+    else:
+        dy = _randn(rng, (B, H, T, hd), dtype).transpose(1, 2)
+        assert not dy.is_contiguous()
+    want_route = ssd_mod.bwd_route(dtype, hd, ds,
+                                   ssd_mod.alignment(x, B_, C))
+    assert want_route == ("tensor_core" if dtype == torch.bfloat16
+                          and layout == "dy_transposed" else "cuda_core")
+    build.load("ssd_bwd")
+    build.routes("ssd_bwd", reset=True)
+    got = ssd_mod.ssd_bwd(x, dt, A, B_, C, dy)
+    dense = ssd_mod.ssd_bwd(x, dt, A, B_, C, dy.contiguous())
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, dense))
+    assert build.routes("ssd_bwd") == {r: 2 * (r == want_route)
+                                       for r in ("tensor_core", "cuda_core")}
+    want = ref.ssd_bwd(x.float(), dt, A, B_.float(), C.float(), dy.float())
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        _grad_close(name, g, w, TOL[dtype])

@@ -6,8 +6,11 @@ emulated on the CPU against JAX.
 in csrc/ssd.cu applies (the card tests hold the launcher's own count to
 it): bf16 x with head dim and state size multiples of 16, head dim <= 64,
 chunk >= 16 and inputs the 16-byte copies can read go to the tensor cores;
-all else to the CUDA cores. On the CPU the wrappers take the plain version
-and count nothing.
+all else to the CUDA cores. ``ssd.bwd_route`` does the same for the
+backward (csrc/ssd_bwd.cu): bf16 with head dim and state size multiples of
+16, head dim <= 64 and aligned x, B_ and C to the tensor cores, whatever
+the forward's chunk. On the CPU the wrappers take the plain version and
+count nothing.
 
 The SSD emulation repeats the tensor-core kernel's arithmetic in plain
 torch: f32 products of the bf16 inputs, the cumsum of dt·A in log2 units and
@@ -58,6 +61,45 @@ GAMMA, LAM = 0.99, 0.95
 ])
 def test_route(dtype, hd, ds, chunk, aligned, want):
     assert ssd_mod.route(dtype, hd, ds, chunk, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,hd,ds,aligned,want", [
+    (BF, 64, 128, True, "tensor_core"),             # mamba2's training call
+    (BF, 16, 16, True, "tensor_core"),              # the smallest tiles
+    (BF, 48, 32, True, "tensor_core"),              # partial tiles
+    (BF, 32, 128, True, "tensor_core"),
+    (torch.float32, 64, 128, True, "cuda_core"),    # f32: the f32 gates
+    (BF, 128, 128, True, "cuda_core"),              # head dim past 64
+    (BF, 80, 64, True, "cuda_core"),                # head dim past 64
+    (BF, 8, 8, True, "cuda_core"),                  # below a tile
+    (BF, 40, 128, True, "cuda_core"),               # head dim off 16
+    (BF, 64, 24, True, "cuda_core"),                # state off 16
+    (BF, 64, 128, False, "cuda_core"),              # unaligned inputs
+])
+def test_bwd_route(dtype, hd, ds, aligned, want):
+    """``ssd.bwd_route`` names the backward kernel a CUDA call of
+    ``ssd_bwd`` takes; the forward's chunk does not enter (the tensor
+    cores take chunks of ``BWD_CHUNK`` steps of their own)."""
+    assert ssd_mod.bwd_route(dtype, hd, ds, aligned) == want
+    assert ssd_mod.BWD_CHUNK == 64
+
+
+def test_ssd_bwd_on_a_cpu_tensor_takes_the_plain_version():
+    """On the CPU ``ssd_bwd`` and ``ssd_bwd_cuda_core`` return the plain
+    backward, and count no launch."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 9, 2, 16, generator=g)
+    dt = torch.rand(1, 9, 2, generator=g) + 0.1
+    A = -torch.rand(2, generator=g) - 0.1
+    B_, C = (torch.randn(1, 9, 2, 16, generator=g) for _ in range(2))
+    dy = torch.randn(1, 9, 2, 16, generator=g)
+    before = dict(build.LAUNCHES)
+    want = ref.ssd_bwd(x, dt, A, B_, C, dy)
+    for got in (ssd_mod.ssd_bwd(x, dt, A, B_, C, dy),
+                ssd_mod.ssd_bwd_cuda_core(x, dt, A, B_, C, dy)):
+        for g_, w in zip(got, want):
+            torch.testing.assert_close(g_, w)
+    assert build.LAUNCHES == before
 
 
 def _conv_row(B, T, H, hd, ds, G, offset=0, pad=0):
