@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs fourteen phases, each printing its
-lines; any failure ends the run with a traceback and a non-zero exit:
+``src/repro_torch/kernels/csrc`` and runs fifteen phases, each printing its
+lines (and a ``[time]`` line after each, the script's seconds so far); any
+failure ends the run with a traceback and a non-zero exit:
 
   1. device      CUDA present, compute capability 9.x, nvidia-smi name/limit
   2. build       nvcc builds every kernel (one process per source, together);
@@ -40,7 +41,10 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  to 2048, one and two groups, x a view or dense; head dim
                  48, state 32 and chunk 100 at T 300) at 2e-2,
                  each call on the route ``ssd.route`` names, as the
-                 launcher counted it
+                 launcher counted it; at jamba-v0.1-52b's SSM widths (H
+                 128, P 64, state 16) the forward at its serve shape in
+                 bf16 and at T 300 in f32, and the backward at T 256 and
+                 129 in bf16 and 130 in f32
                  quant_matmul (int8 and int4 weights, x in bf16 at 2e-2
                  and f32 at 1e-4) at the seven serve shapes, M = 8 and
                  4096 (the tied unembed, 151936 x 1024 read as (N, K), at
@@ -63,18 +67,20 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  prefill last-token logits and 4 teacher-forced decode steps,
                  atol = rtol = 1e-3
   5. serve       qwen3-0.6b, then mamba2-1.3b, then qwen3-0.6b with int8 and
-                 with int4 weights, in bf16, batch 8, prompt 512, 64 new
+                 with int4 weights (int4 cut to ``INT4_DEPTH`` 7 of its 28
+                 layers, for time), in bf16, batch 8, prompt 512, 64 new
                  tokens through ``rl.actor.generate``; the launch counters
                  must read 28 (flash_attention), 28 x 63 (flash_decode), 0
                  (gae, ssd, quant_matmul, pack) for qwen3, 48 (ssd) and 0 (the
                  others) for mamba2, and 64 x (28 x 6 + 1) (quant_matmul) on
-                 top of qwen3's for the quantised runs, whose quant_matmul
-                 routes (as its launcher counted them) must read 63 x 168 +
-                 64 decode-kernel launches (every call at M = 8) and 168
-                 wgmma prefill ones, and mamba2's 48 ssd launches must all
+                 top of qwen3's for the int8 run (int4: 7 for 28), whose
+                 quant_matmul routes (as its launcher counted them) must
+                 read 63 x 168 + 64 decode-kernel launches (every call at M
+                 = 8) and 168 wgmma prefill ones, and mamba2's 48 ssd launches must all
                  take the tensor cores; every run's greedy tokens (a
                  prefill and 16 greedy steps) must repeat exactly in a
                  second run; prints prefill ms, decode ms/token, tok/s,
+                 max_memory_allocated,
                  a profile of one prefill and 8 decode steps (device
                  time, idle share, top kernels; for mamba2 the ssd
                  kernel's ms of the prefill's), and each kernel's ms beside
@@ -192,6 +198,30 @@ lines; any failure ends the run with a traceback and a non-zero exit:
                  (mamba2; all on the tensor cores), and 1 gae; prints ms
                  per step, tokens
                  per second, max_memory_allocated and a profile of one step
+ 15. moe+front   path F, MoE and the modality frontends: (a)
+                 jamba-v0.1-52b with int8 weights at full width (32 layers,
+                 d_model 4096, 16 experts top-2; built leaf by leaf, ~52 GB)
+                 in f32 as phase 4 runs it, the router's choices of both
+                 backends recorded (``RoutingLog``): logits within 1e-3,
+                 and every token whose experts differ between the two runs
+                 printed with its router-probability gap, which must be a
+                 near-tie (``NEAR_TIE``); (b) jamba int8 served as phase 5
+                 serves (B 8, prompt 512, 64 new tokens): 2 x 16
+                 quant_matmul launches a MoE layer and forward, one per
+                 expert and weight (``serve_launches``), the experts' rows
+                 (B x capacity) on the wgmma kernel (``serve_routes``), all
+                 28 ssd calls on the tensor cores; (c) musicgen-medium's
+                 f32 train gate as phase 14(b)'s at B 2 x T 320 (its
+                 256-frame audio prefix and 64 tokens), then 10 bf16 steps
+                 through the launcher at ``--seq 512`` (B 8), with 96
+                 flash_attention, 48 flash_attention_bwd (hd 64, all on
+                 the wgmma route) and 1 gae launch a step; (d) each of the
+                 slice's six archs (internlm2-20b, internvl2-26b,
+                 musicgen-medium, jamba, dbrx-132b, llama4-maverick) at its
+                 smoke config in bf16: a generate with its launch counts
+                 and two train steps through the launcher (the MoE
+                 backward through autograd, the prefix for the frontend
+                 archs)
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. flash_attention and SDPA are timed
@@ -201,7 +231,7 @@ it. flash_decode's row is timed the same way against SDPA over the filled
 prefix at the last serve step, and a line before it at S 8192, whose
 caches exceed the L2. ssd's row is the median of 7 CUDA-graph
 replays at mamba2's serve shape, and a line before it times T 2048, a walk
-of 16 chunks. pack's row is timed by CUDA-graph
+of 16 chunks; a line after it times jamba's prefill shape (state 16). pack's row is timed by CUDA-graph
 replay at the host tier's act shape, with ``torch.cat`` as its library
 call, and a line before it times it at a full-size trajectory's bytes
 emulation, whose inputs exceed the L2. flash_decode and pack also print
@@ -252,7 +282,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.bridge import make_host_engine  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
-from repro_torch.configs import get_config, with_overrides  # noqa: E402
+from repro_torch.configs import (get_config,  # noqa: E402
+                                 get_smoke_config, with_overrides)
 from repro_torch.configs.ocean import ocean_tcfg, preset  # noqa: E402
 from repro_torch.core.emulation import (Emulated, emulate,  # noqa: E402
                                         unemulate)
@@ -279,15 +310,26 @@ from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.rl.learner import (  # noqa: E402
     init_train_state, make_lm_train_step)
 from repro_torch.league import Arena, build_league  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
+from repro_torch.models.transformer import layer_kinds  # noqa: E402
 from repro_torch.rl import actor  # noqa: E402
 from repro_torch.rl.engine import (METRIC_KEYS,  # noqa: E402
                                    act_transfer_spec)
 from repro_torch.rl.trainer import Trainer  # noqa: E402
 
 ARCH, SSM_ARCH = "qwen3-0.6b", "mamba2-1.3b"
+# path F, MoE and the frontends: jamba served int8 and musicgen trained at
+# full width, and every arch of the slice at smoke size
+MOE_ARCH, AUDIO_ARCH = "jamba-v0.1-52b", "musicgen-medium"
+SLICE_ARCHS = ("internlm2-20b", "internvl2-26b", AUDIO_ARCH, MOE_ARCH,
+               "dbrx-132b", "llama4-maverick-400b-a17b")
+AUDIO_GATE_T = 320      # the f32 gate's T: the 256-frame prefix + 64 tokens
+AUDIO_SEQ = 512         # the launcher's --seq: 256 frames + 256 tokens
+NEAR_TIE = 1e-4         # a routing flip's largest router-probability gap
 BATCH, PROMPT, NEW = 8, 512, 64
+INT4_DEPTH = 7            # int4 qwen3's layers in phase 5 (of 28): time
 GREEDY_STEPS = 16         # greedy decode steps run twice for determinism
 PEAK_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
@@ -329,6 +371,8 @@ FA_LONG = 2048      # a prompt length where operations bound flash_attention
 FD_LONG = 8192      # a cache length whose K/V (268 MB) exceeds the L2
 # mamba2-1.3b's SSD at the serve shape: heads, head dim, state, groups, chunk
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_Q = 64, 64, 128, 1, 128
+# jamba-v0.1-52b's: 128 heads of 64, state 16 (groups 1, chunk 128)
+JAMBA_H, JAMBA_P, JAMBA_N = 128, 64, 16
 SSD_LONG = 2048     # a prompt length whose chunk walk is 16 chunks
 SSD_PATHS = build.ROUTES["ssd"][1]      # the launcher's routes
 # the tensor-core route's parity cases (T, G, x a view, P, N, chunk): at
@@ -796,6 +840,33 @@ def phase_parity(gen):
     if not (torch.equal(y1, y2) and torch.equal(h1, h2)):
         raise AssertionError("ssd at the serve shape: two calls differ")
     del args, y1, h1, y2, h2
+    # jamba's SSM layers (state 16): the forward at its serve shape in bf16
+    # (the tensor cores) and a ragged T in f32, the backward at two bf16
+    # shapes (the tensor cores) and in f32, dh_last given in one
+    jamba = {}
+    for shape, dtype, tol in (
+            ((BATCH, PROMPT, JAMBA_H, JAMBA_P, JAMBA_N, 1, SSD_Q, True),
+             torch.bfloat16, 2e-2),
+            ((2, 300, JAMBA_H, JAMBA_P, JAMBA_N, 1, SSD_Q, True),
+             torch.float32, 1e-4)):
+        B, T, H, P, N, G, Q, view = shape
+        args = ssd_inputs(gen, B, T, H, P, N, G, dtype, view)
+        e = {}
+        cases += ssd_case(f"jamba {shape} {dtype}", args, Q, tol, e, True)
+        jamba[f"fwd {dtype}"] = e["ssd"]
+    for shape, dtype, tol in (
+            ((2, 256, JAMBA_H, JAMBA_P, JAMBA_N, 1, True, False),
+             torch.bfloat16, 2e-2),
+            ((2, 129, JAMBA_H, JAMBA_P, JAMBA_N, 1, True, True),
+             torch.bfloat16, 2e-2),
+            ((2, 130, JAMBA_H, JAMBA_P, JAMBA_N, 1, True, True),
+             torch.float32, 1e-4)):
+        jamba[f"bwd {shape[1]} {dtype}"] = ssd_bwd_case(gen, shape, dtype,
+                                                        tol)
+        cases += 1
+    print(f"[3 parity] ssd at jamba-v0.1-52b's SSM widths (H {JAMBA_H}, P "
+          f"{JAMBA_P}, N {JAMBA_N}): forward and backward pass, max abs "
+          f"err {jamba}", flush=True)
     # quant_matmul: the serve shapes at decode and prefill M, the unembed at
     # decode M, then the edge shapes; int8 and int4, x in bf16 and f32
     errs["quant_matmul"] = 0.0
@@ -973,61 +1044,149 @@ def gae_inputs(gen, B, T, done_p):
     return r, v, d, lv
 
 
-def phase_full_width_f32(gen, arch, quantize=None):
+class RoutingLog:
+    """Records every call of ``models.moe.route`` while it is entered: the
+    router's probabilities and the chosen experts of each call, in order.
+    ``moe_apply`` looks ``route`` up in its module at each call, so the
+    package needs no hook for it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = moe_mod.route
+
+        def recorded(params, x, cfg):
+            probs, gate, eidx = real(params, x, cfg)
+            self.calls.append((probs.detach().clone(), eidx.clone()))
+            return probs, gate, eidx
+
+        moe_mod.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self.real
+
+
+def routing_flips(got, want):
+    """Compare two runs' routing call by call: (decisions, max |probs
+    apart|, flips), a flip (call, group, token, gap) where a token's ordered
+    top-k differs, its gap the ``want`` run's probability difference
+    between the two experts at the first differing choice."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} routing calls against "
+                             f"{len(want)}")
+    decisions, p_err, flips = 0, 0.0, []
+    for c, ((pg, eg), (pw, ew)) in enumerate(zip(got, want)):
+        decisions += ew[..., 0].numel()
+        p_err = max(p_err, max_err(pg, pw))
+        for g, t in (eg != ew).any(-1).nonzero().tolist():
+            j = int((eg[g, t] != ew[g, t]).nonzero()[0])
+            a, b = int(eg[g, t, j]), int(ew[g, t, j])
+            flips.append((c, g, t, abs(float(pw[g, t, a] - pw[g, t, b]))))
+    return decisions, p_err, flips
+
+
+def phase_full_width_f32(gen, arch, quantize=None, tag="4 full width"):
+    """The cuda and ref backends on the same f32 params and tokens:
+    last-token logits of a prefill and 4 teacher-forced decode steps
+    within 1e-3. On an MoE arch the two runs' routing is compared too:
+    every flip of a token's experts must be a near-tie (its router
+    probabilities within ``NEAR_TIE``), and each one is printed."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     cfg = with_overrides(get_config(arch), dtype="float32",
                          param_dtype="float32")
     policy = BackbonePolicy(cfg, generator=gen, quantize=quantize)
     B, T, steps = 2, 256, 4
     toks = torch.randint(0, cfg.vocab_size, (B, T + steps), generator=gen,
                          device="cuda")
-    logits = {}
+    sync()
+    init_s = time.perf_counter() - t0
+    logits, routing = {}, {}
     for mode in ("cuda", "ref"):
-        with dispatch.using(mode):
+        with dispatch.using(mode), RoutingLog() as log:
             lg, _, caches = policy.prefill(toks[:, :T], T + steps)
             out = [lg]
             for t in range(T, T + steps):
                 lg, _, caches = policy.decode(toks[:, t:t + 1], caches)
                 out.append(lg)
-        logits[mode] = torch.stack(out)
+        logits[mode], routing[mode] = torch.stack(out), log.calls
+    routed = ""
+    if cfg.num_experts:
+        decisions, p_err, flips = routing_flips(routing["cuda"],
+                                                routing["ref"])
+        for c, g, t, gap in flips:
+            print(f"[{tag}] {cfg.name} routing flip: call {c}, sequence "
+                  f"{g}, token {t}: router probabilities {gap:.3g} apart",
+                  flush=True)
+        far = [f for f in flips if not f[3] <= NEAR_TIE]
+        if far:
+            raise AssertionError(f"{cfg.name}: routing flips that are no "
+                                 f"near-tie (gap > {NEAR_TIE}): {far}")
+        routed = (f"; routing: {len(routing['ref'])} calls, {decisions} "
+                  f"token decisions, {len(flips)} flips (each a near-tie "
+                  f"within {NEAR_TIE}), router probabilities max abs err "
+                  f"{p_err:.3g}")
     err = check_close("full-width f32 cuda vs ref", logits["cuda"],
                       logits["ref"], 1e-3)
-    print(f"[4 full width] {cfg.name} f32 {cfg.num_layers}L d{cfg.d_model}"
+    print(f"[{tag}] {cfg.name} f32 {cfg.num_layers}L d{cfg.d_model}"
           f"{f' {quantize} weights' if quantize else ''}: "
           f"cuda vs ref logits over prefill + {steps} decode steps, max abs "
           f"err {err} (|logit| max "
-          f"{float(logits['ref'][..., :cfg.vocab_size].abs().max())})",
-          flush=True)
-    del policy, caches
+          f"{float(logits['ref'][..., :cfg.vocab_size].abs().max())})"
+          f"{routed}; params built in {init_s:.1f} s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del policy, caches, routing
     torch.cuda.empty_cache()
 
 
-def serve_launches(cfg, quantize=None):
-    """The kernel launches one ``generate`` of NEW tokens must make: one
+def forward_matmuls(cfg):
+    """(dense, expert) quantised products of one forward, the unembed
+    aside: 4 a attention layer, 2 an SSM layer, 2 a gated MLP; 2 per
+    expert (wi, wo) an MoE layer, each over its own rows."""
+    kinds = [layer_kinds(cfg, i) for i in range(cfg.num_layers)]
+    dense = sum((4 if mixer == "attn" else 2) + 2 * (ffn == "mlp")
+                for mixer, ffn in kinds)
+    return dense, 2 * cfg.num_experts * sum(ffn == "moe" for _, ffn in kinds)
+
+
+def serve_launches(cfg, quantize=None, new=None):
+    """The kernel launches one ``generate`` of ``new`` tokens must make: one
     prefill kernel per attention or SSM layer, one decode kernel per
     attention layer and step (SSM layers decode without a kernel); with
-    quantised weights one quant_matmul per matmul weight and forward (NEW
-    forwards: the prefill and NEW - 1 decode steps), the unembed included."""
+    quantised weights one quant_matmul per matmul weight and forward (``new``
+    forwards: the prefill and ``new`` - 1 decode steps), the unembed
+    included, an MoE layer's 2 x E among them (one per expert and weight)."""
+    new = new or NEW
     attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
-    per_forward = (4 * attn + 2 * (cfg.num_layers - attn)
-                   + 2 * cfg.num_layers * (cfg.d_ff > 0) + 1)
-    return {"flash_attention": attn, "flash_decode": attn * (NEW - 1),
+    per_forward = sum(forward_matmuls(cfg)) + 1
+    return {"flash_attention": attn, "flash_decode": attn * (new - 1),
             "ssd": cfg.num_layers - attn, "gae": 0, "pack": 0,
-            "quant_matmul": NEW * per_forward if quantize else 0,
+            "quant_matmul": new * per_forward if quantize else 0,
             "flash_attention_bwd": 0, "ssd_bwd": 0}
 
 
 def serve_routes(cfg, quantize=None):
-    """The quant_matmul route of each launch of one ``generate``: every
-    call at M = BATCH (the NEW - 1 decode steps' matmuls and every forward's
-    unembed, which reads the last position only) on the decode kernel, the
-    prefill's matmuls (M = BATCH x PROMPT) on the wgmma prefill kernel."""
+    """The quant_matmul route of each launch of one ``generate``, by the
+    rows M of each call as ``qmm_route`` (the launcher's rule) names it for
+    bf16 x: the dense matmuls at M = BATCH x PROMPT in the prefill and
+    BATCH in a decode step, the experts' at BATCH x C (C the capacity of
+    the prefill's or a decode step's length), and every forward's unembed
+    at M = BATCH (it reads the last position only)."""
     counts = dict.fromkeys(QMM_PATHS, 0)
-    if quantize:
-        per_forward = serve_launches(cfg, quantize)["quant_matmul"] // NEW
-        counts["wgmma"] = per_forward - 1
-        counts["decode"] = (NEW - 1) * (per_forward - 1) + NEW
+    if not quantize:
+        return counts
+    dense, experts = forward_matmuls(cfg)
+    for T, forwards in ((PROMPT, 1), (1, NEW - 1)):
+        calls = [(BATCH * T, dense), (BATCH, 1)]
+        if experts:
+            calls.append((BATCH * moe_mod.capacity(cfg, T), experts))
+        for M, n in calls:
+            counts[qmm_route(M, torch.bfloat16, False, True, True)] += \
+                forwards * n
     return counts
 
 
@@ -1045,10 +1204,20 @@ def greedy_tokens(policy, prompt, max_len):
     return torch.cat(out, dim=1)
 
 
-def phase_serve(gen, arch, quantize=None):
+def phase_serve(gen, arch, quantize=None, tag="5 serve", depth=None):
+    """``generate`` at the serve shape with its launch counts and routes,
+    its times, greedy tokens twice and a profile; ``depth`` cuts the
+    number of layers (the widths stay the arch's)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     cfg = get_config(arch)
+    if depth:
+        cfg = with_overrides(cfg, num_layers=depth)
     policy = BackbonePolicy(cfg, generator=gen, quantize=quantize)
-    name = f"{cfg.name}{f' {quantize}' if quantize else ''}"
+    sync()
+    init_s = time.perf_counter() - t0
+    name = (f"{cfg.name}{f' {quantize}' if quantize else ''}"
+            f"{f' at depth {depth}' if depth else ''}")
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
                            device="cuda")
     max_len = PROMPT + NEW
@@ -1094,18 +1263,20 @@ def phase_serve(gen, arch, quantize=None):
     sync()
     decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
     tok_s = BATCH * NEW / total_s
-    print(f"[5 serve] {name} bf16 B{BATCH} prompt {PROMPT} +{NEW} tokens: "
+    print(f"[{tag}] {name} bf16 B{BATCH} prompt {PROMPT} +{NEW} tokens: "
           f"generate {total_s * 1e3:.1f} ms, {tok_s:.1f} tok/s; prefill "
           f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/token; launches "
           f"{launches}{f'; quant_matmul routes {routes}' if quantize else ''}"
-          f"{f'; ssd routes {ssd_routes}' if want['ssd'] else ''}",
+          f"{f'; ssd routes {ssd_routes}' if want['ssd'] else ''}; params "
+          f"built in {init_s:.1f} s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     first, again = (greedy_tokens(policy, prompt, max_len)
                     for _ in range(2))
     if not torch.equal(first, again):
         raise AssertionError(f"{name}: greedy tokens differ between two "
                              f"runs")
-    print(f"[5 serve] {name}: greedy tokens of two runs (prefill + "
+    print(f"[{tag}] {name}: greedy tokens of two runs (prefill + "
           f"{GREEDY_STEPS} steps) are identical", flush=True)
 
     # where the time goes: one profiled prefill, then 8 profiled decode steps
@@ -1118,10 +1289,12 @@ def phase_serve(gen, arch, quantize=None):
         state["tok"], _, state["caches"] = serve(state["tok"], state["caches"],
                                                  gen)
 
-    profile_steps("5 serve", f"{name} prefill", run_prefill, 1,
-                  prefill_ms, ("ssd_tc_kernel",) if want["ssd"] else ())
-    profile_steps("5 serve", f"{name} decode step", run_decode, 8,
-                  decode_ms)
+    kernels = (("ssd_tc_kernel",) if want["ssd"] else ()) + (
+        ("qmm_wg_kernel", "dec_kn_kernel") if quantize else ())
+    profile_steps(tag, f"{name} prefill", run_prefill, 1, prefill_ms,
+                  kernels)
+    profile_steps(tag, f"{name} decode step", run_decode, 8, decode_ms,
+                  kernels)
     del policy, caches
     torch.cuda.empty_cache()
     return launches
@@ -2077,10 +2250,11 @@ def held_ssd(x, dt, A, B_, C, chunk=128):
     return SSDHeldForward.apply(x, dt, A, B_, C, chunk)
 
 
-def lm_gate_inputs(arch, seed=LM_GATE_SEED):
+def lm_gate_inputs(arch, seed=LM_GATE_SEED, T=LM_GATE_T):
     """(cfg, tcfg, step, state, batch) of the f32 gate: full width in f32
-    (TF32 off), B 2 x T 64, params and batch drawn from a generator of
-    their own, so that ``tools/lm_gate_spread.py`` takes the same input."""
+    (TF32 off), B 2 x T (a frontend arch's prefix among the T), params and
+    batch drawn from a generator of their own, so that
+    ``tools/lm_gate_spread.py`` takes the same input."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = with_overrides(get_config(arch), dtype="float32",
@@ -2090,7 +2264,7 @@ def lm_gate_inputs(arch, seed=LM_GATE_SEED):
     tcfg = TrainConfig(warmup_steps=0)      # the first step at the peak rate
     step = make_lm_train_step(policy, tcfg, loss_chunk=LM_GATE_T)
     state = init_train_state(policy.params())
-    batch = random_batch(cfg, LM_GATE_B, LM_GATE_T, gen)
+    batch = random_batch(cfg, LM_GATE_B, T, gen)
     return cfg, tcfg, step, state, batch
 
 
@@ -2115,8 +2289,8 @@ def leaf_rel(got, want):
                                               1e-30) for n in want}
 
 
-def lm_gate(arch):
-    """One make_lm_train_step at full width in f32 (TF32 off), B 2 x T 64,
+def lm_gate(arch, T=LM_GATE_T, tag="14 lm train (b)"):
+    """One make_lm_train_step at full width in f32 (TF32 off), B 2 x T,
     through the cuda ops and through ``dispatch.using("ref")`` (every op
     plain, its SSD stepped in f64) from the same params and batch: loss and
     grad_norm within 1e-3 relative, every leaf's gradient within 1e-3 of
@@ -2130,7 +2304,7 @@ def lm_gate(arch):
     largest, against a plain run whose SSD forward is the kernel's output
     (``held_ssd``): the backward kernel against the plain backward from one
     forward."""
-    cfg, tcfg, step, state, batch = lm_gate_inputs(arch)
+    cfg, tcfg, step, state, batch = lm_gate_inputs(arch, T=T)
     build.reset_launches()
     gm, got, gg = step_grads(step, state, batch, tcfg)
     launches = dict(build.LAUNCHES)
@@ -2178,8 +2352,10 @@ def lm_gate(arch):
     by_layer = [max(v for n, v in rel.items()
                     if n.startswith(f"backbone.layers.{i}."))
                 for i in (0, cfg.num_layers - 1)]
+    prefix = (f" (a prefix of {batch['prefix'].shape[1]} frames)"
+              if "prefix" in batch else "")
     line = (f"{cfg.name} f32 {cfg.num_layers}L d{cfg.d_model} B {LM_GATE_B} "
-            f"T {LM_GATE_T} (seed {LM_GATE_SEED}), one train step cuda vs "
+            f"T {T}{prefix} (seed {LM_GATE_SEED}), one train step cuda vs "
             f"all-plain: loss {gm['loss']:.6f} / {wm['loss']:.6f}, "
             f"grad_norm {gm['grad_norm']:.6f} / {wm['grad_norm']:.6f}, "
             f"gradients apart by {rel[worst]:.3g} of their leaf's largest at "
@@ -2189,7 +2365,7 @@ def lm_gate(arch):
             f"{ {k: launches[k] for k in want_l} }")
     if fails:
         raise AssertionError(f"{arch} f32 gate: {fails}; {line}")
-    print(f"[14 lm train] (b) {line}", flush=True)
+    print(f"[{tag}] {line}", flush=True)
     del state, gg, batch, step
     torch.cuda.empty_cache()
 
@@ -2203,9 +2379,10 @@ def named_leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def lm_launcher_run(arch):
-    """LM PPO through the launcher at full width in bf16, B 8 x T 256, 10
-    steps; then one more step profiled. Returns the launches per step."""
+def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)"):
+    """LM PPO through the launcher at full width in bf16, B 8 x ``seq``
+    (a frontend arch's prefix among them), 10 steps; then one more step
+    profiled. Returns the launches per step."""
     cfg = get_config(arch)
     attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
     per_step = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
@@ -2217,7 +2394,7 @@ def lm_launcher_run(arch):
     build.reset_launches()
     t0 = time.perf_counter()
     run = launch_train.main(["--arch", arch, "--batch", str(LM_BATCH),
-                             "--seq", str(LM_SEQ), "--steps", str(LM_STEPS)])
+                             "--seq", str(seq), "--steps", str(LM_STEPS)])
     sync()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -2249,11 +2426,14 @@ def lm_launcher_run(arch):
         raise AssertionError(f"{arch}: no parameter moved in {LM_STEPS} "
                              f"steps")
     step_ms = run.loop.monitor.median * 1e3
-    print(f"[14 lm train] (c) {cfg.name} bf16 {cfg.num_layers}L d"
-          f"{cfg.d_model} B {LM_BATCH} T {LM_SEQ} through the launcher: "
+    P = cfg.frontend_prefix if cfg.frontend else 0
+    print(f"[{tag}] {cfg.name} bf16 {cfg.num_layers}L d{cfg.d_model} B "
+          f"{LM_BATCH} T {seq}"
+          f"{f' ({P} prefix frames, {seq - P} tokens)' if P else ''} "
+          f"through the launcher: "
           f"{LM_STEPS} steps in {wall:.1f} s (build of the policy and state "
           f"included), median step {step_ms:.2f} ms, "
-          f"{LM_BATCH * LM_SEQ / step_ms * 1e3:.0f} tokens/s; last loss "
+          f"{LM_BATCH * seq / step_ms * 1e3:.0f} tokens/s; last loss "
           f"{float(m['loss']):+.4f} grad_norm {float(m['grad_norm']):.3f}; "
           f"{moved} of {len(tree_leaves(run.state.params))} param leaves "
           f"moved; max_memory_allocated {peak / 2**30:.2f} GiB; launches a "
@@ -2265,7 +2445,7 @@ def lm_launcher_run(arch):
     def one():
         state["ts"], _ = run.step(state["ts"], batch)
 
-    profile_steps("14 lm train", f"{cfg.name} train step", one, 1, step_ms,
+    profile_steps(tag, f"{cfg.name} train step", one, 1, step_ms,
                   ("fa_bwd_wg_dq_kernel", "fa_bwd_wg_dkdv_kernel",
                    "flash_attention_wg_kernel", "ssd_bwd_tc_kernel",
                    "ssd_bwd_da_kernel", "ssd_tc_kernel", "gae_kernel"))
@@ -2301,7 +2481,7 @@ def phase_lm_train(gen):
             ssd_bwd_case(gen, shape, dtype, tol, layout=shape[6])
             cases += 1
     sync()
-    print(f"[14 lm train] (a) {cases} backward cases pass (bf16 at 2e-2 and "
+    print(f"[14 lm train (a)] {cases} backward cases pass (bf16 at 2e-2 and "
           f"f32 at 1e-4 of the largest gradient, against the plain versions "
           f"in f32; the forward's LSE at 1e-4; two calls bit for bit) in "
           f"{time.perf_counter() - t0:.1f} s; max abs err at the training "
@@ -2314,6 +2494,80 @@ def phase_lm_train(gen):
         for k in ("flash_attention_bwd", "ssd_bwd"):
             launches[k] = launches.get(k) or per_step[k]
     return launches, errs
+
+
+def phase_moe_frontends(gen):
+    """Path F, MoE and the modality frontends: (a) jamba-v0.1-52b int8 at
+    full width, the f32 gate of cuda against ref with its routing compared;
+    (b) jamba served int8 in bf16 at B 8, prompt 512, 64 new tokens; (c)
+    musicgen-medium's f32 train gate with its 256-frame prefix, then 10
+    bf16 steps through the launcher at --seq 512; (d) each arch of the
+    slice at smoke size: one generate and two train steps. Returns jamba's
+    serve launches."""
+    t0 = time.perf_counter()
+    phase_full_width_f32(gen, MOE_ARCH, quantize="int8",
+                         tag="15 moe+frontends (a)")
+    launches = phase_serve(gen, MOE_ARCH, "int8", tag="15 moe+frontends (b)")
+    lm_gate(AUDIO_ARCH, T=AUDIO_GATE_T, tag="15 moe+frontends (c)")
+    lm_launcher_run(AUDIO_ARCH, seq=AUDIO_SEQ, tag="15 moe+frontends (c)")
+    for arch in SLICE_ARCHS:
+        smoke_arch(gen, arch)
+    print(f"[15 moe+frontends] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def smoke_arch(gen, arch):
+    """One arch at its smoke config in bf16 on the card: a generate of 8
+    tokens from a 32-token prompt with its launch counts, then two train
+    steps through the launcher (B 2 x T 64, a frontend's prefix of 8 among
+    the 64) with a step's launches: each attention and SSM layer's forward
+    twice (the recompute of remat "full") and backward once, one gae."""
+    cfg = get_smoke_config(arch)
+    policy = BackbonePolicy(cfg, generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                           device="cuda")
+    build.reset_launches()
+    out = actor.generate(policy, prompt, 8, gen)
+    sync()
+    got, want = dict(build.LAUNCHES), serve_launches(cfg, new=8)
+    if any(got[k] != n for k, n in want.items()) or out.shape != (2, 8) \
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{arch} smoke generate: tokens {out.tolist()}"
+                             f", launches {got}, expected {want}")
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    ssm = cfg.num_layers - attn
+    per_step = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+                "ssd": 2 * ssm, "ssd_bwd": ssm, "gae": 1}
+    build.reset_launches()
+    run = launch_train.main(["--arch", arch, "--smoke", "--batch", "2",
+                             "--seq", "64", "--steps", "2"])
+    sync()
+    steps = dict(build.LAUNCHES)
+    m = run.metrics
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(run.state.params), tree_leaves(run.policy.params())))
+    if any(steps[k] != 2 * n for k, n in per_step.items()) or not (
+            math.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+            and moved):
+        raise AssertionError(f"{arch} smoke train: launches {steps} over 2 "
+                             f"steps, expected {per_step} a step; loss "
+                             f"{float(m['loss'])}, grad_norm "
+                             f"{float(m['grad_norm'])}, {moved} leaves "
+                             f"moved")
+    kind = (f", {cfg.num_experts} experts top-{cfg.top_k}"
+            if cfg.num_experts else "") + (
+        f", prefix {cfg.frontend_prefix}" if cfg.frontend else "")
+    print(f"[15 moe+frontends (d)] {arch} smoke ({cfg.num_layers}L d"
+          f"{cfg.d_model}{kind}): "
+          f"generate launches { {k: v for k, v in got.items() if v} }; two "
+          f"train steps, loss {float(m['loss']):+.4f}, moe_aux "
+          f"{float(m['moe_aux']):.4f}, grad_norm {float(m['grad_norm']):.3f},"
+          f" {moved} of {len(tree_leaves(run.state.params))} leaves moved, "
+          f"launches a step { {k: v // 2 for k, v in steps.items() if v} }",
+          flush=True)
+    del policy, run
+    torch.cuda.empty_cache()
 
 
 def kernel_rows(gen, launches, errs):
@@ -2451,6 +2705,27 @@ def kernel_rows(gen, launches, errs):
             rows.append(("ssd", flops, PEAK_FLOPS, nbytes, ms,
                          cuda_ms(ref.ssd, ssd_sets, 3), None))
         del ssd_sets
+    # and at jamba-v0.1-52b's prefill shape (state 16), 3 input sets of
+    # 69.5 MB, where bytes bound it
+    ssd_sets = [ssd_inputs(gen, BATCH, PROMPT, JAMBA_H, JAMBA_P, JAMBA_N, 1,
+                           bf, True) for _ in range(3)]
+    flops, nbytes = ssd_work(BATCH, PROMPT, JAMBA_H, JAMBA_P, JAMBA_N, 1,
+                             SSD_Q, 2)
+    reps = [graph_ms(lambda *a: ssd(*a, chunk=SSD_Q), ssd_sets, 12)
+            for _ in range(7)]
+    ms = statistics.median(reps)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    print(f"[kernel] ssd at jamba-v0.1-52b's prefill shape B {BATCH} T "
+          f"{PROMPT} H {JAMBA_H} P {JAMBA_P} N {JAMBA_N} G 1 chunk {SSD_Q} "
+          f"bf16, x a view, by graph replay: median {ms:.4f} ms (readings "
+          f"{min(reps):.4f}-{max(reps):.4f}), plain "
+          f"{cuda_ms(ref.ssd, ssd_sets, 3):.4f} ms, bound "
+          f"{max(t_ops, t_bytes):.4f} ms by "
+          f"{'operations' if t_ops > t_bytes else 'bytes'} ({flops:.4g} "
+          f"FLOP, {nbytes:.4g} B; {100 * max(t_ops, t_bytes) / ms:.1f}% of "
+          f"the bound, {nbytes / ms / 1e9:.2f} TB/s); 28 calls a jamba "
+          f"prefill", flush=True)
+    del ssd_sets
 
     rows.append(pack_row(gen))
 
@@ -2836,28 +3111,48 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
+
+    def lap(phase):
+        print(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     smi = phase_device()
     phase_build()
+    lap("2 build")
     errs = phase_parity(gen)
+    lap("3 parity")
     phase_full_width_f32(gen, ARCH)
     phase_full_width_f32(gen, SSM_ARCH)
     phase_full_width_f32(gen, ARCH, quantize="int8")
+    lap("4 full width")
     launches = phase_serve(gen, ARCH)
     launches["ssd"] = phase_serve(gen, SSM_ARCH)["ssd"]
     launches["quant_matmul"] = phase_serve(gen, ARCH, "int8")["quant_matmul"]
-    phase_serve(gen, ARCH, "int4")
+    phase_serve(gen, ARCH, "int4", depth=INT4_DEPTH)
+    lap("5 serve")
     launches["gae"] = phase_train()["gae"]
+    lap("6 train")
     phase_emulation(gen)
     phase_pool()
+    lap("7-8 emulation, pool")
     launches["pack"] = phase_host()["pack"]
+    lap("9 host")
     phase_checkpoint()
+    lap("10 checkpoint")
     phase_async()
+    lap("11 async")
     phase_ocean2()
+    lap("12 ocean2")
     phase_selfplay()
+    lap("13 selfplay")
     lm_launches, lm_errs = phase_lm_train(gen)
+    lap("14 lm train")
+    phase_moe_frontends(gen)
+    lap("15 moe+frontends")
     rows = kernel_rows(gen, launches, errs) + bwd_rows(gen, lm_launches,
                                                        lm_errs)
+    lap("kernel rows")
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -2,17 +2,26 @@
 
 ``get_config(arch)`` returns the exact full-size config; ``get_smoke_config``
 returns the reduced same-family config for CPU smoke tests, by the same rule
-as ``repro.configs``. Only the archs whose slices have been ported are
-registered; the others arrive with their slices (ROADMAP.md).
+as ``repro.configs``. Eight of the reference's ten archs are registered;
+gemma-7b (head dim 256) and stablelm-12b (head dim 160) wait for attention
+kernels at those head dims (ROADMAP.md).
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, with_overrides
-from repro_torch.configs import mamba2_1p3b, qwen3_0p6b
+from repro_torch.configs import (dbrx_132b, internlm2_20b, internvl2_26b,
+                                 jamba_v0p1_52b, llama4_maverick_400b_a17b,
+                                 mamba2_1p3b, musicgen_medium, qwen3_0p6b)
 
 _MODULES = {
-    "qwen3-0.6b": qwen3_0p6b,
+    "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
+    "dbrx-132b": dbrx_132b,
     "mamba2-1.3b": mamba2_1p3b,
+    "internlm2-20b": internlm2_20b,
+    "qwen3-0.6b": qwen3_0p6b,
+    "internvl2-26b": internvl2_26b,
+    "musicgen-medium": musicgen_medium,
+    "jamba-v0.1-52b": jamba_v0p1_52b,
 }
 
 ARCHS = tuple(_MODULES)

@@ -77,10 +77,16 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     def is_moe_layer(self, i: int) -> bool:
+        # MoE on layers where (i % moe_period) == moe_period - 1, matching
+        # interleaved dense/MoE stacks (llama4 maverick, jamba).
         if self.num_experts == 0:
             return False
         return (i % self.moe_period) == (self.moe_period - 1)

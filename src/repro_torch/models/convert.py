@@ -12,7 +12,10 @@ returns, as numpy arrays (``jax.tree.map(np.asarray, params)``), and gives a
 ``p`` of ``layers/l{i}`` becomes ``layers.{p * period + i}``, where
 ``period`` is the number of ``l{i}`` keys. Layouts are otherwise the same,
 the Mamba2 leaves included: ``ssm.in_proj``, ``conv_w`` and ``out_proj`` in
-the parameter dtype, ``ssm.A_log``, ``D``, ``dt_bias`` and ``norm`` in f32.
+the parameter dtype, ``ssm.A_log``, ``D``, ``dt_bias`` and ``norm`` in f32;
+and the MoE leaves: ``moe.router`` (d, E) in f32, ``moe.wi`` (E, d, 2f) and
+``moe.wo`` (E, f, d) in the parameter dtype (jamba's period is 8: attention
+every 8th layer, MoE every 2nd).
 
 ``backbone_tree_from_jax(tree)`` gives the same parameters as the plain
 nested dict that ``BackbonePolicy.params()`` returns and the learner trains
@@ -28,7 +31,8 @@ rejects; they go through their 16-bit pattern, bit for bit. A quantised tree
 built with the same ``quantize``: int8 leaves as they are, ``ml_dtypes``
 int4 leaves as int8 values packed two to a byte (``kernels/ref.py::
 pack_int4``), and each ``<name>_scale``, (n_periods, last) per layer leaf,
-unstacked like the rest.
+unstacked like the rest: an expert leaf's scale is one (2f,) or (d,)
+vector a layer, shared across its experts.
 """
 from __future__ import annotations
 

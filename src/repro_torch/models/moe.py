@@ -1,0 +1,127 @@
+"""Mixture-of-Experts: top-k routing with capacity dispatch by index.
+
+Counterpart of ``repro/models/moe.py``, with the same meaning step for step:
+
+* the router's dot runs in x.dtype and is upcast after, the softmax in f32;
+* top-k breaks ties as ``jax.lax.top_k`` does, the lower expert index first
+  (a stable descending sort, of which the first k);
+* the k gates are renormalised over their sum, floored at 1e-9;
+* the Switch aux loss counts the top-1 choice only: ``E · Σ me·ce``;
+* each (token, choice) pair takes its place in its expert's buffer of C
+  slots from a cumsum over the token-major (S·k) order; a pair at or past C
+  goes to one extra row that is thrown away;
+* the groups are sequences: each has its own C slots an expert;
+* the expert FFN is SwiGLU, or tanh-GELU when ``mlp_activation`` is
+  ``"gelu"``; the gather back weights each slot by its gate in
+  ``cfg.dtype``.
+
+The reference lays the buffer out group-major, (G, E·C + 1, d). The port
+lays it out expert-major, E blocks of (G·C, d) and the drop row last, so
+that each expert's rows are one contiguous (G·C, d) matrix. Its experts run
+as one batched product over E with float weights (the reference's einsums;
+no Pallas kernel runs there either). With quantised weights each expert's
+slice ``wi[e]`` / ``wo[e]``, a contiguous 2-D int8 or packed int4 weight,
+goes through ``kernels.ops.quant_matmul`` over that expert's G·C rows with
+the leaf's per-column scale, which all experts share: 2·E launches a layer
+and forward, and no dequantised copy of the experts is ever made.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.params import ParamSpec
+
+
+def moe_spec(cfg: ModelConfig):
+    d, f, E = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
+    return {
+        "router": ParamSpec((d, E), fan_in=d, dtype=torch.float32),
+        "wi": ParamSpec((E, d, 2 * f), fan_in=d),
+        "wo": ParamSpec((E, f, d), fan_in=f),
+    }
+
+
+def capacity(cfg: ModelConfig, group_size: int) -> int:
+    c = int(math.ceil(group_size * cfg.top_k * cfg.capacity_factor
+                      / cfg.num_experts))
+    return max(8, ((c + 3) // 4) * 4)   # align a little for layout
+
+
+def route(params, x, cfg: ModelConfig):
+    """x: (G, S, d) → (probs (G,S,E) f32, gate (G,S,k) f32, eidx (G,S,k)
+    int64): the router's softmax, the top-k experts of each token (ties to
+    the lower index) and their renormalised gates."""
+    logits = (x @ params["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    eidx = torch.sort(probs, dim=-1, descending=True,
+                      stable=True).indices[..., :cfg.top_k]
+    gate = probs.gather(-1, eidx)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate, eidx
+
+
+def place(eidx, num_experts: int):
+    """eidx (G,S,k) → (G,S,k): each (token, choice) pair's place in its
+    expert's queue within its group, counted over the token-major (S·k)
+    order."""
+    G, S, k = eidx.shape
+    flat = eidx.reshape(G, S * k)
+    pos = F.one_hot(flat, num_experts).cumsum(dim=1)
+    return (pos.gather(-1, flat[..., None])[..., 0] - 1).reshape(G, S, k)
+
+
+def _experts(params, ebuf, cfg: ModelConfig):
+    """ebuf (E, R, d) → (E, R, d): each expert's FFN over its R rows."""
+    dt = ebuf.dtype
+    act = F.silu if cfg.mlp_activation == "silu" else \
+        (lambda g: F.gelu(g, approximate="tanh"))
+    wi_s, wo_s = params.get("wi_scale"), params.get("wo_scale")
+    if wi_s is None:
+        g, u = torch.bmm(ebuf, params["wi"].to(dt)).chunk(2, dim=-1)
+        return torch.bmm(act(g) * u, params["wo"].to(dt))
+    wi, wo = params["wi"], params["wo"]
+    ys = []
+    for e in range(ebuf.shape[0]):
+        g, u = kops.quant_matmul(ebuf[e], wi[e], wi_s).chunk(2, dim=-1)
+        ys.append(kops.quant_matmul(act(g) * u, wo[e], wo_s))
+    return torch.stack(ys)
+
+
+def moe_apply(params, x, cfg: ModelConfig):
+    """x: (G, S, d), one group a sequence. Returns (y (G,S,d) in x.dtype,
+    aux loss () f32)."""
+    G, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    C = capacity(cfg, S)
+    dt = dtype_of(cfg.dtype)
+
+    probs, gate, eidx = route(params, x, cfg)
+    me = probs.mean(dim=(0, 1))                                   # (E,)
+    ce = (F.one_hot(eidx[..., 0], E).float().sum(dim=1) / S).mean(dim=0)
+    aux = E * torch.sum(me * ce)
+
+    # each (token, choice) pair's slot: its expert's block, its group's C
+    # rows there, its place in the queue; at or past C the drop row
+    pos = place(eidx, E)
+    g_off = torch.arange(G, device=x.device)[:, None, None] * C
+    R = G * C                                      # an expert's rows
+    slot = torch.where(pos < C, eidx * R + g_off + pos,
+                       torch.full_like(pos, E * R)).reshape(-1)   # (G·S·k,)
+
+    # scatter tokens into the slots (the extra row E·R swallows drops)
+    src = x.to(dt).repeat_interleave(k, dim=1).reshape(-1, d)
+    buf = torch.zeros((E * R + 1, d), dtype=dt, device=x.device)
+    buf = buf.index_add(0, slot, src)
+    y = _experts(params, buf[:E * R].view(E, R, d), cfg)
+
+    # gather back: each token takes its k slots, weighted by its gates
+    ypad = torch.cat([y.reshape(E * R, d), y.new_zeros((1, d))])
+    out = ypad[slot].view(G, S, k, d)
+    out = (out * gate[..., None].to(dt)).sum(dim=2)
+    return out.to(x.dtype), aux

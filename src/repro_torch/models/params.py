@@ -10,6 +10,10 @@ Quantised serving: ``quantize_spec`` / ``quantize_params`` turn every matmul
 weight into int8 or int4 (packed two to a uint8, the layout of
 ``kernels/quant_matmul.py``) with a per-channel ``<name>_scale``; at its use
 site ``matmul`` sends such a weight through ``kernels.ops.quant_matmul``.
+``init_params(..., quantize=)`` draws and quantises leaf by leaf, so that a
+model whose float tree does not fit on the card (jamba's 103 GB in bf16)
+is built from its int8 tree and one leaf's draw; the result is bitwise
+that of ``quantize_params`` on the whole float tree.
 
 The sharding helpers of the JAX package (``constrain``, ``use_weight``,
 logical-axis rules) are not ported: on one device they are no-ops.
@@ -43,26 +47,41 @@ def _leaves(spec_tree, prefix=()):
             yield from _leaves(v, prefix + (k,))
 
 
+def _draw(spec: ParamSpec, generator, param_dtype, device):
+    """One leaf: zeros, or normal / sqrt(fan_in) drawn in f32 (divided in
+    place) and cast."""
+    dtype = spec.dtype or param_dtype
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    fan = spec.fan_in or (spec.shape[-2] if len(spec.shape) >= 2
+                          else spec.shape[-1])
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.div_(math.sqrt(fan)).to(dtype)
+
+
 def init_params(spec_tree, generator: torch.Generator,
-                param_dtype=torch.float32, device=None) -> dict:
+                param_dtype=torch.float32, device=None,
+                quantize: Optional[str] = None) -> dict:
     """Materialise a spec tree as a nested dict of tensors on ``device``
-    (default: the generator's device), drawing leaves in tree order."""
+    (default: the generator's device), drawing leaves in tree order. With
+    ``quantize`` ("int8" or "int4") each quantisable leaf is quantised
+    (``quantize_leaf``) before the next is drawn: the tree of
+    ``quantize_params(init_params(spec_tree, ...), spec_tree, quantize)``,
+    bit for bit, without the float tree."""
     device = torch.device(device) if device is not None else generator.device
     out: dict = {}
     for path, spec in _leaves(spec_tree):
-        dtype = spec.dtype or param_dtype
-        if spec.init == "zeros":
-            x = torch.zeros(spec.shape, dtype=dtype, device=device)
-        else:
-            fan = spec.fan_in or (spec.shape[-2] if len(spec.shape) >= 2
-                                  else spec.shape[-1])
-            x = (torch.randn(spec.shape, generator=generator,
-                             dtype=torch.float32, device=device)
-                 / math.sqrt(fan)).to(dtype)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = x
+        x = _draw(spec, generator, param_dtype, device)
+        if quantize and _quantizable(spec):
+            node[path[-1]], node[path[-1] + "_scale"] = quantize_leaf(
+                x, quantize)
+        else:
+            node[path[-1]] = x
+        del x      # a quantised leaf's float draw is freed before the next
     return out
 
 
@@ -123,26 +142,48 @@ def quantize_spec(spec_tree, qdtype: str = "int8"):
     return out
 
 
-def quantize_params(params: dict, spec_tree, qdtype: str = "int8") -> dict:
-    """Quantise a float tree drawn from ``spec_tree`` as the reference does
+QUANT_ROWS = 1 << 24    # elements of a leaf quantised at once
+
+
+def quantize_leaf(w, qdtype: str = "int8"):
+    """(q, scale) of one float leaf, as the reference quantises it
     (``repro/models/params.py::quantize_params``): symmetric per channel of
-    the last dim, ``scale = max|w| / qmax + 1e-12`` over all other dims,
+    the last dim, ``scale = max|w| / qmax + 1e-12`` over all other dims (for
+    a stacked (E, d, n) expert leaf one (n,) scale, shared across E and d),
     ``round`` half to even, clipped to ±127 (int8) or ±7 (int4, then
-    packed)."""
-    qmax = QMAX[qdtype]
+    packed). The leaf is read as (rows, n) in slices of about
+    ``QUANT_ROWS`` elements, its f32 copies one slice at a time: the scale
+    is the max of the slices' maxima, and every later step is elementwise,
+    so the result is exact."""
+    qmax, n = QMAX[qdtype], w.shape[-1]
+    rows = w.reshape(-1, n)
+    step = max(1, QUANT_ROWS // n)
+    amax = None
+    for r in range(0, rows.shape[0], step):
+        m = rows[r:r + step].float().abs().amax(dim=0)
+        amax = m if amax is None else torch.maximum(amax, m)
+    s = amax / qmax + 1e-12
+    q = torch.empty((rows.shape[0], (n + 1) // 2 if qdtype == "int4" else n),
+                    dtype=torch.uint8 if qdtype == "int4" else torch.int8,
+                    device=w.device)
+    for r in range(0, rows.shape[0], step):
+        qr = torch.clamp(torch.round(rows[r:r + step].float() / s), -qmax,
+                         qmax).to(torch.int8)
+        q[r:r + step] = pack_int4(qr) if qdtype == "int4" else qr
+    return q.view(w.shape[:-1] + q.shape[-1:]), s
+
+
+def quantize_params(params: dict, spec_tree, qdtype: str = "int8") -> dict:
+    """Quantise a float tree drawn from ``spec_tree``: every quantisable
+    leaf by ``quantize_leaf``, the others as they are."""
     out = {}
     for k, v in spec_tree.items():
         if not isinstance(v, ParamSpec):
             out[k] = quantize_params(params[k], v, qdtype)
-            continue
-        if not _quantizable(v):
+        elif _quantizable(v):
+            out[k], out[k + "_scale"] = quantize_leaf(params[k], qdtype)
+        else:
             out[k] = params[k]
-            continue
-        w = params[k].float()
-        s = w.abs().amax(dim=tuple(range(w.dim() - 1))) / qmax + 1e-12
-        q = torch.clamp(torch.round(w / s), -qmax, qmax).to(torch.int8)
-        out[k] = pack_int4(q) if qdtype == "int4" else q
-        out[k + "_scale"] = s
     return out
 
 

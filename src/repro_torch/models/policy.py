@@ -28,7 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.params import (QMAX, ParamSpec, Params, init_params,
-                                       quantize_params, quantize_spec, stored)
+                                       quantize_spec, stored)
 
 
 # -- LSTM cell ----------------------------------------------------------------
@@ -232,9 +232,11 @@ class BackbonePolicy(nn.Module):
     Parameters are drawn from ``generator`` (default: a new generator on
     ``device`` seeded with 0), in ``dtype`` (default ``cfg.param_dtype``).
     ``device=None`` means CUDA and raises without a Hopper card.
-    ``quantize="int8"`` or ``"int4"`` draws the same float parameters,
-    quantises them with ``params.quantize_params`` and keeps only the
-    quantised tree: every matmul weight then goes through ``quant_matmul``."""
+    ``quantize="int8"`` or ``"int4"`` draws the same float parameters and
+    quantises each as it is drawn (``params.init_params(..., quantize=)``,
+    bitwise ``params.quantize_params`` of the float tree), so that only the
+    quantised tree and one leaf's draw are ever held: every matmul weight
+    then goes through ``quant_matmul``."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: torch.Generator = None, dtype=None,
@@ -247,11 +249,9 @@ class BackbonePolicy(nn.Module):
         self.cfg, self.quantize = cfg, quantize
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        spec = self._float_spec()
-        tree = init_params(spec, generator,
-                           dtype_of(dtype or cfg.param_dtype), dev)
-        if quantize:
-            tree = quantize_params(tree, spec, quantize)
+        tree = init_params(self._float_spec(), generator,
+                           dtype_of(dtype or cfg.param_dtype), dev,
+                           quantize=quantize)
         self.backbone = Params(tree["backbone"])
         for k in ("value", "value_scale"):
             if k in tree:
@@ -298,23 +298,25 @@ class BackbonePolicy(nn.Module):
         # dot in hidden.dtype, upcast after
         return (hidden @ w.to(hidden.dtype))[..., 0].float()
 
-    def seq(self, params, tokens=None):
+    def seq(self, params, tokens=None, prefix=None):
         """Full-sequence forward, the training path. ``seq(params, tokens)``
         reads the tree ``params`` (``params()``, or one being trained);
-        ``seq(tokens)`` the policy's own parameters. tokens: (B, T). Returns
+        ``seq(tokens)`` the policy's own parameters. tokens: (B, Tt);
+        prefix: (B, P, d) frontend embeddings or None; T = P + Tt. Returns
         (logits (B,T,V), values (B,T), aux)."""
         if tokens is None:
             params, tokens = self._own(), params
-        hidden, aux = tr.forward(params["backbone"], tokens, self.cfg)
+        hidden, aux = tr.forward(params["backbone"], tokens, self.cfg,
+                                 prefix=prefix)
         logits = tr.logits_from_hidden(params["backbone"], hidden, self.cfg)
         return logits, self._value(params, hidden), aux
 
     @torch.no_grad()
-    def prefill(self, tokens, max_len: int):
-        """tokens: (B, T). Returns (last-token logits (B,V), value (B,),
-        caches)."""
+    def prefill(self, tokens, max_len: int, prefix=None):
+        """tokens: (B, Tt); prefix: (B, P, d) or None. Returns (last-token
+        logits (B,V), value (B,), caches of P + Tt positions)."""
         hidden, caches = tr.prefill(self.backbone, tokens, self.cfg,
-                                    max_len=max_len)
+                                    max_len=max_len, prefix=prefix)
         last = hidden[:, -1:]
         logits = tr.logits_from_hidden(self.backbone, last, self.cfg)
         return logits[:, 0], self._value(self._own(), last)[:, 0], caches

@@ -1,21 +1,25 @@
-"""Backbone assembler: dense, SSM and hybrid stacks from one config.
+"""Backbone assembler: dense, MoE, SSM and hybrid stacks from one config.
 
 Counterpart of ``repro/models/transformer.py``. JAX scans a stacked
 ``(n_periods, …)`` parameter tree; the port keeps one parameter tree per
 layer (``layers.0`` … ``layers.{L-1}``) and runs a Python loop over layers.
 Each layer's mixer is attention or a Mamba2 block by
-``cfg.is_attn_layer(i)``; MoE layers arrive with the MoE archs
-(``models/moe.py``, not yet ported) and raise ``NotImplementedError`` until
-then.
+``cfg.is_attn_layer(i)``, and its FFN a gated MLP, an MoE
+(``models/moe.py``) where ``cfg.is_moe_layer(i)``, or none (``d_ff`` 0 on
+a layer without experts).
 
 Three entry points: ``forward`` (full sequence; differentiable, the
 training path), ``prefill`` (build caches), ``decode`` (one token against
-caches). Under autograd ``forward`` runs each layer as ``cfg.remat`` says,
-as the reference's ``_remat`` does: ``"full"`` under
-``torch.utils.checkpoint`` (nothing of the layer saved, its forward run
-again in the backward, under the kernel backend the forward ran with:
-``dispatch.recompute_context``), ``"none"`` plainly; ``"dots"`` (save the
-matmul outputs) is not ported and raises.
+caches). ``forward`` and ``prefill`` take an optional ``prefix`` (B, P, d)
+of precomputed frontend embeddings (``models/frontends.py``), cast to
+``cfg.dtype`` and put before the token embeddings; ``decode`` takes none,
+as in the reference. ``forward`` sums the MoE layers' aux losses into
+``moe_aux``; ``prefill`` and ``decode`` drop them. Under autograd
+``forward`` runs each layer as ``cfg.remat`` says, as the reference's
+``_remat`` does: ``"full"`` under ``torch.utils.checkpoint`` (nothing of
+the layer saved, its forward run again in the backward, under the kernel
+backend the forward ran with: ``dispatch.recompute_context``), ``"none"``
+plainly; ``"dots"`` (save the matmul outputs) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -28,17 +32,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamSpec
 
 
 def layer_kinds(cfg: ModelConfig, i: int):
-    if cfg.is_moe_layer(i):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers arrive with the MoE archs "
-            f"(models/moe.py is not ported yet)")
     mixer = "attn" if cfg.is_attn_layer(i) else "ssm"
-    return mixer, (None if cfg.d_ff == 0 else "mlp")
+    if cfg.d_ff == 0 and not cfg.is_moe_layer(i):
+        ffn = None
+    else:
+        ffn = "moe" if cfg.is_moe_layer(i) else "mlp"
+    return mixer, ffn
 
 
 def _norm_spec(cfg: ModelConfig) -> ParamSpec:
@@ -57,6 +62,9 @@ def transformer_spec(cfg: ModelConfig):
         if ffn == "mlp":
             l["ln_ffn"] = _norm_spec(cfg)
             l["mlp"] = L.make_mlp_spec(cfg)
+        elif ffn == "moe":
+            l["ln_ffn"] = _norm_spec(cfg)
+            l["moe"] = moe_mod.moe_spec(cfg)
         layers[str(i)] = l
     spec = {"embedding": L.embedding_spec(cfg), "layers": layers,
             "final_norm": _norm_spec(cfg)}
@@ -65,10 +73,14 @@ def transformer_spec(cfg: ModelConfig):
 
 
 def _ffn(p, x, cfg: ModelConfig):
-    if "mlp" not in p:
-        return x
+    """The layer's FFN with its residual: (x, MoE aux loss or None)."""
+    if "ln_ffn" not in p:
+        return x, None
     h = L.rms_norm(x, p["ln_ffn"], cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h, cfg)
+    if "moe" in p:
+        y, aux = moe_mod.moe_apply(p["moe"], h, cfg)
+        return x + y, aux
+    return x + L.mlp_apply(p["mlp"], h, cfg), None
 
 
 def _layer(p, x, cfg: ModelConfig):
@@ -80,22 +92,33 @@ def _layer(p, x, cfg: ModelConfig):
     return _ffn(p, x, cfg)
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    """Full-sequence forward. tokens: (B, T). Returns (hidden (B,T,d),
-    aux dict)."""
+def _embed_inputs(params, tokens, cfg: ModelConfig, prefix=None):
+    """tokens (B, Tt) and an optional prefix (B, P, d) → (B, P + Tt, d)."""
+    x = L.embed_tokens(params["embedding"], tokens, cfg)
+    if prefix is not None:     # vlm / audio stub frontend
+        x = torch.cat([prefix.to(L.dtype_of(cfg.dtype)), x], dim=1)
+    return x
+
+
+def forward(params, tokens, cfg: ModelConfig, prefix=None):
+    """Full-sequence forward. tokens: (B, Tt); prefix: (B, P, d) or None.
+    Returns (hidden (B, P + Tt, d), {"moe_aux": () f32})."""
     remat = torch.is_grad_enabled() and cfg.remat != "none"
     if remat and cfg.remat != "full":
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported; the port trains with "
             f"'full' or 'none'")
-    x = L.embed_tokens(params["embedding"], tokens, cfg)
+    x = _embed_inputs(params, tokens, cfg, prefix)
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
         p = params["layers"][str(i)]
-        x = (checkpoint(_layer, p, x, cfg, use_reentrant=False,
-                        context_fn=dispatch.recompute_context) if remat
-             else _layer(p, x, cfg))
+        x, a = (checkpoint(_layer, p, x, cfg, use_reentrant=False,
+                           context_fn=dispatch.recompute_context) if remat
+                else _layer(p, x, cfg))
+        if a is not None:
+            aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, {"moe_aux": torch.zeros((), device=x.device)}
+    return x, {"moe_aux": aux}
 
 
 def logits_from_hidden(params, x, cfg: ModelConfig):
@@ -127,11 +150,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     return Caches(kv, ssm, torch.zeros((), dtype=torch.int32, device=device))
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_len: int = 0):
-    """Forward + cache build. tokens: (B, T). Returns (hidden, caches).
-    KV caches are allocated at ``max_len`` and filled; SSM caches are the
-    conv window and final state that the scan returns."""
-    x = L.embed_tokens(params["embedding"], tokens, cfg)
+def prefill(params, tokens, cfg: ModelConfig, max_len: int = 0,
+            prefix=None):
+    """Forward + cache build. tokens: (B, Tt); prefix: (B, P, d) or None;
+    T = P + Tt. Returns (hidden, caches). KV caches are allocated at
+    ``max_len`` (default T) and filled; SSM caches are the conv window and
+    final state that the scan returns."""
+    x = _embed_inputs(params, tokens, cfg, prefix)
     B, T, _ = x.shape
     kv, ssm = [], []
     for i in range(cfg.num_layers):
@@ -146,7 +171,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int = 0):
             y, c = ssm_mod.ssm_apply(p["ssm"], h, cfg, return_cache=True)
             kv.append(None)
             ssm.append(c)
-        x = _ffn(p, x + y, cfg)
+        x, _ = _ffn(p, x + y, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, Caches(kv, ssm, torch.full((), T, dtype=torch.int32,
                                          device=x.device))
@@ -172,6 +197,6 @@ def decode(params, tokens, cfg: ModelConfig, caches: Caches):
             y, c = ssm_mod.ssm_decode(p["ssm"], h, cfg, caches.ssm[i])
             kv.append(None)
             ssm.append(c)
-        x = _ffn(p, x + y, cfg)
+        x, _ = _ffn(p, x + y, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, Caches(kv, ssm, caches.length + 1)

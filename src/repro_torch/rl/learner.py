@@ -275,11 +275,8 @@ def make_lm_train_step(policy, tcfg: TrainConfig, total_steps: int = 10_000,
     cfg = policy.cfg
 
     def loss_fn(params, batch):
-        if "prefix" in batch:
-            raise NotImplementedError(
-                f"{cfg.name}: frontend prefixes arrive with "
-                f"models/frontends.py (not ported yet)")
-        hidden, aux = tr.forward(params["backbone"], batch["tokens"], cfg)
+        hidden, aux = tr.forward(params["backbone"], batch["tokens"], cfg,
+                                 prefix=batch.get("prefix"))
         values = policy._value(params, hidden)                 # (B, T)
         with torch.no_grad():
             adv = kops.gae(batch["rewards"], batch["old_values"],

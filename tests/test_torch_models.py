@@ -70,7 +70,7 @@ def test_configs_match_jax():
             full.head_dim, full.d_ff, full.vocab_size) == \
         (28, 1024, 16, 8, 128, 3072, 151936)
     with pytest.raises(KeyError, match="not ported"):
-        get_config("jamba-v0.1-52b")
+        get_config("gemma-7b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
