@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs fifteen phases, each printing its
+``src/repro_torch/kernels/csrc`` and runs sixteen phases, each printing its
 lines (and a ``[time]`` line after each, the script's seconds so far); any
 failure ends the run with a traceback and a non-zero exit:
 
@@ -14,7 +14,8 @@ failure ends the run with a traceback and a non-zero exit:
                  flash_attention.cu, quant_matmul.cu, flash_attention_bwd.cu
                  and ssd_bwd.cu with ``-Xptxas -v`` prints each kernel's
                  registers and spills
-                 (none allowed in the serve-path instances nor in
+                 (none allowed in the serve-path instances, the bf16
+                 forward and decode at hd 160 and 256 among them, nor in
                  flash_attention_bwd's wgmma kernels at hd 128 nor in
                  ssd_bwd's tensor-core kernel, ``NO_SPILLS``), and
                  ``cuobjdump -sass`` of the
@@ -221,10 +222,42 @@ failure ends the run with a traceback and a non-zero exit:
                  smoke config in bf16: a generate with its launch counts
                  and two train steps through the launcher (the MoE
                  backward through autograd, the prefix for the frontend
-                 archs)
+                 archs); gemma-7b and stablelm-12b the same
+ 16. head dims   path G, gemma-7b (hd 256, 16 heads, 16 KV heads, GeGLU,
+                 tied embeddings) and stablelm-12b (hd 160, 32 heads, 8 KV
+                 heads), after freeing phase 15's memory: (a) the three
+                 attention kernels at hd 160 and 256 against their plain
+                 versions, bf16 at 2e-2 and f32 at 1e-4 (TF32 off): the
+                 forward (``FA_CASES`` at those head dims: both archs' serve
+                 shapes, T and S off the tiles, T = 1, S != T, non-causal,
+                 G 1, 4 and an odd group) on the route ``fwd_route`` names
+                 as the launcher counted it, decode (``hd_decode_cases``:
+                 both archs' caches at lengths 0, mid and S - 1, a whole
+                 cluster, G 8) and the backward (``FA_BWD_CASES`` at those
+                 head dims: both archs' training shapes, ragged T, T = 1,
+                 S != T, non-causal, an odd group; on the CUDA cores, bit
+                 for bit across two calls), and decode's shared memory as
+                 ``flash_decode.plan`` reads it equal to the launcher's at
+                 every instance; (b) both archs' f32 serve gates as phase 4
+                 runs them at full width and depth (34 and 48.6 GB of
+                 params), within 1e-3; (c) both served as phase 5 serves, in
+                 bf16 at full width and depth: 28 flash_attention a prefill
+                 (all on wgmma) and 1,764 flash_decode a generate for gemma,
+                 40 and 2,520 for stablelm; (d) each arch's f32 train gate
+                 as phase 14(b)'s at depth ``HD_GATE_DEPTH`` 4, then 10 bf16
+                 steps through the launcher at depth ``HD_TRAIN_DEPTH`` 8
+                 (full width, B 8 x T 256; ``at_depth``), with 2L
+                 flash_attention, L flash_attention_bwd (all on the CUDA
+                 cores) and 1 gae launch a step and a peak memory below
+                 ``HD_PEAK_GIB`` 70 GiB
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
-version's, its bound and a library call. flash_attention and SDPA are timed
+version's, its bound and a library call. First, a line for each new head
+dim: flash_attention and flash_decode at gemma-7b's and stablelm-12b's
+serve shapes in turns with SDPA, and (before the backward rows)
+flash_attention_bwd at their training shapes against SDPA's backward by the
+profiler, each with its launches on phase 16's paths. flash_attention and
+SDPA are timed
 in turns over 9 rounds by CUDA-graph replay, and the row gives each one's
 median; a line before it does the same at T 2048, where operations bound
 it. flash_decode's row is timed the same way against SDPA over the filled
@@ -256,6 +289,8 @@ Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 from __future__ import annotations
 
 import ast
+import ctypes
+import gc
 import itertools
 import json
 import math
@@ -291,10 +326,12 @@ from repro_torch.envs.ocean import OCEAN  # noqa: E402
 from repro_torch.envs.ocean_host import OCEAN_HOST  # noqa: E402
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    BWD, bwd_route, flash_attention, flash_attention_bwd, flash_attention_fwd)
+    BWD, bwd_route, flash_attention, flash_attention_bwd, flash_attention_fwd,
+    fwd_route)
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
-    max_clusters as fd_max_clusters, plan as fd_plan)
+    SMS, max_clusters as fd_max_clusters, plan as fd_plan,
+    smem_bytes as fd_smem)
 from repro_torch.kernels.gae import gae  # noqa: E402
 from repro_torch.kernels.pack import MAX_LEAVES, pack  # noqa: E402
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
@@ -324,7 +361,15 @@ ARCH, SSM_ARCH = "qwen3-0.6b", "mamba2-1.3b"
 # full width, and every arch of the slice at smoke size
 MOE_ARCH, AUDIO_ARCH = "jamba-v0.1-52b", "musicgen-medium"
 SLICE_ARCHS = ("internlm2-20b", "internvl2-26b", AUDIO_ARCH, MOE_ARCH,
-               "dbrx-132b", "llama4-maverick-400b-a17b")
+               "dbrx-132b", "llama4-maverick-400b-a17b", "gemma-7b",
+               "stablelm-12b")
+# path G, the head-dim slice: gemma-7b (hd 256, H 16, K 16) and
+# stablelm-12b (hd 160, H 32, K 8) served at full width and depth, trained
+# at full width and depth HD_GATE_DEPTH (f32 gate) and HD_TRAIN_DEPTH (bf16)
+HD_ARCHS = ("gemma-7b", "stablelm-12b")
+NEW_HEAD_DIMS = (160, 256)
+HD_GATE_DEPTH, HD_TRAIN_DEPTH = 4, 8
+HD_PEAK_GIB = 70        # the depth-8 bf16 run's peak memory must stay below
 AUDIO_GATE_T = 320      # the f32 gate's T: the 256-frame prefix + 64 tokens
 AUDIO_SEQ = 512         # the launcher's --seq: 256 frames + 256 tokens
 NEAR_TIE = 1e-4         # a routing flip's largest router-probability gap
@@ -358,7 +403,10 @@ KERNELS = {
 }
 # attention parity cases (B, T, S, H, K, hd, causal): the serve shape, ragged
 # tails, one row, one row past a tile, S > T and S < T, non-causal, MQA, MHA
-# and an odd group (one head per block on the wgmma path), and every head dim
+# and an odd group (one head per block on the wgmma path), and every head
+# dim; those at hd 160 and 256 (gemma's and stablelm's serve shapes, T and
+# S off the 64-row tiles, T = 1, S != T, non-causal, G 1, 4 and an odd 3)
+# run in phase 16, the rest in phase 3
 FA_CASES = (
     (BATCH, PROMPT, PROMPT, 16, 8, 128, True), (2, 200, 200, 16, 8, 128, True),
     (3, 77, 77, 8, 2, 64, True), (2, 130, 130, 4, 2, 32, True),
@@ -366,7 +414,15 @@ FA_CASES = (
     (2, 100, 300, 8, 2, 128, True), (2, 130, 200, 8, 4, 64, False),
     (2, 200, 70, 4, 4, 32, False), (2, 96, 96, 4, 1, 16, True),
     (1, 64, 64, 4, 1, 128, False), (2, 200, 200, 4, 4, 128, True),
-    (2, 300, 150, 6, 2, 64, True))
+    (2, 300, 150, 6, 2, 64, True),
+    (BATCH, PROMPT, PROMPT, 16, 16, 256, True),
+    (BATCH, PROMPT, PROMPT, 32, 8, 160, True),
+    (2, 200, 200, 16, 16, 256, True), (2, 130, 130, 32, 8, 160, True),
+    (2, 1, 1, 16, 16, 256, True), (2, 1, 1, 32, 8, 160, True),
+    (2, 65, 65, 4, 1, 256, True), (2, 100, 300, 8, 2, 160, True),
+    (2, 300, 100, 4, 4, 256, True), (2, 130, 200, 8, 4, 160, False),
+    (2, 200, 70, 4, 4, 256, False), (2, 96, 96, 6, 2, 160, True),
+    (2, 150, 150, 6, 2, 256, True))
 FA_LONG = 2048      # a prompt length where operations bound flash_attention
 FD_LONG = 8192      # a cache length whose K/V (268 MB) exceeds the L2
 # mamba2-1.3b's SSD at the serve shape: heads, head dim, state, groups, chunk
@@ -431,7 +487,10 @@ LM_GATE_SEED = 0           # the gate's own generator (tools/ reruns it)
 # backward's edge cases (B, T, S, H, K, hd, causal): every head dim, MQA,
 # an odd group, S != T, non-causal, ragged T, T = 1; for the wgmma route's
 # tiling T and S off the 64- and 128-row tiles in both directions, MQA at
-# hd 64, an odd group at hd 128, non-causal at both head dims
+# hd 64, an odd group at hd 128, non-causal at both head dims; at hd 160
+# and 256 (phase 16; phase 14 runs the rest) gemma's and stablelm's
+# training shapes, ragged T off the 32- and 64-row tiles, T = 1, S != T,
+# non-causal, an odd group
 FA_TRAIN = (LM_BATCH, LM_SEQ, 16, 8, 128)
 FA_BWD_CASES = (
     (LM_BATCH, LM_SEQ, LM_SEQ, 16, 8, 128, True),
@@ -443,7 +502,13 @@ FA_BWD_CASES = (
     (1, 129, 129, 8, 2, 128, True), (2, 190, 77, 8, 4, 128, True),
     (2, 77, 190, 4, 2, 64, True), (2, 150, 150, 8, 1, 64, True),
     (2, 100, 100, 6, 2, 128, True), (2, 200, 90, 4, 2, 128, False),
-    (1, 70, 250, 4, 4, 64, False))
+    (1, 70, 250, 4, 4, 64, False),
+    (LM_BATCH, LM_SEQ, LM_SEQ, 16, 16, 256, True),
+    (LM_BATCH, LM_SEQ, LM_SEQ, 32, 8, 160, True),
+    (2, 200, 200, 16, 16, 256, True), (2, 130, 130, 32, 8, 160, True),
+    (2, 1, 1, 16, 16, 256, True), (2, 100, 300, 8, 2, 160, True),
+    (2, 190, 77, 4, 4, 256, True), (2, 130, 200, 8, 4, 160, False),
+    (2, 96, 96, 6, 2, 256, True))
 # the same with q, k, v views of one fused projection and a transposed,
 # non-contiguous do (TMA reads both as they lie)
 FA_BWD_VIEWS = ((2, 150, 150, 16, 8, 128, True),
@@ -629,9 +694,10 @@ INSTANCES = {
 SASS_NEEDS = {
     "ssd": {"bf16 tensor cores": (1, (("HMMA", "HGMMA"),
                                       ("LDGSTS", "UTMALDG")))},
-    "flash_decode": {"bf16": (4, (("HMMA",), ("LDGSTS",)))},
-    "flash_attention": {"bf16": (4, (("HMMA", "HGMMA"),
-                                     ("LDGSTS", "UTMALDG")))},
+    "flash_decode": {"bf16": (6, (("HMMA",), ("LDGSTS",)))},
+    "flash_attention": {"bf16": (6, (("HMMA", "HGMMA"),
+                                     ("LDGSTS", "UTMALDG"))),
+                        "bf16 wgmma": (4, (("HGMMA",), ("UTMALDG",)))},
     "quant_matmul": {"bf16 decode": (8, (("HMMA",), ("LDGSTS",))),
                      "bf16 wgmma": (2, (("HGMMA",), ("UTMALDG",)))},
     # flash_attention_bwd's wgmma route (dq and dk/dv at hd 64 and 128);
@@ -643,8 +709,9 @@ SASS_NEEDS = {
 # instances on the serve and training paths, where ptxas must report no
 # spills
 NO_SPILLS = {"ssd": ("bf16 tensor cores",),     # mamba2's P 64 among them
-             "flash_decode": ("bf16 hd 128",),
-             "flash_attention": ("bf16 wgmma hd 128",),
+             "flash_decode": ("bf16 hd 128", "bf16 hd 160", "bf16 hd 256"),
+             "flash_attention": ("bf16 wgmma hd 128", "bf16 wgmma hd 160",
+                                 "bf16 wgmma hd 256"),
              "quant_matmul": ("bf16 decode (K, N) int8 MT 1",
                               "bf16 decode (K, N) int4 MT 1",
                               "bf16 decode (N, K) int8 MT 1",
@@ -761,33 +828,21 @@ def phase_parity(gen):
     cases = 0
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for shape in FA_CASES:
-            B, T, S, H, K, hd, causal = shape
-            q = randn(gen, (B, T, H, hd), dtype)
-            k, v = (randn(gen, (B, S, K, hd), dtype) for _ in range(2))
-            err = check_close(f"flash_attention {shape} {dtype}",
-                              flash_attention(q, k, v, causal=causal),
-                              ref.flash_attention(q, k, v, causal=causal),
-                              tol)
+            if shape[5] in NEW_HEAD_DIMS:
+                continue                    # phase 16
+            err = fa_case(gen, shape, dtype, tol)
             if shape == FA_CASES[0] and dtype == torch.bfloat16:
                 errs["flash_attention"] = err
             cases += 1
         # (B, S, H, K, hd) x cache fill, then the lengths about the split
         # (0, split - 1, split, split + 1, S - 1) at S on and off 16, query
         # heads a KV head from 1 to 20 at every head dim, and strided views
-        S = PROMPT + NEW
         for shape, lengths in fd_cases():
-            B, S_, H, K, hd = shape
-            q = randn(gen, (B, H, hd), dtype)
-            k, v = (randn(gen, (B, S_, K, hd), dtype) for _ in range(2))
-            for L in lengths:
-                length = torch.tensor(L, dtype=torch.int32, device="cuda")
-                err = check_close(f"flash_decode {shape} length {L} {dtype}",
-                                  flash_decode(q, k, v, length),
-                                  ref.flash_decode(q, k, v, length), tol)
-                if shape == (BATCH, S, 16, 8, 128) and \
-                        dtype == torch.bfloat16:
-                    errs["flash_decode"] = max(errs["flash_decode"], err)
-                cases += 1
+            err = fd_case(gen, shape, lengths, dtype, tol)
+            if shape == (BATCH, PROMPT + NEW, 16, 8, 128) and \
+                    dtype == torch.bfloat16:
+                errs["flash_decode"] = max(errs["flash_decode"], err)
+            cases += len(lengths)
         cases += fd_view_case(gen, dtype, tol)
     # GAE at the training shapes: (B, T) views of (T, B)-stored tensors, as
     # the learner passes them, and a ragged B
@@ -908,6 +963,40 @@ def phase_parity(gen):
           f"(bf16; quant_matmul int8), the training shape (gae, f32) and "
           f"the host tier's shapes (pack, exact): {errs}", flush=True)
     return errs
+
+
+def fa_case(gen, shape, dtype, tol):
+    """One flash_attention parity case (B, T, S, H, K, hd, causal) against
+    the plain version, on the route ``fwd_route`` names as the launcher
+    counted it; returns the max abs error."""
+    B, T, S, H, K, hd, causal = shape
+    q = randn(gen, (B, T, H, hd), dtype)
+    k, v = (randn(gen, (B, S, K, hd), dtype) for _ in range(2))
+    build.routes("flash_attention", reset=True)
+    err = check_close(f"flash_attention {shape} {dtype}",
+                      flash_attention(q, k, v, causal=causal),
+                      ref.flash_attention(q, k, v, causal=causal), tol)
+    want = fwd_route(dtype, hd)
+    taken = build.routes("flash_attention")
+    if taken != {r: int(r == want) for r in taken}:
+        raise AssertionError(f"flash_attention {shape} {dtype}: routes "
+                             f"{taken}, expected {want}")
+    return err
+
+
+def fd_case(gen, shape, lengths, dtype, tol):
+    """flash_decode at one cache shape (B, S, H, K, hd) and each of
+    ``lengths`` against the plain version; returns the max abs error."""
+    B, S, H, K, hd = shape
+    q = randn(gen, (B, H, hd), dtype)
+    k, v = (randn(gen, (B, S, K, hd), dtype) for _ in range(2))
+    err = 0.0
+    for L in lengths:
+        length = torch.tensor(L, dtype=torch.int32, device="cuda")
+        err = max(err, check_close(f"flash_decode {shape} length {L} "
+                                   f"{dtype}", flash_decode(q, k, v, length),
+                                   ref.flash_decode(q, k, v, length), tol))
+    return err
 
 
 def ssd_case(what, args, chunk, tol, errs, serve):
@@ -1242,6 +1331,13 @@ def phase_serve(gen, arch, quantize=None, tag="5 serve", depth=None):
     if ssd_routes != {"tensor_core": want["ssd"], "cuda_core": 0}:  # cores
         raise AssertionError(f"ssd routes {ssd_routes}, expected "
                              f"{want['ssd']} tensor_core")
+    fa_routes = build.routes("flash_attention")     # every bf16 prefill's
+    if fa_routes != {"wgmma": want["flash_attention"], "mma_sync": 0,
+                     "cuda_core": 0}:               # attention on wgmma
+        raise AssertionError(f"flash_attention routes {fa_routes}, expected "
+                             f"{want['flash_attention']} wgmma")
+    fa_note = (f"; flash_attention routes {fa_routes}"
+               if want["flash_attention"] else "")
     if out.shape != (BATCH, NEW) or out.dtype != torch.int32 or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {out.shape} {out.dtype}")
@@ -1267,7 +1363,8 @@ def phase_serve(gen, arch, quantize=None, tag="5 serve", depth=None):
           f"generate {total_s * 1e3:.1f} ms, {tok_s:.1f} tok/s; prefill "
           f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/token; launches "
           f"{launches}{f'; quant_matmul routes {routes}' if quantize else ''}"
-          f"{f'; ssd routes {ssd_routes}' if want['ssd'] else ''}; params "
+          f"{f'; ssd routes {ssd_routes}' if want['ssd'] else ''}"
+          f"{fa_note}; params "
           f"built in {init_s:.1f} s; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
@@ -2250,15 +2347,16 @@ def held_ssd(x, dt, A, B_, C, chunk=128):
     return SSDHeldForward.apply(x, dt, A, B_, C, chunk)
 
 
-def lm_gate_inputs(arch, seed=LM_GATE_SEED, T=LM_GATE_T):
+def lm_gate_inputs(arch, seed=LM_GATE_SEED, T=LM_GATE_T, depth=None):
     """(cfg, tcfg, step, state, batch) of the f32 gate: full width in f32
-    (TF32 off), B 2 x T (a frontend arch's prefix among the T), params and
-    batch drawn from a generator of their own, so that
-    ``tools/lm_gate_spread.py`` takes the same input."""
+    (TF32 off), ``depth`` layers if given, B 2 x T (a frontend arch's prefix
+    among the T), params and batch drawn from a generator of their own, so
+    that ``tools/lm_gate_spread.py`` takes the same input."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = with_overrides(get_config(arch), dtype="float32",
-                         param_dtype="float32")
+                         param_dtype="float32",
+                         **({"num_layers": depth} if depth else {}))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     policy = BackbonePolicy(cfg, generator=gen)
     tcfg = TrainConfig(warmup_steps=0)      # the first step at the peak rate
@@ -2289,8 +2387,9 @@ def leaf_rel(got, want):
                                               1e-30) for n in want}
 
 
-def lm_gate(arch, T=LM_GATE_T, tag="14 lm train (b)"):
-    """One make_lm_train_step at full width in f32 (TF32 off), B 2 x T,
+def lm_gate(arch, T=LM_GATE_T, tag="14 lm train (b)", depth=None):
+    """One make_lm_train_step at full width in f32 (TF32 off), B 2 x T
+    (``depth`` layers if given, else the arch's),
     through the cuda ops and through ``dispatch.using("ref")`` (every op
     plain, its SSD stepped in f64) from the same params and batch: loss and
     grad_norm within 1e-3 relative, every leaf's gradient within 1e-3 of
@@ -2304,7 +2403,7 @@ def lm_gate(arch, T=LM_GATE_T, tag="14 lm train (b)"):
     largest, against a plain run whose SSD forward is the kernel's output
     (``held_ssd``): the backward kernel against the plain backward from one
     forward."""
-    cfg, tcfg, step, state, batch = lm_gate_inputs(arch, T=T)
+    cfg, tcfg, step, state, batch = lm_gate_inputs(arch, T=T, depth=depth)
     build.reset_launches()
     gm, got, gg = step_grads(step, state, batch, tcfg)
     launches = dict(build.LAUNCHES)
@@ -2379,11 +2478,46 @@ def named_leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)"):
+def moved_leaves(run, cfg):
+    """Leaves of a launcher run's params that differ from its initial draw,
+    redrawn from the launcher's seed (0): the run's policy holds the trained
+    params (``launch/train.py`` binds each step's)."""
+    init = BackbonePolicy(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0)).params()
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(run.state.params), tree_leaves(init)))
+    del init
+    return moved
+
+
+class at_depth:
+    """Within it, ``repro_torch.configs.get_config`` (which the launcher
+    reads) gives ``depth`` layers of each arch at its full width: the
+    launcher has no depth flag, nor has the reference's."""
+
+    def __init__(self, depth):
+        self.depth = depth
+
+    def __enter__(self):
+        import repro_torch.configs as configs
+        self.configs, self.orig = configs, configs.get_config
+        if self.depth:
+            configs.get_config = lambda arch: with_overrides(
+                self.orig(arch), num_layers=self.depth)
+        return self
+
+    def __exit__(self, *exc):
+        self.configs.get_config = self.orig
+
+
+def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)", depth=None):
     """LM PPO through the launcher at full width in bf16, B 8 x ``seq``
-    (a frontend arch's prefix among them), 10 steps; then one more step
-    profiled. Returns the launches per step."""
+    (a frontend arch's prefix among them), ``depth`` layers if given (then
+    the peak memory must stay below ``HD_PEAK_GIB``), 10 steps; then one
+    more step profiled. Returns the launches per step."""
     cfg = get_config(arch)
+    if depth:
+        cfg = with_overrides(cfg, num_layers=depth)
     attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
     per_step = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
                 "ssd": 2 * (cfg.num_layers - attn),
@@ -2393,8 +2527,9 @@ def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)"):
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     t0 = time.perf_counter()
-    run = launch_train.main(["--arch", arch, "--batch", str(LM_BATCH),
-                             "--seq", str(seq), "--steps", str(LM_STEPS)])
+    with at_depth(depth):
+        run = launch_train.main(["--arch", arch, "--batch", str(LM_BATCH),
+                                 "--seq", str(seq), "--steps", str(LM_STEPS)])
     sync()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -2404,8 +2539,11 @@ def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)"):
     if any(launches[k] != n * LM_STEPS for k, n in per_step.items()):
         raise AssertionError(f"{arch}: launches {launches} over {LM_STEPS} "
                              f"steps, expected {per_step} a step")
-    # every attention backward of a bf16 train step on the wgmma route
-    want_routes = {"wgmma": attn * LM_STEPS, "cuda_core": 0}
+    # every attention backward of a bf16 train step on the route its head
+    # dim takes: wgmma at 64 and 128, the CUDA cores at 160 and 256
+    route = bwd_route(torch.bfloat16, cfg.head_dim)
+    want_routes = {r: attn * LM_STEPS * (r == route)
+                   for r in ("wgmma", "cuda_core")}
     if bwd_routes != want_routes:
         raise AssertionError(f"{arch}: flash_attention_bwd routes "
                              f"{bwd_routes} over {LM_STEPS} steps, expected "
@@ -2420,11 +2558,14 @@ def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)"):
     if not (math.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0):
         raise AssertionError(f"{arch}: loss {float(m['loss'])}, grad_norm "
                              f"{float(m['grad_norm'])}")
-    moved = sum(not torch.equal(a, b) for a, b in zip(
-        tree_leaves(run.state.params), tree_leaves(run.policy.params())))
+    moved = moved_leaves(run, cfg)
     if not moved:
         raise AssertionError(f"{arch}: no parameter moved in {LM_STEPS} "
                              f"steps")
+    if depth and not peak < HD_PEAK_GIB * 2**30:
+        raise AssertionError(f"{arch} at depth {depth}: max_memory_allocated"
+                             f" {peak / 2**30:.2f} GiB, not below "
+                             f"{HD_PEAK_GIB} GiB")
     step_ms = run.loop.monitor.median * 1e3
     P = cfg.frontend_prefix if cfg.frontend else 0
     print(f"[{tag}] {cfg.name} bf16 {cfg.num_layers}L d{cfg.d_model} B "
@@ -2445,10 +2586,11 @@ def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)"):
     def one():
         state["ts"], _ = run.step(state["ts"], batch)
 
+    bwd = ("fa_bwd_wg_dq_kernel", "fa_bwd_wg_dkdv_kernel") \
+        if route == "wgmma" else ("fa_bwd_dq_kernel", "fa_bwd_dkdv_kernel")
     profile_steps(tag, f"{cfg.name} train step", one, 1, step_ms,
-                  ("fa_bwd_wg_dq_kernel", "fa_bwd_wg_dkdv_kernel",
-                   "flash_attention_wg_kernel", "ssd_bwd_tc_kernel",
-                   "ssd_bwd_da_kernel", "ssd_tc_kernel", "gae_kernel"))
+                  bwd + ("flash_attention_wg_kernel", "ssd_bwd_tc_kernel",
+                         "ssd_bwd_da_kernel", "ssd_tc_kernel", "gae_kernel"))
     del run, state, batch
     torch.cuda.empty_cache()
     return per_step
@@ -2465,6 +2607,8 @@ def phase_lm_train(gen):
     errs, cases = {}, 0
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for shape in FA_BWD_CASES:
+            if shape[5] in NEW_HEAD_DIMS:
+                continue                    # phase 16
             err = fa_bwd_case(gen, shape, dtype, tol)
             if shape == FA_BWD_CASES[0] and dtype == torch.bfloat16:
                 errs["flash_attention_bwd"] = err
@@ -2545,8 +2689,7 @@ def smoke_arch(gen, arch):
     sync()
     steps = dict(build.LAUNCHES)
     m = run.metrics
-    moved = sum(not torch.equal(a, b) for a, b in zip(
-        tree_leaves(run.state.params), tree_leaves(run.policy.params())))
+    moved = moved_leaves(run, cfg)
     if any(steps[k] != 2 * n for k, n in per_step.items()) or not (
             math.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
             and moved):
@@ -2570,33 +2713,200 @@ def smoke_arch(gen, arch):
     torch.cuda.empty_cache()
 
 
-def kernel_rows(gen, launches, errs):
+def hd_decode_cases():
+    """flash_decode's phase-16 cases ((B, S, H, K, hd), lengths): both
+    archs' caches at the serve shape (gemma's G 1, stablelm's G 4), one
+    pair split over a whole cluster (f32 at hd 256 held to 5 blocks by
+    ``plan``) and G 8, at lengths 0, mid and S - 1."""
+    S = PROMPT + NEW
+    return [((BATCH, S, 16, 16, 256), [0, S // 2, S - 1]),
+            ((BATCH, S, 32, 8, 160), [0, S // 2, S - 1]),
+            ((1, 577, 8, 1, 256), [0, 288, 576]),
+            ((2, 300, 16, 2, 160), [0, 150, 299])]
+
+
+def phase_headdims(gen):
+    """Path G, head dims 160 and 256: (a) the three attention kernels at
+    both against their plain versions (forward and backward on the route
+    each names, the backward bit for bit across two calls; decode's shared
+    memory as ``plan`` reads it against the launcher's); (b) gemma-7b's and
+    stablelm-12b's f32 serve gates at full width and depth; (c) both served
+    in bf16 at full width and depth; (d) both archs' f32 train gates at
+    depth ``HD_GATE_DEPTH``, then 10 bf16 steps through the launcher at
+    depth ``HD_TRAIN_DEPTH``, full width. Returns each arch's launches: a
+    prefill's and a generate's attention, a train step's backward."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[16 head dims] memory_allocated at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    t0 = time.perf_counter()
+    hd_parity(gen)
+    for arch in HD_ARCHS:
+        phase_full_width_f32(gen, arch, tag="16 head dims (b)")
+    launches = {}
+    for arch in HD_ARCHS:
+        got = phase_serve(gen, arch, tag="16 head dims (c)")
+        launches[arch] = {k: got[k] for k in ("flash_attention",
+                                              "flash_decode")}
+    for arch in HD_ARCHS:
+        lm_gate(arch, tag="16 head dims (d)", depth=HD_GATE_DEPTH)
+        per_step = lm_launcher_run(arch, tag="16 head dims (d)",
+                                   depth=HD_TRAIN_DEPTH)
+        launches[arch]["flash_attention_bwd"] = per_step[
+            "flash_attention_bwd"]
+    print(f"[16 head dims] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def hd_parity(gen):
+    """Phase 16(a): the attention kernels at hd 160 and 256 against their
+    plain versions, and decode's shared memory against plan's mirror."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    errs, cases = {}, 0
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for shape in FA_CASES:
+            if shape[5] not in NEW_HEAD_DIMS:
+                continue
+            err = fa_case(gen, shape, dtype, tol)
+            if shape[0] == BATCH:
+                errs[f"flash_attention hd {shape[5]} {dtype}"] = err
+            cases += 1
+        for shape, lengths in hd_decode_cases():
+            err = fd_case(gen, shape, lengths, dtype, tol)
+            if shape[0] == BATCH:
+                errs[f"flash_decode hd {shape[4]} {dtype}"] = err
+            cases += len(lengths)
+        for shape in FA_BWD_CASES:
+            if shape[5] not in NEW_HEAD_DIMS:
+                continue
+            err = fa_bwd_case(gen, shape, dtype, tol)
+            if shape[0] == LM_BATCH:
+                errs[f"flash_attention_bwd hd {shape[5]} {dtype}"] = err
+            cases += 1
+    # the decode split's shared memory: plan's mirror against the launcher's
+    smem = build.load("flash_decode").flash_decode_smem
+    smem.argtypes = [ctypes.c_int] * 4
+    for hd, elem, n, G in itertools.product((16, 32, 64, 128, 160, 256),
+                                            (2, 4), range(1, 9),
+                                            (1, 4, 8, 20)):
+        if smem(hd, int(elem == 2), n, G) != fd_smem(n, hd, elem, G):
+            raise AssertionError(f"flash_decode smem at hd {hd}, {elem}-byte"
+                                 f", {n} blocks, G {G}: csrc "
+                                 f"{smem(hd, int(elem == 2), n, G)}, plan's "
+                                 f"{fd_smem(n, hd, elem, G)}")
+    sync()
+    print(f"[16 head dims (a)] {cases} cases at hd 160 and 256 pass "
+          f"(flash_attention on the route fwd_route names, flash_decode, "
+          f"flash_attention_bwd on the CUDA cores bit for bit across two "
+          f"calls; bf16 at 2e-2, f32 at 1e-4 with TF32 off), decode's shared "
+          f"memory as plan reads it equals the launcher's, in "
+          f"{time.perf_counter() - t0:.1f} s; max abs err at the serve and "
+          f"training shapes: { {k: f'{v:.3g}' for k, v in errs.items()} }",
+          flush=True)
+
+
+def fa_line(gen, B, T, H, K, hd, calls, note="", plain=False):
+    """flash_attention at (B, T, H, K, hd), causal bf16, timed in turns with
+    SDPA by graph replay over 4 input sets (past the L2 at every shape
+    timed), with ``plain`` also the plain version's ms; prints the line.
+    Returns (ms, SDPA ms, FLOP, bytes, the sets)."""
+    bf = torch.bfloat16
+    fa_sets = [(randn(gen, (B, T, H, hd), bf), randn(gen, (B, T, K, hd), bf),
+                randn(gen, (B, T, K, hd), bf)) for _ in range(4)]
+    flops, nbytes = attention_work(B, T, H, K, hd)
+    (ms, lib_ms), rounds = alternate_ms((flash_attention, sdpa), fa_sets,
+                                        calls)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    by = "operations" if t_ops > t_bytes else "bytes"
+    if plain:
+        note = (f"; plain {cuda_ms(ref.flash_attention, fa_sets, 10):.4f} "
+                f"ms{note}")
+    print(f"[kernel] flash_attention B {B} T {T} H {H} K {K} hd {hd}"
+          f" causal bf16, {len(rounds[0])} rounds in turns: kernel "
+          f"median {ms:.4f} ms (rounds {min(rounds[0]):.4f}-"
+          f"{max(rounds[0]):.4f}), SDPA median {lib_ms:.4f} ms (rounds "
+          f"{min(rounds[1]):.4f}-{max(rounds[1]):.4f}), kernel / SDPA "
+          f"{ms / lib_ms:.3f}, bound {max(t_ops, t_bytes):.4f} ms by "
+          f"{by} ({flops:.4g} FLOP, {nbytes:.4g} B; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s){note}", flush=True)
+    return ms, lib_ms, flops, nbytes, fa_sets
+
+
+def fd_line(gen, S, H, K, hd, n_sets, calls, note="", plain=False):
+    """flash_decode at the last step of a cache of S positions (B 8, the
+    newest valid index S - 2), bf16, timed in turns with SDPA over the
+    filled prefix by graph replay over ``n_sets`` cache sets, with
+    ``plain`` also the plain version's ms; prints the line. Returns (ms,
+    SDPA ms, FLOP, bytes, the sets, SDPA's function)."""
+    bf = torch.bfloat16
+    L = S - 2                                        # newest valid index
+    length = torch.tensor(L, dtype=torch.int32, device="cuda")
+    fd_sets = [(randn(gen, (BATCH, H, hd), bf),
+                randn(gen, (BATCH, S, K, hd), bf),
+                randn(gen, (BATCH, S, K, hd), bf), length)
+               for _ in range(n_sets)]
+    flops = 4 * BATCH * H * hd * (L + 1)
+    nbytes = 2 * (2 * BATCH * (L + 1) * K * hd + 2 * BATCH * H * hd)
+
+    def fd_sdpa(q, k, v, n, L=L):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k[:, :L + 1].transpose(1, 2),
+            v[:, :L + 1].transpose(1, 2), enable_gqa=True)
+
+    (ms, lib_ms), rounds = alternate_ms((flash_decode, fd_sdpa), fd_sets,
+                                        calls)
+    bound = nbytes / PEAK_BYTES * 1e3
+    if plain:
+        note = (f"; plain {cuda_ms(ref.flash_decode, fd_sets, 50):.4f} "
+                f"ms{note}")
+    print(f"[kernel] flash_decode B {BATCH} S {S} L {L} H {H} K {K} hd "
+          f"{hd} bf16, {len(rounds[0])} rounds in turns: kernel median "
+          f"{ms:.4f} ms (rounds {min(rounds[0]):.4f}-"
+          f"{max(rounds[0]):.4f}), SDPA median {lib_ms:.4f} ms (rounds "
+          f"{min(rounds[1]):.4f}-{max(rounds[1]):.4f}), kernel / SDPA "
+          f"{ms / lib_ms:.3f}, bound {bound:.4f} ms by bytes ({nbytes:.4g}"
+          f" B; {nbytes / ms / 1e9:.2f} TB/s, {100 * bound / ms:.1f}% of "
+          f"the bound){note}", flush=True)
+    return ms, lib_ms, flops, nbytes, fd_sets, fd_sdpa
+
+
+def kernel_rows(gen, launches, errs, hd_launches):
     """Times at the main paths' shapes: kernel, plain version, library call
-    (SDPA for attention; none for GAE and SSD), and bound."""
+    (SDPA for attention; none for GAE and SSD), and bound. First a line for
+    each new head dim's forward and decode at its arch's serve shape, with
+    the launches of phase 16's paths (``hd_launches``)."""
     bf = torch.bfloat16
     H, K, hd = 16, 8, 128
     rows = []
+
+    for arch in HD_ARCHS:
+        cfg = get_config(arch)
+        n = hd_launches[arch]
+        *_, sets = fa_line(gen, BATCH, PROMPT, cfg.num_heads,
+                           cfg.num_kv_heads, cfg.head_dim, 32,
+                           f"; {n['flash_attention']} launches a {arch} "
+                           f"prefill", plain=True)
+        del sets
+        G = cfg.num_heads // cfg.num_kv_heads
+        split, n_split = fd_plan(BATCH, cfg.num_kv_heads, PROMPT + NEW, SMS,
+                                 cfg.head_dim, 2, G)
+        *_, sets, _ = fd_line(
+            gen, PROMPT + NEW, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            6, 64, f"; {n['flash_decode']} launches a {arch} generate; plan "
+            f"{n_split} blocks of {split} positions a (batch, KV head), the "
+            f"card holding {fd_max_clusters(n_split, G, cfg.head_dim)} such "
+            f"clusters at once", plain=True)
+        del sets
 
     # prefill attention, timed in turns with SDPA: 4 input sets of 33.6 MB
     # at the serve shape; then a line at T 2048 (4 sets of 134 MB), where
     # operations bound it
     for T in (FA_LONG, PROMPT):
-        fa_sets = [(randn(gen, (BATCH, T, H, hd), bf),
-                    randn(gen, (BATCH, T, K, hd), bf),
-                    randn(gen, (BATCH, T, K, hd), bf)) for _ in range(4)]
-        flops, nbytes = attention_work(BATCH, T, H, K, hd)
-        (ms, lib_ms), rounds = alternate_ms((flash_attention, sdpa), fa_sets,
-                                            32 if T == PROMPT else 8)
-        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        by = "operations" if t_ops > t_bytes else "bytes"
-        print(f"[kernel] flash_attention B {BATCH} T {T} H {H} K {K} hd {hd}"
-              f" causal bf16, {len(rounds[0])} rounds in turns: kernel "
-              f"median {ms:.4f} ms (rounds {min(rounds[0]):.4f}-"
-              f"{max(rounds[0]):.4f}), SDPA median {lib_ms:.4f} ms (rounds "
-              f"{min(rounds[1]):.4f}-{max(rounds[1]):.4f}), kernel / SDPA "
-              f"{ms / lib_ms:.3f}, bound {max(t_ops, t_bytes):.4f} ms by "
-              f"{by} ({flops:.4g} FLOP, {nbytes:.4g} B; "
-              f"{flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+        ms, lib_ms, flops, nbytes, fa_sets = fa_line(
+            gen, BATCH, T, H, K, hd, 32 if T == PROMPT else 8)
     q, k, v = fa_sets[0]
     print(f"[kernel] flash_attention host time per call at the serve shape "
           f"(checks, three tensor maps, the ctypes launch): "
@@ -2611,31 +2921,9 @@ def kernel_rows(gen, launches, errs):
     # graph replay: 6 cache sets of 18.9 MB; first a line at S 8192 (2 sets
     # of 268 MB), past the L2
     for S in (FD_LONG, PROMPT + NEW):
-        L = S - 2                                    # newest valid index
-        length = torch.tensor(L, dtype=torch.int32, device="cuda")
-        fd_sets = [(randn(gen, (BATCH, H, hd), bf),
-                    randn(gen, (BATCH, S, K, hd), bf),
-                    randn(gen, (BATCH, S, K, hd), bf), length)
-                   for _ in range(2 if S == FD_LONG else 6)]
-        flops = 4 * BATCH * H * hd * (L + 1)
-        nbytes = 2 * (2 * BATCH * (L + 1) * K * hd + 2 * BATCH * H * hd)
-
-        def fd_sdpa(q, k, v, n, L=L):
-            return F.scaled_dot_product_attention(
-                q[:, :, None], k[:, :L + 1].transpose(1, 2),
-                v[:, :L + 1].transpose(1, 2), enable_gqa=True)
-
-        (ms, lib_ms), rounds = alternate_ms((flash_decode, fd_sdpa), fd_sets,
-                                            8 if S == FD_LONG else 64)
-        bound = nbytes / PEAK_BYTES * 1e3
-        print(f"[kernel] flash_decode B {BATCH} S {S} L {L} H {H} K {K} hd "
-              f"{hd} bf16, {len(rounds[0])} rounds in turns: kernel median "
-              f"{ms:.4f} ms (rounds {min(rounds[0]):.4f}-"
-              f"{max(rounds[0]):.4f}), SDPA median {lib_ms:.4f} ms (rounds "
-              f"{min(rounds[1]):.4f}-{max(rounds[1]):.4f}), kernel / SDPA "
-              f"{ms / lib_ms:.3f}, bound {bound:.4f} ms by bytes ({nbytes:.4g}"
-              f" B; {nbytes / ms / 1e9:.2f} TB/s, {100 * bound / ms:.1f}% of "
-              f"the bound)", flush=True)
+        ms, lib_ms, flops, nbytes, fd_sets, fd_sdpa = fd_line(
+            gen, S, H, K, hd, 2 if S == FD_LONG else 6,
+            8 if S == FD_LONG else 64)
     split, n_split = fd_plan(BATCH, K, S)
     print(f"[kernel] flash_decode plan at the serve shape: {n_split} blocks "
           f"of {split} positions a (batch, KV head), {BATCH * K} clusters "
@@ -2734,17 +3022,17 @@ def kernel_rows(gen, launches, errs):
     return out
 
 
-def bwd_rows(gen, launches, errs):
-    """The backward kernels at the training shapes, bf16: device ms per call
-    by CUDA-graph replay (median of 5), the plain version's ms, the bound
-    and, for attention, the backward of ``scaled_dot_product_attention``
-    (a yardstick the port never calls) by the profiler's device time over
-    20 calls, beside the kernel's own by the same."""
+def fa_bwd_line(gen, B, T, H, K, hd, note=""):
+    """flash_attention_bwd at (B, T, H, K, hd), causal bf16: device ms per
+    call by CUDA-graph replay (median of 5) over 4 input sets (past the
+    L2), the plain version's ms, and the backward of
+    ``scaled_dot_product_attention`` (a yardstick the port never calls) by
+    the profiler's device time over 20 calls, beside the kernel's own by
+    the same; prints the line. Returns (ms, plain ms, SDPA's ms, FLOP,
+    bytes)."""
     bf = torch.bfloat16
-    rows = []
-    B, T, H, K, hd = FA_TRAIN
     fa_sets = []
-    for _ in range(4):                    # 4 sets of 29 MB: past the L2
+    for _ in range(4):
         q = randn(gen, (B, T, H, hd), bf)
         k, v = (randn(gen, (B, T, K, hd), bf) for _ in range(2))
         do = randn(gen, (B, T, H, hd), bf)
@@ -2791,8 +3079,10 @@ def bwd_rows(gen, launches, errs):
     # and dq, dk, dv written once
     flops = 4 * B * H * hd * T * (T + 1)
     nbytes = 2 * (4 * B * T * H * hd + 4 * B * T * K * hd) + 4 * B * H * T
+    bound = max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
     print(f"[kernel] flash_attention_bwd B {B} T {T} H {H} K {K} hd {hd} "
-          f"causal bf16 by graph replay: median {ms:.4f} ms (readings "
+          f"causal bf16 ({bwd_route(bf, hd)}) by graph replay: median "
+          f"{ms:.4f} ms (readings "
           f"{min(reps):.4f}-{max(reps):.4f}); by the profiler's device time "
           f"over 20 calls " + (
               f"{prof_ms:.4f} ms (" + ", ".join(
@@ -2804,10 +3094,31 @@ def bwd_rows(gen, launches, errs):
               f"{prof_ms / lib_ms:.3f}" if prof_ms is not None
               else "not measured") +
           f", graph replay / profiler {ms / lib_ms:.3f}; plain "
-          f"{plain_ms:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+          f"{plain_ms:.4f} ms; bound {bound:.4f} ms; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s{note}", flush=True)
+    del fa_sets, out, qg, kg, vg, do_t, by_name, kern_names
+    return ms, plain_ms, lib_ms, flops, nbytes
+
+
+def bwd_rows(gen, launches, errs, hd_launches):
+    """The backward kernels at the training shapes, bf16: device ms per call
+    by CUDA-graph replay (median of 5), the plain version's ms, the bound
+    and, for attention, the backward of ``scaled_dot_product_attention`` by
+    the profiler (``fa_bwd_line``); first a line for each new head dim's
+    attention backward at its arch's training shape, with its launches a
+    step of phase 16's depth-``HD_TRAIN_DEPTH`` run (``hd_launches``)."""
+    bf = torch.bfloat16
+    rows = []
+    for arch in HD_ARCHS:
+        cfg = get_config(arch)
+        fa_bwd_line(gen, LM_BATCH, LM_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.head_dim,
+                    f"; {hd_launches[arch]['flash_attention_bwd']} launches "
+                    f"a {arch} train step at depth {HD_TRAIN_DEPTH} (one a "
+                    f"layer)")
+    ms, plain_ms, lib_ms, flops, nbytes = fa_bwd_line(gen, *FA_TRAIN)
     rows.append(("flash_attention_bwd", flops, PEAK_FLOPS, nbytes, ms,
                  plain_ms, lib_ms))
-    del fa_sets, out, qg, kg, vg, do_t, by_name, kern_names
 
     ssd_sets = []
     for _ in range(2):                    # 2 sets of 60 MB: past the L2
@@ -3150,8 +3461,10 @@ def main():
     lap("14 lm train")
     phase_moe_frontends(gen)
     lap("15 moe+frontends")
-    rows = kernel_rows(gen, launches, errs) + bwd_rows(gen, lm_launches,
-                                                       lm_errs)
+    hd_launches = phase_headdims(gen)
+    lap("16 head dims")
+    rows = kernel_rows(gen, launches, errs, hd_launches) + bwd_rows(
+        gen, lm_launches, lm_errs, hd_launches)
     lap("kernel rows")
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

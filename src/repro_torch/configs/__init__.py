@@ -2,22 +2,25 @@
 
 ``get_config(arch)`` returns the exact full-size config; ``get_smoke_config``
 returns the reduced same-family config for CPU smoke tests, by the same rule
-as ``repro.configs``. Eight of the reference's ten archs are registered;
-gemma-7b (head dim 256) and stablelm-12b (head dim 160) wait for attention
-kernels at those head dims (ROADMAP.md).
+as ``repro.configs``. All ten of the reference's archs are registered, in
+its order; gemma-7b (head dim 256) and stablelm-12b (head dim 160) take the
+attention kernels' instances at those head dims.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, with_overrides
-from repro_torch.configs import (dbrx_132b, internlm2_20b, internvl2_26b,
-                                 jamba_v0p1_52b, llama4_maverick_400b_a17b,
-                                 mamba2_1p3b, musicgen_medium, qwen3_0p6b)
+from repro_torch.configs import (dbrx_132b, gemma_7b, internlm2_20b,
+                                 internvl2_26b, jamba_v0p1_52b,
+                                 llama4_maverick_400b_a17b, mamba2_1p3b,
+                                 musicgen_medium, qwen3_0p6b, stablelm_12b)
 
 _MODULES = {
     "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
     "dbrx-132b": dbrx_132b,
     "mamba2-1.3b": mamba2_1p3b,
+    "gemma-7b": gemma_7b,
     "internlm2-20b": internlm2_20b,
+    "stablelm-12b": stablelm_12b,
     "qwen3-0.6b": qwen3_0p6b,
     "internvl2-26b": internvl2_26b,
     "musicgen-medium": musicgen_medium,
@@ -29,7 +32,7 @@ ARCHS = tuple(_MODULES)
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"arch {arch!r} is not ported yet; have {ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; have {ARCHS}")
     return _MODULES[arch].CONFIG
 
 

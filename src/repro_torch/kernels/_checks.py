@@ -3,7 +3,10 @@ from __future__ import annotations
 
 import torch
 
-HEAD_DIMS = (16, 32, 64, 128)      # head_dim template instances in csrc/
+# head_dim template instances in csrc/: what a CUDA tensor may have. A CPU
+# tensor takes the plain versions, which, as the Pallas kernels' BlockSpecs
+# (spanning the whole head dim), take any.
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -31,9 +34,13 @@ def check_tensors(op: str, named: dict, ndim: dict) -> None:
                     f"aligned base and strides; got strides {t.stride()}")
 
 
-def check_heads(op: str, H: int, K: int, hd: int) -> None:
+def check_heads(op: str, H: int, K: int, hd: int, device) -> None:
+    """Raise unless the H query heads group over the K KV heads and, on a
+    CUDA ``device``, the kernels have an instance at head dim ``hd``."""
     if K == 0 or H % K:
         raise ValueError(f"{op}: {H} query heads do not group over {K} "
                          f"KV heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{op}: head_dim {hd} not in {HEAD_DIMS}")
+    if hd < 1 or (torch.device(device).type == "cuda"
+                  and hd not in HEAD_DIMS):
+        raise ValueError(f"{op}: head_dim {hd} has no instance on "
+                         f"{device}; CUDA tensors take {HEAD_DIMS}")

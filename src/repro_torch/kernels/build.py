@@ -91,6 +91,8 @@ LAUNCHES = {name: 0 for name in SIGNATURES}
 # kernel name -> (C function that copies out, and with reset zeroes, the
 # counts, path names in its order); ``routes`` reads them
 ROUTES = {"quant_matmul": ("quant_matmul_routes", ("decode", "wgmma", "fma")),
+          "flash_attention": ("flash_attention_routes",
+                              ("wgmma", "mma_sync", "cuda_core")),
           "ssd": ("ssd_routes", ("tensor_core", "cuda_core")),
           "flash_attention_bwd": ("flash_attention_bwd_routes",
                                   ("wgmma", "cuda_core")),

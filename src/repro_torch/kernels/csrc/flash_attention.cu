@@ -13,21 +13,29 @@
 // What bounds it on the H100: at the serve shape (B 8, T 512, H 16, K 8,
 // hd 128, bf16) moving q, k, v and o once takes 15 us at 3.35 TB/s and the
 // causal products 8.7 us at 989 TFLOP/s, so bytes bound it up to T ~ 885 and
-// operations beyond. Three kernels:
+// operations beyond. At gemma-7b's prefill (H 16, K 16, hd 256) the bytes
+// are 134 MB (40 us), at stablelm-12b's (H 32, K 8, hd 160) 105 MB (31 us).
+// Three kernels, each counting the route it took (flash_attention_routes):
 //
-// bf16 at head dims 64 and 128 (the serve path; wg::): warpgroup products
-// and TMA. A block is a producer warpgroup and two consumer warpgroups; each
+// bf16 at head dims 64, 128, 160 and 256 (the serve path; wg::): warpgroup
+// products and TMA. A block is a producer warpgroup and two consumer warpgroups; each
 // consumer owns 64 query rows of one head: the two heads of a GQA pair
 // (same rows, so both read every K/V tile the block loads once), or two
 // 64-row tiles of one head when H / K is odd. One producer lane issues TMA
 // copies (cp.async.bulk.tensor, 128-byte swizzle) of the Q tiles and of
-// 128-row K and V tiles into a 2-stage ring, paced by mbarriers ("full"
-// per tile, "empty" per K and per V stage); rows past T or S arrive as
-// zeros and are masked. setmaxnreg moves registers from the producer (24)
-// to the consumers (240). A consumer computes S = Q K^T with wgmma
-// m64n128k16 (Q and K read from shared memory by descriptor) and P V with
-// wgmma m64nHDk16 (P from registers, V read transposed from shared
-// memory). Its softmax runs on the accumulator fragments (a row's max over
+// 128-row K and V tiles (64-row above hd 128: the 2-stage ring of 128-row
+// tiles would be 256 KB at 256; with 64 it is 192 KB in all) into a 2-stage
+// ring, paced by mbarriers ("full" per tile, "empty" per K and per V
+// stage); rows past T or S arrive as zeros and are masked. The head dim
+// travels in 64-column halves: hd 160 as three, the tensor map's dim 0
+// kept at 160 so that TMA zero-fills columns 160-191 (the barrier still
+// counts the whole box). setmaxnreg moves registers from the producer (24)
+// to the consumers (240; at hd 256 the output takes 128 a thread, S at 64
+// keys 32, P 16). A consumer computes S = Q K^T with wgmma m64nBKk16 (Q and
+// K read from shared memory by descriptor) and P V as m64n128k16 products
+// over pairs of V's halves and an m64n64k16 over an odd half (P from
+// registers, V read transposed from shared memory; the epilogue writes the
+// real columns only). Its softmax runs on the accumulator fragments (a row's max over
 // the 4 lanes of a quad; scale * log2 e folded into the exponent's FFMA,
 // ex2.approx; the rescale of the output skipped where no row's max moved)
 // while the tensor cores run the previous tile's P V: S_j is issued, then
@@ -55,7 +63,7 @@
 // Pallas does.
 //
 // f32 (the TF32-off parity gates only): the first simple kernel, kept as
-// it was. One block of 256 threads per (64-row query tile, head, batch); Q
+// it was (214 KB of shared memory at hd 256). One block of 256 threads per (64-row query tile, head, batch); Q
 // and each 64-row K/V tile sit in shared memory; thread (ty, tx) of a
 // 16x16 grid owns query rows ty+16i and, per tile, score columns tx+16j,
 // with its 4x4 scores, the rows' running max/denominator and a 4 x hd/16
@@ -63,6 +71,7 @@
 // cores.
 // The layout is read through strides; the ragged tail (T or S not a multiple
 // of the tile) is zero-filled and masked.
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -440,14 +449,23 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 static_assert(128 * (PRODUCER_REGS + CONSUMERS * CONSUMER_REGS) <= 65536,
               "the register file holds the block");
 constexpr int STAGES = 2;     // K/V tiles in the shared-memory ring
-constexpr int BKW = 128;      // key rows per K/V tile
+// Key rows per K/V tile: 128, and 64 above head dim 128, where two stages
+// of 128-row K and V tiles (256 KB at 256) exceed the 227 KB of a block.
+template <int HD>
+constexpr int BKW = HD > 128 ? 64 : 128;
+// 64-column halves of the head dim: 160 is carried as three, whose columns
+// 160-191 TMA zero-fills (the tensor map's dim 0 stays 160) and the
+// epilogue never writes.
+template <int HD>
+constexpr int NH = (HD + 63) / 64;
 constexpr int QHALF = 64 * 128;     // bytes of a Q tile's 64-column half
-constexpr int KHALF = BKW * 128;    // bytes of a K/V tile's 64-column half
+template <int HD>
+constexpr int KHALF = BKW<HD> * 128;  // bytes of a K/V tile's half
 
 template <int HD>
-constexpr int QTILE = 64 * HD * 2;  // bytes of a 64-row Q tile
+constexpr int QTILE = NH<HD> * QHALF;  // bytes of a 64-row Q tile
 template <int HD>
-constexpr int KTILE = BKW * HD * 2;  // bytes of a K/V tile
+constexpr int KTILE = NH<HD> * KHALF<HD>;  // bytes of a K/V tile
 
 struct Barriers {
   uint64_t q, full_k[STAGES], full_v[STAGES], empty_k[STAGES],
@@ -477,9 +495,14 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
                           int hpb, int q_ord, int k_ord, int v_ord,
                           int causal, float scale_log2) {
   constexpr int KS = HD / 16;  // k-steps of Q K^T
-  constexpr int DN = HD / 8;   // 8-wide output column tiles
-  constexpr int SN = BKW / 8;  // 8-wide score column tiles
-  static_assert(HD == 64 || HD == 128, "head dims 64 and 128");
+  constexpr int DN = HD / 8;   // 8-wide output column tiles written
+  constexpr int BK = BKW<HD>;
+  constexpr int SN = BK / 8;   // 8-wide score column tiles
+  // accumulator floats a thread: 64 rows by NH halves of 64 columns over
+  // 128 threads (at 256: 128, beside S's 32 and P's 16 of the 240)
+  constexpr int NACC = 32 * NH<HD>;
+  static_assert(HD == 64 || HD == 128 || HD == 160 || HD == 256,
+                "head dims 64, 128, 160 and 256");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sQ = reinterpret_cast<unsigned char*>(
@@ -494,7 +517,7 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
   const int kh = h0 / G;
   // causal: key tiles past the block's last query row are fully masked
   const int kv_end = causal ? min(S, min(q0 + bq, T_)) : S;
-  const int nkv = (kv_end + BKW - 1) / BKW;
+  const int nkv = (kv_end + BK - 1) / BK;
   const int w = threadIdx.x / 128 - 1;  // consumer warpgroup; -1 producer
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
 
@@ -521,12 +544,12 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
       const int st = j % STAGES, free = ((j / STAGES) & 1) ^ 1;
       rt::mbar_wait(&bar.empty_k[st], free);
       rt::mbar_expect_tx(&bar.full_k[st], KTILE<HD>);
-      tma_tile<HD, KHALF>(sK + st * KTILE<HD>, &tk, k_ord, &bar.full_k[st],
-                          kh, j * BKW, b);
+      tma_tile<HD, KHALF<HD>>(sK + st * KTILE<HD>, &tk, k_ord,
+                              &bar.full_k[st], kh, j * BK, b);
       rt::mbar_wait(&bar.empty_v[st], free);
       rt::mbar_expect_tx(&bar.full_v[st], KTILE<HD>);
-      tma_tile<HD, KHALF>(sV + st * KTILE<HD>, &tv, v_ord, &bar.full_v[st],
-                          kh, j * BKW, b);
+      tma_tile<HD, KHALF<HD>>(sV + st * KTILE<HD>, &tv, v_ord,
+                              &bar.full_v[st], kh, j * BK, b);
     }
     return;
   }
@@ -537,15 +560,15 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
   const int g = lane / 4, t = lane % 4;
   const int row0 = qw + warp * 16 + g;
   const unsigned char* sQw = sQ + w * QTILE<HD>;
-  float acc[DN * 4], s[SN * 4];
-  uint32_t pf[BKW / 16][4];
+  float acc[NACC], s[SN * 4];
+  uint32_t pf[BK / 16][4];
 #pragma unroll
-  for (int i = 0; i < DN * 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
   // rows g and g + 8 of the warp: running max (log2 units) and this lane's
   // part of the row sum (the quad's parts are added at the end)
   float m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
 
-  // S = Q K^T of the tile in stage st: 64 x 128 per warpgroup, Q and K from
+  // S = Q K^T of the tile in stage st: 64 x BK per warpgroup, Q and K from
   // shared memory
   auto issue_s = [&](int st) {
     const unsigned char* Ks = sK + st * KTILE<HD>;
@@ -553,25 +576,37 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const int off = (kk % 4) * 32;
-      wgmma_ss_m64n128(
-          s, rt::wgmma_desc(sQw + (kk / 4) * QHALF + off, 16, 1024),
-          rt::wgmma_desc(Ks + (kk / 4) * KHALF + off, 16, 1024), kk > 0);
+      const uint64_t dq = rt::wgmma_desc(sQw + (kk / 4) * QHALF + off, 16,
+                                         1024);
+      const uint64_t dk = rt::wgmma_desc(Ks + (kk / 4) * KHALF<HD> + off, 16,
+                                         1024);
+      if constexpr (BK == 128)
+        wgmma_ss_m64n128(s, dq, dk, kk > 0);
+      else
+        wgmma_ss_m64n64(s, dq, dk, kk > 0);
     }
     rt::wgmma_commit();
   };
   // acc += P V of the tile in stage st; score tiles 2c and 2c + 1 are the A
   // fragment of k-step c (keys 16c..16c+15: two 8-row groups of V, SBO
-  // 1024; the column halves of V are KHALF bytes apart, LBO)
+  // 1024; the column halves of V are KHALF bytes apart, LBO). The head dim
+  // is covered a pair of halves at a time by m64n128 and an odd half by
+  // m64n64, each into its own columns of acc (half p's at acc[32 p]).
   auto issue_pv = [&](int st) {
     const unsigned char* Vs = sV + st * KTILE<HD>;
     rt::wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < BKW / 16; ++c) {
-      const uint64_t dv = rt::wgmma_desc(Vs + c * 2048, KHALF, 1024);
-      if constexpr (HD == 128)
-        wgmma_rs_m64n128_t(acc, pf[c], dv);
-      else
-        wgmma_rs_m64n64_t(acc, pf[c], dv);
+    for (int c = 0; c < BK / 16; ++c) {
+#pragma unroll
+      for (int p = 0; p + 1 < NH<HD>; p += 2)
+        wgmma_rs_m64n128_t(
+            *reinterpret_cast<float(*)[64]>(acc + 32 * p), pf[c],
+            rt::wgmma_desc(Vs + p * KHALF<HD> + c * 2048, KHALF<HD>, 1024));
+      if constexpr (NH<HD> % 2 == 1)
+        wgmma_rs_m64n64_t(
+            *reinterpret_cast<float(*)[32]>(acc + 32 * (NH<HD> - 1)), pf[c],
+            rt::wgmma_desc(Vs + (NH<HD> - 1) * KHALF<HD> + c * 2048,
+                           KHALF<HD>, 1024));
     }
     rt::wgmma_commit();
   };
@@ -582,7 +617,7 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
   // exponent's FFMA; tiles that cross the diagonal or the end of S are
   // scaled and masked first.
   auto softmax = [&](int k0) {
-    const bool masked = (causal && k0 + BKW - 1 > qw) || k0 + BKW > S;
+    const bool masked = (causal && k0 + BK - 1 > qw) || k0 + BK > S;
     const bool fold = !masked && scale_log2 > 0.f;
     if (!fold) {
 #pragma unroll
@@ -620,10 +655,10 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
   auto rescale_and_pack = [&]() {
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int i = 0; i < DN * 4; ++i) acc[i] *= alpha[(i % 4) / 2];
+      for (int i = 0; i < NACC; ++i) acc[i] *= alpha[(i % 4) / 2];
     }
 #pragma unroll
-    for (int c = 0; c < BKW / 16; ++c)
+    for (int c = 0; c < BK / 16; ++c)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         pf[c][i] = rt::pack_bf16(s[8 * c + 2 * i], s[8 * c + 2 * i + 1]);
@@ -668,7 +703,7 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
     rt::wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may run on
     rt::fence_regs(s);
     release(&bar.empty_k[st]);
-    softmax(j * BKW);
+    softmax(j * BK);
     rt::wgmma_wait<0>();
     rt::fence_regs(acc);
     rt::fence_regs(pf);
@@ -686,7 +721,7 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap tq,
 
   // normalise, stage the warpgroup's 64 rows in its own Q tile (swizzled;
   // no wgmma reads it any more), and write each warp's 16 rows out in
-  // 16-byte stores
+  // 16-byte stores: the HD real columns only
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -732,7 +767,7 @@ int launch_wg(const void* q, const void* k, const void* v, void* o,
   CUtensorMap tq, tk, tv;
   int q_ord, k_ord, v_ord;
   cudaError_t err;
-  constexpr int R = wg::BKW;
+  constexpr int R = wg::BKW<HD>;
   if ((err = wg::make_map(&tq, &q_ord, q, HD, 64, H, T_, B, q_sh, q_st,
                           q_sb)) ||
       (err = wg::make_map(&tk, &k_ord, k, HD, R, K, S, B, k_sh, k_ss, k_sb)) ||
@@ -828,10 +863,23 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
       return launch<T, 128>(q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st, q_sh,
                             k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale,
                             st);
+    case 160:
+      return launch<T, 160>(q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st, q_sh,
+                            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale,
+                            st);
+    case 256:
+      return launch<T, 256>(q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st, q_sh,
+                            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale,
+                            st);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+// The routes a call can take (the wrapper's ``fwd_route`` names them), and
+// the launches each has had: the launcher counts the route it took.
+enum Route { WGMMA, MMA_SYNC, CUDA_CORE, ROUTES };
+std::atomic<unsigned long long> taken[ROUTES];
 
 }  // namespace
 
@@ -851,11 +899,26 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_);
-  if (is_bf16)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, T_, S, H, K, q_sb,
-                                    q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                                    v_sh, causal, scale, st);
-  return launch_hd<float>(hd, q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st, q_sh,
-                          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale,
-                          st);
+  int err;
+  Route r = CUDA_CORE;
+  if (is_bf16) {
+    r = hd >= 64 ? WGMMA : MMA_SYNC;
+    err = launch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, T_, S, H, K, q_sb,
+                                   q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                   v_sh, causal, scale, st);
+  } else {
+    err = launch_hd<float>(hd, q, k, v, o, lse, B, T_, S, H, K, q_sb, q_st,
+                           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
+                           scale, st);
+  }
+  if (err == 0) taken[r].fetch_add(1, std::memory_order_relaxed);
+  return err;
+}
+
+// Copies the launches by route (wgmma, mma_sync, cuda_core) since the last
+// reset into counts[3]; with reset, zeroes them.
+extern "C" void flash_attention_routes(unsigned long long* counts,
+                                       int reset) {
+  for (int r = 0; r < ROUTES; ++r)
+    counts[r] = reset ? taken[r].exchange(0) : taken[r].load();
 }

@@ -65,16 +65,19 @@
 // element); S, dP, D and every sum stay f32.
 //
 // cuda_core, f32 (the TF32-off gates only) and bf16 at head dims 16 and 32
-// (no full-width arch has them): the first simple kernels, kept as they
-// were. dq: a block per (64-row query tile, head, batch) computes D for its
-// rows (into the scratch), then walks the key tiles the mask leaves it;
-// dk, dv: a block per (64-row key tile, KV head, batch) holds its k and v
-// tiles and walks the query tiles of every head of the group that can see
-// them. Tiles are staged in shared memory as f32 and the products run on
-// the f32 CUDA cores, thread (ty, tx) of a 16 x 16 grid owning rows
-// ty + 16 i and columns tx + 16 j of each 64 x 64 score tile and of each
-// 64 x hd accumulator; operations bound them (0.08 ms at the f32 CUDA
-// cores' peak at the shape above).
+// (no full-width arch has them), 160 (stablelm-12b) and 256 (gemma-7b): the
+// first simple kernels. dq: a block per (query tile, head, batch) computes
+// D for its rows (into the scratch), then walks the key tiles the mask
+// leaves it; dk, dv: a block per (key tile, KV head, batch) holds its k and
+// v tiles and walks the query tiles of every head of the group that can
+// see them. Tiles are staged in shared memory as f32 and the products run
+// on the f32 CUDA cores, thread (ty, tx) of a 16 x 16 grid owning rows
+// ty + 16 i and columns tx + 16 j of each score tile and of each tile x hd
+// accumulator; operations bound them (0.08 ms at the f32 CUDA cores' peak
+// at the shape above). Tiles are 64 rows, and 32 at hd 256, where four
+// 64-row f32 tiles would not fit a block's shared memory (ROWS). A
+// tensor-core backward above hd 128 (FlashAttention-3 splits dK and dV's
+// head dim across its two consumers) is later work.
 #include <atomic>
 
 #include "common.cuh"
@@ -82,62 +85,73 @@
 
 namespace {
 
-constexpr int BQ = 64;   // rows of a query tile
-constexpr int BK = 64;   // rows of a key tile
 constexpr int NT = 256;  // 16 x 16 threads
-constexpr int LDP = BK + 1;  // row stride of a 64 x 64 f32 tile
 
+// Rows of a query or key tile: 64, and 32 above head dim 160, where the
+// four 64-row f32 tiles of a block (280 KB and 297 KB of shared memory in
+// all at hd 256) exceed the 227 KB of a block; 32-row tiles take 136 KB
+// and 140 KB. RI is a thread's rows (and columns) of a score tile.
 template <int HD>
-constexpr int LD = HD + 1;  // row stride of a 64 x HD f32 tile
+constexpr int ROWS = HD > 160 ? 32 : 64;
+template <int HD>
+constexpr int RI = ROWS<HD> / 16;
+template <int HD>
+constexpr int LDP = ROWS<HD> + 1;  // row stride of a score tile (floats)
+template <int HD>
+constexpr int LD = HD + 1;  // row stride of a ROWS x HD f32 tile
 
-// Stage a (64 x HD) tile of T, row r at g + r * stride, into shared memory
-// as f32 with row stride LD; rows >= valid are zero.
+// Stage a (ROWS x HD) tile of T, row r at g + r * stride, into shared
+// memory as f32 with row stride LD; rows >= valid are zero.
 template <typename T, int HD>
 __device__ __forceinline__ void stage(float* s, const T* g, long long stride,
                                       int valid) {
   using E = rt::Elem<T>;
-  for (int i = threadIdx.x; i < 64 * HD; i += NT) {
+  for (int i = threadIdx.x; i < ROWS<HD> * HD; i += NT) {
     const int r = i / HD, d = i % HD;
     s[r * LD<HD> + d] = r < valid ? E::to_float(g[r * stride + d]) : 0.f;
   }
 }
 
-// The 4 x 4 products of this thread's rows of a (64 x HD) and columns of b
-// (64 x HD): out[i][j] = sum_d a[ty + 16 i][d] b[tx + 16 j][d].
+// The RI x RI products of this thread's rows of a (ROWS x HD) and columns
+// of b (ROWS x HD): out[i][j] = sum_d a[ty + 16 i][d] b[tx + 16 j][d].
 template <int HD>
-__device__ __forceinline__ void dots(float (&out)[4][4], const float* a,
-                                     const float* b, int ty, int tx) {
+__device__ __forceinline__ void dots(float (&out)[RI<HD>][RI<HD>],
+                                     const float* a, const float* b, int ty,
+                                     int tx) {
+  constexpr int N = RI<HD>;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+    for (int j = 0; j < N; ++j) out[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < HD; ++d) {
-    float av[4], bv[4];
+    float av[N], bv[N];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * LD<HD> + d];
+    for (int i = 0; i < N; ++i) av[i] = a[(ty + 16 * i) * LD<HD> + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * LD<HD> + d];
+    for (int j = 0; j < N; ++j) bv[j] = b[(tx + 16 * j) * LD<HD> + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] = fmaf(av[i], bv[j], out[i][j]);
+      for (int j = 0; j < N; ++j) out[i][j] = fmaf(av[i], bv[j], out[i][j]);
   }
 }
 
-// P and dS of a (64 query x 64 key) tile at rows q0, columns k0: P = exp(s
-// scale - lse) where the mask keeps (row, col), else 0; dS = P (dP - D).
-// sL, sD hold the tile rows' lse and D.
-__device__ __forceinline__ void p_and_ds(float (&s)[4][4], float (&dp)[4][4],
+// P and dS of a (ROWS query x ROWS key) tile at rows q0, columns k0: P =
+// exp(s scale - lse) where the mask keeps (row, col), else 0; dS = P (dP -
+// D). sL, sD hold the tile rows' lse and D.
+template <int HD>
+__device__ __forceinline__ void p_and_ds(float (&s)[RI<HD>][RI<HD>],
+                                         float (&dp)[RI<HD>][RI<HD>],
                                          const float* sL, const float* sD,
                                          int q0, int k0, int T_, int S,
                                          int causal, float scale, int ty,
                                          int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI<HD>; ++i) {
     const int r = ty + 16 * i, row = q0 + r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RI<HD>; ++j) {
       const int col = k0 + tx + 16 * j;
       const bool keep = row < T_ && col < S && !(causal && col > row);
       const float p = keep ? expf(s[i][j] * scale - sL[r]) : 0.f;
@@ -149,7 +163,8 @@ __device__ __forceinline__ void p_and_ds(float (&s)[4][4], float (&dp)[4][4],
 
 template <typename T, int HD>
 constexpr size_t dq_smem() {  // q, do, k, v tiles, dS, lse and D
-  return (4 * 64 * LD<HD> + 64 * LDP + 2 * 64) * sizeof(float);
+  return (4 * ROWS<HD> * LD<HD> + ROWS<HD> * LDP<HD> + 2 * ROWS<HD>) *
+         sizeof(float);
 }
 
 template <typename T, int HD>
@@ -165,25 +180,25 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long d_sb, long long d_st, long long d_sh, int causal,
                  float scale) {
   using E = rt::Elem<T>;
-  constexpr int DJ = HD / 16;
+  constexpr int R = ROWS<HD>, N = RI<HD>, DJ = HD / 16;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sdO = sQ + 64 * LD<HD>;
-  float* sK = sdO + 64 * LD<HD>;
-  float* sV = sK + 64 * LD<HD>;
-  float* sdS = sV + 64 * LD<HD>;
-  float* sL = sdS + 64 * LDP;
-  float* sD = sL + 64;
+  float* sdO = sQ + R * LD<HD>;
+  float* sK = sdO + R * LD<HD>;
+  float* sV = sK + R * LD<HD>;
+  float* sdS = sV + R * LD<HD>;
+  float* sL = sdS + R * LDP<HD>;
+  float* sD = sL + R;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / G, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int rows = min(BQ, T_ - q0);
+  const int rows = min(R, T_ - q0);
   stage<T, HD>(sQ, q + b * q_sb + q0 * q_st + h * q_sh, q_st, rows);
   stage<T, HD>(sdO, dO + b * d_sb + q0 * d_st + h * d_sh, d_st, rows);
   __syncthreads();
   // D = rowsum(do * o): a warp per 8 rows, lanes over hd
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BQ; r += NT / 32) {
+  for (int r = warp; r < R; r += NT / 32) {
     float acc = 0.f;
     if (r < rows) {
       const T* orow = o + b * o_sb + (q0 + r) * o_st + h * o_sh;
@@ -198,45 +213,45 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  float acc[4][DJ];
+  float acc[N][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int d = 0; d < DJ; ++d) acc[i][d] = 0.f;
 
   const int kv_end = causal ? min(S, q0 + rows) : S;
   const T* kb = k + b * k_sb + kh * k_sh;
   const T* vb = v + b * v_sb + kh * v_sh;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  for (int k0 = 0; k0 < kv_end; k0 += R) {
     __syncthreads();  // the previous tile's K and dS reads are done
-    stage<T, HD>(sK, kb + k0 * k_ss, k_ss, min(BK, S - k0));
-    stage<T, HD>(sV, vb + k0 * v_ss, v_ss, min(BK, S - k0));
+    stage<T, HD>(sK, kb + k0 * k_ss, k_ss, min(R, S - k0));
+    stage<T, HD>(sV, vb + k0 * v_ss, v_ss, min(R, S - k0));
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[N][N], dp[N][N];
     dots<HD>(s, sQ, sK, ty, tx);
     dots<HD>(dp, sdO, sV, ty, tx);
-    p_and_ds(s, dp, sL, sD, q0, k0, T_, S, causal, scale, ty, tx);
+    p_and_ds<HD>(s, dp, sL, sD, q0, k0, T_, S, causal, scale, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sdS[(ty + 16 * i) * LDP + tx + 16 * j] = dp[i][j];
+      for (int j = 0; j < N; ++j)
+        sdS[(ty + 16 * i) * LDP<HD> + tx + 16 * j] = dp[i][j];
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float ds[4], kv[DJ];
+    for (int c = 0; c < R; ++c) {
+      float ds[N], kv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sdS[(ty + 16 * i) * LDP + c];
+      for (int i = 0; i < N; ++i) ds[i] = sdS[(ty + 16 * i) * LDP<HD> + c];
 #pragma unroll
       for (int d = 0; d < DJ; ++d) kv[d] = sK[c * LD<HD> + tx + 16 * d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < N; ++i)
 #pragma unroll
         for (int d = 0; d < DJ; ++d) acc[i][d] = fmaf(ds[i], kv[d], acc[i][d]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= T_) continue;
     T* out = dq + ((long long)(b * T_ + row) * H + h) * HD;
@@ -248,7 +263,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 constexpr size_t dkdv_smem() {  // k, v, q, do tiles, P, dS, lse and D
-  return (4 * 64 * LD<HD> + 2 * 64 * LDP + 2 * 64) * sizeof(float);
+  return (4 * ROWS<HD> * LD<HD> + 2 * ROWS<HD> * LDP<HD> + 2 * ROWS<HD>) *
+         sizeof(float);
 }
 
 template <typename T, int HD>
@@ -263,65 +279,65 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    long long v_sh, long long d_sb, long long d_st,
                    long long d_sh, int causal, float scale) {
   using E = rt::Elem<T>;
-  constexpr int DJ = HD / 16;
+  constexpr int R = ROWS<HD>, N = RI<HD>, DJ = HD / 16;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = sK + 64 * LD<HD>;
-  float* sQ = sV + 64 * LD<HD>;
-  float* sdO = sQ + 64 * LD<HD>;
-  float* sP = sdO + 64 * LD<HD>;
-  float* sdS = sP + 64 * LDP;
-  float* sL = sdS + 64 * LDP;
-  float* sD = sL + 64;
+  float* sV = sK + R * LD<HD>;
+  float* sQ = sV + R * LD<HD>;
+  float* sdO = sQ + R * LD<HD>;
+  float* sP = sdO + R * LD<HD>;
+  float* sdS = sP + R * LDP<HD>;
+  float* sL = sdS + R * LDP<HD>;
+  float* sD = sL + R;
 
-  const int k0 = blockIdx.x * BK, kh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * R, kh = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int keys = min(BK, S - k0);
+  const int keys = min(R, S - k0);
   stage<T, HD>(sK, k + b * k_sb + k0 * k_ss + kh * k_sh, k_ss, keys);
   stage<T, HD>(sV, v + b * v_sb + k0 * v_ss + kh * v_sh, v_ss, keys);
 
-  float dk_acc[4][DJ], dv_acc[4][DJ];
+  float dk_acc[N][DJ], dv_acc[N][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int d = 0; d < DJ; ++d) dk_acc[i][d] = dv_acc[i][d] = 0.f;
 
   // causal: query rows before k0 see none of these keys
-  const int qt0 = causal ? k0 / BQ : 0;
+  const int qt0 = causal ? k0 / R : 0;
   for (int hh = 0; hh < G; ++hh) {
     const int h = kh * G + hh;
-    for (int q0 = qt0 * BQ; q0 < T_; q0 += BQ) {
-      const int rows = min(BQ, T_ - q0);
+    for (int q0 = qt0 * R; q0 < T_; q0 += R) {
+      const int rows = min(R, T_ - q0);
       __syncthreads();  // the previous tile's reads are done
       stage<T, HD>(sQ, q + b * q_sb + q0 * q_st + h * q_sh, q_st, rows);
       stage<T, HD>(sdO, dO + b * d_sb + q0 * d_st + h * d_sh, d_st, rows);
-      for (int r = threadIdx.x; r < BQ; r += NT) {
+      for (int r = threadIdx.x; r < R; r += NT) {
         const long long at = ((long long)b * H + h) * T_ + q0 + r;
         sL[r] = r < rows ? lse[at] : 0.f;
         sD[r] = r < rows ? Din[at] : 0.f;
       }
       __syncthreads();
-      float s[4][4], dp[4][4];
+      float s[N][N], dp[N][N];
       dots<HD>(s, sQ, sK, ty, tx);
       dots<HD>(dp, sdO, sV, ty, tx);
-      p_and_ds(s, dp, sL, sD, q0, k0, T_, S, causal, scale, ty, tx);
+      p_and_ds<HD>(s, dp, sL, sD, q0, k0, T_, S, causal, scale, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < N; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sP[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
-          sdS[(ty + 16 * i) * LDP + tx + 16 * j] = dp[i][j];
+        for (int j = 0; j < N; ++j) {
+          sP[(ty + 16 * i) * LDP<HD> + tx + 16 * j] = s[i][j];
+          sdS[(ty + 16 * i) * LDP<HD> + tx + 16 * j] = dp[i][j];
         }
       __syncthreads();
       // this thread's keys ty + 16 i and columns tx + 16 d: dv += P^T do,
       // dk += dS^T q, over the tile's query rows in order
 #pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        float p[4], ds[4], dov[DJ], qv[DJ];
+      for (int r = 0; r < R; ++r) {
+        float p[N], ds[N], dov[DJ], qv[DJ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          p[i] = sP[r * LDP + ty + 16 * i];
-          ds[i] = sdS[r * LDP + ty + 16 * i];
+        for (int i = 0; i < N; ++i) {
+          p[i] = sP[r * LDP<HD> + ty + 16 * i];
+          ds[i] = sdS[r * LDP<HD> + ty + 16 * i];
         }
 #pragma unroll
         for (int d = 0; d < DJ; ++d) {
@@ -329,7 +345,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           qv[d] = sQ[r * LD<HD> + tx + 16 * d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < N; ++i)
 #pragma unroll
           for (int d = 0; d < DJ; ++d) {
             dv_acc[i][d] = fmaf(p[i], dov[d], dv_acc[i][d]);
@@ -339,7 +355,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= S) continue;
     const long long at = ((long long)(b * S + key) * K + kh) * HD;
@@ -839,7 +855,8 @@ int launch(const Args& a, cudaStream_t stream) {
   err = cudaFuncSetAttribute(
       kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
   if (err != cudaSuccess) return err;
-  const dim3 g1((a.T + BQ - 1) / BQ, a.H, a.B);
+  constexpr int R = ROWS<HD>;
+  const dim3 g1((a.T + R - 1) / R, a.H, a.B);
   kdq<<<g1, NT, s1, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.o),
@@ -850,7 +867,7 @@ int launch(const Args& a, cudaStream_t stream) {
       a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 g2((a.S + BK - 1) / BK, a.K, a.B);
+  const dim3 g2((a.S + R - 1) / R, a.K, a.B);
   kkv<<<g2, NT, s2, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.lse),
@@ -900,11 +917,23 @@ extern "C" int flash_attention_bwd(
       r = WGMMA;
       err = launch_wg<64>(a, st);
       break;
+    case 256:
+      err = launch<__nv_bfloat16, 256>(a, st);
+      break;
+    case 160:
+      err = launch<__nv_bfloat16, 160>(a, st);
+      break;
     case 32:
       err = launch<__nv_bfloat16, 32>(a, st);
       break;
     case 16:
       err = launch<__nv_bfloat16, 16>(a, st);
+      break;
+    case -256:
+      err = launch<float, 256>(a, st);
+      break;
+    case -160:
+      err = launch<float, 160>(a, st);
       break;
     case -128:
       err = launch<float, 128>(a, st);

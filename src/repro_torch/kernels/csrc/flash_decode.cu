@@ -40,6 +40,12 @@
 //   every part in (rank, warp) order into the output. One relaxed cluster
 //   barrier, no float atomics, no workspace tensor, one launch a call, and
 //   the same output bits on every call.
+// Head dims 16 to 256: at gemma-7b's (256) a bf16 block with 8 ranks takes
+// 221,184 bytes (the ring 101,376, q 4,224, the slots 115,584) of the
+// 232,448 a block may have; above hd 128 q is read from shared memory, so
+// that the accumulator keeps its registers. The f32 ring at 256 keeps 2
+// stages, not 3, and ``plan`` caps its split where the slots would not fit
+// (smem_bytes, flash_decode_smem).
 #include "common.cuh"
 
 namespace {
@@ -47,7 +53,9 @@ namespace {
 constexpr int TP = 16;        // cache positions a tile
 constexpr int WARPS = 2;      // warps a block, each with its own ring
 constexpr int NT = 32 * WARPS;
-constexpr int R = 3;          // ring stages a warp
+// dynamic shared memory a launch may ask for: the 232,448 bytes of a block
+// less 1 KiB for its static shared memory (the cluster's barrier)
+constexpr int SMEM_MAX = 232448 - 1024;
 constexpr int GB = 8;         // query heads a block: rows 0-7 of an m16 tile
 constexpr int MAX_SPLIT = 8;  // blocks a cluster (the portable limit)
 constexpr int NP = MAX_SPLIT * WARPS;  // parts of a cluster, at most
@@ -60,6 +68,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <typename T, int HD>
 struct Layout {
   static constexpr bool F32 = sizeof(T) == 4;
+  // ring stages a warp: 3, and 2 for f32 above head dim 160, whose 3-stage
+  // ring (195 KB) leaves no room for the parts (kernels/flash_decode.py's
+  // ``plan`` caps n_split there so that the slots fit: 5 at 8 heads a block)
+  static constexpr int R = F32 && HD > 160 ? 2 : 3;
   static constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte chunk
   static constexpr int LD = HD + VEC;         // shared row stride: rows 16
                                               // bytes apart in the banks
@@ -69,6 +81,13 @@ struct Layout {
   static constexpr int RING_B = WARPS * WARP_RING_B;
   static constexpr int PART_B = (2 * GB + GB * HD) * 4;
   static constexpr int WTS_B = GB * NP * 4;   // the merge weights
+  // bf16 up to hd 128: a warp holds q as its A fragments in registers;
+  // above, they would crowd out the accumulator (128 registers at 256), so
+  // q waits after the ring (GB x HD, rows HD + 8 apart: no bank conflicts)
+  // and is read a k-step at a time
+  static constexpr bool QREG = F32 || HD <= 128;
+  static constexpr int LDQ = HD + 8;
+  static constexpr int QB_B = QREG ? 0 : GB * LDQ * 2;
   // bf16: a warp's part overwrites its own ring once it is done, the merge
   // weights follow warp 0's part. f32: the warps' parts hold their
   // accumulators through the loop, then each warp's P (GB x TP) and rescale
@@ -80,7 +99,7 @@ struct Layout {
   static constexpr int A_OFF = P_OFF + WARPS * GB * TP * 4;
   static constexpr int Q_OFF = A_OFF + WARPS * GB * 4;
   static constexpr int WTS_OFF = F32 ? P_OFF : PART_B;
-  static constexpr int SLOTS_OFF = F32 ? Q_OFF + GB * HD * 4 : RING_B;
+  static constexpr int SLOTS_OFF = F32 ? Q_OFF + GB * HD * 4 : RING_B + QB_B;
   static constexpr int MAX_B = SLOTS_OFF + (MAX_SPLIT - 1) * WARPS * PART_B;
   static_assert(F32 || PART_B + WTS_B <= WARP_RING_B,
                 "a part and the weights fit the ring they overwrite");
@@ -89,11 +108,18 @@ struct Layout {
 };
 
 // Dynamic shared memory of a launch: the slots for n_split ranks' parts of
-// gb heads.
+// gb heads (kernels/flash_decode.py's ``smem_bytes`` mirrors it).
 template <typename T, int HD>
 constexpr int smem_bytes(int n_split, int gb) {
   return Layout<T, HD>::SLOTS_OFF +
          (n_split - 1) * WARPS * (2 * GB + gb * HD) * 4;
+}
+
+// The most a launch of the instance may ask for: its largest split, or the
+// block's limit where that is larger (the launcher refuses such a split).
+template <typename T, int HD>
+constexpr int smem_cap() {
+  return Layout<T, HD>::MAX_B < SMEM_MAX ? Layout<T, HD>::MAX_B : SMEM_MAX;
 }
 
 // Weights of the first n parts for each of the block's gb heads, in part
@@ -148,6 +174,7 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           long long v_sb, long long v_ss, long long v_sh, float scale) {
   using Lay = Layout<T, HD>;
   using E = rt::Elem<T>;
+  constexpr int R = Lay::R;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t pushed;  // rank 0: the other ranks' parts have landed
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -209,16 +236,29 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // lane (g, t) of mma.sync's fragments: row (head) g, columns 2t, 2t + 1
     // (and 2t + 8, 2t + 9); rows 8-15 of A are zero
     const int g = lane / 4, t = lane % 4;
-    uint32_t qa[HD / 16][4];  // q as A: a0 (g, 2t), a2 (g, 2t + 8)
-    const T* qr = q + b * q_sb + (h0 + g) * q_sh + 2 * t;
+    constexpr bool QREG = Lay::QREG;
+    uint32_t qa[QREG ? HD / 16 : 1][4];  // q as A: a0 (g, 2t), a2 (g, 2t + 8)
+    T* sq = reinterpret_cast<T*>(smem + Lay::RING_B);
+    if constexpr (QREG) {
+      const T* qr = q + b * q_sb + (h0 + g) * q_sh + 2 * t;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      qa[kk][0] = g < gb ? *reinterpret_cast<const uint32_t*>(qr + 16 * kk)
-                         : 0u;
-      qa[kk][2] = g < gb ? *reinterpret_cast<const uint32_t*>(qr + 16 * kk +
-                                                              8)
-                         : 0u;
-      qa[kk][1] = qa[kk][3] = 0u;
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        qa[kk][0] = g < gb ? *reinterpret_cast<const uint32_t*>(qr + 16 * kk)
+                           : 0u;
+        qa[kk][2] = g < gb ? *reinterpret_cast<const uint32_t*>(qr + 16 * kk +
+                                                                8)
+                           : 0u;
+        qa[kk][1] = qa[kk][3] = 0u;
+      }
+    } else {
+      for (int e = threadIdx.x; e < GB * HD / 2; e += NT) {  // 2 a thread
+        const int r = e / (HD / 2), c = 2 * (e % (HD / 2));
+        *reinterpret_cast<uint32_t*>(sq + r * Lay::LDQ + c) =
+            r < gb ? *reinterpret_cast<const uint32_t*>(
+                         q + b * q_sb + (h0 + r) * q_sh + c)
+                   : 0u;
+      }
+      __syncthreads();
     }
     float acc[HD / 8][4];
 #pragma unroll
@@ -241,10 +281,19 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float ch[2][2][4] = {};
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t kf[4];
+        uint32_t kf[4], qf[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qf[i] = qa[kk][i];
+        } else {
+          const T* qs = sq + g * Lay::LDQ + 16 * kk + 2 * t;
+          qf[0] = *reinterpret_cast<const uint32_t*>(qs);
+          qf[2] = *reinterpret_cast<const uint32_t*>(qs + 8);
+          qf[1] = qf[3] = 0u;
+        }
         rt::ldsm_x4(kf, sk + krow * Lay::LD + 16 * kk + kcol);
-        rt::mma_bf16(ch[kk % 2][0], qa[kk], kf);
-        rt::mma_bf16(ch[kk % 2][1], qa[kk], kf + 2);
+        rt::mma_bf16(ch[kk % 2][0], qf, kf);
+        rt::mma_bf16(ch[kk % 2][1], qf, kf + 2);
       }
       float sc[4];  // positions 2t, 2t + 1, 8 + 2t, 9 + 2t
       float mx = rt::NEG_INF;
@@ -426,13 +475,15 @@ int launch(const void* q, const void* k, const void* v, const void* length,
            int n_split, cudaStream_t stream) {
   static unsigned long long done = 0;  // devices with the limit raised
   auto kern = fd_kernel<T, HD>;
-  cudaError_t err = rt::allow_smem(kern, Layout<T, HD>::MAX_B, done);
-  if (err != cudaSuccess) return err;
   const int G = H / K, HG = (G + GB - 1) / GB;
+  const int smem = smem_bytes<T, HD>(n_split, G < GB ? G : GB);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = rt::allow_smem(kern, smem_cap<T, HD>(), done);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, K * HG, B);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem_bytes<T, HD>(n_split, G < GB ? G : GB);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -456,12 +507,14 @@ template <typename T, int HD>
 int max_clusters(int n_split, int G) {
   static unsigned long long done = 0;
   auto kern = fd_kernel<T, HD>;
-  cudaError_t err = rt::allow_smem(kern, Layout<T, HD>::MAX_B, done);
+  const int smem = smem_bytes<T, HD>(n_split, G < GB ? G : GB);
+  if (smem > SMEM_MAX) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = rt::allow_smem(kern, smem_cap<T, HD>(), done);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem_bytes<T, HD>(n_split, G < GB ? G : GB);
+  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = n_split;
@@ -495,6 +548,14 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
                            n_split, st);
     case 128:
       return launch<T, 128>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
+                            k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
+                            n_split, st);
+    case 160:
+      return launch<T, 160>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
+                            k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
+                            n_split, st);
+    case 256:
+      return launch<T, 256>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
                             k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
                             n_split, st);
     default:
@@ -548,6 +609,33 @@ extern "C" int flash_decode_max_clusters(int hd, int is_bf16, int n_split,
     case 129: return max_clusters<bf16, 64>(n_split, G);
     case 256: return max_clusters<float, 128>(n_split, G);
     case 257: return max_clusters<bf16, 128>(n_split, G);
+    case 320: return max_clusters<float, 160>(n_split, G);
+    case 321: return max_clusters<bf16, 160>(n_split, G);
+    case 512: return max_clusters<float, 256>(n_split, G);
+    case 513: return max_clusters<bf16, 256>(n_split, G);
     default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory bytes of a launch at (hd, dtype, n_split, G), or
+// -1 for a head dim with no instance: what kernels/flash_decode.py's
+// ``smem_bytes`` must equal.
+extern "C" int flash_decode_smem(int hd, int is_bf16, int n_split, int G) {
+  using bf16 = __nv_bfloat16;
+  const int gb = G < GB ? G : GB;
+  switch (2 * hd + (is_bf16 != 0)) {
+    case 32: return smem_bytes<float, 16>(n_split, gb);
+    case 33: return smem_bytes<bf16, 16>(n_split, gb);
+    case 64: return smem_bytes<float, 32>(n_split, gb);
+    case 65: return smem_bytes<bf16, 32>(n_split, gb);
+    case 128: return smem_bytes<float, 64>(n_split, gb);
+    case 129: return smem_bytes<bf16, 64>(n_split, gb);
+    case 256: return smem_bytes<float, 128>(n_split, gb);
+    case 257: return smem_bytes<bf16, 128>(n_split, gb);
+    case 320: return smem_bytes<float, 160>(n_split, gb);
+    case 321: return smem_bytes<bf16, 160>(n_split, gb);
+    case 512: return smem_bytes<float, 256>(n_split, gb);
+    case 513: return smem_bytes<bf16, 256>(n_split, gb);
+    default: return -1;
   }
 }

@@ -134,16 +134,17 @@ struct Coords {
   }
 };
 
-// Load the (rows x HD) tile at (head, seq, batch) as HD / 64 boxes, one per
-// 64-column half of HALF bytes, into the 128-byte swizzle; rows past the
-// tensor's end arrive as zeros.
+// Load the (rows x HD) tile at (head, seq, batch) as ceil(HD / 64) boxes,
+// one per 64-column half of HALF bytes, into the 128-byte swizzle; rows
+// past the tensor's end, and columns past HD (160's last half), arrive as
+// zeros, and count towards the barrier's bytes like the rest of the box.
 template <int HD, int HALF>
 __device__ __forceinline__ void tma_tile(unsigned char* dst, const void* map,
                                          int ord, uint64_t* bar, int head,
                                          int seq, int batch) {
   const Coords c(ord, head, seq, batch);
 #pragma unroll
-  for (int half = 0; half < HD / 64; ++half)
+  for (int half = 0; half < (HD + 63) / 64; ++half)
     rt::tma_load_4d(dst + half * HALF, map, bar, half * 64, c.c[0], c.c[1],
                     c.c[2]);
 }

@@ -8,11 +8,14 @@ T 512, H 16, K 8, hd 128, bf16) it must move q, k, v and o once, 50 MB (15
 µs at 3.35 TB/s), and do 8.6 GFLOP of causal products (8.7 µs at 989
 TFLOP/s of bf16 tensor cores): bytes bound it up to T ≈ 885 at this head
 layout, operations beyond. In bf16 the products run on the tensor cores: at
-head dims 64 and 128 (the serve path) as ``wgmma`` fed by TMA through an
-mbarrier ring, at 16 and 32 as ``mma.sync`` fed by ``cp.async``; both round
-P to bf16 before P·V. The f32 kernel, which only the TF32-off parity checks
-use, runs on the f32 CUDA cores (see the .cu note). Asked for it
-(``with_lse``), each writes the rows' log-sum-exp, f32 (B, H, T).
+head dims 64, 128, 160 and 256 (the serve path; 160 carried as three
+64-column halves, K/V tiles of 64 rows above 128) as ``wgmma`` fed by TMA
+through an mbarrier ring, at 16 and 32 as ``mma.sync`` fed by
+``cp.async``; both round P to bf16 before P·V. The f32 kernel, which only
+the TF32-off parity checks use, runs on the f32 CUDA cores (see the .cu
+note). The launcher counts the route each call took (``fwd_route``,
+``build.routes(NAME)``). Asked for it (``with_lse``), each writes the
+rows' log-sum-exp, f32 (B, H, T).
 
 The backward has no Pallas counterpart: JAX differentiates the jnp program
 around its forward-only kernel. On the card ``flash_attention`` is an
@@ -24,8 +27,8 @@ alone, as before. The backward takes one of two routes (``bwd_route``;
 the launcher counts the one each call took, ``build.routes(BWD)``): bf16
 at head dims 64 and 128 (the training path) runs ``wgmma`` fed by TMA,
 rounding P and dS to bf16 before its three products from registers, as
-FlashAttention-2 and -3 do; f32 and bf16 at 16 and 32 run the first
-CUDA-core kernels.
+FlashAttention-2 and -3 do; f32, and bf16 at 16, 32, 160 and 256, run the
+CUDA-core kernels (32-row tiles at 256).
 
 CPU tensors take the plain versions (``ref.flash_attention``,
 ``ref.flash_attention_lse``, ``ref.flash_attention_bwd``; autograd
@@ -52,7 +55,7 @@ def _check(q, k, v):
     if k.shape != (B, S, K, hd) or v.shape != k.shape:
         raise ValueError(f"{NAME}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    check_heads(NAME, H, K, hd)
+    check_heads(NAME, H, K, hd, q.device)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{NAME}: unsupported device {q.device}")
 
@@ -121,6 +124,17 @@ def flash_attention_fwd(q, k, v, causal: bool = True, scale: float = None,
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     return o, lse
+
+
+def fwd_route(dtype, hd: int) -> str:
+    """The forward kernel a CUDA call takes, by the rule
+    ``flash_attention_fwd`` of ``csrc/flash_attention.cu`` applies (it
+    counts the route it took under these names, ``build.routes(NAME)``):
+    bf16 at head dims 64 and up "wgmma", below "mma_sync", f32
+    "cuda_core"."""
+    if dtype != torch.bfloat16:
+        return "cuda_core"
+    return "wgmma" if hd >= 64 else "mma_sync"
 
 
 def bwd_route(dtype, hd: int) -> str:

@@ -33,25 +33,55 @@ NAME = "flash_decode"
 TILE = 16         # cache positions a tile; splits are multiples of it
 MAX_SPLIT = 8     # blocks a cluster (the portable limit); csrc's MAX_SPLIT
 WARPS = 2         # warps a block, warp w taking its tiles w, w + 2, ...
+GB = 8            # query heads a block
+SMEM_MAX = 232448 - 1024  # dynamic shared memory a launch may take (H100:
+                          # the block's less 1 KiB of static), csrc's
 WAVE = 1          # blocks an SM, at most, unless one a pair exceeds it
 SMS = 132         # the H100's SMs
 _SMS: dict = {}   # torch.device -> its SM count
 
 
+def smem_bytes(n_split: int, hd: int = 128, elem: int = 2, G: int = 1) -> int:
+    """Dynamic shared memory of a launch of ``n_split`` blocks a cluster at
+    head dim ``hd``, ``elem``-byte caches and G query heads a KV head: the
+    layout of ``csrc/flash_decode.cu`` (``Layout``, ``smem_bytes``; the
+    card checks the two agree, ``flash_decode_smem``). Each warp's ring of
+    R stages of a K and a V tile (rows padded by 16 bytes); f32 then keeps
+    the warps' parts, their P tiles, rescales and q, bf16 above hd 128 q
+    (rows padded by 16 bytes); and rank 0 takes the other ranks' parts,
+    (2 + hd) f32 a head."""
+    f32 = elem == 4
+    stages = 2 if f32 and hd > 160 else 3
+    ring = WARPS * stages * 2 * TILE * (hd + 16 // elem) * elem
+    part = (2 * GB + GB * hd) * 4
+    if f32:
+        slots_off = ring + WARPS * (part + GB * TILE * 4 + GB * 4) + \
+            GB * hd * 4
+    else:
+        slots_off = ring + (GB * (hd + 8) * 2 if hd > 128 else 0)
+    return slots_off + (n_split - 1) * WARPS * (2 * GB + min(G, GB) * hd) * 4
+
+
 @functools.lru_cache(maxsize=None)
-def plan(B: int, K: int, S: int, sms: int = SMS):
+def plan(B: int, K: int, S: int, sms: int = SMS, hd: int = 128,
+         elem: int = 2, G: int = 1):
     """(split, n_split) for a cache of S positions at B·K (batch, KV head)
     pairs: n_split blocks a pair, as many as keep ``WAVE`` blocks or fewer
-    on each of ``sms`` SMs, at most ``MAX_SPLIT`` (one cluster) and at most
-    one per 16-position tile; each takes ``split`` positions, a multiple of
-    16, the last one the rest. At the serve shape (B 8, K 8, S 576) that is
-    2 blocks of 288 positions, 128 blocks for 132 SMs. A block streams
+    on each of ``sms`` SMs, at most ``MAX_SPLIT`` (one cluster), at most
+    one per 16-position tile, and no more than the shared memory of a
+    block holds at this head dim, cache type and group G (``smem_bytes``:
+    only f32 at hd 256 with 6 or more heads a block is held back, to 6
+    blocks, and to 5 at 8 heads); each takes ``split`` positions, a
+    multiple of 16, the last one the rest. At the serve shape (B 8, K 8, S
+    576) that is 2 blocks of 288 positions, 128 blocks for 132 SMs. A block streams
     near the card's rate by itself, and more blocks an SM measured slower
     (tools/flash_decode_plans.py): more parts to merge, and past about
     2.5 blocks an SM clusters that must share a GPC no longer fit at once
     and run in a second wave."""
     tiles = max(1, -(-S // TILE))
     n = min(MAX_SPLIT, tiles, max(1, int(WAVE * sms) // max(1, B * K)))
+    while n > 1 and smem_bytes(n, hd, elem, G) > SMEM_MAX:
+        n -= 1
     split = -(-tiles // n) * TILE
     return split, max(1, -(-S // split))
 
@@ -87,7 +117,7 @@ def flash_decode(q, k, v, length):
     if k.shape != (B, S, K, hd) or v.shape != k.shape:
         raise ValueError(f"{NAME}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    check_heads(NAME, H, K, hd)
+    check_heads(NAME, H, K, hd, q.device)
     if q.device.type == "cpu":
         return ref.flash_decode(q, k, v, length)
     if q.device.type != "cuda":
@@ -99,7 +129,8 @@ def flash_decode(q, k, v, length):
     o = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     if o.numel() == 0 or S == 0:
         return o.zero_()
-    split, n_split = plan(B, K, S, _sms(q.device))
+    split, n_split = plan(B, K, S, _sms(q.device), hd, q.element_size(),
+                          H // K)
     lib = build.load(NAME)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -163,11 +163,21 @@ def _train_lm(args, ap, dev):
     policy = BackbonePolicy(cfg, device=dev, generator=gen)
     state = init_train_state(policy.params(),
                              dtype_of(tcfg.optimizer_state_dtype))
-    step = make_lm_train_step(policy, tcfg,
-                              loss_chunk=min(256, args.seq))
+    train_step = make_lm_train_step(policy, tcfg,
+                                    loss_chunk=min(256, args.seq))
+
+    def step(state, batch):
+        # the policy takes each step's params, so that it serves the trained
+        # weights and the run holds two copies at most (a step's input and
+        # output), not the initial ones besides
+        state, metrics = train_step(state, batch)
+        policy.bind(state.params)
+        return state, metrics
+
     loop = ResilientLoop(step, args.ckpt_dir, save_every=args.save_every)
     if args.resume:
         state, start = loop.resume_or_init(state)
+        policy.bind(state.params)
         loop.steps_done = start
         print(f"resumed at step {start}", flush=True)
 
@@ -193,7 +203,10 @@ def _train_lm(args, ap, dev):
     print(f"=== {cfg.name} LM PPO (layers={cfg.num_layers} "
           f"d_model={cfg.d_model}, batch={args.batch} seq={args.seq}, "
           f"device={dev}) ===", flush=True)
-    state = loop.run(state, batches, on_metrics)
+    # the loop takes the only reference to the initial state, so that each
+    # step's input state is freed once the step has returned its output
+    init, state = [state], None
+    state = loop.run(init.pop(), batches, on_metrics)
     print(f"done: {loop.steps_done} steps, {loop.recoveries} recoveries, "
           f"{loop.monitor.flagged} straggler flags", flush=True)
     return LMRun(state, last, step, batches, loop, policy)

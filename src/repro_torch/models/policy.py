@@ -288,6 +288,19 @@ class BackbonePolicy(nn.Module):
             return node.detach()
         return {k: plain(v) for k, v in self._own().items()}
 
+    def bind(self, params: dict) -> None:
+        """Make the tensors of the tree ``params`` (as ``params()`` gives it,
+        say a training step's output) the policy's own, without a copy: it
+        then serves them, and the tensors it held before are freed once
+        nothing else holds them."""
+        def walk(node, tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(node[k], v)
+                else:
+                    node[k].data = v
+        walk(self._own(), params)
+
     def _value(self, params, hidden):
         """The critic on ``hidden`` with the head of the tree ``params``."""
         if not self.cfg.value_head:

@@ -5,12 +5,22 @@ clipping first (``grad_norm`` is reported before clipping), then the moment
 updates, bias correction with the step count, and weight decay added to the
 update. The step count is a device tensor, so an update never syncs with
 the host. Defaults follow ``TrainConfig`` (``b2`` 0.95), not torch's.
+
+The update is functional, as the reference's: it returns new parameters and
+moments and leaves its inputs as they were. To keep its own memory near
+that of its outputs, it scales each gradient by the clip factor as it
+reaches it (no clipped copy of the tree) and takes a leaf of more than
+``CHUNK`` elements a slice at a time into preallocated outputs, so that
+its f32 temporaries stay a slice's; elementwise, so the bits are those of
+the whole-leaf expression.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+CHUNK = 1 << 26    # elements of a leaf updated at a time (f32: 256 MiB)
 
 
 def tree_leaves(tree) -> list:
@@ -53,15 +63,17 @@ def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
            eps=1e-8, weight_decay=0.0, max_grad_norm=0.0):
     """Returns (new_params, new_state, stats)."""
     gnorm = global_norm(grads)
+    scale = None
     if max_grad_norm:
         scale = (max_grad_norm / gnorm.clamp(min=1e-12)).clamp(max=1.0)
-        grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
 
     step = state.step + 1
     c1 = 1.0 - b1 ** step.float()
     c2 = 1.0 - b2 ** step.float()
 
-    def upd(p, g, m, v):
+    def adam(p, g, m, v):
+        if scale is not None:                       # the clipped gradient
+            g = g * scale.to(g.dtype)
         g32 = g.float()
         m32 = b1 * m.float() + (1 - b1) * g32
         v32 = b2 * v.float() + (1 - b2) * g32.square()
@@ -70,6 +82,17 @@ def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
             u = u + weight_decay * p.float()
         p2 = p.float() - lr * u
         return p2.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+
+    def upd(p, g, m, v):
+        if p.numel() <= CHUNK:
+            return adam(p, g, m, v)
+        outs = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                     for x in (p, m, v))
+        flat = [x.reshape(-1) for x in (p, g, m, v)]
+        for i in range(0, p.numel(), CHUNK):
+            for o, r in zip(outs, adam(*(x[i:i + CHUNK] for x in flat))):
+                o.view(-1)[i:i + CHUNK] = r
+        return outs
 
     out = tree_map(upd, params, grads, state.m, state.v)
     return (_pick(out, 0), AdamWState(step, _pick(out, 1), _pick(out, 2)),

@@ -1,9 +1,12 @@
-"""The six archs of the MoE and frontend slice against the JAX package.
+"""The archs of the MoE and frontend slice, and the two of the head-dim
+slice, against the JAX package.
 
 internlm2-20b (dense), internvl2-26b (dense, vlm prefix), musicgen-medium
 (GeGLU, no rope, audio prefix), jamba-v0.1-52b (hybrid SSM/attention with
-MoE), dbrx-132b (MoE top-4, every layer) and llama4-maverick-400b-a17b (MoE
-top-1 on every second layer). Configs and parameter counts equal the
+MoE), dbrx-132b (MoE top-4, every layer), llama4-maverick-400b-a17b (MoE
+top-1 on every second layer), gemma-7b (GeGLU, tied embeddings scaled by
+sqrt(d_model), head dim 256) and stablelm-12b (GQA, head dim 160; both at
+the smoke head dim here, tests/test_torch_headdims.py at their own). Configs and parameter counts equal the
 reference's without allocating; at the reference's smoke configs in f32,
 JAX initialises the parameters, ``params_from_jax`` loads them, and the
 same numpy tokens and prefixes go through both: ``seq``, ``prefill`` and
@@ -47,7 +50,7 @@ from repro_torch.models.policy import BackbonePolicy
 from repro_torch.rl import learner
 
 NEW = ("internlm2-20b", "internvl2-26b", "musicgen-medium", "jamba-v0.1-52b",
-       "dbrx-132b", "llama4-maverick-400b-a17b")
+       "dbrx-132b", "llama4-maverick-400b-a17b", "gemma-7b", "stablelm-12b")
 STACK_TOL = dict(atol=3e-4, rtol=1e-3)
 QTYPES = {"int8": jnp.int8, "int4": jnp.int4}
 
@@ -95,9 +98,12 @@ def _prefix(cfg, B, seed):
 # -- configuration --------------------------------------------------------------
 
 def test_registry_holds_the_eight_ported_archs():
+    """Every arch of the reference is ported: the eight of the earlier
+    slices and gemma-7b and stablelm-12b, the reference's ten in its
+    order."""
     from repro.configs import ARCHS as JAX_ARCHS
-    assert set(ARCHS) == set(JAX_ARCHS) - {"gemma-7b", "stablelm-12b"}
-    assert len(ARCHS) == 8
+    assert ARCHS == JAX_ARCHS
+    assert len(ARCHS) == 10
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -121,6 +127,10 @@ def test_config_and_param_count_match_jax(arch):
             list(range(1, 32, 2))
     if arch == "musicgen-medium":
         assert math.isclose(n, 1.82e9, rel_tol=1e-2)
+    if arch == "gemma-7b":       # 28 x 276.8 M and a tied 256,000 x 3,072
+        assert math.isclose(n, 8.54e9, rel_tol=1e-3)
+    if arch == "stablelm-12b":   # 40 x 277.8 M, an untied embed and unembed
+        assert math.isclose(n, 12.14e9, rel_tol=1e-3)
 
 
 # -- the stacks against JAX -------------------------------------------------------
@@ -301,10 +311,12 @@ def _by_name(tree):
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "dbrx-132b",
-                                  "musicgen-medium"])
+                                  "musicgen-medium", "gemma-7b",
+                                  "stablelm-12b"])
 def test_lm_train_step_matches_jax(arch):
     """jamba: an SSM + MLP layer and an attention + MoE layer; dbrx: two
-    top-2 MoE layers; musicgen: its prefix of 8 frames before 8 tokens."""
+    top-2 MoE layers; musicgen: its prefix of 8 frames before 8 tokens;
+    gemma: GeGLU under tied, scaled embeddings; stablelm: untied, GQA."""
     kw = dict(dtype="float32", param_dtype="float32", num_layers=2)
     jcfg = jax_with_overrides(jax_smoke_config(arch), **kw)
     cfg = _port(jcfg)

@@ -75,21 +75,43 @@ def _check(op, got, want, dtype):
     (2, 96, 96, 4, 1, 128, True),        # MQA at hd 128
     (1, 64, 64, 4, 1, 16, False),        # MQA, non-causal, hd 16
     (2, 200, 200, 4, 4, 128, True),      # MHA: one head per wgmma block
-    (2, 300, 150, 6, 2, 64, True)])      # an odd group (3), S < T
+    (2, 300, 150, 6, 2, 64, True),       # an odd group (3), S < T
+    # head dims 256 (gemma-7b: 64-row K/V tiles) and 160 (stablelm-12b:
+    # three TMA halves, the last zero-filled)
+    (8, 512, 512, 16, 16, 256, True), (8, 512, 512, 32, 8, 160, True),
+    (2, 200, 200, 16, 16, 256, True), (2, 130, 130, 32, 8, 160, True),
+    (2, 1, 1, 16, 16, 256, True), (2, 100, 300, 8, 2, 160, True),
+    (2, 150, 70, 4, 4, 256, False), (2, 96, 96, 6, 2, 160, True),
+    (1, 65, 65, 4, 1, 256, True)])
 def test_flash_attention_kernel_matches_ref(B, T, S, H, K, hd, causal, dtype,
                                             no_tf32):
+    """Each call on the route ``fwd_route`` names, as the launcher counted
+    it."""
+    from repro_torch.kernels.flash_attention import NAME, fwd_route
     rng = np.random.default_rng(T * S)
     q, k, v = (_randn(rng, s, dtype) for s in
                ((B, T, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    build.routes(NAME, reset=True)
     _check("flash_attention",
            lambda: ops.flash_attention(q, k, v, causal=causal),
            ref.flash_attention(q, k, v, causal=causal), dtype)
+    want = fwd_route(dtype, hd)
+    assert build.routes(NAME) == {r: int(r == want) for r in
+                                  build.ROUTES[NAME][1]}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("frac", [0.0, 0.6, 1.0])
 @pytest.mark.parametrize("B,H,K,hd,S", [(4, 16, 8, 128, 300),
-                                        (2, 8, 2, 64, 100)])
+                                        (2, 8, 2, 64, 100),
+                                        # gemma-7b's and stablelm-12b's
+                                        # caches at the serve shape; one
+                                        # pair over a whole cluster (f32 at
+                                        # hd 256 held to 5 blocks), G 8
+                                        (8, 16, 16, 256, 576),
+                                        (8, 32, 8, 160, 576),
+                                        (1, 8, 1, 256, 577),
+                                        (2, 16, 2, 160, 300)])
 def test_flash_decode_kernel_matches_ref(B, H, K, hd, S, frac, dtype,
                                          no_tf32):
     rng = np.random.default_rng(S)
@@ -130,7 +152,7 @@ def test_flash_decode_kernel_at_the_split_edges(B, S, K, dtype, no_tf32):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 20])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 160, 256])
 def test_flash_decode_kernel_over_groups_and_head_dims(G, hd, dtype,
                                                        no_tf32):
     """Query heads a KV head from 1 to 20 (past one 16-head block), at
@@ -673,7 +695,14 @@ FA_BWD_CASES = [
     (1, 129, 129, 8, 2, 128, True), (2, 190, 77, 8, 4, 128, True),
     (2, 77, 190, 4, 2, 64, True), (2, 150, 150, 8, 1, 64, True),
     (2, 100, 100, 6, 2, 128, True), (2, 200, 90, 4, 2, 128, False),
-    (1, 70, 250, 4, 4, 64, False)]
+    (1, 70, 250, 4, 4, 64, False),
+    # head dims 256 (gemma-7b, 32-row tiles) and 160 (stablelm-12b) on the
+    # CUDA cores: the training shapes, T off the tiles, one row, S != T,
+    # non-causal, an odd group
+    (8, 256, 256, 16, 16, 256, True), (8, 256, 256, 32, 8, 160, True),
+    (2, 200, 200, 16, 16, 256, True), (2, 130, 130, 32, 8, 160, True),
+    (2, 1, 1, 16, 16, 256, True), (2, 100, 300, 8, 2, 160, True),
+    (2, 150, 70, 4, 4, 256, False), (2, 96, 96, 6, 2, 160, True)]
 
 
 def _grad_close(name, got, want, tol, scale=None):
@@ -730,14 +759,17 @@ def test_flash_attention_bwd_matches_ref(B, T, S, H, K, hd, causal, dtype,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_is_deterministic(dtype):
-    """At qwen3's training shape (B 8, T 256, H 16, K 8, hd 128)."""
+@pytest.mark.parametrize("H,K,hd", [(16, 8, 128), (16, 16, 256),
+                                    (32, 8, 160)])
+def test_flash_attention_bwd_is_deterministic(H, K, hd, dtype):
+    """At qwen3's, gemma-7b's and stablelm-12b's training shapes (B 8, T
+    256)."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
     rng = np.random.default_rng(3)
     q, k, v = (_randn(rng, s, dtype) for s in
-               ((8, 256, 16, 128), (8, 256, 8, 128), (8, 256, 8, 128)))
-    do = _randn(rng, (8, 256, 16, 128), dtype)
+               ((8, 256, H, hd), (8, 256, K, hd), (8, 256, K, hd)))
+    do = _randn(rng, (8, 256, H, hd), dtype)
     o, lse = flash_attention_fwd(q, k, v, True, with_lse=True)
     first, again = (flash_attention_bwd(q, k, v, o, lse, do)
                     for _ in range(2))
@@ -748,11 +780,15 @@ def test_flash_attention_bwd_is_deterministic(dtype):
                                       (torch.bfloat16, 64),
                                       (torch.bfloat16, 32),
                                       (torch.bfloat16, 16),
+                                      (torch.bfloat16, 160),
+                                      (torch.bfloat16, 256),
                                       (torch.float32, 128),
-                                      (torch.float32, 64)])
+                                      (torch.float32, 64),
+                                      (torch.float32, 256)])
 def test_flash_attention_bwd_routes(dtype, hd):
     """Every bf16 call at head dims 64 and 128 runs the wgmma kernels, hd
-    16 and 32 and f32 the CUDA-core ones, as the launcher counted them."""
+    16, 32, 160 and 256 and f32 the CUDA-core ones, as the launcher
+    counted them."""
     from repro_torch.kernels.flash_attention import (BWD, bwd_route,
                                                      flash_attention_bwd,
                                                      flash_attention_fwd)
@@ -766,7 +802,7 @@ def test_flash_attention_bwd_routes(dtype, hd):
         flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     want = bwd_route(dtype, hd)
-    assert want == ("wgmma" if dtype == torch.bfloat16 and hd >= 64
+    assert want == ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
                     else "cuda_core")
     assert build.routes(BWD) == {r: 3 * (r == want)
                                  for r in ("wgmma", "cuda_core")}
@@ -927,3 +963,19 @@ def test_ssd_bwd_on_strided_layouts(layout, dtype, no_tf32):
     want = ref.ssd_bwd(x.float(), dt, A, B_.float(), C.float(), dy.float())
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
         _grad_close(name, g, w, TOL[dtype])
+
+
+
+def test_flash_decode_smem_matches_the_plan_mirror():
+    """csrc's smem_bytes, by flash_decode_smem, equals the one plan reads,
+    at every instance, split and group."""
+    import ctypes
+    from repro_torch.kernels import flash_decode as fd
+    fn = build.load("flash_decode").flash_decode_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    for hd in (16, 32, 64, 128, 160, 256):
+        for elem in (2, 4):
+            for n in range(1, 9):
+                for G in (1, 4, 8, 20):
+                    assert fn(hd, int(elem == 2), n, G) == \
+                        fd.smem_bytes(n, hd, elem, G), (hd, elem, n, G)

@@ -80,7 +80,7 @@ def _emulate(q, k, v, L):
     S, K = k.shape[1], k.shape[2]
     G = H // K
     bf16 = q.dtype == torch.bfloat16
-    split, n_split = fd.plan(B, K, S)
+    split, n_split = fd.plan(B, K, S, fd.SMS, hd, q.element_size(), G)
     c2 = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) * \
         torch.tensor(LOG2E, dtype=torch.float32)
     nvalid = min(S, max(L, 0) + 1)
@@ -132,6 +132,8 @@ def _pair(rng, shape, dtype):
     (1, 2, 1, 16, 577, 300, 577),  # the last split ragged, half filled
     (2, 8, 1, 32, 96, 0, 32),      # length 0: one position, G 8
     (1, 2, 2, 128, 48, 33, 48),    # G 1 at hd 128
+    (1, 4, 4, 256, 96, 70, 32),    # G 1 at hd 256 (gemma-7b)
+    (1, 8, 2, 160, 80, 79, 16),    # G 4 at hd 160 (stablelm-12b)
 ])
 def test_split_arithmetic_matches_jax(B, H, K, hd, S, L, block_s, dtype, tol,
                                       jax_mode):

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import build, dispatch
+from repro_torch.kernels._checks import check_heads
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
@@ -212,9 +213,13 @@ def test_wrappers_check_arguments():
         flash_attention(q, k.double(), k)
     with pytest.raises(ValueError, match="group"):
         flash_attention(torch.zeros(1, 8, 3, 32), k, k)
+    # a CPU tensor takes the plain version at any head dim, as the Pallas
+    # kernels do; a CUDA tensor only at a head dim with an instance
+    z = torch.zeros(1, 8, 2, 48)
+    assert flash_attention(torch.zeros(1, 8, 4, 48), z, z).shape == \
+        (1, 8, 4, 48)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(torch.zeros(1, 8, 4, 48), torch.zeros(1, 8, 2, 48),
-                        torch.zeros(1, 8, 2, 48))
+        check_heads("flash_attention", 4, 2, 48, torch.device("cuda"))
     with pytest.raises(ValueError, match="dims"):
         flash_decode(q, k, k, torch.tensor(0))
 

@@ -69,8 +69,8 @@ def test_configs_match_jax():
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.head_dim, full.d_ff, full.vocab_size) == \
         (28, 1024, 16, 8, 128, 3072, 151936)
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("gemma-7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gemma-8b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
