@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs sixteen phases, each printing its
+``src/repro_torch/kernels/csrc`` and runs seventeen phases, each printing its
 lines (and a ``[time]`` line after each, the script's seconds so far); any
 failure ends the run with a traceback and a non-zero exit:
 
@@ -250,6 +250,30 @@ failure ends the run with a traceback and a non-zero exit:
                  flash_attention, L flash_attention_bwd (all on the CUDA
                  cores) and 1 gae launch a step and a peak memory below
                  ``HD_PEAK_GIB`` 70 GiB
+ 17. shard       path H, the data-parallel ``shard_map`` tier at world size
+                 1 over NCCL: (a) squared's preset and duel self-play (a
+                 fixed opponent) for ``SHARD_UPDATES`` 3 updates on the jit
+                 tier and on the shard_map tier: params, AdamW moments,
+                 generator, rollout carry and every metric bit for bit;
+                 one gae launch an update on both, and E x M + 1 = 17
+                 all-reduces an update on the shard_map tier (one a
+                 minibatch for the gradients, loss and stats, one for the
+                 episode sums); then each tier's ms per update from rounds
+                 of ``SHARD_TIME_UPDATES`` 4 in turns (jit, shard_map,
+                 shard_map, jit); (b) the
+                 launcher in a subprocess: ``--ocean squared
+                 --engine-backend shard_map --full-budget
+                 --total-env-steps`` (``SHARD_LAUNCHER_UPDATES`` 30
+                 updates) ``--metrics-port 0 --run-dir D --profile P
+                 --profile-launches 3 --ckpt-dir C --save-every 10``;
+                 while it trains, GET /metrics (the engine's counters),
+                 /healthz (200, ok) and /spans; afterwards gae == updates,
+                 17 all-reduces an update, the newest checkpoint (gathered
+                 and written by rank 0) at the last update, a
+                 torch.profiler trace in P
+                 whose CUDA kernel events name ``gae_kernel``, and
+                 ``python -m repro_torch.telemetry summarize D`` and
+                 ``export-trace D`` exiting 0
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. First, a line for each new head
@@ -346,15 +370,16 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.rl.learner import (  # noqa: E402
     init_train_state, make_lm_train_step)
-from repro_torch.league import Arena, build_league  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.league import Arena, SelfPlay, build_league  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
 from repro_torch.models.transformer import layer_kinds  # noqa: E402
 from repro_torch.rl import actor  # noqa: E402
 from repro_torch.rl.engine import (METRIC_KEYS,  # noqa: E402
-                                   act_transfer_spec)
-from repro_torch.rl.trainer import Trainer  # noqa: E402
+                                   TrainEngine, act_transfer_spec)
+from repro_torch.rl.trainer import Trainer, ocean_policy_stack  # noqa: E402
 
 ARCH, SSM_ARCH = "qwen3-0.6b", "mamba2-1.3b"
 # path F, MoE and the frontends: jamba served int8 and musicgen trained at
@@ -479,6 +504,9 @@ CKPT_U = 5                              # path A: updates before the stop
 OCEAN2 = ("pong", "drone", "tagteam", "maze")   # path C, at their presets
 POOL_K, POOL_ENVS = 4, 1024             # path D: the arena's pool
 ASYNC_UPDATES = 40                      # path B: full-budget runs' updates
+SHARD_UPDATES = 3                       # path H: updates a tier runs in 17(a)
+SHARD_LAUNCHER_UPDATES = 30             # path H: the launcher's run in 17(b)
+SHARD_TIME_UPDATES = 4                  # path H: a timed round in 17(a)
 # path E, LM-backbone PPO: the launcher's defaults, B 8 x T 256, 10 steps
 LM_BATCH, LM_SEQ, LM_STEPS = 8, 256, 10
 LM_GATE_B, LM_GATE_T = 2, 64            # the full-width f32 gate
@@ -1918,6 +1946,27 @@ def async_summary(tag, out):
             actors, mem)
 
 
+def async_evidence(run_dir, out):
+    """One line: the score of every update of an async launcher run (from
+    its metrics log in ``run_dir``), the fragments dropped so far and the
+    fragments' mean and largest age at each update, and the run's async
+    line when it printed one."""
+    recs = []
+    for path in sorted(Path(run_dir).glob("*.jsonl")):
+        if not path.name.startswith("spans"):
+            recs += [json.loads(ln) for ln in path.read_text().splitlines()
+                     if ln.strip()]
+    recs = [r for r in recs if "score" in r]
+    stats = next((ln.strip() for ln in out if ln.startswith("  async:")),
+                 "no async line")
+    return (f"[11 async] (a) evidence: {len(recs)} updates; score "
+            f"{[round(r['score'], 3) for r in recs]}; dropped "
+            f"{[int(r.get('dropped_fragments', 0)) for r in recs]}; age "
+            f"mean {[round(r.get('frag_age_mean', 0.0), 2) for r in recs]}; "
+            f"age max {[int(r.get('frag_age_max', 0)) for r in recs]}; "
+            f"{stats}")
+
+
 def phase_async():
     """Path B: the async actor–learner tier through the launcher, each run
     in a subprocess (its actors are spawned processes, each with its own
@@ -1929,9 +1978,14 @@ def phase_async():
     uninterrupted learner. Returns the gae launches of (a)."""
     base = ["--ocean", "bandit", "--engine-backend", "async", "--num-actors",
             "2"]
-    t0 = time.perf_counter()
-    rc, out = run_launcher("11 async", base, timeout=600)
-    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        rc, out = run_launcher("11 async", base + [
+            "--run-dir", d, "--ckpt-dir", os.path.join(d, "ck")],
+            timeout=600)
+        wall = time.perf_counter() - t0
+        # the evidence for the verdict below, whatever the verdict
+        print(async_evidence(d, out), flush=True)
     if rc != 0 or not any("-> SOLVED" in ln for ln in out):
         raise AssertionError(f"async bandit did not solve (exit {rc}):\n"
                              + "".join(out[-40:]))
@@ -1961,7 +2015,9 @@ def phase_async():
             os.kill(killed["pids"][1], signal.SIGKILL)
             killed["done"] = ln.split()[1]
 
-    rc, out = run_launcher("11 async", full, timeout=600, on_line=kill_actor)
+    with tempfile.TemporaryDirectory() as d:
+        rc, out = run_launcher("11 async", full + ["--ckpt-dir", d],
+                               timeout=600, on_line=kill_actor)
     n, last, launches, line, stats, actors, _ = async_summary("11 async", out)
     if rc != 0 or n != ASYNC_UPDATES or "reshards=1" not in stats or \
             "dead=[1]" not in stats or launches["gae"] != n:
@@ -2223,6 +2279,208 @@ def phase_selfplay():
         del eng, store, sampler, arena, pool_arena, stacked
     torch.cuda.empty_cache()
     return sp_launches
+
+
+def http_get(url, timeout=10.0):
+    """(status, body text) of a GET; an HTTP error status is returned."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def shard_engine(name, backend, opp_seed=None):
+    """A TrainEngine at ``name``'s preset on ``backend``; with
+    ``opp_seed``, self-play against one opponent drawn from that seed."""
+    p = preset(name)
+    em, dist, pol = ocean_policy_stack(OCEAN[name](), hidden=p.hidden,
+                                       recurrent=p.recurrent, conv=p.conv)
+    sp = None
+    if opp_seed is not None:
+        opp = pol.init(torch.Generator(device="cuda").manual_seed(opp_seed))
+        sp = SelfPlay(lambda: opp)
+    return TrainEngine(em, pol, ocean_tcfg(name), dist, seed=0,
+                       backend=backend, selfplay=sp)
+
+
+def phase_shard():
+    """Path H, the data-parallel ``shard_map`` tier at world size 1 over
+    NCCL: (a) bit for bit against the jit tier on squared and duel
+    self-play, with its gae launches and all-reduces; (b) the launcher with
+    monitoring and profiling in a subprocess. Returns the gae launches of
+    (b)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, opp_seed in (("squared", None), ("duel", 7)):
+        tcfg = ocean_tcfg(name)
+        per_update = tcfg.update_epochs * tcfg.num_minibatches + 1
+        engines = {b: shard_engine(name, b, opp_seed)
+                   for b in ("jit", "shard_map")}
+        try:
+            got = torch.distributed.get_backend()
+            if got != "nccl" or engines["shard_map"].num_shards != 1:
+                raise AssertionError(f"shard_map tier on {got}, world size "
+                                     f"{engines['shard_map'].num_shards}")
+            runs = {}
+            for backend, eng in engines.items():
+                build.reset_launches()
+                shd.reset_collectives()
+                hist, _ = eng.run(SHARD_UPDATES * eng.steps_per_update)
+                sync()
+                runs[backend] = (hist, [x.clone() for x in engine_state(eng)],
+                                 dict(build.LAUNCHES), dict(shd.COLLECTIVES))
+            # then each tier's ms an update, in turns, both warm
+            rounds = {b: [] for b in engines}
+            for b in ("jit", "shard_map", "shard_map", "jit"):
+                sync()
+                t0 = time.perf_counter()
+                engines[b].run(SHARD_TIME_UPDATES * engines[b].steps_per_update)
+                sync()
+                rounds[b].append((time.perf_counter() - t0) * 1e3
+                                 / SHARD_TIME_UPDATES)
+        finally:
+            for eng in engines.values():
+                eng.close()
+        ms_a, ms_b = (statistics.mean(rounds[b]) for b in engines)
+        (ha, sa, la, _), (hb, sb, lb, cb) = runs["jit"], runs["shard_map"]
+        same = len(sa) == len(sb) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(sa, sb))
+        metrics_same = len(ha) == len(hb) == SHARD_UPDATES and all(
+            x[k] == y[k] for x, y in zip(ha, hb) for k in METRIC_KEYS)
+        if not (same and metrics_same):
+            raise AssertionError(f"[17 shard] (a) {name}: shard_map at world "
+                                 f"size 1 differs from the jit tier (state "
+                                 f"equal {same}, metrics equal "
+                                 f"{metrics_same})")
+        want = {"gae": SHARD_UPDATES, "flash_attention": 0,
+                "flash_decode": 0, "ssd": 0, "quant_matmul": 0, "pack": 0}
+        for tier, got in (("jit", la), ("shard_map", lb)):
+            if any(got[k] != v for k, v in want.items()):
+                raise AssertionError(f"[17 shard] (a) {name} {tier}: launch "
+                                     f"counts {got}, expected {want}")
+        if cb["all_reduce"] != SHARD_UPDATES * per_update:
+            raise AssertionError(f"[17 shard] (a) {name}: {cb} over "
+                                 f"{SHARD_UPDATES} updates, expected "
+                                 f"{per_update} all-reduces an update")
+        print(f"[17 shard] (a) {name}{' self-play' if opp_seed else ''} "
+              f"preset ({tcfg.num_envs} envs x {tcfg.unroll_length} steps, "
+              f"{tcfg.update_epochs} epochs x {tcfg.num_minibatches} "
+              f"minibatches): shard_map (NCCL, world size 1) == jit bit for "
+              f"bit over {SHARD_UPDATES} updates ({len(sa)} state tensors, "
+              f"{len(METRIC_KEYS)} metrics an update); ms/update jit "
+              f"{ms_a:.2f}, shard_map {ms_b:.2f} (rounds of "
+              f"{SHARD_TIME_UPDATES} in turns, jit "
+              f"{', '.join(f'{x:.2f}' for x in rounds['jit'])}, shard_map "
+              f"{', '.join(f'{x:.2f}' for x in rounds['shard_map'])}); "
+              f"gae {lb['gae']} ({lb['gae'] // SHARD_UPDATES} an "
+              f"update); collectives {cb}: "
+              f"{cb['all_reduce'] // SHARD_UPDATES} all-reduces an update "
+              f"(E x M = {per_update - 1} + 1), "
+              f"{cb['all_gather'] // SHARD_UPDATES} all-gathers (the "
+              f"advantage statistics)", flush=True)
+
+    # (b) the launcher, watched while it trains, then its records read
+    with tempfile.TemporaryDirectory() as d:
+        run_dir, prof_dir = os.path.join(d, "run"), os.path.join(d, "prof")
+        seen = {}
+
+        def probe(ln, proc):
+            if ln.startswith("monitoring:"):
+                seen["url"] = ln.split()[1].rsplit("/metrics", 1)[0]
+            if ln.startswith("  upd") and "url" in seen and \
+                    "metrics" not in seen:
+                for ep in ("metrics", "healthz", "spans"):
+                    seen[ep] = http_get(f"{seen['url']}/{ep}")
+
+        ck = os.path.join(d, "ck")
+        t0 = time.perf_counter()
+        rc, out = run_launcher("17 shard", [
+            "--ocean", "squared", "--engine-backend", "shard_map",
+            "--full-budget", "--total-env-steps",
+            str(SHARD_LAUNCHER_UPDATES * ocean_tcfg("squared").num_envs
+                * ocean_tcfg("squared").unroll_length),
+            "--metrics-port", "0", "--run-dir", run_dir, "--profile",
+            prof_dir, "--profile-launches", "3", "--ckpt-dir", ck,
+            "--save-every", "10"], timeout=300, on_line=probe)
+        wall = time.perf_counter() - t0
+        line = next((ln for ln in out if "collectives=" in ln), None)
+        if rc != 0 or line is None or "metrics" not in seen:
+            raise AssertionError(f"[17 shard] (b) launcher exit {rc}, "
+                                 f"endpoints read: {sorted(seen)}:\n"
+                                 + "".join(out[-40:]))
+        got = re.search(r"updates=(\d+) world_size=(\d+) launches=(\{.*?\})"
+                        r" collectives=(\{.*?\})", line)
+        n, world = int(got.group(1)), int(got.group(2))
+        launches = ast.literal_eval(got.group(3))
+        coll = ast.literal_eval(got.group(4))
+        per_update = (ocean_tcfg("squared").update_epochs
+                      * ocean_tcfg("squared").num_minibatches + 1)
+        saved = ckpt.latest(os.path.join(ck, "squared"))
+        if world != 1 or n != SHARD_LAUNCHER_UPDATES or \
+                launches["gae"] != n or any(
+                    launches[k] for k in launches if k != "gae") or \
+                coll["all_reduce"] != n * per_update or saved is None or \
+                ckpt.step_of(saved) != n:
+            raise AssertionError(f"[17 shard] (b) {line} (newest checkpoint "
+                                 f"{saved})")
+        code_m, metrics = seen["metrics"]
+        code_h, health = seen["healthz"]
+        code_s, spans = seen["spans"]
+        want = ('repro_stat_world_size{source="engine"} 1',
+                'repro_stat_all_reduces{source="engine"}')
+        if code_m != 200 or not all(w in metrics for w in want):
+            raise AssertionError(f"[17 shard] (b) /metrics {code_m}:\n"
+                                 f"{metrics[-2000:]}")
+        if code_h != 200 or json.loads(health)["ok"] is not True:
+            raise AssertionError(f"[17 shard] (b) /healthz {code_h}: "
+                                 f"{health}")
+        if code_s != 200:
+            raise AssertionError(f"[17 shard] (b) /spans {code_s}: {spans}")
+        json.loads(spans)
+        traces = sorted(Path(prof_dir).glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"[17 shard] (b) traces in {prof_dir}: "
+                                 f"{traces}")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        gae_events = [e for e in kernels if "gae_kernel" in e.get("name", "")]
+        if not gae_events:
+            raise AssertionError(f"[17 shard] (b) the trace's {len(kernels)} "
+                                 f"kernel events name no gae_kernel")
+        cli = {}
+        for cmd in ("summarize", "export-trace"):
+            r = subprocess.run([sys.executable, "-m", "repro_torch.telemetry",
+                                cmd, run_dir], cwd=ROOT, capture_output=True,
+                               text=True, timeout=120,
+                               env={**os.environ,
+                                    "PYTHONPATH": str(ROOT / "src")})
+            if r.returncode != 0:
+                raise AssertionError(f"[17 shard] (b) telemetry {cmd} exit "
+                                     f"{r.returncode}:\n{r.stdout[-2000:]}"
+                                     f"\n{r.stderr[-2000:]}")
+            cli[cmd] = next((ln for ln in r.stdout.splitlines()
+                             if ln.startswith(("# sps", "wrote"))), "")
+    metric_lines = [ln for ln in metrics.splitlines()
+                    if 'source="engine"' in ln or ln.startswith("engine_")]
+    print(f"[17 shard] (b) launcher, squared on the shard_map tier, "
+          f"{n} updates (checkpoints every 10, gathered and written by "
+          f"rank 0, newest at update {ckpt.step_of(saved)}) in {wall:.1f} s "
+          f"wall (start-up included): {line.split('->')[1].strip()}",
+          flush=True)
+    print(f"[17 shard] (b) while it trained: /metrics {code_m} "
+          f"({len(metrics.splitlines())} lines; {'; '.join(metric_lines)}), "
+          f"/healthz {code_h} {json.loads(health)['ok']}, /spans {code_s} "
+          f"({len(json.loads(spans))} span names)", flush=True)
+    print(f"[17 shard] (b) profile of the first 3 launches: {traces[0].name}"
+          f", {len(kernels)} kernel events, {len(gae_events)} gae_kernel "
+          f"({gae_events[0]['name'][:60]}, "
+          f"{sum(e.get('dur', 0) for e in gae_events) / len(gae_events):.1f}"
+          f" us each); telemetry summarize: {cli['summarize']}; "
+          f"export-trace: {cli['export-trace']}", flush=True)
+    return launches
 
 
 def grad_err(name, got, want, tol, scale=None):
@@ -3463,6 +3721,8 @@ def main():
     lap("15 moe+frontends")
     hd_launches = phase_headdims(gen)
     lap("16 head dims")
+    phase_shard()
+    lap("17 shard")
     rows = kernel_rows(gen, launches, errs, hd_launches) + bwd_rows(
         gen, lm_launches, lm_errs, hd_launches)
     lap("kernel rows")

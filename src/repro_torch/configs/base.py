@@ -1,5 +1,5 @@
-"""Configuration: copies of ``ModelConfig``, ``TrainConfig`` and
-``with_overrides`` from ``repro/configs/base.py`` (the port imports nothing
+"""Configuration: copies of ``ModelConfig``, ``MeshConfig``, ``TrainConfig``
+and ``with_overrides`` from ``repro/configs/base.py`` (the port imports nothing
 from ``repro``). ``TrainConfig`` keeps the reference's defaults exactly
 (``adam_b2`` 0.95, ``max_grad_norm`` 1.0); the port's engine reads the jit
 tier's fields, and the host, async and checkpoint fields wait for the
@@ -112,6 +112,25 @@ class ModelConfig:
 
     def padded_vocab(self, multiple: int = 128) -> int:
         return _round_up(self.vocab_size, multiple)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: tuple = (16, 16)
+    axes: tuple = ("data", "model")
+
+    @property
+    def data_axes(self) -> tuple:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
+    def tp(self) -> int:
+        return dict(zip(self.axes, self.shape)).get("model", 1)
+
+    @property
+    def dp(self) -> int:
+        d = dict(zip(self.axes, self.shape))
+        return d.get("pod", 1) * d.get("data", 1)
 
 
 @dataclass(frozen=True)

@@ -2,11 +2,11 @@
 
 Submodules load lazily (PEP 562): the async tier's spawned actors import
 ``repro_torch.distributed.actor_learner`` in a fresh interpreter, and this
-package must not import anything on their behalf. The data-parallel
-sharding of ``repro/distributed/sharding.py`` comes with a later slice.
+package must not import anything on their behalf. ``sharding`` holds the
+Ocean half of ``repro/distributed/sharding.py`` (the data-parallel tier).
 """
 
-_SUBMODULES = ("fault", "actor_learner")
+_SUBMODULES = ("fault", "actor_learner", "sharding")
 
 __all__ = list(_SUBMODULES)
 

@@ -10,10 +10,17 @@ learner's perspective — and feeds the exact same ``make_ocean_learn`` PPO
 math as ordinary training, so GAE goes through ``kernels.ops.gae``.
 
 Randomness: the reference folds separate keys for the learner rows, the
-opponent rows and the envs. Here every step draws from the engine's one
-generator in a fixed order — learner sample, opponent sample, env step —
-so K updates in one launch equal K launches of one update, and a
-checkpointed self-play run resumes bitwise.
+opponent rows and the envs, by global row and env index. Here every step
+draws from the engine's generator in a fixed order — learner sample,
+opponent sample, env step — so K updates in one launch equal K launches
+of one update, and a checkpointed self-play run resumes bitwise. With one
+generator per env block (the data-parallel layout, ``core/vector.py``)
+block s's learner rows, opponent rows and envs draw from generator s in
+that order, as rank s of an S-rank run draws them.
+
+On the ``shard_map`` tier rank 0 samples the opponent and the engine
+broadcasts it; ``run_selfplay`` keeps the store, the ratings and the
+arena on rank 0 and hands the final winrate to every rank.
 
 ``run_selfplay`` is the loop behind ``launch.train --selfplay``:
 snapshot the learner into the store on a cadence, rate each snapshot
@@ -29,7 +36,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import TrainConfig
 from repro_torch.rl.learner import make_ocean_learn
-from repro_torch.rl.rollout import Trajectory
+from repro_torch.rl.rollout import Trajectory, sample
 
 
 class SelfPlayCarry(NamedTuple):
@@ -57,7 +64,8 @@ def selfplay_rollout(policy, params, opp_params, step_fn, carry, generator,
                      unroll, dist, num_envs, num_agents, learner_agents):
     """T-step rollout with split agent rows. Returns ``(carry',
     Trajectory-over-learner-rows, last_value (N*L,))``. Each step draws the
-    learner rows' actions, then the opponent rows', then the env step's."""
+    learner rows' actions, then the opponent rows', then the env step's
+    (by block when ``generator`` is a list)."""
     N, A, L = num_envs, num_agents, learner_agents
     O = A - L
 
@@ -73,8 +81,8 @@ def selfplay_rollout(policy, params, opp_params, step_fn, carry, generator,
                                               reset=reset_l)
         logits_o, _, pc_o = policy.step(opp_params, obs_o, c.opp_carry,
                                         reset=reset_o)
-        act_l = dist.sample(generator, logits_l)
-        act_o = dist.sample(generator, logits_o)
+        act_l = sample(dist, generator, logits_l)
+        act_o = sample(dist, generator, logits_o)
         logp_l = dist.log_prob(logits_l, act_l)
         tail = tuple(act_l.shape[1:])
         action = torch.cat([act_l.reshape((N, L) + tail),
@@ -96,13 +104,16 @@ def selfplay_rollout(policy, params, opp_params, step_fn, carry, generator,
 
 def make_selfplay_update(policy, step_fn, tcfg: TrainConfig, dist,
                          num_envs: int, num_agents: int,
-                         learner_agents: int):
+                         learner_agents: int, num_shards: int = 1,
+                         group=None):
     """Returns ``update(ts, rc, opp_params, generator) → (ts, rc,
     metrics)`` — the self-play twin of ``learner.make_ocean_update``:
     split-row rollout, then the shared PPO learn over the learner rows only.
     Its halves are ``update.collect(ts, rc, opp_params, generator) → (rc,
-    (carry0, traj, last_value))`` and ``update.learn``."""
-    learn = make_ocean_learn(policy, tcfg, dist)
+    (carry0, traj, last_value))`` and ``update.learn``. ``num_envs`` is
+    this rank's; ``num_shards`` and ``group`` are ``make_ocean_learn``'s."""
+    learn = make_ocean_learn(policy, tcfg, dist, num_shards=num_shards,
+                             group=group)
 
     def collect(ts, rc: SelfPlayCarry, opp_params, generator):
         carry0 = rc.policy_carry
@@ -126,10 +137,11 @@ def build_league(env, tcfg: TrainConfig, *, league_dir: str,
                  hidden: int = 64, recurrent: bool = False,
                  conv: bool = None, strategy: str = "prioritized",
                  seed: int = 0, learner_agents: int = 0,
-                 arena_envs: int = 16, backend: str = None, device=None):
+                 arena_envs: int = 16, backend: str = None, device=None,
+                 mesh=None):
     """Wire a complete league around ``env``: (engine, store, ranker,
     sampler, arena). The store is seeded with the engine's init params as
-    version 0 if empty, so sampling always has an opponent."""
+    version 0 if empty (by rank 0), so sampling always has an opponent."""
     from repro_torch.league.arena import Arena
     from repro_torch.league.ranker import OpponentSampler, Ranker
     from repro_torch.league.store import PolicyStore
@@ -145,8 +157,8 @@ def build_league(env, tcfg: TrainConfig, *, league_dir: str,
                               strategy=strategy, seed=seed)
     engine = TrainEngine(
         em, policy, tcfg, dist, seed=seed, device=dev, backend=backend,
-        selfplay=SelfPlay(sampler.next_params, learner_agents))
-    if len(store) == 0:
+        mesh=mesh, selfplay=SelfPlay(sampler.next_params, learner_agents))
+    if engine.rank == 0 and len(store) == 0:
         store.add(engine.ts.params, step=0)
     arena = Arena(em, policy, dist, num_envs=arena_envs,
                   learner_agents=learner_agents or em.num_agents // 2,
@@ -167,7 +179,7 @@ def run_selfplay(env, tcfg: TrainConfig, *, league_dir: str,
                  recurrent: bool = False, conv: bool = None,
                  strategy: str = "prioritized",
                  seed: int = 0, learner_agents: int = 0,
-                 backend: str = None, device=None,
+                 backend: str = None, device=None, mesh=None,
                  log_every: int = 0) -> LeagueResult:
     """Self-play training loop: every ``snapshot_every`` updates the learner
     is snapshotted into the store, rated against up to ``rate_matches``
@@ -179,8 +191,10 @@ def run_selfplay(env, tcfg: TrainConfig, *, league_dir: str,
     engine, store, ranker, sampler, arena = build_league(
         env, tcfg, league_dir=league_dir, hidden=hidden, recurrent=recurrent,
         conv=conv, strategy=strategy, seed=seed,
-        learner_agents=learner_agents, backend=backend, device=device)
+        learner_agents=learner_agents, backend=backend, device=device,
+        mesh=mesh)
     dev = engine.device
+    lead = engine.rank == 0
     rate_gen = torch.Generator(device=dev).manual_seed(seed + 1)
     last = {"score": None}
 
@@ -194,7 +208,8 @@ def run_selfplay(env, tcfg: TrainConfig, *, league_dir: str,
     snap = {"through": 0}
 
     def on_launch(u):
-        if u // snapshot_every <= snap["through"] // snapshot_every:
+        if not lead or (u // snapshot_every
+                        <= snap["through"] // snapshot_every):
             return
         snap["through"] = u
         params = engine.ts.params
@@ -208,15 +223,25 @@ def run_selfplay(env, tcfg: TrainConfig, *, league_dir: str,
                 ranker.update(v, opp, res["outcome"])
             store.set_ratings(ranker.ratings)
 
-    history, _ = engine.run(total_steps, on_update=on_update,
-                            on_launch=on_launch)
-    final = engine.ts.params
-    if snap["through"] != len(history):    # last launch wasn't snapshotted
-        store.add(final, step=len(history) * engine.steps_per_update,
-                  score=last["score"])
-    for v in store.versions():          # unrated versions get the default
-        ranker.ratings.setdefault(v, ranker.rating(v))
-    store.set_ratings(ranker.ratings)
-    wr = arena.play_random(
-        final, torch.Generator(device=dev).manual_seed(seed + 2))["outcome"]
+    try:
+        history, _ = engine.run(total_steps, on_update=on_update,
+                                on_launch=on_launch)
+        final = engine.ts.params
+        wr = 0.0
+        if lead:
+            if snap["through"] != len(history):  # last launch not snapshotted
+                store.add(final, step=len(history) * engine.steps_per_update,
+                          score=last["score"])
+            for v in store.versions():      # unrated versions get the default
+                ranker.ratings.setdefault(v, ranker.rating(v))
+            store.set_ratings(ranker.ratings)
+            wr = arena.play_random(
+                final, torch.Generator(device=dev).manual_seed(seed + 2))[
+                    "outcome"]
+        if engine.group is not None:
+            from repro_torch.distributed.sharding import broadcast_tree
+            wr = float(broadcast_tree(
+                torch.tensor([float(wr)], device=dev), engine.group)[0])
+    finally:
+        engine.close()
     return LeagueResult(history, store, ranker, wr)

@@ -1,7 +1,6 @@
 """TrainEngine: the PPO training loop behind one ``run(total_steps)``.
 
-The counterpart of ``repro/rl/engine.py``'s ``jit``, ``pool`` and ``host``
-tiers:
+The counterpart of ``repro/rl/engine.py``'s five tiers:
 
   * ``jit``  — a launch is K updates enqueued eagerly on the device, none of
                which syncs with the host: the metrics of each update are
@@ -9,7 +8,22 @@ tiers:
                the host once per launch, asynchronously. The engine fetches
                it one launch late (so the host enqueues launch i+1 while the
                device runs launch i), or at once when ``target_score`` is
-               set, which is checked at launch boundaries.
+               set, which is checked at launch boundaries. ``num_shards`` S
+               emulates the data-parallel layout in one process: one
+               generator per env block, minibatches joined across blocks.
+  * ``shard_map`` — data-parallel over the ranks of a ``torch.distributed``
+               process group, one rank per process (PyTorch's SPMD idiom
+               for what ``shard_map`` does in one): rank s steps env block
+               s of S, draws from block s's generator what block s of the
+               S-block emulation draws, and learns with its gradients, loss
+               and stats averaged by one all-reduce a minibatch
+               (``learner.make_ocean_learn(group=)``), so its metrics — and
+               every decision made from them — are the same on every rank.
+               Rank 0's params are broadcast at construction. Without a
+               group and at world size 1 the engine makes its own: NCCL on
+               a CUDA device (never gloo), gloo on the CPU
+               (``launch/mesh.py``). At world size 1 it is the jit tier bit
+               for bit.
   * ``pool`` — the double-buffered pool (``core/pool.py``): while the learner
                consumes buffer i, buffer i+1's env steps stay enqueued on the
                device. One update per buffer trajectory; the metrics drain
@@ -38,24 +52,29 @@ tiers:
 Checkpoints fire at update boundaries: with ``checkpoint_dir`` set, every
 ``tcfg.checkpoint_every`` updates the resumable state saves asynchronously
 (copied to the host at the call, written on a thread): the TrainState, the
-generator's state (where the reference saves its PRNG key) and, on the jit
-tier, the rollout carry (env states, obs, recurrent carry). ``restore()``
-resumes a run so that on the jit tier interrupted-then-resumed is bitwise
-equal to uninterrupted; the pool, host and async tiers resume the learner
-and the generator, and re-seed their env states, as the reference does.
+generator's state (where the reference saves its PRNG key; one per block
+under ``num_shards``) and, on the jit tier, the rollout carry (env states,
+obs, recurrent carry). ``restore()`` resumes a run so that on the jit tier
+interrupted-then-resumed is bitwise equal to uninterrupted; the pool, host
+and async tiers resume the learner and the generator, and re-seed their
+env states, as the reference does. On the ``shard_map`` tier a save is
+collective: the rollout carry is gathered into the global layout and
+every rank's generator state beside it, rank 0 writes (synchronously),
+and a barrier follows; the train state and carry restore on any S, the
+generators where S is the one saved (else each rank's is re-seeded).
 
 Self-play (``league/``): construct with ``selfplay=SelfPlay(next_opponent,
-L)`` on the jit tier. Agent rows [0, L) are the learner, rows [L, A) act
-under frozen params that ``next_opponent()`` returns (e.g. from the
-``PolicyStore``), called on the host once per launch, so the K updates of a
-launch face one opponent; PPO and GAE run over the learner rows only. The
-rollout carry is a ``SelfPlayCarry`` (the opponent rows' recurrent carry
-beside the learner's), saved and restored like any rollout carry.
-
-The ``shard_map`` tier comes with the data-parallel slice.
+L)`` on the jit or shard_map tier. Agent rows [0, L) are the learner, rows
+[L, A) act under frozen params that ``next_opponent()`` returns (e.g. from
+the ``PolicyStore``), called on the host once per launch (on the shard_map
+tier by rank 0, which broadcasts them), so the K updates of a launch face
+one opponent; PPO and GAE run over the learner rows only. The rollout
+carry is a ``SelfPlayCarry`` (the opponent rows' recurrent carry beside
+the learner's), saved and restored like any rollout carry.
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from types import SimpleNamespace
@@ -71,7 +90,8 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import spaces as sp
 from repro_torch.core.emulation import emulate, flat_spec
 from repro_torch.core.pool import Pool
-from repro_torch.core.vector import VecEnv
+from repro_torch.core.vector import VecEnv, block_generators
+from repro_torch.distributed import sharding as shd
 from repro_torch.rl.learner import (TrainState, init_train_state,
                                     make_ocean_learn, make_ocean_update,
                                     make_vtrace_adv)
@@ -85,8 +105,27 @@ from repro_torch.telemetry import span as tel_span
 METRIC_KEYS = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl",
                "clipfrac", "grad_norm", "score", "episode_return", "episodes")
 
-_LATER = {"shard_map": "the data-parallel slice"}
-_TIERS = ("jit", "pool", "host", "async")
+_TIERS = ("jit", "shard_map", "pool", "host", "async")
+_FUSED = ("jit", "shard_map")
+
+
+def _check_mesh(mesh, num_envs: int):
+    """The shard_map tier's mesh: data axes to shard over, no other axis
+    wider than 1, and envs that split evenly over its data ranks."""
+    axes = shd.data_axes(mesh)
+    if not axes:
+        raise ValueError(
+            f"mesh {mesh.axis_names} has no data axes ('pod'/'data') to "
+            f"shard Ocean PPO over")
+    wide = [a for a in mesh.axis_names if a not in axes and mesh.shape[a] > 1]
+    if wide:
+        raise ValueError(
+            f"mesh axes {wide} replicate Ocean PPO; the model axis comes "
+            f"with the LM-sharding slice (its size must be 1 here)")
+    S = shd.dp_size(mesh)
+    if num_envs % S:
+        raise ValueError(f"num_envs={num_envs} not divisible by the mesh "
+                         f"data-parallel size {S}")
 
 
 def pack_metrics(m: dict) -> torch.Tensor:
@@ -134,35 +173,58 @@ class TrainEngine:
     distributions.Dist. One generator on ``device``, seeded with ``seed``,
     draws the parameters, the env states and then every update's randomness
     in order, so K updates in one launch equal K launches of one update.
+    With S env blocks (``num_shards`` on the jit tier, the ranks on the
+    shard_map tier) block 0 keeps that generator and block s > 0 draws
+    from one seeded with ``core.vector.block_seed(seed, s)``.
     ``device=None`` means CUDA (raises without a Hopper card). On the async
-    tier ``seed`` also seeds the actors' (shard, epoch) streams."""
+    tier ``seed`` also seeds the actors' (shard, epoch) streams.
+
+    ``mesh`` (shard_map tier; ``launch.mesh.make_mesh``) names the ranks'
+    axes: Ocean PPO shards over its data axes. ``num_shards`` (jit tier
+    only) emulates the S-way block layout in one process — what the
+    parity tests hold an S-rank run against."""
 
     def __init__(self, env, policy, tcfg: TrainConfig, dist, *,
                  seed: int = 0, device=None, backend: str = None,
                  updates_per_launch: int = None,
-                 checkpoint_dir: Optional[str] = None, selfplay=None):
+                 checkpoint_dir: Optional[str] = None, selfplay=None,
+                 mesh=None, num_shards: int = 1):
         self.env, self.policy, self.tcfg, self.dist = env, policy, tcfg, dist
         self.backend = backend or tcfg.engine_backend
-        if self.backend in _LATER:
-            raise ValueError(f"engine backend {self.backend!r} comes with "
-                             f"{_LATER[self.backend]}; the port runs "
-                             f"{' | '.join(_TIERS)}")
         if self.backend not in _TIERS:
             raise ValueError(f"unknown engine backend {self.backend!r}; "
                              f"expected {' | '.join(_TIERS)}")
         self.K = updates_per_launch or tcfg.updates_per_launch
         if self.K < 1:
             raise ValueError(f"updates_per_launch must be >= 1, got {self.K}")
-        if self.backend != "jit" and self.K != 1:
+        if self.backend not in _FUSED and self.K != 1:
             raise ValueError(
-                f"updates_per_launch={self.K} is the jit tier's knob; the "
+                f"updates_per_launch={self.K} is the fused tiers' knob; the "
                 f"{self.backend} tier runs one update per trajectory (K=1)")
+        if self.backend != "shard_map" and mesh is not None:
+            raise ValueError(f"mesh is only meaningful for the shard_map "
+                             f"tier, not backend={self.backend!r}")
+        if self.backend == "shard_map":
+            if num_shards != 1:
+                raise ValueError("num_shards is derived from the mesh on "
+                                 "the shard_map tier; pass a mesh instead")
+            if mesh is not None:
+                _check_mesh(mesh, tcfg.num_envs)
+        elif num_shards < 1 or tcfg.num_envs % num_shards:
+            raise ValueError(
+                f"num_envs={tcfg.num_envs} not divisible by num_shards="
+                f"{num_shards}: the S-block emulation would silently drop "
+                f"the tail envs from every minibatch")
+        elif self.backend != "jit" and num_shards != 1:
+            raise ValueError(f"num_shards emulates the data-parallel layout "
+                             f"on the jit tier, not backend="
+                             f"{self.backend!r}")
         self.selfplay = selfplay
         if selfplay is not None:
-            if self.backend != "jit":
+            if self.backend not in _FUSED:
                 raise ValueError(
-                    f"selfplay runs on the device-resident tiers (here the "
-                    f"jit tier: the opponent swap is a launch-boundary "
+                    f"selfplay runs on the device-resident tiers (jit and "
+                    f"shard_map: the opponent swap is a launch-boundary "
                     f"decision), not backend={self.backend!r}")
             A = getattr(env, "num_agents", 1)
             if A < 2:
@@ -204,8 +266,26 @@ class TrainEngine:
                         "whose actors rebuild it in their processes, got "
                         f"{type(env).__name__} without {attr!r}")
         self.device = _device.resolve(device)
+        self.seed = seed
+        self.group, self.rank, self.num_shards = None, 0, num_shards
+        self._own_group = False
+        if self.backend == "shard_map":
+            self.mesh = self._join_group(mesh)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.ts = init_train_state(policy.init(self.generator))
+        # what every update draws from: the generator, or one per block
+        self._draw = self.generator
+        if self.group is not None:
+            # rank 0's params on every rank; then rank s's own block stream
+            self.ts = TrainState(shd.broadcast_tree(self.ts.params,
+                                                    self.group),
+                                 self.ts.opt, self.ts.step)
+            if self.rank > 0:
+                self.generator = self._draw = block_generators(
+                    seed, self.num_shards, self.device)[self.rank]
+        elif self.num_shards > 1:
+            self._draw = block_generators(seed, self.num_shards, self.device,
+                                          first=self.generator)
         self.rc = None
         if self.backend == "async":
             from repro_torch.distributed.actor_learner import AsyncRollouts
@@ -242,58 +322,111 @@ class TrainEngine:
             self._act = self._make_act()
             self._boot = self._make_bootstrap()
             return
-        self.vec = VecEnv(env, tcfg.num_envs)
-        env_state, obs = self.vec.init(self.generator)
+        # this rank's envs: all of them, or its block on the shard_map tier
+        ranks = 1 if self.group is None else self.num_shards
+        self.vec = VecEnv(env, tcfg.num_envs // ranks)
+        env_state, obs = self.vec.init(self._draw)
         B = self.vec.batch_size
         done0 = torch.zeros(B, dtype=torch.bool, device=self.device)
+        layout = {"num_shards": 1 if self.group is not None
+                  else self.num_shards, "group": self.group}
         if selfplay is not None:
             from repro_torch.league.selfplay import (SelfPlayCarry,
                                                      make_selfplay_update)
-            N, A, L = tcfg.num_envs, self.vec.num_agents, self._sp_agents
+            N, A, L = self.vec.num_envs, self.vec.num_agents, self._sp_agents
             self.rc = SelfPlayCarry(
                 env_state, obs, policy.initial_carry(N * L, self.device),
                 policy.initial_carry(N * (A - L), self.device), done0)
             self.update = make_selfplay_update(policy, self.vec.step, tcfg,
-                                               dist, N, A, L)
+                                               dist, N, A, L, **layout)
             return
         self.rc = RolloutCarry(
             env_state, obs, policy.initial_carry(B, self.device), done0)
-        self.update = make_ocean_update(policy, self.vec.step, tcfg, dist)
+        self.update = make_ocean_update(policy, self.vec.step, tcfg, dist,
+                                        **layout)
+
+    def _join_group(self, mesh):
+        """The shard_map tier's process group (made here at world size 1
+        when none exists) and its mesh, checked against the group."""
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as mesh_mod
+        self._own_group = mesh_mod.init_process_group(self.device)
+        try:
+            self.group = dist.group.WORLD
+            W, self.rank = dist.get_world_size(), dist.get_rank()
+            if mesh is None:
+                mesh = mesh_mod.make_mesh((W,), ("data",))
+            _check_mesh(mesh, self.tcfg.num_envs)
+            if mesh.size != W:
+                raise ValueError(f"mesh {mesh.shape} covers {mesh.size} "
+                                 f"ranks; the process group has {W}")
+            self.num_shards = W
+            shd.reset_collectives()
+            return mesh
+        except BaseException:
+            self.close()
+            raise
 
     @property
     def batch_size(self) -> int:
-        return self.vec.batch_size
+        """The batch rows of one env step over every rank."""
+        ranks = 1 if self.group is None else self.num_shards
+        return self.vec.batch_size * ranks
 
     @property
     def steps_per_update(self) -> int:
-        return self.tcfg.unroll_length * self.vec.batch_size
+        return self.tcfg.unroll_length * self.batch_size
 
     def stats(self) -> dict:
         """Live snapshot: the backend name, on the host tier the host pool's
         counters and liveness, on the async tier the actors' slab rows,
-        liveness, reshards and straggler monitors."""
+        liveness, reshards and straggler monitors, on the shard_map tier
+        the world size, the rank and the all-reduces issued."""
         out = {"backend": self.backend}
         if self.backend == "host":
             out["pool"] = self.hvec.pool.stats()
         if self.backend == "async":
             out["rollouts"] = self.rollouts.stats()
+        if self.backend == "shard_map":
+            out.update(world_size=self.num_shards, rank=self.rank,
+                       all_reduces=shd.COLLECTIVES["all_reduce"])
         return out
 
     def close(self):
         """Release the host tier's worker threads or processes, or the
-        async tier's actor processes and slab; join a pending save."""
+        async tier's actor processes and slab; join a pending save; on the
+        shard_map tier destroy the process group the engine made."""
         self._join_checkpoint()
         if self.backend == "host":
             self.hvec.close()
         if self.backend == "async":
             self.rollouts.close()
+        if self._own_group:
+            import torch.distributed as dist
+            self._own_group = False
+            dist.destroy_process_group()
 
     # -- checkpoints -------------------------------------------------------------
+    def _gen_states(self):
+        """The generator states a checkpoint holds: (S, L) uint8, one row
+        per block (on the shard_map tier gathered from every rank;
+        collective)."""
+        if self.group is not None:
+            st = self.generator.get_state().to(self.device)
+            return shd.all_gather_stack(st, self.group).cpu()
+        return torch.stack([g.get_state() for g in self._draw])
+
     def _ckpt_tree(self, update: int) -> dict:
-        tree = {"ts": self.ts, "generator": self.generator.get_state(),
-                "update": np.asarray(update, np.int64)}
+        tree = {"ts": self.ts, "update": np.asarray(update, np.int64)}
+        if self._draw is self.generator and self.group is None:
+            tree["generator"] = self.generator.get_state()
+        else:
+            tree["generators"] = self._gen_states()
+            tree["shards"] = np.asarray(self.num_shards, np.int64)
         if self.rc is not None:
-            tree["rc"] = self.rc
+            tree["rc"] = (self.rc if self.group is None
+                          else shd.gather_blocks(self.rc, self.group))
         return tree
 
     def _ckpt_like(self) -> dict:
@@ -304,12 +437,23 @@ class TrainEngine:
         update count and, on the jit tier, the rollout carry) under
         ``checkpoint_dir``. Every tensor is copied to the host at this call;
         async mode writes the files on a thread, and a previous async save
-        joins first. Returns the committed path or the thread."""
+        joins first. Returns the committed path or the thread. On the
+        shard_map tier every rank calls it: rank 0 writes the gathered
+        state at once (``async_`` does not apply) and a barrier follows."""
         if self.checkpoint_dir is None:
             raise ValueError("engine has no checkpoint_dir")
         self._join_checkpoint()
         update = self._saved_upto if update is None else update
-        out = ckpt.save(self.checkpoint_dir, self._ckpt_tree(update),
+        tree = self._ckpt_tree(update)
+        if self.group is not None:
+            import torch.distributed as dist
+            out = None
+            if self.rank == 0:
+                out = ckpt.save(self.checkpoint_dir, tree, step=update,
+                                keep=self.tcfg.keep_checkpoints)
+            dist.barrier(self.group)
+            return out
+        out = ckpt.save(self.checkpoint_dir, tree,
                         step=update, async_=async_,
                         keep=self.tcfg.keep_checkpoints)
         if async_:
@@ -322,13 +466,54 @@ class TrainEngine:
         directory = directory or self.checkpoint_dir
         if directory is None:
             raise ValueError("engine has no checkpoint_dir to restore from")
+        if self.group is not None:
+            return self._restore_ranks(directory)
         tree = ckpt.restore(directory, self._ckpt_like())
         self.ts = TrainState(*tree["ts"])
         if self.rc is not None:
             self.rc = tree["rc"]
-        self.generator.set_state(tree["generator"])
+        if "generator" in tree:
+            self.generator.set_state(tree["generator"])
+        else:
+            for g, st in zip(self._draw, tree["generators"]):
+                g.set_state(st.clone())
         self._resume_update = self._saved_upto = int(tree["update"])
         return self._resume_update
+
+    def _restore_ranks(self, directory: str) -> int:
+        """The shard_map tier's restore: every rank reads the global
+        checkpoint and keeps its own block of the carry; its generator
+        state where the checkpoint was taken at this S, else a generator
+        re-seeded from (seed + update, rank)."""
+        path = (directory
+                if os.path.exists(os.path.join(directory, "index.json"))
+                else ckpt.latest(directory))
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint in {directory}")
+        like = {"ts": self.ts, "update": np.asarray(0, np.int64),
+                "shards": np.asarray(0, np.int64)}
+        if self.rc is not None:
+            like["rc"] = shd.gather_blocks(self.rc, self.group)
+        tree = ckpt.restore(path, like)
+        S, r = self.num_shards, self.rank
+        update = int(tree["update"])
+        self.ts = TrainState(*tree["ts"])
+        if self.rc is not None:
+            self.rc = shd.tree_map(lambda x: x.clone(),
+                                   shd.block(tree["rc"], S, r))
+        saved = int(tree["shards"])
+        if saved == S:
+            st = self.generator.get_state()
+            gens = ckpt.restore(path, {"generators": torch.empty(
+                (S, st.numel()), dtype=torch.uint8)})["generators"]
+            # a row of its own: set_state reads a view's storage from the
+            # start, not from the view's offset
+            self.generator.set_state(gens[r].clone())
+        else:
+            self.generator = self._draw = block_generators(
+                self.seed + update, S, self.device)[r]
+        self._resume_update = self._saved_upto = update
+        return update
 
     def _maybe_checkpoint(self, updates_done: int):
         """The update-boundary checkpoint hook: an async save every
@@ -350,14 +535,21 @@ class TrainEngine:
         """Enqueue ``k`` updates; returns their (k, 10) metrics on the
         device. No host sync. In self-play all ``k`` face ``opp_params``
         (a param dict on the engine's device; by default
-        ``selfplay.next_opponent()``, called here, once)."""
+        ``selfplay.next_opponent()``, called here, once — on the shard_map
+        tier by rank 0, and broadcast)."""
         if self.selfplay is not None and opp_params is None:
-            opp_params = self.selfplay.next_opponent()
+            if self.group is None:
+                opp_params = self.selfplay.next_opponent()
+            else:
+                # rank 0 draws; the others' params give the shapes only
+                opp_params = shd.broadcast_tree(
+                    self.selfplay.next_opponent() if self.rank == 0
+                    else self.ts.params, self.group)
         extra = () if self.selfplay is None else (opp_params,)
         rows = []
         for _ in range(k):
             self.ts, self.rc, m = self.update(self.ts, self.rc, *extra,
-                                              self.generator)
+                                              self._draw)
             rows.append(pack_metrics(m))
         return torch.stack(rows)
 
@@ -789,7 +981,7 @@ class TrainEngine:
         self.ts = TrainState(*state["ts"])
         self.generator.set_state(state["generator"])
         self._resume_update = self._saved_upto = int(state["update"])
-        if self.checkpoint_dir is not None:
+        if self.checkpoint_dir is not None and tcfg.checkpoint_every > 0:
             # final commit: kill-then-resume ends at the same update count
             # (and params) as an uninterrupted run
             self.save_checkpoint(self._resume_update, async_=False)

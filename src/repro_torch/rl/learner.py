@@ -11,8 +11,10 @@ for CUDA tensors, the plain version on the CPU. The epoch permutations come
 from the generator, or are given (``perms``) so that a test can feed the
 reference's. Nothing here syncs with the host. ``adv_fn`` replaces GAE
 with an off-policy advantage (``make_vtrace_adv``, the async tier's
-V-trace). The data-parallel layout (``axis_name``, ``num_shards``) comes
-with the data-parallel slice.
+V-trace). The data-parallel layout: ``group`` (a process group, where the
+reference has ``axis_name``) makes each rank learn from its own env block
+with the gradients averaged over the ranks; ``num_shards`` S without a
+group emulates that S-block layout in one process (``make_ocean_learn``).
 
 The LM-backbone half (``lm_batch_fields``, ``make_lm_train_step``): one PPO
 update on a token rollout through ``BackbonePolicy``'s functional path,
@@ -28,6 +30,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.vector import blocks
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tr
 from repro_torch.optim import adamw, schedule
@@ -51,9 +55,9 @@ def _check_divisible(n, M, num_envs, unroll_length, what):
     if n % M != 0:
         raise ValueError(
             f"{what} ({n}) is not divisible by num_minibatches={M} "
-            f"(num_envs={num_envs}, unroll_length={unroll_length}); pick "
-            f"num_envs / unroll_length so each PPO minibatch has the same "
-            f"size")
+            f"(num_envs={num_envs}, num_minibatches={M}, "
+            f"unroll_length={unroll_length}); pick num_envs / unroll_length "
+            f"so each PPO minibatch has the same size")
 
 
 def epoch_perms(generator: torch.Generator, n: int, epochs: int,
@@ -108,18 +112,39 @@ def make_vtrace_adv(policy, dist, tcfg: TrainConfig,
     return adv_fn
 
 
-def make_ocean_learn(policy, tcfg: TrainConfig, dist, adv_fn=None):
+def make_ocean_learn(policy, tcfg: TrainConfig, dist, adv_fn=None,
+                     num_shards: int = 1, group=None):
     """The post-rollout half of the update: GAE → minibatched clipped-PPO
     epochs. Returns ``learn(ts, carry0, traj, last_value, generator,
     perms=None) → (ts, metrics)``; ``metrics`` are 0-dim device tensors.
     ``adv_fn(params, traj, last_value) → (adv, returns)`` replaces GAE
     (``make_vtrace_adv``), computed once per update from the pre-update
-    params, where GAE runs."""
+    params, where GAE runs.
+
+    ``group`` — a process group of S ranks, each holding its own block of
+    B/S envs (``traj``, ``carry0`` and ``last_value`` are this rank's).
+    Each rank draws its block's permutations from its generator; after each
+    minibatch's backward one all-reduce averages the gradients, the loss
+    and the stats over the ranks, before the same AdamW step on every rank;
+    advantage normalization takes the global minibatch's statistics, and
+    ``score``, ``episode_return`` and ``episodes`` come from sums over the
+    ranks. So every rank's metrics are the same.
+
+    ``num_shards`` — S without a group: one process emulates the S-block
+    layout. ``generator`` is then a list of S (block s's), envs are
+    permuted within S contiguous blocks, and global minibatch m is the
+    union of every block's m-th slice (the reference's ``to_global``), so
+    the update is the S-rank run's up to the order of float sums. S = 1
+    is the plain one-device learn."""
     E, M = tcfg.update_epochs, tcfg.num_minibatches
+    S = (num_shards if group is None
+         else torch.distributed.get_world_size(group))
 
     def learn(ts: TrainState, carry0, traj: Trajectory, last_value,
               generator: torch.Generator = None, perms=None):
-        T, B = traj.rewards.shape
+        T, B = traj.rewards.shape                      # this rank's shapes
+        B_global = B * S if group is not None else B
+        n_block = B if group is not None else B // S
         if adv_fn is None:
             # the kernel reads the (B, T) views through their strides
             adv = kops.gae(traj.rewards.T, traj.values.T, traj.dones.T,
@@ -131,7 +156,7 @@ def make_ocean_learn(policy, tcfg: TrainConfig, dist, adv_fn=None):
         def terms(logits, newv, actions, logprobs, a, values, ret):
             newlogp = dist.log_prob(logits, actions)
             ent = dist.entropy(logits).mean()
-            a = ppo.normalize_adv(a, tcfg.norm_adv)
+            a = ppo.normalize_adv(a, tcfg.norm_adv, group)
             pg, kl, cf = ppo.ppo_terms(newlogp, logprobs, a, tcfg)
             vl = ppo.value_loss(newv, values, ret, tcfg)
             loss = pg - tcfg.ent_coef * ent + tcfg.vf_coef * vl
@@ -139,8 +164,10 @@ def make_ocean_learn(policy, tcfg: TrainConfig, dist, adv_fn=None):
 
         if policy.recurrent:
             # minibatch over envs; recompute through full sequences
-            _check_divisible(B, M, B, T, "envs")
-            n = B
+            _check_divisible(n_block, M, B_global, T,
+                             f"envs per data shard ({S} shards)")
+            n_loc = n_block
+            to_global = lambda p, s: s * n_block + p
 
             def loss_fn(params, idx):
                 c0 = (tuple(c[idx] for c in carry0)
@@ -152,9 +179,13 @@ def make_ocean_learn(policy, tcfg: TrainConfig, dist, adv_fn=None):
                              traj.values[:, idx], returns[:, idx])
         else:
             # flat sample index t·B + env
-            _check_divisible(T * B, M, B, T, "samples")
-            n = T * B
-            flat = lambda x: x.reshape((n,) + tuple(x.shape[2:]))
+            _check_divisible(T * n_block, M, B_global, T,
+                             f"samples per data shard ({S} shards)")
+            n_loc = T * n_block
+            # block-local flat index t·n_block + e → global t·B + env
+            to_global = lambda p, s: ((p // n_block) * B + s * n_block
+                                      + p % n_block)
+            flat = lambda x: x.reshape((T * B,) + tuple(x.shape[2:]))
             obs, actions, logprobs, values, flat_adv, flat_ret = map(
                 flat, (traj.obs, traj.actions, traj.logprobs, traj.values,
                        adv, returns))
@@ -165,14 +196,30 @@ def make_ocean_learn(policy, tcfg: TrainConfig, dist, adv_fn=None):
                              flat_adv[idx], values[idx], flat_ret[idx])
 
         if perms is None:
-            perms = epoch_perms(generator, n, E, M)
+            gens = blocks(generator)
+            if gens is None:
+                perms = epoch_perms(generator, n_loc, E, M)
+            else:
+                # each block's permutations from its generator, mapped to
+                # global indices: minibatch m joins every block's m-th slice
+                perms = torch.cat([to_global(epoch_perms(g, n_loc, E, M), s)
+                                   for s, g in enumerate(gens)], dim=1)
         for idx in perms:
             with torch.enable_grad():
                 p = adamw.tree_map(lambda x: x.detach().requires_grad_(),
                                    ts.params)
                 loss, stats = loss_fn(p, idx)
-                leaves = iter(torch.autograd.grad(loss,
+                leaves = list(torch.autograd.grad(loss,
                                                   adamw.tree_leaves(p)))
+            loss, stats = loss.detach(), ppo.PPOStats(
+                *(x.detach() for x in stats))
+            if group is not None:
+                # one all-reduce: the gradients, the loss and the stats
+                out = shd.allreduce_mean(
+                    leaves + [loss.reshape(1), torch.stack(stats)], group)
+                leaves, loss = out[:-2], out[-2][0]
+                stats = ppo.PPOStats(*out[-1].unbind())
+            leaves = iter(leaves)
             grads = adamw.tree_map(lambda _: next(leaves), p)
             params, opt, gstats = adamw.update(
                 grads, ts.opt, ts.params, lr=tcfg.learning_rate,
@@ -183,19 +230,23 @@ def make_ocean_learn(policy, tcfg: TrainConfig, dist, adv_fn=None):
 
         # episode stats from the infos; the others are the last minibatch's
         valid = traj.infos["valid"]
-        episodes = valid.sum().float()
+        sums = [(traj.infos["score"] * valid).sum(),
+                (traj.infos["episode_return"] * valid).sum(),
+                valid.sum().float()]
+        if group is not None:
+            sums = shd.allreduce_sum(torch.stack(sums), group).unbind()
+        score, ret, episodes = sums
         nv = episodes.clamp(min=1.0)
         metrics = {
-            "loss": loss.detach(),
-            "pg_loss": stats.pg_loss.detach(),
-            "v_loss": stats.v_loss.detach(),
-            "entropy": stats.entropy.detach(),
-            "approx_kl": stats.approx_kl.detach(),
-            "clipfrac": stats.clipfrac.detach(),
+            "loss": loss,
+            "pg_loss": stats.pg_loss,
+            "v_loss": stats.v_loss,
+            "entropy": stats.entropy,
+            "approx_kl": stats.approx_kl,
+            "clipfrac": stats.clipfrac,
             "grad_norm": gstats["grad_norm"],
-            "score": (traj.infos["score"] * valid).sum() / nv,
-            "episode_return":
-                (traj.infos["episode_return"] * valid).sum() / nv,
+            "score": score / nv,
+            "episode_return": ret / nv,
             "episodes": episodes,
         }
         return ts, metrics
@@ -203,14 +254,18 @@ def make_ocean_learn(policy, tcfg: TrainConfig, dist, adv_fn=None):
     return learn
 
 
-def make_ocean_update(policy, step_fn, tcfg: TrainConfig, dist):
+def make_ocean_update(policy, step_fn, tcfg: TrainConfig, dist,
+                      num_shards: int = 1, group=None):
     """Returns ``update(ts, rollout_carry, generator) → (ts, carry,
     metrics)``: one rollout of ``tcfg.unroll_length`` steps, then ``learn``
     from the carry the rollout started with. Its two halves are exposed as
     ``update.collect(ts, rc, generator) → (rc, (carry0, traj, last_value))``
     and ``update.learn(ts, carry0, traj, last_value, generator)``, so that
-    each can be timed on its own."""
-    learn = make_ocean_learn(policy, tcfg, dist)
+    each can be timed on its own. ``num_shards`` and ``group`` are
+    ``make_ocean_learn``'s (with S > 1 and no group, ``generator`` is a
+    list of S)."""
+    learn = make_ocean_learn(policy, tcfg, dist, num_shards=num_shards,
+                             group=group)
 
     def collect(ts: TrainState, rc: RolloutCarry, generator):
         carry0 = rc.policy_carry

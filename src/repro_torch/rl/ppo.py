@@ -8,8 +8,8 @@ points:
     PPO terms per sequence chunk, each chunk under
     ``torch.utils.checkpoint``, so that the full (B, T, vocab) logits never
     exist and the backward recomputes a chunk's.
-The data-parallel statistics of ``normalize_adv`` come with the
-data-parallel slice.
+``normalize_adv`` takes the global minibatch's statistics over a process
+group on the data-parallel tier.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.distributed.sharding import all_gather_stack
 from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as tr
 
@@ -55,12 +56,26 @@ def value_loss(new_v, old_v, returns, tcfg: TrainConfig):
     return 0.5 * vl.mean()
 
 
-def normalize_adv(adv, enabled: bool):
+def normalize_adv(adv, enabled: bool, group=None):
     """Minibatch advantage normalization with the population std (ddof 0,
-    as ``jnp.std``; ``torch.std`` defaults to ddof 1)."""
+    as ``jnp.std``; ``torch.std`` defaults to ddof 1).
+
+    With a process group each rank holds an equal share of the minibatch,
+    and the statistics are the global minibatch's, as the reference's
+    ``pmean``s make them: one all-gather of every rank's (mean, std), then
+    the mean of the means and the law of total variance, var = mean(std²)
+    + mean((mean_r − m)²). At world size 1 that is this rank's own mean
+    and std bit for bit (sqrt(std²) = std in round-to-nearest). adv is a
+    constant of the params, so the gradients stay exact per rank."""
     if not enabled:
         return adv
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if group is None:
+        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    st = all_gather_stack(torch.stack([adv.mean(), adv.std(correction=0)]),
+                          group)
+    m = st[:, 0].mean()
+    var = st[:, 1].square().mean() + (st[:, 0] - m).square().mean()
+    return (adv - m) / (var.sqrt() + 1e-8)
 
 
 def chunked_token_loss(backbone_params, hidden, actions, old_logp, adv,

@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.vector import blocks
+
 
 class Trajectory(NamedTuple):
     obs: torch.Tensor        # (T, B, obs)
@@ -31,18 +33,29 @@ class RolloutCarry(NamedTuple):
     done_prev: torch.Tensor
 
 
+def sample(dist, generator, logits):
+    """``dist.sample`` over the rows of ``logits``, by block when
+    ``generator`` is a list (the rows split into as many contiguous
+    blocks)."""
+    gens = blocks(generator)
+    if gens is None:
+        return dist.sample(generator, logits)
+    return torch.cat([dist.sample(g, x)
+                      for g, x in zip(gens, logits.chunk(len(gens)))])
+
+
 @torch.no_grad()
 def rollout(policy, params, step_fn, carry: RolloutCarry,
             generator: torch.Generator, unroll: int, dist):
     """Returns (carry', Trajectory, last_value (B,)). ``step_fn(state,
     actions, generator)`` is a ``VecEnv.step``; ``dist`` a
-    distributions.Dist."""
+    distributions.Dist; ``generator`` one generator or one per block."""
     steps = []
     c = carry
     for _ in range(unroll):
         logits, value, pc = policy.step(params, c.obs, c.policy_carry,
                                         reset=c.done_prev)
-        action = dist.sample(generator, logits)
+        action = sample(dist, generator, logits)
         logp = dist.log_prob(logits, action)
         env_state, obs, rew, done, info = step_fn(c.env_state, action,
                                                   generator)

@@ -53,13 +53,16 @@ def ocean_policy_stack(env, hidden: int = 128, recurrent: bool = False,
 
 class Trainer:
     """``device=None`` means CUDA (raises without a Hopper card); pass
-    ``device="cpu"`` to train on the CPU."""
+    ``device="cpu"`` to train on the CPU. ``mesh`` (the shard_map tier's)
+    and ``num_shards`` (the jit tier's S-block emulation) pass through to
+    the engine."""
 
     def __init__(self, env, tcfg: TrainConfig = None, hidden: int = 128,
                  recurrent: bool = False, seed: int = 0,
                  log_dir: str = None,
                  backend: str = None, updates_per_launch: int = None,
-                 conv: bool = None, device=None):
+                 conv: bool = None, device=None, mesh=None,
+                 num_shards: int = 1):
         self.logger = MetricsLogger(log_dir,
                                     run_name=type(env).__name__.lower())
         self.tcfg = tcfg or TrainConfig()
@@ -67,7 +70,8 @@ class Trainer:
             env, hidden=hidden, recurrent=recurrent, conv=conv)
         self.engine = TrainEngine(self.em, self.policy, self.tcfg, self.dist,
                                   seed=seed, device=device, backend=backend,
-                                  updates_per_launch=updates_per_launch)
+                                  updates_per_launch=updates_per_launch,
+                                  mesh=mesh, num_shards=num_shards)
         self.history = []
 
     # engine state, exposed under the reference's names -----------------------

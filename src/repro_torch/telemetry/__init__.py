@@ -1,7 +1,8 @@
 """Run telemetry: spans, the metrics registry, cross-process trace merging,
 the shared launch/fetch/SPS clock (``timers``) and the per-worker stat rows
-(``procstats``). The counterpart of ``repro/telemetry``; its live HTTP
-endpoints, bench sentinel and CLI come with a later slice.
+(``procstats``). The counterpart of ``repro/telemetry``. The live HTTP
+endpoints (``http``), the bench sentinel (``benchwatch``) and the CLI
+(``python -m repro_torch.telemetry``) are imported on demand, not here.
 
 Everything here is torch-free (stdlib + numpy): the host pool's spawned
 workers import this chain and never import torch.

@@ -504,9 +504,10 @@ def test_async_kill_then_resume_step_count(tmp_path):
     assert ckpt.step_of(ckpt.latest(str(tmp_path))) == 6
 
 
-def test_launcher_runs_the_async_tier():
+def test_launcher_runs_the_async_tier(tmp_path):
     """``--engine-backend async`` through the launcher prints the update
-    count, the launches and one line per actor with its device."""
+    count, the launches and one line per actor with its device. (Its own
+    --ckpt-dir: the default, /tmp/repro_ckpt, is shared.)"""
     from repro_torch.launch import train as train_cli
     import contextlib
     import io
@@ -515,7 +516,7 @@ def test_launcher_runs_the_async_tier():
                               "--engine-backend", "async", "--num-actors",
                               "2", "--num-envs", "8",
                               "--total-env-steps", str(3 * 8 * 64),
-                              "--full-budget"])
+                              "--full-budget", "--ckpt-dir", str(tmp_path)])
     text = out.getvalue()
     assert res["bandit"]["env_steps"] == 3 * 8 * 64
     assert "updates=3 last_update=3" in text

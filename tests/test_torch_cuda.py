@@ -979,3 +979,80 @@ def test_flash_decode_smem_matches_the_plan_mirror():
                 for G in (1, 4, 8, 20):
                     assert fn(hd, int(elem == 2), n, G) == \
                         fd.smem_bytes(n, hd, elem, G), (hd, elem, n, G)
+
+
+# -- the data-parallel tier (shard_map) at world size 1 over NCCL ----------------
+
+def _shard_engine(name, backend, selfplay):
+    from repro_torch.league.selfplay import SelfPlay
+    em, dist, pol = ocean_policy_stack(getattr(ocean, name)(), hidden=32)
+    sp = None
+    if selfplay:
+        opp = pol.init(torch.Generator(device="cuda").manual_seed(7))
+        sp = SelfPlay(lambda: opp)
+    tcfg = TrainConfig(num_envs=64, unroll_length=16, update_epochs=2,
+                       num_minibatches=2, learning_rate=1e-3, gamma=0.95)
+    return TrainEngine(em, pol, tcfg, dist, seed=0, backend=backend,
+                       updates_per_launch=2, selfplay=sp)
+
+
+@pytest.mark.parametrize("name,selfplay", [("Squared", False),
+                                           ("Duel", True)])
+def test_shard_map_nccl_world_size_1_is_the_jit_tier(name, selfplay,
+                                                     no_tf32):
+    """The shard_map tier makes its own NCCL group of one rank and is the
+    jit tier bit for bit: params, AdamW moments, carry and metrics; one gae
+    launch an update on both."""
+    import torch.distributed as dist
+    out = {}
+    for backend in ("jit", "shard_map"):
+        eng = _shard_engine(name, backend, selfplay)
+        try:
+            if backend == "shard_map":
+                assert dist.get_backend() == "nccl"
+            before = build.LAUNCHES["gae"]
+            hist, _ = eng.run(4 * eng.steps_per_update)
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["gae"] - before == 4
+            out[backend] = (hist, tree_leaves(eng.ts.params)
+                            + tree_leaves(eng.ts.opt.m)
+                            + tree_leaves(eng.ts.opt.v) + [eng.rc.obs])
+        finally:
+            eng.close()
+    assert not dist.is_initialized()
+    (ha, la), (hb, lb) = out["jit"], out["shard_map"]
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    assert [[h[k] for k in METRIC_KEYS] for h in ha] == \
+        [[h[k] for k in METRIC_KEYS] for h in hb]
+
+
+def test_shard_map_on_cuda_refuses_a_gloo_group():
+    import datetime
+
+    import torch.distributed as dist
+    store = dist.TCPStore("127.0.0.1", 0, 1, True,
+                          timeout=datetime.timedelta(seconds=30))
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="needs nccl"):
+            _shard_engine("Squared", "shard_map", False)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_launcher_profile_names_the_gae_kernel(tmp_path):
+    """--profile through the launcher on the card: the trace's CUDA kernel
+    events name the gae kernel."""
+    import json
+
+    from repro_torch.launch import train as train_cli
+    prof = tmp_path / "prof"
+    train_cli.main(["--ocean", "squared", "--engine-backend", "shard_map",
+                    "--num-envs", "64", "--total-env-steps",
+                    str(4 * 64 * 64), "--full-budget", "--ckpt-dir",
+                    str(tmp_path / "ck"), "--profile", str(prof),
+                    "--profile-launches", "3"])
+    (trace,) = prof.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("gae_kernel" in n for n in names) >= 2, names[:20]

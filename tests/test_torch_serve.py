@@ -100,7 +100,10 @@ def test_port_imports_no_jax_and_no_repro():
         " 'repro_torch.telemetry.registry', 'repro_torch.league',"
         " 'repro_torch.league.arena', 'repro_torch.league.ranker',"
         " 'repro_torch.league.selfplay', 'repro_torch.league.store',"
-        " 'repro_torch.league.__main__'}\n"
+        " 'repro_torch.league.__main__', 'repro_torch.telemetry.http',"
+        " 'repro_torch.telemetry.benchwatch',"
+        " 'repro_torch.telemetry.__main__',"
+        " 'repro_torch.distributed.sharding', 'repro_torch.launch.mesh'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

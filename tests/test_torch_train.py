@@ -95,8 +95,16 @@ def test_every_env_trains_one_update(name):
 
 def test_unported_backends_and_checkpoints_raise(tmp_path):
     em, dist, pol = ocean_policy_stack(ocean.Bandit(), hidden=8)
-    with pytest.raises(ValueError, match="slice"):
-        TrainEngine(em, pol, TCFG, dist, device="cpu", backend="shard_map")
+    # the shard_map tier is ported: one rank in this process, its group
+    # made by the engine; its mesh comes from the ranks, not num_shards
+    eng = TrainEngine(em, pol, TCFG, dist, device="cpu", backend="shard_map")
+    try:
+        assert eng.num_shards == 1 and eng.stats()["world_size"] == 1
+    finally:
+        eng.close()
+    with pytest.raises(ValueError, match="derived from the mesh"):
+        TrainEngine(em, pol, TCFG, dist, device="cpu", backend="shard_map",
+                    num_shards=2)
     # the async tier is ported: its config is checked before any actor
     # spawns (16 envs do not split into 3 shards)
     with pytest.raises(ValueError, match="num_shards"):
