@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs seventeen phases, each printing its
+``src/repro_torch/kernels/csrc`` and runs eighteen phases, each printing its
 lines (and a ``[time]`` line after each, the script's seconds so far); any
 failure ends the run with a traceback and a non-zero exit:
 
@@ -274,6 +274,27 @@ failure ends the run with a traceback and a non-zero exit:
                  whose CUDA kernel events name ``gae_kernel``, and
                  ``python -m repro_torch.telemetry summarize D`` and
                  ``export-trace D`` exiting 0
+ 18. lm shard    path I, the LM FSDP/TP plan and ``remat="dots"``, qwen3-0.6b
+                 at full width: (a) one f32 train step (B 2 x T 64, TF32
+                 off, the gate's seed) under ``"dots"``, ``"full"`` and
+                 ``"none"``: loss and grad_norm within 1e-5 relative and
+                 every gradient leaf within 1e-5 of its largest, against
+                 ``"none"``; then bf16 at B 8 x T 256 under each: ms a step
+                 (median of 3 after one warm step), peak memory, the
+                 flash_attention launches a step (2 a layer under "full"
+                 and "dots": the recomputation runs the kernel again; 1
+                 under "none") and the matrix products run again in the
+                 backward (a dispatch mode's count of a step less
+                 "none"'s: 0 under "dots"); (b) the plan at world size 1
+                 over NCCL: ``BackbonePolicy(cfg, mesh=1x1)`` through
+                 ``make_lm_train_step``, 3 bf16 steps at B 8 x T 256, bit
+                 for bit the unsharded steps (params, moments, metrics),
+                 with its collectives and launches a step; one sharded
+                 step of mamba2-1.3b for its ssd and ssd_bwd launches;
+                 then the launcher (``--arch qwen3-0.6b --mesh 1x1``): 2
+                 steps with a sharded checkpoint at step 2 and a
+                 ``--resume`` to step 3, bit for bit the 3 unsharded
+                 steps
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. First, a line for each new head
@@ -338,6 +359,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.bridge import make_host_engine  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
@@ -375,7 +397,8 @@ from repro_torch.league import Arena, SelfPlay, build_league  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
-from repro_torch.models.transformer import layer_kinds  # noqa: E402
+from repro_torch.models.transformer import DOTS, layer_kinds  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.rl import actor  # noqa: E402
 from repro_torch.rl.engine import (METRIC_KEYS,  # noqa: E402
                                    TrainEngine, act_transfer_spec)
@@ -509,6 +532,7 @@ SHARD_LAUNCHER_UPDATES = 30             # path H: the launcher's run in 17(b)
 SHARD_TIME_UPDATES = 4                  # path H: a timed round in 17(a)
 # path E, LM-backbone PPO: the launcher's defaults, B 8 x T 256, 10 steps
 LM_BATCH, LM_SEQ, LM_STEPS = 8, 256, 10
+PLAN_STEPS = 3             # phase 18 (b): sharded steps against unsharded
 LM_GATE_B, LM_GATE_T = 2, 64            # the full-width f32 gate
 LM_GATE_SEED = 0           # the gate's own generator (tools/ reruns it)
 # qwen3's attention at the training shape (B, T, H, K, hd), and the
@@ -2768,6 +2792,230 @@ class at_depth:
         self.configs.get_config = self.orig
 
 
+class Products(TorchDispatchMode):
+    """Counts the matrix products (``transformer.DOTS``) dispatched inside
+    it, on every thread autograd runs (modes travel with its state)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in DOTS:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def remat_inputs(remat, f32, B, T):
+    """(cfg, tcfg, step, state, batch) of qwen3-0.6b at full width under
+    ``remat``, in f32 (TF32 off) or the config's bf16, from the gate's
+    seed."""
+    over = {"remat": remat}
+    if f32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        over.update(dtype="float32", param_dtype="float32")
+    cfg = with_overrides(get_config(ARCH), **over)
+    g = torch.Generator(device="cuda").manual_seed(LM_GATE_SEED)
+    policy = BackbonePolicy(cfg, generator=g)
+    tcfg = TrainConfig(warmup_steps=0)
+    step = make_lm_train_step(policy, tcfg, loss_chunk=min(256, T))
+    state = init_train_state(policy.params())
+    return cfg, tcfg, step, state, random_batch(cfg, B, T, g)
+
+
+def remat_phase():
+    """Phase 18 (a): ``remat="dots"`` against ``"full"`` and ``"none"``."""
+    tag = "18 lm shard (a)"
+    want = grads = None
+    for remat in ("none", "full", "dots"):
+        cfg, tcfg, step, state, batch = remat_inputs(remat, True, LM_GATE_B,
+                                                     LM_GATE_T)
+        m, _, g = step_grads(step, state, batch, tcfg)
+        del step, state, batch
+        if remat == "none":
+            want, grads = m, g
+            continue
+        rel = leaf_rel(g, grads)
+        worst = max(rel, key=rel.get)
+        fails = [n for n in rel if not rel[n] <= 1e-5]
+        for k in ("loss", "grad_norm"):
+            if not abs(m[k] - want[k]) <= 1e-5 * abs(want[k]):
+                fails.append(f"{k} {m[k]} against {want[k]}")
+        print(f"[{tag}] {ARCH} f32 {cfg.num_layers}L B {LM_GATE_B} T "
+              f"{LM_GATE_T}, one train step under remat={remat!r} against "
+              f"'none': loss {m['loss']:.7f} / {want['loss']:.7f}, "
+              f"grad_norm {m['grad_norm']:.7f} / {want['grad_norm']:.7f}, "
+              f"gradients apart by {rel[worst]:.3g} of their leaf's largest "
+              f"at worst ({worst})", flush=True)
+        if fails:
+            raise AssertionError(f"[{tag}] remat={remat!r}: {fails[:8]}")
+        del g
+    del grads
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    products = {}
+    for remat in ("none", "full", "dots"):
+        cfg, tcfg, step, state, batch = remat_inputs(remat, False, LM_BATCH,
+                                                     LM_SEQ)
+        box = {"ts": state}
+        del state
+
+        def one():
+            box["ts"], _ = step(box["ts"], batch)
+
+        one()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        build.reset_launches()
+        with Products() as count:
+            one()
+            sync()
+        fa = build.LAUNCHES["flash_attention"]
+        products[remat] = count.n
+        layers = cfg.num_layers
+        want_fa = layers * (1 if remat == "none" else 2)
+        if fa != want_fa:
+            raise AssertionError(f"[{tag}] remat={remat!r}: {fa} "
+                                 f"flash_attention launches a step, "
+                                 f"expected {want_fa}")
+        again = products[remat] - products["none"]
+        print(f"[{tag}] {ARCH} bf16 {layers}L B {LM_BATCH} T {LM_SEQ} "
+              f"remat={remat!r}: median step {statistics.median(times):.2f} "
+              f"ms (readings {', '.join(f'{t:.2f}' for t in times)}), "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB, "
+              f"{fa} flash_attention launches a step ({fa // layers} a "
+              f"layer), {products[remat]} matrix products a step, "
+              f"{again} of them run again in the backward", flush=True)
+        if remat == "dots" and again != 0:
+            raise AssertionError(f"[{tag}] remat='dots' ran {again} matrix "
+                                 f"products again in the backward")
+        del step, box, batch
+        torch.cuda.empty_cache()
+
+
+def plan_phase():
+    """Phase 18 (b): the plan at world size 1 over NCCL, bit for bit the
+    unsharded step, and the launcher's sharded resume."""
+    tag = "18 lm shard (b)"
+    own = tmesh.init_process_group(torch.device("cuda"))
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError(f"[{tag}] the group runs "
+                                 f"{torch.distributed.get_backend()}")
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+        cfg, tcfg = get_config(ARCH), TrainConfig()
+        runs = {}
+        for m in (None, mesh):
+            pol = BackbonePolicy(cfg, generator=torch.Generator(
+                device="cuda").manual_seed(0), mesh=m)
+            st = init_train_state(pol.params())
+            step = make_lm_train_step(pol, tcfg, loss_chunk=256)
+            build.reset_launches()
+            shd.reset_collectives()
+            metrics = []
+            for i in range(PLAN_STEPS):
+                batch = random_batch(cfg, LM_BATCH, LM_SEQ, torch.Generator(
+                    device="cuda").manual_seed(1000 + i))
+                st, mt = step(st, batch)
+                metrics.append({k: v.clone() for k, v in mt.items()})
+            sync()
+            runs[m is not None] = (st, metrics, dict(build.LAUNCHES),
+                                   dict(shd.COLLECTIVES))
+            del pol, step, st
+        (a, ma, la, _), (b, mb, lb, cb) = runs[False], runs[True]
+        same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(
+            tree_leaves(a.params) + tree_leaves(a.opt.m) +
+            tree_leaves(a.opt.v), tree_leaves(b.params) +
+            tree_leaves(b.opt.m) + tree_leaves(b.opt.v)))
+        same_m = all(torch.equal(x[k], y[k]) for x, y in zip(ma, mb)
+                     for k in x)
+        per_step = {k: v // PLAN_STEPS for k, v in lb.items()}
+        coll = {k: v / PLAN_STEPS for k, v in cb.items()}
+        print(f"[{tag}] {ARCH} bf16 {cfg.num_layers}L B {LM_BATCH} T "
+              f"{LM_SEQ}, {PLAN_STEPS} steps on a 1x1 mesh over NCCL against "
+              f"the unsharded steps: params and moments bit for bit "
+              f"{same}, metrics bit for bit {same_m} (last loss "
+              f"{float(mb[-1]['loss']):+.6f} grad_norm "
+              f"{float(mb[-1]['grad_norm']):.6f}); collectives a step {coll}; "
+              f"launches a step {per_step} (unsharded: "
+              f"{ {k: v // PLAN_STEPS for k, v in la.items()} })", flush=True)
+        if not (same and same_m) or lb != la or coll["all_gather"] == 0:
+            raise AssertionError(f"[{tag}] the 1x1 plan is not the "
+                                 f"unsharded step bit for bit")
+        del b, runs
+        torch.cuda.empty_cache()
+        # mamba2's SSD kernels on the sharded path
+        scfg = get_config(SSM_ARCH)
+        pol = BackbonePolicy(scfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), mesh=mesh)
+        step = make_lm_train_step(pol, tcfg, loss_chunk=256)
+        st = init_train_state(pol.params())
+        batch = random_batch(scfg, LM_BATCH, LM_SEQ, torch.Generator(
+            device="cuda").manual_seed(1000))
+        build.reset_launches()
+        st, mt = step(st, batch)
+        sync()
+        ls = dict(build.LAUNCHES)
+        n = scfg.num_layers
+        if ls["ssd"] != 2 * n or ls["ssd_bwd"] != n or ls["gae"] != 1 or \
+                not math.isfinite(float(mt["loss"])):
+            raise AssertionError(f"[{tag}] {SSM_ARCH} sharded step: "
+                                 f"launches {ls}, loss {float(mt['loss'])}")
+        print(f"[{tag}] {SSM_ARCH} bf16 {n}L one step on the 1x1 mesh: "
+              f"launches {ls}, loss {float(mt['loss']):+.6f}", flush=True)
+        del pol, step, st, batch
+        torch.cuda.empty_cache()
+        # the launcher: 2 steps and a sharded checkpoint, then --resume to
+        # step 3, against the 3 unsharded steps above (the launcher's seed
+        # 0 draws the same params and batches)
+        base = ["--arch", ARCH, "--mesh", "1x1", "--batch", str(LM_BATCH),
+                "--seq", str(LM_SEQ), "--ckpt-dir"]
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            first = launch_train.main(base + [d, "--steps", "2",
+                                              "--save-every", "2"])
+            saved = ckpt.latest(d)
+            with open(os.path.join(saved, "index.json")) as f:
+                files = sum(len(e["shards"]) for e in
+                            json.load(f)["arrays"].values())
+            resumed = launch_train.main(base + [d, "--steps", "3",
+                                                "--resume"])
+            wall = time.perf_counter() - t0
+        ok = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a.params) + tree_leaves(a.opt.m)
+            + tree_leaves(a.opt.v),
+            tree_leaves(resumed.state.params) +
+            tree_leaves(resumed.state.opt.m) +
+            tree_leaves(resumed.state.opt.v)))
+        print(f"[{tag}] the launcher on --mesh 1x1: 2 steps, a sharded "
+              f"checkpoint at step {ckpt.step_of(saved)} ({files} shard "
+              f"files) and --resume to step {resumed.loop.steps_done}, "
+              f"against the 3 unsharded steps: bit for bit {ok} "
+              f"({wall:.1f} s for the two runs)", flush=True)
+        if not ok or resumed.loop.steps_done != 3 or \
+                first.loop.steps_done != 2:
+            raise AssertionError(f"[{tag}] the sharded resume differs")
+        del a, first, resumed
+        torch.cuda.empty_cache()
+    finally:
+        if own:
+            torch.distributed.destroy_process_group()
+
+
+def phase_lm_shard():
+    """Path I, the LM FSDP/TP plan and remat="dots" (phase 18)."""
+    remat_phase()
+    plan_phase()
+
+
 def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)", depth=None):
     """LM PPO through the launcher at full width in bf16, B 8 x ``seq``
     (a frontend arch's prefix among them), ``depth`` layers if given (then
@@ -3723,6 +3971,8 @@ def main():
     lap("16 head dims")
     phase_shard()
     lap("17 shard")
+    phase_lm_shard()
+    lap("18 lm shard")
     rows = kernel_rows(gen, launches, errs, hd_launches) + bwd_rows(
         gen, lm_launches, lm_errs, hd_launches)
     lap("kernel rows")

@@ -1,8 +1,18 @@
 """Checkpoints with atomic commit and async save.
 
 The counterpart of ``repro/checkpoint/ckpt.py``, with its on-disk layout:
-one ``.npy`` per array plus ``index.json`` recording shapes, dtypes and each
-shard's global slice (here one whole-array shard, ``<name>.full.npy``).
+one ``.npy`` per shard plus ``index.json`` recording global shapes, dtypes
+and each shard's global slice. An unsharded tree is written as one
+whole-array shard a leaf (``<name>.full.npy``). A tree laid out on a mesh
+(``save(..., shardings=)``, a matching tree of
+``distributed.sharding.NamedSharding``) is written by every rank: each
+writes its own blocks (``<name>.<rank>.npy``), a block that several ranks
+hold once, by the first of them (``NamedSharding.writes``), then a marker
+file; rank 0 waits for every rank's marker, writes ``index.json`` (every
+rank's slices follow from the shardings) and commits. ``restore(...,
+shardings=)`` assembles each rank's region from whatever shards exist,
+as the reference's ``read_region`` does, so a checkpoint restores onto
+any mesh, and an unsharded one onto a mesh.
 Leaf names follow the reference's key paths — dict keys (sorted), NamedTuple
 field names, tuple indices, joined by ``/`` — so a tree of the same
 structure saved by either package restores in the other.
@@ -29,6 +39,7 @@ import os
 import shutil
 import sys
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -115,28 +126,79 @@ def _slice_spec(shape):
     return [[0, int(n)] for n in shape]
 
 
+def _ranks(shardings):
+    """(this rank, world size) of a sharded save."""
+    torch = _torch_mod()
+    dist = torch.distributed if torch is not None else None
+    if dist is not None and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    leaf = next(s for _, s in _flatten_with_names(shardings))
+    return 0, leaf.mesh.size
+
+
+def _global_shape(local_shape, sharding):
+    """The global shape of a block of ``local_shape`` laid out by
+    ``sharding`` (each split dim times its ranks)."""
+    sizes = sharding.mesh.shape
+    out = []
+    for n, part in zip(local_shape, tuple(sharding.spec) +
+                       (None,) * len(local_shape)):
+        axes = () if part is None else \
+            (part if isinstance(part, tuple) else (part,))
+        k = 1
+        for a in axes:
+            k *= sizes[a]
+        out.append(int(n) * k)
+    return out
+
+
+MARKER_WAIT_S = 600.0     # rank 0 waits this long for the others' shards
+
+
 def save(directory: str, tree, step: Optional[int] = None,
-         async_: bool = False, keep: Optional[int] = 3):
+         async_: bool = False, keep: Optional[int] = 3, shardings=None):
     """Save ``tree``. Returns the committed path (or a join handle if
-    async). ``keep=None`` disables GC — every step is kept."""
+    async). ``keep=None`` disables GC — every step is kept. With
+    ``shardings`` every rank of the mesh calls ``save`` with its blocks;
+    rank 0's call (or its handle) returns once every rank's shards are
+    written and the checkpoint is committed, the other ranks' once it is
+    committed."""
     named = _flatten_with_names(tree)
     step = int(step if step is not None else _next_step(directory))
     final = os.path.join(directory, f"step_{step}")
     tmp = final + ".tmp"
+    rank, world = 0, 1
+    sh_leaves = None
+    if shardings is not None:
+        rank, world = _ranks(shardings)
+        sh_leaves = [s for _, s in _flatten_with_names(shardings)]
 
     # synchronous device→host snapshot: the values at this call
     with _span("ckpt.snapshot"):
         shards = []
         index = {"arrays": {}, "step": step}
-        for name, leaf in named:
+        for i, (name, leaf) in enumerate(named):
             shape = list(leaf.shape) if hasattr(leaf, "shape") \
                 else list(np.shape(leaf))
-            arr = _to_host(leaf)
-            fn = f"{name.replace('/', '.')}.full.npy"
-            index["arrays"][name] = {
-                "shape": shape, "dtype": _dtype_name(leaf),
-                "shards": [{"file": fn, "slice": _slice_spec(shape)}]}
-            shards.append((fn, arr))
+            base = name.replace('/', '.')
+            if sh_leaves is None:
+                fn = f"{base}.full.npy"
+                index["arrays"][name] = {
+                    "shape": shape, "dtype": _dtype_name(leaf),
+                    "shards": [{"file": fn, "slice": _slice_spec(shape)}]}
+                shards.append((fn, _to_host(leaf)))
+                continue
+            sh = sh_leaves[i]
+            gshape = _global_shape(shape, sh)
+            entry = {"shape": gshape, "dtype": _dtype_name(leaf),
+                     "shards": []}
+            for r in range(world):
+                if sh.writes(r):
+                    entry["shards"].append({"file": f"{base}.{r}.npy",
+                                            "slice": _region(sh, gshape, r)})
+            index["arrays"][name] = entry
+            if sh.writes(rank):
+                shards.append((f"{base}.{rank}.npy", _to_host(leaf)))
 
     def _write():
         with _span("ckpt.write"):
@@ -146,6 +208,13 @@ def save(directory: str, tree, step: Optional[int] = None,
                     np.save(f, arr)
                     f.flush()
                     os.fsync(f.fileno())
+            if world > 1:
+                marker = os.path.join(tmp, f"rank{rank}.done")
+                open(marker, "w").close()
+                if rank != 0:
+                    _wait_commit(marker, final)
+                    return
+                _wait_markers(tmp, world)
             with open(os.path.join(tmp, "index.json"), "w") as f:
                 json.dump(index, f)
                 f.flush()
@@ -162,6 +231,39 @@ def save(directory: str, tree, step: Optional[int] = None,
         return t
     _write()
     return final
+
+
+def _region(sharding, gshape, rank):
+    return [[s.start or 0, n if s.stop is None else s.stop]
+            for s, n in zip(sharding.index(gshape, rank), gshape)]
+
+
+def _wait_markers(tmp: str, world: int):
+    """Rank 0 of a sharded save: wait for every rank's marker, then drop
+    them."""
+    names = [os.path.join(tmp, f"rank{r}.done") for r in range(world)]
+    t0 = time.monotonic()
+    while not all(os.path.exists(n) for n in names):
+        if time.monotonic() - t0 > MARKER_WAIT_S:
+            missing = [r for r, n in enumerate(names) if not os.path.exists(n)]
+            raise TimeoutError(f"ranks {missing} wrote no shards to {tmp} in "
+                               f"{MARKER_WAIT_S:.0f} s")
+        time.sleep(0.01)
+    for n in names:
+        os.remove(n)
+
+
+def _wait_commit(marker: str, final: str):
+    """A rank past 0 of a sharded save: wait until rank 0 has taken this
+    rank's marker and committed, so that a restore on any rank after its
+    ``save`` returned reads the new checkpoint."""
+    t0 = time.monotonic()
+    while os.path.exists(marker) or not os.path.exists(
+            os.path.join(final, "index.json")):
+        if time.monotonic() - t0 > MARKER_WAIT_S:
+            raise TimeoutError(f"rank 0 did not commit {final} in "
+                               f"{MARKER_WAIT_S:.0f} s")
+        time.sleep(0.01)
 
 
 def _steps(directory: str):
@@ -215,32 +317,44 @@ def _gc(directory: str, keep: int):
                       ignore_errors=True)
 
 
-def restore(path_or_dir: str, like):
+def restore(path_or_dir: str, like, shardings=None):
     """Restore into the structure of ``like``: a committed checkpoint
     directory, or a directory of them (its newest). Each tensor leaf of
     ``like`` comes back as a tensor on that leaf's device, each numpy leaf
-    as a numpy array, in the saved dtype."""
+    as a numpy array, in the saved dtype. With ``shardings`` (a matching
+    tree of ``NamedSharding``) each leaf is this rank's region of the
+    saved global array, assembled from whatever shards hold it."""
     with _span("ckpt.restore"):
-        return _restore(path_or_dir, like)
+        return _restore(path_or_dir, like, shardings)
 
 
-def _read(path: str, entry: dict) -> np.ndarray:
-    shape = tuple(entry["shape"])
-    name = entry["dtype"]
-    out = None
+def _read_region(path: str, entry: dict, region) -> np.ndarray:
+    """The global slice ``region`` ([[start, stop], ...]) of an array,
+    assembled from the saved shards that overlap it. Raw dtypes (bf16,
+    stored as bytes) are read as 2-byte words."""
+    raw = entry["dtype"] in _RAW
+    dtype = np.dtype(np.uint16) if raw else np.dtype(entry["dtype"])
+    out = np.zeros([b - a for a, b in region], dtype)
     for sh in entry["shards"]:
-        data = np.load(os.path.join(path, sh["file"]))
-        if name in _RAW:
-            out = data                           # raw bytes, one shard
-            continue
-        if out is None:
-            out = np.zeros(shape, np.dtype(name))
-        out[tuple(slice(a, b) for a, b in sh["slice"])] = \
-            data.astype(out.dtype, copy=False)
+        src, dst = [], []
+        for (ws, we), (ss, se) in zip(region, sh["slice"]):
+            lo, hi = max(ws, ss), min(we, se)
+            if lo >= hi:
+                break
+            src.append(slice(lo - ss, hi - ss))
+            dst.append(slice(lo - ws, hi - ws))
+        else:
+            data = np.load(os.path.join(path, sh["file"]))
+            if raw:
+                data = data.view(np.uint16).reshape(
+                    [b - a for a, b in sh["slice"]])
+            out[tuple(dst)] = data.reshape(
+                [b - a for a, b in sh["slice"]])[tuple(src)].astype(
+                    dtype, copy=False)
     return out
 
 
-def _restore(path_or_dir: str, like):
+def _restore(path_or_dir: str, like, shardings=None):
     path = path_or_dir
     if not os.path.exists(os.path.join(path, "index.json")):
         path = latest(path_or_dir)
@@ -249,18 +363,24 @@ def _restore(path_or_dir: str, like):
     with open(os.path.join(path, "index.json")) as f:
         index = json.load(f)
 
+    sh_leaves = None if shardings is None else \
+        [s for _, s in _flatten_with_names(shardings)]
     out = []
-    for name, leaf in _flatten_with_names(like):
+    for i, (name, leaf) in enumerate(_flatten_with_names(like)):
         if name not in index["arrays"]:
             raise KeyError(f"checkpoint {path} has no array {name!r}")
         entry = index["arrays"][name]
-        shape = tuple(entry["shape"])
+        gshape = tuple(entry["shape"])
+        region = [[0, n] for n in gshape]
+        if sh_leaves is not None:
+            region = _region(sh_leaves[i], gshape, None)
+        shape = tuple(b - a for a, b in region)
         want = tuple(leaf.shape) if hasattr(leaf, "shape") \
             else tuple(np.shape(leaf))
         if shape != want:
-            raise ValueError(f"{name}: checkpoint shape {shape}, expected "
-                             f"{want}")
-        arr = _read(path, entry)
+            raise ValueError(f"{name}: checkpoint shape {shape} (of the "
+                             f"global {gshape}), expected {want}")
+        arr = _read_region(path, entry, region)
         if _is_tensor(leaf):
             torch = _torch_mod()
             t = torch.from_numpy(np.ascontiguousarray(arr))

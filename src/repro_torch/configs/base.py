@@ -110,6 +110,22 @@ class ModelConfig:
         cannot."""
         return self.ssm_state > 0
 
+    # -- TP-aligned (padded) sizes --------------------------------------------
+    def padded_heads(self, tp: int) -> int:
+        return _round_up(self.num_heads, tp) if self.num_heads else 0
+
+    def padded_kv_heads(self, tp: int) -> int:
+        if not self.num_kv_heads:
+            return 0
+        kv = self.num_kv_heads
+        if kv < tp:
+            # replicate whole KV heads so each shard owns >= 1 (GQA practice)
+            if tp % kv:
+                raise ValueError(f"{self.name}: {kv} KV heads do not divide "
+                                 f"tp {tp}")
+            return tp
+        return _round_up(kv, tp)
+
     def padded_vocab(self, multiple: int = 128) -> int:
         return _round_up(self.vocab_size, multiple)
 

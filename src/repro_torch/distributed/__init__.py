@@ -2,11 +2,13 @@
 
 Submodules load lazily (PEP 562): the async tier's spawned actors import
 ``repro_torch.distributed.actor_learner`` in a fresh interpreter, and this
-package must not import anything on their behalf. ``sharding`` holds the
-Ocean half of ``repro/distributed/sharding.py`` (the data-parallel tier).
+package must not import anything on their behalf. ``sharding`` holds
+``repro/distributed/sharding.py`` (the Ocean data-parallel tier and the
+LM plan's rules and layouts), ``plan`` the LM plan at run time (each
+rank's blocks and the collectives between layouts).
 """
 
-_SUBMODULES = ("fault", "actor_learner", "sharding")
+_SUBMODULES = ("fault", "actor_learner", "sharding", "plan")
 
 __all__ = list(_SUBMODULES)
 

@@ -2,8 +2,9 @@
 
 The counterpart of ``repro/distributed/fault.py``. Mechanisms:
   * checkpoint/restart — atomic committed checkpoints (checkpoint.ckpt),
-    ``resume_or_init`` picks up the latest on relaunch (restore onto another
-    sharding comes with the data-parallel slice).
+    ``resume_or_init`` picks up the latest on relaunch; with ``shardings``
+    (a tree of ``distributed.sharding.NamedSharding``) each rank saves its
+    blocks and restores its region, onto any mesh.
   * step-scoped retry — a failing step (device error, preemption signal)
     triggers restore-from-last-commit and replay; repeated failure at the
     same step aborts with a clear report (poison-pill detection).
@@ -130,12 +131,14 @@ class ResilientLoop:
 
     def __init__(self, step_fn: Callable, ckpt_dir: Optional[str],
                  save_every: int = 100, max_retries: int = 3,
-                 async_save: bool = True, keep: Optional[int] = 3):
+                 async_save: bool = True, shardings=None,
+                 keep: Optional[int] = 3):
         self.step_fn = step_fn
         self.ckpt_dir = ckpt_dir
         self.save_every = save_every
         self.max_retries = max_retries
         self.async_save = async_save
+        self.shardings = shardings
         self.keep = keep
         self.monitor = StragglerMonitor()
         self._save_handle = None
@@ -165,7 +168,7 @@ class ResilientLoop:
         path = self._latest()
         if path is None:
             return init_state, 0
-        state = ckpt.restore(path, init_state)
+        state = ckpt.restore(path, init_state, self.shardings)
         return state, ckpt.step_of(path)
 
     def join_save(self) -> None:
@@ -177,8 +180,9 @@ class ResilientLoop:
     def _save(self, state):
         if self._save_handle is not None:
             self._save_handle.join()   # one in-flight save at a time
+        kw = {} if self.shardings is None else {"shardings": self.shardings}
         out = ckpt.save(self.ckpt_dir, state, step=self.steps_done,
-                        async_=self.async_save, keep=self.keep)
+                        async_=self.async_save, keep=self.keep, **kw)
         self._save_handle = out if self.async_save else None
 
     # -- the batch-source protocol ---------------------------------------------

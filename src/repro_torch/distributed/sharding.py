@@ -18,16 +18,32 @@ idiom for what ``shard_map`` does within one:
 
 ``COLLECTIVES`` counts the collectives issued, by kind.
 
-The LM half — ``make_rules``, ``named``, ``train_state_pspecs``,
-``lm_batch_pspecs`` and ``cache_pspecs``, the FSDP/TP plan behind ``--mesh
-DxM`` for ``--arch`` — comes with the LM-sharding slice.
+The LM half, the FSDP/TP plan behind ``--mesh DxM`` for ``--arch``: one
+rules table (``make_rules``) drives every layout, as in the reference:
+
+  embed (d_model)            → FSDP over ("pod", "data")  [ZeRO-3]
+  vocab/heads/kv_heads/mlp/expert/ssm_heads → "model"     [TP / EP]
+  batch                      → ("pod", "data")            [DP]
+  ctx (long-context KV seq)  → ("pod", "data")            [CP]
+
+``train_state_pspecs``, ``lm_batch_pspecs`` and ``cache_pspecs`` give the
+``PartitionSpec`` trees (the port's caches are per layer, so a cache
+spec has no leading ``periods`` entry); ``named`` pairs each with the
+mesh as a ``NamedSharding``, the record of which global slice each rank
+holds (``checkpoint/ckpt.py`` reads it to write and restore shards);
+``abstract_train_state`` and ``abstract_caches`` are the shapes and
+dtypes on the ``meta`` device. The run-time side (each rank's blocks, the
+collectives at each use) is ``distributed/plan.py``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.distributed as dist
 
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
+               "reduce_scatter": 0}
 
 
 def reset_collectives():
@@ -159,3 +175,126 @@ def broadcast_tree(tree, group=None, src: int = 0):
     dist.broadcast(buf, src=src, group=group)
     COLLECTIVES["broadcast"] += 1
     return tree_unflatten(tree, _unflat(buf, leaves))
+
+
+# -- the LM plan: rules and layouts -------------------------------------------
+
+def make_rules(mesh) -> dict:
+    from repro_torch.models.params import DEFAULT_RULES
+    fsdp = data_axes(mesh)
+    fsdp = fsdp if len(fsdp) > 1 else (fsdp[0] if fsdp else None)
+    rules = dict(DEFAULT_RULES)
+    rules.update({"embed": fsdp, "batch": fsdp, "ctx": fsdp})
+    return rules
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A ``PartitionSpec`` on a mesh: the global slice rank r holds."""
+    mesh: object
+    spec: tuple
+
+    def index(self, shape, rank: int = None) -> tuple:
+        from repro_torch.distributed.plan import Plan
+        if rank is None:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+        return Plan(self.mesh, rank=rank, groups={}).block(shape, self.spec)
+
+    def writes(self, rank: int = None) -> bool:
+        """Whether ``rank`` is the first of the ranks that hold its block
+        (its index 0 along every axis the spec leaves whole), the one that
+        writes it to a checkpoint."""
+        from repro_torch.distributed.plan import coords
+        if rank is None:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+        used = set()
+        for part in self.spec:
+            if part is not None:
+                used.update(part if isinstance(part, tuple) else (part,))
+        c = coords(self.mesh, rank)
+        return all(c[a] == 0 for a in self.mesh.axis_names if a not in used)
+
+
+def named(mesh, pspec_tree):
+    """``NamedSharding(mesh, p)`` for every ``PartitionSpec`` p of the
+    tree."""
+    from repro_torch.models.params import PartitionSpec
+    if isinstance(pspec_tree, PartitionSpec):
+        return NamedSharding(mesh, pspec_tree)
+    if isinstance(pspec_tree, dict):
+        return {k: named(mesh, v) for k, v in pspec_tree.items()}
+    if isinstance(pspec_tree, (list, tuple)):
+        kids = [named(mesh, c) for c in pspec_tree]
+        return type(pspec_tree)(*kids) if hasattr(pspec_tree, "_fields") \
+            else type(pspec_tree)(kids)
+    return pspec_tree
+
+
+def train_state_pspecs(policy, rules: dict):
+    from repro_torch.models.params import P
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.rl.learner import TrainState
+    pp = policy.pspecs(rules)
+    return TrainState(params=pp, opt=AdamWState(step=P(), m=pp, v=pp),
+                      step=P())
+
+
+def abstract_train_state(policy, opt_dtype):
+    """The global train state's shapes and dtypes, as tensors on the
+    ``meta`` device (nothing allocated)."""
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.params import tree_map_specs
+    from repro_torch.optim.adamw import AdamWState, tree_map
+    from repro_torch.rl.learner import TrainState
+    pdt = dtype_of(policy.cfg.param_dtype)
+    params = tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype or pdt, device="meta"),
+        policy.spec())
+    odt = dtype_of(opt_dtype) if isinstance(opt_dtype, str) else opt_dtype
+    zeros = lambda p: torch.empty(p.shape, dtype=odt, device="meta")
+    step = lambda: torch.empty((), dtype=torch.int32, device="meta")
+    return TrainState(params=params,
+                      opt=AdamWState(step=step(), m=tree_map(zeros, params),
+                                     v=tree_map(zeros, params)),
+                      step=step())
+
+
+def lm_batch_pspecs(cfg, rules: dict) -> dict:
+    from repro_torch.models.params import P
+    from repro_torch.rl.learner import lm_batch_fields
+    b = rules["batch"]
+    T = 1 + (cfg.frontend_prefix if cfg.frontend else 0)
+    return {k: P(*([b] + [None] * (len(shape) - 1)))
+            for k, (shape, _) in lm_batch_fields(cfg, 1, T).items()}
+
+
+def cache_pspecs(cfg, rules: dict, context_parallel: bool = False):
+    """PartitionSpec tree of ``transformer.Caches``: the reference's, one
+    entry a layer (no ``periods`` dim). decode_32k shards the batch over
+    the data axes; long_500k (``context_parallel``, B = 1) the KV sequence
+    dim instead."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.params import P
+    b, c = rules["batch"], rules["ctx"]
+    kv, ssm = [], []
+    for i in range(cfg.num_layers):
+        mixer, _ = tr.layer_kinds(cfg, i)
+        if mixer == "attn":
+            spec = P(None, c, "model", None) if context_parallel else \
+                P(b, None, "model", None)
+            kv.append(attn.KVCache(k=spec, v=spec, length=P()))
+            ssm.append(None)
+        else:
+            bb = None if context_parallel else b
+            kv.append(None)
+            ssm.append(ssm_mod.SSMCache(conv=P(bb, None, "model"),
+                                        state=P(bb, "model", None, None)))
+    return tr.Caches(kv=kv, ssm=ssm, length=P())
+
+
+def abstract_caches(cfg, tp: int, batch: int, max_len: int):
+    """The caches' shapes and dtypes (``meta`` tensors)."""
+    from repro_torch.models import transformer as tr
+    return tr.init_caches(cfg, batch, max_len, device="meta", tp=tp)

@@ -84,6 +84,7 @@ def init_process_group(device, timeout_s: float = COLLECTIVE_TIMEOUT_S):
     True when this call made it (its caller then destroys it). An
     existing group must be NCCL's for a CUDA device; with none, a group of
     one rank is made over a loopback store."""
+    import torch
     import torch.distributed as dist
     want = "nccl" if device.type == "cuda" else "gloo"
     if dist.is_initialized():
@@ -95,7 +96,11 @@ def init_process_group(device, timeout_s: float = COLLECTIVE_TIMEOUT_S):
         return False
     timeout = datetime.timedelta(seconds=timeout_s)
     store = dist.TCPStore("127.0.0.1", 0, 1, True, timeout=timeout)
-    kw = {"device_id": device} if device.type == "cuda" else {}
+    kw = {}
+    if device.type == "cuda":
+        # NCCL binds the group to one card: the current one unless named
+        kw["device_id"] = device if device.index is not None else \
+            torch.device("cuda", torch.cuda.current_device())
     dist.init_process_group(want, store=store, rank=0, world_size=1,
                             timeout=timeout, **kw)
     return True

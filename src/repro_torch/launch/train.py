@@ -20,6 +20,8 @@ PPO.
       [--strategy prioritized]
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --batch 8 --seq 256 --steps 20 [--smoke] [--ckpt-dir ckpts --resume]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+      --smoke --mesh 2x2 --devices 4 --device cpu [--ckpt-dir ckpts --resume]
 
 ``--ocean`` trains each named env (or ``all``: the 13 of
 ``envs/ocean.py``) with its ``configs/ocean.py`` preset; ``--host-env``
@@ -33,8 +35,8 @@ second, shard_map runs the world size, the updates, the launches and the
 all-reduces. ``--engine-backend shard_map`` is the data-parallel tier: one
 rank per process over a ``torch.distributed`` group (NCCL on the card,
 gloo on the CPU); ``--devices N`` spawns N ranks (on the CPU, or on N cards)
-and rank 0 prints, and without it the run is one rank. ``--mesh`` takes
-``1x1`` only: meshes with a model axis come with the LM-sharding slice.
+and rank 0 prints, and without it the run is one rank. The Ocean tiers
+take ``--mesh 1x1`` only.
 
 ``--ckpt-dir`` (default ``/tmp/repro_ckpt``, as the reference's) saves each
 ``--ocean`` env's resumable state under ``<dir>/<env>`` every
@@ -59,6 +61,19 @@ steps of ``rl.learner.make_lm_train_step`` through
 ``distributed.fault.ResilientLoop``, printing the reference's ``step``
 lines and ``done:`` line; it saves the train state under ``--ckpt-dir``
 every ``--save-every`` steps and ``--resume`` continues from the newest.
+``--mesh DxM`` (or ``PxDxM``: axes ``data, model`` or ``pod, data,
+model``) trains it by the reference's FSDP/TP plan over that mesh, one
+rank a process (``distributed/plan.py``): ``embed`` split over the data
+axes, ``vocab``/``heads``/``kv_heads``/``mlp``/``expert``/``ssm_heads``
+over ``model``, the batch over the data axes; ``--devices N`` spawns the
+N = D·M ranks (NCCL on N cards, gloo on ``--device cpu``), and without it
+the mesh must be 1x1 (one rank, over a group of its own). Each rank
+saves its blocks of the train state and ``--resume`` restores each
+rank's region, onto any mesh (``checkpoint/ckpt.py``). Rank 0 prints the
+step lines, then ``world_size=… mesh=… collectives={…}`` (the
+collectives a step, by kind). A batch the data size does not divide is
+refused. Sharded serving and quantised weights on a mesh come with the
+slice of the static tools (``BackbonePolicy`` raises).
 Runs on the card unless ``--device cpu``. The counterpart of
 ``repro/launch/train.py`` without ``--conformance``.
 
@@ -151,13 +166,13 @@ def _parser():
                          "(Perfetto / TensorBoard)")
     ap.add_argument("--profile-launches", type=int, default=3,
                     help="launches to capture under --profile (default 3)")
-    ap.add_argument("--mesh", default="1x1",
-                    help="DxM; the port takes 1x1 (meshes with a model "
-                         "axis come with the LM-sharding slice)")
+    ap.add_argument("--mesh", default="1x1", action=_Given,
+                    help="--arch: DxM or PxDxM, train by the FSDP/TP plan "
+                         "over that mesh; the Ocean tiers take 1x1")
     ap.add_argument("--devices", type=int, default=0,
-                    help="--ocean on the shard_map tier: spawn this many "
-                         "ranks (gloo on --device cpu, NCCL on as many "
-                         "cards); rank 0 prints")
+                    help="--ocean on the shard_map tier, or --arch with "
+                         "--mesh: spawn this many ranks (gloo on --device "
+                         "cpu, NCCL on as many cards); rank 0 prints")
     ap.add_argument("--selfplay", action="store_true",
                     help="train --ocean env(s) under league self-play: "
                          "frozen opponents sampled from the policy store "
@@ -182,7 +197,7 @@ def _parser():
                     help="--arch: tokens per sequence")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.set_defaults(ckpt_dir_given=False)
+    ap.set_defaults(ckpt_dir_given=False, mesh_given=False)
     return ap
 
 
@@ -203,18 +218,65 @@ def _train_lm(args, ap, dev):
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.buffer import random_batch
-    from repro_torch.distributed.fault import ResilientLoop
-    from repro_torch.models.layers import dtype_of
+    from repro_torch.distributed import sharding as shd
     from repro_torch.models.policy import BackbonePolicy
-    from repro_torch.rl.learner import init_train_state, make_lm_train_step
 
     if args.resume and not args.ckpt_dir_given:
         ap.error("--resume needs --ckpt-dir")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    policy = BackbonePolicy(cfg, device=dev, generator=gen)
+    mesh = own_group = shardings = None
+    if args.mesh_given:
+        mesh, own_group = _lm_mesh(args, ap, dev)
+    try:
+        policy = BackbonePolicy(cfg, device=dev, generator=gen, mesh=mesh)
+        if mesh is not None:
+            rules = shd.make_rules(mesh)
+            shardings = shd.named(mesh, shd.train_state_pspecs(policy,
+                                                              rules))
+        return _run_lm(args, cfg, tcfg, dev, policy, shardings)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _lm_mesh(args, ap, dev):
+    """The mesh of ``--mesh`` over the process group (one of its own when
+    there is none: then the mesh must be 1x1); returns (mesh, whether this
+    call made the group)."""
+    from repro_torch.launch import mesh as tmesh
+    try:
+        shape = tuple(int(x) for x in args.mesh.split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        ap.error(f"--mesh {args.mesh}: DxM or PxDxM")
+    axes = ("data", "model") if len(shape) == 2 else \
+        ("pod", "data", "model")
+    data = shape[-2] * (shape[0] if len(shape) == 3 else 1)
+    if args.batch % data:
+        ap.error(f"--batch {args.batch} is not divisible by the mesh's data "
+                 f"size {data}")
+    own = tmesh.init_process_group(dev)
+    try:
+        mesh = tmesh.make_mesh(shape, axes)
+    except ValueError as e:
+        if own:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+        ap.error(str(e))
+    return mesh, own
+
+
+def _run_lm(args, cfg, tcfg, dev, policy, shardings):
+    from repro_torch.data.buffer import random_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.fault import ResilientLoop
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.rl.learner import init_train_state, make_lm_train_step
+    import torch
+
     state = init_train_state(policy.params(),
                              dtype_of(tcfg.optimizer_state_dtype))
     train_step = make_lm_train_step(policy, tcfg,
@@ -228,7 +290,8 @@ def _train_lm(args, ap, dev):
         policy.bind(state.params)
         return state, metrics
 
-    loop = ResilientLoop(step, args.ckpt_dir, save_every=args.save_every)
+    loop = ResilientLoop(step, args.ckpt_dir, save_every=args.save_every,
+                         shardings=shardings)
     if args.resume:
         state, start = loop.resume_or_init(state)
         policy.bind(state.params)
@@ -244,9 +307,11 @@ def _train_lm(args, ap, dev):
             yield random_batch(cfg, args.batch, args.seq, g)
 
     last = {}
+    per_step = []
 
     def on_metrics(i, m):
         last.update(m)
+        per_step.append(dict(shd.COLLECTIVES))
         if i % 5 == 0 or i == 1:
             print(f"step {i:5d} loss {float(m['loss']):+.4f} "
                   f"kl {float(m['approx_kl']):.4f} "
@@ -254,15 +319,27 @@ def _train_lm(args, ap, dev):
                   f"median_step {loop.monitor.median * 1e3:.0f}ms",
                   flush=True)
 
+    plan = policy.plan
     print(f"=== {cfg.name} LM PPO (layers={cfg.num_layers} "
           f"d_model={cfg.d_model}, batch={args.batch} seq={args.seq}, "
-          f"device={dev}) ===", flush=True)
+          f"device={dev}"
+          f"{'' if plan is None else ', mesh=' + args.mesh}) ===",
+          flush=True)
+    shd.reset_collectives()
     # the loop takes the only reference to the initial state, so that each
     # step's input state is freed once the step has returned its output
     init, state = [state], None
     state = loop.run(init.pop(), batches, on_metrics)
+    loop.join_save()
     print(f"done: {loop.steps_done} steps, {loop.recoveries} recoveries, "
           f"{loop.monitor.flagged} straggler flags", flush=True)
+    if plan is not None:
+        # the last step's collectives (the counts between two steps' ends)
+        a = per_step[-2] if len(per_step) > 1 else \
+            {k: 0 for k in shd.COLLECTIVES}
+        coll = {k: per_step[-1][k] - a[k] for k in a} if per_step else {}
+        print(f"world_size={plan.mesh.size} mesh={args.mesh} "
+              f"dp={plan.dp} tp={plan.tp} collectives={coll}", flush=True)
     return LMRun(state, last, step, batches, loop, policy)
 
 
@@ -588,7 +665,11 @@ def _rank_main(rank, argv, world, port, device_type, out):
         timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S), **kw)
     try:
         res = _dispatch(args, ap)
-        if rank == 0:
+        if rank == 0 and isinstance(res, LMRun):
+            # --arch: the steps run and the last step's metrics
+            out.put({"steps": res.loop.steps_done,
+                     "metrics": {k: float(v) for k, v in res.metrics.items()}})
+        elif rank == 0:
             # each env's final metrics (self-play: its winrate and updates)
             out.put({k: (v if isinstance(v, dict) else
                          {"winrate_random": v.winrate_random,
@@ -637,10 +718,9 @@ def main(argv=None):
     ap = _parser()
     argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        ap.error(f"--mesh {args.mesh}: the port takes 1x1; meshes with a "
-                 f"model axis (FSDP/TP for --arch) come with the "
-                 f"LM-sharding slice")
+    if args.mesh != "1x1" and args.arch is None:
+        ap.error(f"--mesh {args.mesh}: the Ocean tiers take 1x1; a mesh "
+                 f"lays out --arch training")
     if args.selfplay:
         if args.engine_backend == "async":
             ap.error("--selfplay drives the device-resident tiers (frozen "
@@ -663,10 +743,14 @@ def main(argv=None):
     if args.devices < 0:
         ap.error(f"--devices {args.devices}: pass a positive rank count")
     if args.devices > 1:
-        if args.ocean is None or args.engine_backend != "shard_map":
+        if args.arch is not None:
+            if not args.mesh_given:
+                ap.error(f"--devices {args.devices} with --arch spawns the "
+                         f"ranks of a --mesh: pass one")
+        elif args.ocean is None or args.engine_backend != "shard_map":
             ap.error(f"--devices {args.devices} spawns ranks of the "
                      f"data-parallel tier: pass --ocean and "
-                     f"--engine-backend shard_map")
+                     f"--engine-backend shard_map, or of --arch's --mesh")
         from repro_torch import device as _device
         return _spawn(args, argv, ap, _device.resolve(args.device))
     return _dispatch(args, ap)

@@ -8,8 +8,20 @@ Three entry points, as in ``repro/models/attention.py``:
 Kernels go through ``kernels.ops`` and so through the dispatch registry:
 the CUDA kernel for CUDA tensors, the plain version for CPU tensors, or
 what a ``dispatch.using(...)`` scope asks for; with quantised weights the
-four projections go through ``quant_matmul`` (``params.matmul``). On one
-device the head counts need no padding.
+four projections go through ``quant_matmul`` (``params.matmul``).
+
+Head counts are padded to the tensor-parallel size ``tp`` as the
+reference pads them (``ModelConfig.padded_heads/padded_kv_heads``: whole
+KV heads replicated where there are fewer than tp). Under a plan
+(``distributed/plan.py``) a rank holds H'/tp query heads and K'/tp KV
+heads, contiguous, so that GQA groups stay whole on a rank: ``wq``, ``wk``
+and ``wv`` are column-parallel (their input enters the region: identity
+forward, all-reduce over ``model`` backward), ``wo`` row-parallel (its
+partial product summed by one all-reduce over ``model``), and the kernels
+run at the local heads. The per-head ``q_norm``/``k_norm`` scales are
+replicated, so their gradient, a part on each rank, is summed over
+``model`` on entering the region. With no plan and ``tp`` 1 nothing
+changes.
 
 The port updates the KV cache in place (``index_copy_`` / slice assignment)
 where JAX returns new arrays; the returned ``KVCache`` holds the same
@@ -22,22 +34,30 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import plan as _plan
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dtype_of, rms_norm
 from repro_torch.models.params import ParamSpec, matmul
 
 
-def attention_spec(cfg: ModelConfig):
-    H, K, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+QKV_AXES = ("embed", "heads", "null")
+KV_AXES = ("embed", "kv_heads", "null")
+WO_AXES = ("heads", "null", "embed")
+
+
+def attention_spec(cfg: ModelConfig, tp: int = 1):
+    H, K, hd, d = (cfg.padded_heads(tp), cfg.padded_kv_heads(tp),
+                   cfg.head_dim, cfg.d_model)
     spec = {
-        "wq": ParamSpec((d, H, hd), fan_in=d),
-        "wk": ParamSpec((d, K, hd), fan_in=d),
-        "wv": ParamSpec((d, K, hd), fan_in=d),
-        "wo": ParamSpec((H, hd, d), fan_in=H * hd),
+        "wq": ParamSpec((d, H, hd), fan_in=d, axes=QKV_AXES),
+        "wk": ParamSpec((d, K, hd), fan_in=d, axes=KV_AXES),
+        "wv": ParamSpec((d, K, hd), fan_in=d, axes=KV_AXES),
+        "wo": ParamSpec((H, hd, d), fan_in=H * hd, axes=WO_AXES),
     }
     if cfg.qk_norm:
-        spec["q_norm"] = ParamSpec((hd,), init="zeros", dtype=torch.float32)
-        spec["k_norm"] = ParamSpec((hd,), init="zeros", dtype=torch.float32)
+        for k in ("q_norm", "k_norm"):
+            spec[k] = ParamSpec((hd,), init="zeros", dtype=torch.float32,
+                                axes=("null",))
     return spec
 
 
@@ -48,8 +68,8 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None) -> KVCache:
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+               device=None, tp: int = 1) -> KVCache:
+    shape = (batch, max_len, cfg.padded_kv_heads(tp), cfg.head_dim)
     dtype = dtype or dtype_of(cfg.dtype)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
@@ -58,17 +78,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 def _proj(params, name: str, x, cfg: ModelConfig):
     """x (B,T,d) · w (d,N,hd) → (B,T,N,hd)."""
-    y = matmul(params, name, x, dtype_of(cfg.dtype))
+    axes = QKV_AXES if name == "wq" else KV_AXES
+    y = matmul(params, name, x, dtype_of(cfg.dtype), axes=axes)
     return y.unflatten(-1, (-1, cfg.head_dim))
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
+    x = _plan.enter(x)
     q = _proj(params, "wq", x, cfg)
     k = _proj(params, "wk", x, cfg)
     v = _proj(params, "wv", x, cfg)
     if cfg.qk_norm:              # per-head RMSNorm over head_dim
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, _plan.enter(params["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, _plan.enter(params["k_norm"]), cfg.norm_eps)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -76,8 +98,9 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
 
 
 def _out(params, out, cfg: ModelConfig):
-    """out (B,T,H,hd) · wo (H,hd,d) → (B,T,d)."""
-    return matmul(params, "wo", out.flatten(-2), dtype_of(cfg.dtype))
+    """out (B,T,H,hd) · wo (H,hd,d) → (B,T,d), summed over ``model``."""
+    return _plan.leave(matmul(params, "wo", out.flatten(-2),
+                              dtype_of(cfg.dtype), axes=WO_AXES))
 
 
 def _positions(B: int, T: int, device):

@@ -25,6 +25,11 @@ nested dict that ``BackbonePolicy.params()`` returns and the learner trains
 them, step counts) into the port's, so that both packages train from the
 same numbers.
 
+``shard_tree(tree, pspecs, plan)`` and ``gather_tree(tree, pspecs, plan)``
+move a parameter tree (or one laid out like it: AdamW's moments) between
+its global form and one rank's blocks on a mesh (``distributed/plan.py``):
+the layout of ``BackbonePolicy(cfg, mesh=)`` and of a sharded checkpoint.
+
 bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects; they go through their 16-bit pattern, bit for bit. A quantised tree
 (``repro.models.params.quantize_params``) loads into a ``BackbonePolicy``
@@ -116,6 +121,21 @@ def train_state_from_jax(state):
                                  backbone_tree_from_jax(opt.m),
                                  backbone_tree_from_jax(opt.v)),
                       step(state.step))
+
+
+def shard_tree(tree: dict, pspecs: dict, plan) -> dict:
+    """This rank's block of every global leaf of ``tree``."""
+    from repro_torch.distributed.plan import shard
+    return {k: shard_tree(v, pspecs[k], plan) if isinstance(v, dict)
+            else shard(v, pspecs[k], plan) for k, v in tree.items()}
+
+
+def gather_tree(tree: dict, pspecs: dict, plan) -> dict:
+    """Every global leaf from the ranks' blocks ``tree``, on every rank.
+    Collective: every rank of the plan's mesh calls it."""
+    from repro_torch.distributed.plan import unshard
+    return {k: gather_tree(v, pspecs[k], plan) if isinstance(v, dict)
+            else unshard(v, pspecs[k], plan) for k, v in tree.items()}
 
 
 def _leaves(tree):

@@ -24,6 +24,20 @@ slice ``wi[e]`` / ``wo[e]``, a contiguous 2-D int8 or packed int4 weight,
 goes through ``kernels.ops.quant_matmul`` over that expert's G·C rows with
 the leaf's per-column scale, which all experts share: 2·E launches a layer
 and forward, and no dequantised copy of the experts is ever made.
+
+Expert parallelism (under a plan, ``distributed/plan.py``): ``expert`` is
+split over ``model``, each rank holding E/tp experts' ``wi``/``wo``. The
+router is gathered whole and routing runs on the replicated activations,
+so every rank computes the same choices, gates and aux loss; a rank
+scatters only the (token, choice) pairs of its own experts into its
+buffer (the others go to the drop row), runs its experts, adds its
+experts' gated outputs, and one all-reduce over ``model`` sums the ranks'
+parts. The tokens and the gates enter that region (their gradients, a
+part on each rank, summed over ``model``), so the router's gradient is
+whole and the same on every rank. The groups are sequences, so a data
+split of the batch keeps each group's capacity exact; the aux loss's two
+means over groups are taken over the data ranks (``plan.data_mean``), so
+that it is the global batch's, as the reference's is.
 """
 from __future__ import annotations
 
@@ -33,17 +47,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import plan as _plan
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, use_weight
+
+ROUTER_AXES = ("embed", "expert")
+WI_AXES = ("expert", "embed", "mlp")
+WO_AXES = ("expert", "mlp", "embed")
 
 
 def moe_spec(cfg: ModelConfig):
     d, f, E = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
     return {
-        "router": ParamSpec((d, E), fan_in=d, dtype=torch.float32),
-        "wi": ParamSpec((E, d, 2 * f), fan_in=d),
-        "wo": ParamSpec((E, f, d), fan_in=f),
+        "router": ParamSpec((d, E), fan_in=d, dtype=torch.float32,
+                            axes=ROUTER_AXES),
+        "wi": ParamSpec((E, d, 2 * f), fan_in=d, axes=WI_AXES),
+        "wo": ParamSpec((E, f, d), fan_in=f, axes=WO_AXES),
     }
 
 
@@ -57,7 +77,10 @@ def route(params, x, cfg: ModelConfig):
     """x: (G, S, d) → (probs (G,S,E) f32, gate (G,S,k) f32, eidx (G,S,k)
     int64): the router's softmax, the top-k experts of each token (ties to
     the lower index) and their renormalised gates."""
-    logits = (x @ params["router"].to(x.dtype)).float()
+    pl = _plan.active()
+    router = use_weight(params["router"], ROUTER_AXES,
+                        "slice" if pl is not None and pl.tp > 1 else None)
+    logits = (x @ router.to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     eidx = torch.sort(probs, dim=-1, descending=True,
                       stable=True).indices[..., :cfg.top_k]
@@ -82,9 +105,15 @@ def _experts(params, ebuf, cfg: ModelConfig):
     act = F.silu if cfg.mlp_activation == "silu" else \
         (lambda g: F.gelu(g, approximate="tanh"))
     wi_s, wo_s = params.get("wi_scale"), params.get("wo_scale")
+    if _plan.active() is not None and wi_s is not None:
+        raise NotImplementedError(
+            "quantised weights on a mesh come with the slice of the static "
+            "tools (launch/dryrun)")
     if wi_s is None:
-        g, u = torch.bmm(ebuf, params["wi"].to(dt)).chunk(2, dim=-1)
-        return torch.bmm(act(g) * u, params["wo"].to(dt))
+        wi = use_weight(params["wi"], WI_AXES)
+        wo = use_weight(params["wo"], WO_AXES)
+        g, u = torch.bmm(ebuf, wi.to(dt)).chunk(2, dim=-1)
+        return torch.bmm(act(g) * u, wo.to(dt))
     wi, wo = params["wi"], params["wo"]
     ys = []
     for e in range(ebuf.shape[0]):
@@ -102,26 +131,30 @@ def moe_apply(params, x, cfg: ModelConfig):
     dt = dtype_of(cfg.dtype)
 
     probs, gate, eidx = route(params, x, cfg)
-    me = probs.mean(dim=(0, 1))                                   # (E,)
-    ce = (F.one_hot(eidx[..., 0], E).float().sum(dim=1) / S).mean(dim=0)
+    me = _plan.data_mean(probs.mean(dim=(0, 1)))                  # (E,)
+    ce = _plan.data_mean((F.one_hot(eidx[..., 0], E).float().sum(dim=1)
+                          / S).mean(dim=0))
     aux = E * torch.sum(me * ce)
 
-    # each (token, choice) pair's slot: its expert's block, its group's C
-    # rows there, its place in the queue; at or past C the drop row
+    # each (token, choice) pair's slot: its expert's block among this
+    # rank's El experts, its group's C rows there, its place in the queue;
+    # at or past C, or another rank's expert, the drop row
     pos = place(eidx, E)
+    e0, El = _plan.tp_block(E)
     g_off = torch.arange(G, device=x.device)[:, None, None] * C
     R = G * C                                      # an expert's rows
-    slot = torch.where(pos < C, eidx * R + g_off + pos,
-                       torch.full_like(pos, E * R)).reshape(-1)   # (G·S·k,)
+    mine = (eidx >= e0) & (eidx < e0 + El) & (pos < C)
+    slot = torch.where(mine, (eidx - e0) * R + g_off + pos,
+                       torch.full_like(pos, El * R)).reshape(-1)  # (G·S·k,)
 
-    # scatter tokens into the slots (the extra row E·R swallows drops)
-    src = x.to(dt).repeat_interleave(k, dim=1).reshape(-1, d)
-    buf = torch.zeros((E * R + 1, d), dtype=dt, device=x.device)
+    # scatter tokens into the slots (the extra row El·R swallows drops)
+    src = _plan.enter(x).to(dt).repeat_interleave(k, dim=1).reshape(-1, d)
+    buf = torch.zeros((El * R + 1, d), dtype=dt, device=x.device)
     buf = buf.index_add(0, slot, src)
-    y = _experts(params, buf[:E * R].view(E, R, d), cfg)
+    y = _experts(params, buf[:El * R].view(El, R, d), cfg)
 
     # gather back: each token takes its k slots, weighted by its gates
-    ypad = torch.cat([y.reshape(E * R, d), y.new_zeros((1, d))])
+    ypad = torch.cat([y.reshape(El * R, d), y.new_zeros((1, d))])
     out = ypad[slot].view(G, S, k, d)
-    out = (out * gate[..., None].to(dt)).sum(dim=2)
-    return out.to(x.dtype), aux
+    out = (out * _plan.enter(gate)[..., None].to(dt)).sum(dim=2)
+    return _plan.leave(out).to(x.dtype), aux

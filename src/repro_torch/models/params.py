@@ -15,8 +15,17 @@ model whose float tree does not fit on the card (jamba's 103 GB in bf16)
 is built from its int8 tree and one leaf's draw; the result is bitwise
 that of ``quantize_params`` on the whole float tree.
 
-The sharding helpers of the JAX package (``constrain``, ``use_weight``,
-logical-axis rules) are not ported: on one device they are no-ops.
+Layout: every spec names its logical axes (``axes``, the reference's
+names), and ``make_pspec`` maps them to mesh axes by a rules table
+(``DEFAULT_RULES``: ``embed`` over the data axes, FSDP/ZeRO-3;
+``vocab``/``heads``/``kv_heads``/``mlp``/``expert``/``ssm_heads`` over
+``model``, TP/EP). Under a plan (``distributed/plan.py``) each rank holds
+its block of every leaf, and ``use_weight`` is the use site: the forward
+all-gathers the weight over the data axes (and, where the rank's compute
+columns are not its stored block, over ``model``), the backward
+reduce-scatters the gradient back to the stored layout, as the
+reference's custom VJP asks GSPMD to. With no plan ``use_weight`` and
+``constrain`` return their input.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed import plan as _plan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import last_len, pack_int4, unpack_int4
 
@@ -37,6 +47,128 @@ class ParamSpec:
     init: str = "normal"            # normal | zeros
     fan_in: Optional[int] = None    # for "normal": std = 1/sqrt(fan_in)
     dtype: Optional[torch.dtype] = None   # None => use param_dtype
+    axes: Optional[tuple] = None    # logical axis names, len == len(shape)
+
+    def __post_init__(self):
+        if self.axes is not None and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not name the dims of "
+                             f"shape {self.shape}")
+
+
+# default logical -> mesh rules for the production mesh (data, model[, pod])
+DEFAULT_RULES = {
+    "embed": "data",        # FSDP / ZeRO-3
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "expert": "model",
+    "ssm_heads": "model",
+    "layers": None,
+    "periods": None,
+    "null": None,
+    # activation logical axes
+    "batch": "data",
+    "seq": None,
+    "embed_act": None,
+    "ctx": "data",          # context-parallel KV sequence dim (long_500k)
+}
+
+# the layout at a weight's use: tensor axes stay split, the FSDP axis is
+# gathered
+USE_RULES = {"vocab": "model", "heads": "model", "kv_heads": "model",
+             "mlp": "model", "expert": "model", "ssm_heads": "model"}
+
+
+class PartitionSpec(tuple):
+    """One entry a dim: None, a mesh axis name, or a tuple of names (the
+    parts of ``jax.sharding.PartitionSpec``, as a plain tuple)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return "P" + tuple.__repr__(self)
+
+
+P = PartitionSpec
+
+
+def make_pspec(axes: tuple, rules: dict) -> PartitionSpec:
+    """Logical axes -> PartitionSpec. A rule value is a mesh axis name or a
+    tuple of names (FSDP over ("pod", "data")); each mesh axis is used at
+    most once a leaf, the first logical axis winning."""
+    used, parts = set(), []
+    for a in axes:
+        m = rules.get(a)
+        if m is None:
+            parts.append(None)
+            continue
+        if isinstance(m, (tuple, list)):
+            avail = tuple(x for x in m if x not in used)
+            if not avail:
+                parts.append(None)
+                continue
+            used.update(avail)
+            parts.append(avail if len(avail) > 1 else avail[0])
+        elif m in used:
+            parts.append(None)
+        else:
+            parts.append(m)
+            used.add(m)
+    return P(*parts)
+
+
+def spec_axes(spec: ParamSpec) -> tuple:
+    return spec.axes if spec.axes is not None else ("null",) * len(
+        spec.shape)
+
+
+def tree_map_specs(fn, spec_tree):
+    return {k: tree_map_specs(fn, v) if not isinstance(v, ParamSpec)
+            else fn(v) for k, v in spec_tree.items()}
+
+
+def param_pspecs(spec_tree, rules: dict = None):
+    rules = DEFAULT_RULES if rules is None else rules
+    return tree_map_specs(lambda s: make_pspec(spec_axes(s), rules),
+                          spec_tree)
+
+
+def storage_pspec(axes: tuple, fsdp: tuple) -> PartitionSpec:
+    """A leaf's stored layout with ``embed`` over the FSDP axes ``fsdp``
+    (the reference's ``set_fsdp_axes``: here the plan carries them)."""
+    return make_pspec(tuple(axes), dict(DEFAULT_RULES, embed=fsdp))
+
+
+def use_weight(w, axes: tuple, model: Optional[str] = None):
+    """A weight at its use site. ``w`` is this rank's stored block of a leaf
+    with logical ``axes``. Under a plan the forward all-gathers it over the
+    data axes (its FSDP dims) and the backward reduce-scatters the gradient
+    to the stored layout (a sum over the data ranks). ``model`` also
+    gathers its ``model`` dims, for a use whose columns are not the stored
+    block: ``"sum"`` where each rank's gradient is a part (it computed some
+    columns), ``"slice"`` where every rank computed the whole gradient (a
+    replicated use, the router). No plan: ``w``."""
+    pl = _plan.active()
+    if pl is None:
+        return w
+    spec = storage_pspec(axes, pl.fsdp)
+    for dim, part in enumerate(spec):
+        if pl.part_of(part) == "data":
+            w = _plan.gather(w, dim, "data")
+    if model is not None:
+        for dim, part in enumerate(spec):
+            if part == "model":
+                w = _plan.gather(w, dim, "model", model)
+    return w
+
+
+def constrain(x, *logical_axes, rules: dict = None):
+    """The reference's ``with_sharding_constraint`` by logical axes. A
+    rank's activations already lie in the layout the plan gives them, so
+    this is the identity, as the reference's is outside a mesh."""
+    return x
 
 
 def _leaves(spec_tree, prefix=()):
@@ -60,21 +192,49 @@ def _draw(spec: ParamSpec, generator, param_dtype, device):
     return x.div_(math.sqrt(fan)).to(dtype)
 
 
+def _pspec_at(pspecs, path):
+    for k in path:
+        pspecs = pspecs[k]
+    return pspecs
+
+
 def init_params(spec_tree, generator: torch.Generator,
                 param_dtype=torch.float32, device=None,
-                quantize: Optional[str] = None) -> dict:
+                quantize: Optional[str] = None, pspecs=None,
+                plan=None) -> dict:
     """Materialise a spec tree as a nested dict of tensors on ``device``
     (default: the generator's device), drawing leaves in tree order. With
     ``quantize`` ("int8" or "int4") each quantisable leaf is quantised
     (``quantize_leaf``) before the next is drawn: the tree of
     ``quantize_params(init_params(spec_tree, ...), spec_tree, quantize)``,
-    bit for bit, without the float tree."""
+    bit for bit, without the float tree.
+
+    With a ``plan`` (``distributed/plan.py``) and the tree's ``pspecs``
+    each leaf is this rank's block of the global one: a zeros leaf is made
+    at its block's shape; a drawn leaf is drawn whole (every rank draws
+    the same stream), sliced and freed before the next, so that no more
+    than one global leaf is ever held."""
     device = torch.device(device) if device is not None else generator.device
     out: dict = {}
     for path, spec in _leaves(spec_tree):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
+        if plan is not None:
+            if quantize:
+                raise NotImplementedError(
+                    "quantised weights on a mesh come with the slice of "
+                    "the static tools (launch/dryrun)")
+            ps = _pspec_at(pspecs, path)
+            if spec.init == "zeros":
+                node[path[-1]] = torch.zeros(
+                    plan.local_shape(spec.shape, ps),
+                    dtype=spec.dtype or param_dtype, device=device)
+            else:
+                x = _draw(spec, generator, param_dtype, device)
+                node[path[-1]] = _plan.shard(x, ps, plan)
+                del x
+            continue
         x = _draw(spec, generator, param_dtype, device)
         if quantize and _quantizable(spec):
             node[path[-1]], node[path[-1] + "_scale"] = quantize_leaf(
@@ -134,9 +294,10 @@ def quantize_spec(spec_tree, qdtype: str = "int8"):
         if not isinstance(v, ParamSpec):
             out[k] = quantize_spec(v, qdtype)
         elif _quantizable(v):
-            out[k] = ParamSpec(v.shape, v.init, v.fan_in, qd)
-            out[k + "_scale"] = ParamSpec(v.shape[-1:], "ones",
-                                          dtype=torch.float32)
+            out[k] = ParamSpec(v.shape, v.init, v.fan_in, qd, v.axes)
+            out[k + "_scale"] = ParamSpec(
+                v.shape[-1:], "ones", dtype=torch.float32,
+                axes=None if v.axes is None else v.axes[-1:])
         else:
             out[k] = v
     return out
@@ -196,7 +357,8 @@ def stored(w, scale=None):
     return w
 
 
-def matmul(params, name: str, x, dtype, transposed: bool = False):
+def matmul(params, name: str, x, dtype, transposed: bool = False,
+           axes: tuple = ()):
     """``x @ w`` at the use site of weight ``name``: the counterpart of
     ``repro/models/params.py::weight`` and the product after it.
 
@@ -206,9 +368,17 @@ def matmul(params, name: str, x, dtype, transposed: bool = False):
     ``<name>_scale`` this is ``x @ w.to(dtype)``. With it (a quantised tree)
     x's leading dims are flattened and the product goes through
     ``kernels.ops.quant_matmul``, which reads the int8 or packed int4 weight
-    as it is stored."""
+    as it is stored. ``axes`` are the weight's logical axes: under a plan
+    it is read through ``use_weight`` (its FSDP gather), so that x and the
+    product are this rank's columns or rows of the reference's."""
     w, scale = params[name], params.get(name + "_scale")
     K = x.shape[-1]
+    if _plan.active() is not None:
+        if scale is not None:
+            raise NotImplementedError(
+                "quantised weights on a mesh come with the slice of the "
+                "static tools (launch/dryrun)")
+        w = use_weight(w, axes)
     if scale is None:
         w = w.to(dtype)
         return x @ (w.t() if transposed else w.reshape(K, -1))

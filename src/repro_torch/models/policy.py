@@ -27,8 +27,10 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import dtype_of
+from repro_torch.distributed.plan import scope as _plan_scope
 from repro_torch.models.params import (QMAX, ParamSpec, Params, init_params,
-                                       quantize_spec, stored)
+                                       param_pspecs, quantize_spec, stored,
+                                       use_weight)
 
 
 # -- LSTM cell ----------------------------------------------------------------
@@ -236,37 +238,77 @@ class BackbonePolicy(nn.Module):
     quantises each as it is drawn (``params.init_params(..., quantize=)``,
     bitwise ``params.quantize_params`` of the float tree), so that only the
     quantised tree and one leaf's draw are ever held: every matmul weight
-    then goes through ``quant_matmul``."""
+    then goes through ``quant_matmul``.
+
+    ``tp`` pads the head counts to the tensor-parallel size, as the
+    reference's ``BackbonePolicy(cfg, tp)`` does. ``mesh`` (a
+    ``launch.mesh.Mesh`` of the process group, or a ``distributed.plan.
+    Plan``) lays the policy out on it: this rank holds its block of every
+    leaf (``pspecs(sharding.make_rules(mesh))``), drawn leaf by leaf from
+    the same stream as the whole tree, and ``tp`` is the mesh's ``model``
+    size. On a mesh it trains (``seq``, ``rl.learner.make_lm_train_step``);
+    serving and quantised weights there come with the slice of the static
+    tools and raise."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: torch.Generator = None, dtype=None,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, tp: Optional[int] = None,
+                 mesh=None):
         super().__init__()
         if quantize not in (None, *QMAX):
             raise ValueError(f"quantize must be None or one of {tuple(QMAX)}"
                              f", got {quantize!r}")
+        self.plan = None
+        if mesh is not None:
+            if quantize:
+                raise NotImplementedError(
+                    "quantised weights on a mesh come with the slice of "
+                    "the static tools (launch/dryrun)")
+            from repro_torch.distributed import plan as _plan
+            self.plan = mesh if isinstance(mesh, _plan.Plan) else \
+                _plan.Plan(mesh)
+            if tp is not None and tp != self.plan.tp:
+                raise ValueError(f"tp {tp} is not the mesh's model size "
+                                 f"{self.plan.tp}")
+            tp = self.plan.tp
         dev = _device.resolve(device)
-        self.cfg, self.quantize = cfg, quantize
+        self.cfg, self.quantize, self.tp = cfg, quantize, tp or 1
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
+        pspecs = None
+        if self.plan is not None:
+            from repro_torch.distributed import sharding as shd
+            pspecs = self.pspecs(shd.make_rules(self.plan.mesh))
         tree = init_params(self._float_spec(), generator,
                            dtype_of(dtype or cfg.param_dtype), dev,
-                           quantize=quantize)
+                           quantize=quantize, pspecs=pspecs, plan=self.plan)
         self.backbone = Params(tree["backbone"])
         for k in ("value", "value_scale"):
             if k in tree:
                 setattr(self, k, nn.Parameter(tree[k], requires_grad=False))
 
     def _float_spec(self):
-        s = {"backbone": tr.transformer_spec(self.cfg)}
+        s = {"backbone": tr.transformer_spec(self.cfg, self.tp)}
         if self.cfg.value_head:
             s["value"] = ParamSpec((self.cfg.d_model, 1),
-                                   fan_in=self.cfg.d_model)
+                                   fan_in=self.cfg.d_model,
+                                   axes=("embed", "null"))
         return s
 
     def spec(self):
         s = self._float_spec()
         return quantize_spec(s, self.quantize) if self.quantize else s
+
+    def pspecs(self, rules=None):
+        """The ``PartitionSpec`` of every leaf under ``rules`` (default
+        ``params.DEFAULT_RULES``)."""
+        return param_pspecs(self.spec(), rules)
+
+    def _serving(self, what: str):
+        if self.plan is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh (sharded serving) comes with the slice "
+                f"of the static tools (launch/dryrun)")
 
     def _own(self) -> dict:
         """The policy's own parameters as the tree ``seq`` and ``_value``
@@ -307,7 +349,8 @@ class BackbonePolicy(nn.Module):
             return torch.zeros(hidden.shape[:-1], device=hidden.device)
         # A quantised head is read as its raw integers without value_scale,
         # as the reference reads it (repro/models/policy.py:220-221).
-        w = stored(params["value"], params.get("value_scale"))
+        w = stored(use_weight(params["value"], ("embed", "null")),
+                   params.get("value_scale"))
         # dot in hidden.dtype, upcast after
         return (hidden @ w.to(hidden.dtype))[..., 0].float()
 
@@ -319,17 +362,21 @@ class BackbonePolicy(nn.Module):
         (logits (B,T,V), values (B,T), aux)."""
         if tokens is None:
             params, tokens = self._own(), params
-        hidden, aux = tr.forward(params["backbone"], tokens, self.cfg,
-                                 prefix=prefix)
-        logits = tr.logits_from_hidden(params["backbone"], hidden, self.cfg)
-        return logits, self._value(params, hidden), aux
+        with _plan_scope(self.plan):
+            hidden, aux = tr.forward(params["backbone"], tokens, self.cfg,
+                                     prefix=prefix)
+            logits = tr.logits_from_hidden(params["backbone"], hidden,
+                                           self.cfg)
+            return logits, self._value(params, hidden), aux
 
     @torch.no_grad()
     def prefill(self, tokens, max_len: int, prefix=None):
         """tokens: (B, Tt); prefix: (B, P, d) or None. Returns (last-token
         logits (B,V), value (B,), caches of P + Tt positions)."""
+        self._serving("prefill")
         hidden, caches = tr.prefill(self.backbone, tokens, self.cfg,
-                                    max_len=max_len, prefix=prefix)
+                                    max_len=max_len, prefix=prefix,
+                                    tp=self.tp)
         last = hidden[:, -1:]
         logits = tr.logits_from_hidden(self.backbone, last, self.cfg)
         return logits[:, 0], self._value(self._own(), last)[:, 0], caches
@@ -339,10 +386,13 @@ class BackbonePolicy(nn.Module):
         """tokens: (B, 1) — one serve step against ``caches`` (KV caches and
         SSM states updated in place). Returns (logits (B,V), value (B,),
         caches)."""
+        self._serving("decode")
         hidden, caches = tr.decode(self.backbone, tokens, self.cfg, caches)
         logits = tr.logits_from_hidden(self.backbone, hidden, self.cfg)
         return logits[:, 0], self._value(self._own(), hidden)[:, 0], caches
 
     def init_caches(self, batch: int, max_len: int):
+        self._serving("init_caches")
         return tr.init_caches(self.cfg, batch, max_len,
-                              device=self.backbone["final_norm"].device)
+                              device=self.backbone["final_norm"].device,
+                              tp=self.tp)

@@ -15,6 +15,23 @@ expanded over heads with stride 0.
 ``ssm_decode`` updates ``cache.state`` in place (JAX returns a new array),
 as the port does with KV caches; the returned ``SSMCache`` holds that
 tensor.
+
+Tensor parallelism over ``ssm_heads`` (under a plan, ``distributed/
+plan.py``): the head-aligned compute layout. The reference splits
+``in_proj``'s packed ``z | x | B | C | dt`` columns (and ``conv_w``'s
+``x | B | C`` channels) contiguously over ``model``, which does not line
+up with heads; the port keeps that stored layout (the checkpoint holds
+the reference's global leaves) and gathers both over ``model`` at their
+use, then takes a rank's columns: its heads' ``z``, ``x`` and ``dt`` and
+all of ``B`` and ``C`` (G groups, expanded over heads and sliced to the
+rank's heads). The gradient goes back by a reduce-scatter, a sum over the
+ranks: a B or C column's gradient is each rank's heads' part. ``A_log``,
+``D``, ``dt_bias``, ``norm`` and ``out_proj``'s rows are split by heads
+in the stored layout already and are read as they lie. The gated RMSNorm
+runs over all of ``d_inner``: a rank's mean of squares, weighted by its
+share of ``d_inner``, is summed over ``model`` (both ways: each rank's
+output depends on it), and ``out_proj`` is row-parallel, its partial
+product summed by one all-reduce. The SSD kernels run at H/tp heads.
 """
 from __future__ import annotations
 
@@ -24,9 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import plan as _plan
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dtype_of, rms_norm
-from repro_torch.models.params import ParamSpec, matmul, stored
+from repro_torch.models.params import ParamSpec, matmul, stored, use_weight
 
 
 class SSMCache(NamedTuple):
@@ -47,36 +65,91 @@ def _dims(cfg: ModelConfig):
 def ssm_spec(cfg: ModelConfig):
     di, H, ds, G, conv_dim, proj_dim = _dims(cfg)
     f32 = torch.float32
+    h = ("ssm_heads",)
     return {
-        "in_proj": ParamSpec((cfg.d_model, proj_dim), fan_in=cfg.d_model),
-        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), fan_in=cfg.ssm_conv),
-        "A_log": ParamSpec((H,), init="zeros", dtype=f32),
-        "D": ParamSpec((H,), init="zeros", dtype=f32),
-        "dt_bias": ParamSpec((H,), init="zeros", dtype=f32),
-        "norm": ParamSpec((di,), init="zeros", dtype=f32),
-        "out_proj": ParamSpec((di, cfg.d_model), fan_in=di),
+        "in_proj": ParamSpec((cfg.d_model, proj_dim), fan_in=cfg.d_model,
+                             axes=("embed", "ssm_heads")),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), fan_in=cfg.ssm_conv,
+                            axes=("null", "ssm_heads")),
+        "A_log": ParamSpec((H,), init="zeros", dtype=f32, axes=h),
+        "D": ParamSpec((H,), init="zeros", dtype=f32, axes=h),
+        "dt_bias": ParamSpec((H,), init="zeros", dtype=f32, axes=h),
+        "norm": ParamSpec((di,), init="zeros", dtype=f32, axes=h),
+        "out_proj": ParamSpec((di, cfg.d_model), fan_in=di,
+                              axes=("ssm_heads", "embed")),
     }
 
 
+def _local(cfg: ModelConfig):
+    """(first head, heads, d_inner) of this rank: all of them with no plan
+    or at tp 1."""
+    h0, Hl = _plan.tp_block(cfg.ssm_heads)
+    return h0, Hl, Hl * cfg.ssm_head_dim
+
+
 def _split_proj(zxbcdt, cfg: ModelConfig):
-    di, H, _, _, conv_dim, _ = _dims(cfg)
-    return torch.split(zxbcdt, [di, conv_dim, H], dim=-1)   # z, xBC, dt
+    _, Hl, dil = _local(cfg)
+    G, ds = cfg.ssm_groups, cfg.ssm_state
+    return torch.split(zxbcdt, [dil, dil + 2 * G * ds, Hl], dim=-1)
 
 
 def _expand_groups(b, cfg: ModelConfig):
     """(.., G, ds) group-projected B/C → per-head (.., H, ds): head h reads
-    group h // (H/G), as ``jnp.repeat`` (``repeat_interleave``). With one
-    group this is a stride-0 view; with more, a copy."""
+    group h // (H/G), as ``jnp.repeat`` (``repeat_interleave``), then this
+    rank's heads. With one group this is a stride-0 view; with more, a
+    copy."""
     H, G = cfg.ssm_heads, cfg.ssm_groups
+    h0, Hl, _ = _local(cfg)
     lead, ds = b.shape[:-2], b.shape[-1]
-    return b.unsqueeze(-2).expand(*lead, G, H // G, ds).flatten(-3, -2)
+    out = b.unsqueeze(-2).expand(*lead, G, H // G, ds).flatten(-3, -2)
+    return out if Hl == H else out[..., h0:h0 + Hl, :]
+
+
+def _head_columns(w, starts, cfg: ModelConfig):
+    """The columns of this rank's heads of a gathered packed weight: from
+    each (start, width, per-head) part of ``starts``, the rank's block of a
+    per-head part or all of a shared one."""
+    h0, Hl, dil = _local(cfg)
+    cols = []
+    for start, width, per_head in starts:
+        if per_head:
+            k = width // cfg.ssm_heads
+            cols.append(w[..., start + h0 * k:start + (h0 + Hl) * k])
+        else:
+            cols.append(w[..., start:start + width])
+    return torch.cat(cols, dim=-1)
+
+
+def _in_weights(params, cfg: ModelConfig, dt_):
+    """(in_proj, conv_w) at their use: as stored with no plan; under one,
+    gathered and cut to this rank's heads' columns (at tp 1 the whole
+    leaves)."""
+    pl = _plan.active()
+    if pl is None:
+        return None, _conv_w(params, dt_)
+    if params.get("conv_w_scale") is not None:
+        raise NotImplementedError(
+            "quantised weights on a mesh come with the slice of the static "
+            "tools (launch/dryrun)")
+    di, H, ds, G, conv_dim, _ = _dims(cfg)
+    model = "sum" if pl.tp > 1 else None
+    w_in = use_weight(params["in_proj"], ("embed", "ssm_heads"), model)
+    w_cv = use_weight(params["conv_w"], ("null", "ssm_heads"), model)
+    if pl.tp > 1:
+        w_in = _head_columns(w_in, [(0, di, True), (di, di, True),
+                                    (2 * di, 2 * G * ds, False),
+                                    (2 * di + 2 * G * ds, H, True)], cfg)
+        w_cv = _head_columns(w_cv, [(0, di, True),
+                                    (di, 2 * G * ds, False)], cfg)
+    return w_in, w_cv.to(dt_)
 
 
 def _gated_out(params, y, z, cfg: ModelConfig):
     dt_ = dtype_of(cfg.dtype)
     y = rms_norm(y * F.silu(z.float()).to(dt_), params["norm"],
-                 cfg.norm_eps)
-    return matmul(params, "out_proj", y, dt_)
+                 cfg.norm_eps, full_dim=cfg.d_inner)
+    return _plan.leave(matmul(params, "out_proj", y, dt_,
+                              axes=("ssm_heads", "embed")))
 
 
 def _conv_w(params, dt_):
@@ -91,14 +164,23 @@ def ssm_apply(params, x, cfg: ModelConfig, return_cache: bool = False):
     ``return_cache`` also returns the SSMCache a decode loop continues from
     (conv window of raw xBC + final SSD state)."""
     B, T, _ = x.shape
-    di, H, ds, G, conv_dim, _ = _dims(cfg)
+    _, _, ds, G, _, _ = _dims(cfg)
+    _, Hl, di = _local(cfg)
+    conv_dim = di + 2 * G * ds
     dt_ = dtype_of(cfg.dtype)
 
-    zxbcdt = matmul(params, "in_proj", x, dt_)
+    w_in, w = _in_weights(params, cfg, dt_)       # w: (k, conv_dim)
+    if w_in is None:
+        zxbcdt = matmul(params, "in_proj", x, dt_)
+    else:
+        if return_cache:
+            raise NotImplementedError(
+                "sharded serving comes with the slice of the static tools "
+                "(launch/dryrun)")
+        zxbcdt = _plan.enter(x) @ w_in.to(dt_)
     z, xBC_raw, dt = _split_proj(zxbcdt, cfg)
 
     # short causal conv over the (x, B, C) channels
-    w = _conv_w(params, dt_)                          # (k, conv_dim)
     pad = torch.zeros((B, cfg.ssm_conv - 1, conv_dim), dtype=dt_,
                       device=x.device)
     xp = torch.cat([pad, xBC_raw], dim=1)
@@ -106,7 +188,7 @@ def ssm_apply(params, x, cfg: ModelConfig, return_cache: bool = False):
     xBC = F.silu(xBC)
 
     xs, Bc, Cc = torch.split(xBC, [di, G * ds, G * ds], dim=-1)
-    xs = xs.unflatten(-1, (H, cfg.ssm_head_dim))
+    xs = xs.unflatten(-1, (Hl, cfg.ssm_head_dim))
     Bc = _expand_groups(Bc.unflatten(-1, (G, ds)), cfg)
     Cc = _expand_groups(Cc.unflatten(-1, (G, ds)), cfg)
     dt = F.softplus(dt.float() + params["dt_bias"][None, None])

@@ -18,17 +18,30 @@ as in the reference. ``forward`` sums the MoE layers' aux losses into
 ``forward`` runs each layer as ``cfg.remat`` says, as the reference's
 ``_remat`` does: ``"full"`` under ``torch.utils.checkpoint`` (nothing of
 the layer saved, its forward run again in the backward, under the kernel
-backend the forward ran with: ``dispatch.recompute_context``), ``"none"``
-plainly; ``"dots"`` (save the matmul outputs) is not ported and raises.
+backend the forward ran with: ``dispatch.recompute_context``), ``"dots"``
+under the same checkpoint with a selective policy that saves the outputs
+of the matrix products (``aten.mm``, ``bmm``, ``addmm``, ``baddbmm``,
+what ``@`` and ``einsum`` lower to) and recomputes everything else, the
+attention and SSD kernels included, as ``dots_saveable`` saves
+``dot_general``s and not a ``pallas_call``; ``"none"`` plainly.
+
+``tp`` pads the head counts (``attention.attention_spec``); under a plan
+(``distributed/plan.py``) every layer runs on this rank's heads, experts
+and vocab block, their counts read off the local parameters. ``prefill``
+and ``decode`` on a mesh (sharded serving, the context-parallel decode)
+come with the slice of the static tools and raise.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, NamedTuple, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import plan as _plan
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -47,16 +60,16 @@ def layer_kinds(cfg: ModelConfig, i: int):
 
 
 def _norm_spec(cfg: ModelConfig) -> ParamSpec:
-    return ParamSpec((cfg.d_model,), init="zeros", dtype=torch.float32)
+    return L.rms_norm_spec(cfg.d_model)
 
 
-def transformer_spec(cfg: ModelConfig):
+def transformer_spec(cfg: ModelConfig, tp: int = 1):
     layers = {}
     for i in range(cfg.num_layers):
         mixer, ffn = layer_kinds(cfg, i)
         l = {"ln_mix": _norm_spec(cfg)}
         if mixer == "attn":
-            l["attn"] = attn.attention_spec(cfg)
+            l["attn"] = attn.attention_spec(cfg, tp)
         else:
             l["ssm"] = ssm_mod.ssm_spec(cfg)
         if ffn == "mlp":
@@ -76,7 +89,7 @@ def _ffn(p, x, cfg: ModelConfig):
     """The layer's FFN with its residual: (x, MoE aux loss or None)."""
     if "ln_ffn" not in p:
         return x, None
-    h = L.rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+    h = L.norm(p, "ln_ffn", x, cfg)
     if "moe" in p:
         y, aux = moe_mod.moe_apply(p["moe"], h, cfg)
         return x + y, aux
@@ -84,7 +97,7 @@ def _ffn(p, x, cfg: ModelConfig):
 
 
 def _layer(p, x, cfg: ModelConfig):
-    h = L.rms_norm(x, p["ln_mix"], cfg.norm_eps)
+    h = L.norm(p, "ln_mix", x, cfg)
     if "attn" in p:
         x = x + attn.attend_full(p["attn"], h, cfg)
     else:
@@ -100,34 +113,73 @@ def _embed_inputs(params, tokens, cfg: ModelConfig, prefix=None):
     return x
 
 
+# the matrix products "dots" saves: what ``@``, ``matmul`` and ``einsum``
+# lower to on both devices
+DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+        torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_context():
+    """``context_fn`` of ``remat="dots"``: the selective policy's pair of
+    contexts, each also under the kernel backend the forward ran with
+    (``dispatch.recompute_context``)."""
+    fwd, rec = create_selective_checkpoint_contexts(_save_dots)
+    dfwd, drec = dispatch.recompute_context()
+    return _both(fwd, dfwd), _both(rec, drec)
+
+
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
+
+
+REMAT_CONTEXT = {"full": dispatch.recompute_context, "dots": dots_context}
+
+
 def forward(params, tokens, cfg: ModelConfig, prefix=None):
     """Full-sequence forward. tokens: (B, Tt); prefix: (B, P, d) or None.
     Returns (hidden (B, P + Tt, d), {"moe_aux": () f32})."""
     remat = torch.is_grad_enabled() and cfg.remat != "none"
-    if remat and cfg.remat != "full":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported; the port trains with "
-            f"'full' or 'none'")
+    if remat and cfg.remat not in REMAT_CONTEXT:
+        raise ValueError(f"remat={cfg.remat!r}: one of 'full', 'dots', "
+                         f"'none'")
     x = _embed_inputs(params, tokens, cfg, prefix)
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
         p = params["layers"][str(i)]
         x, a = (checkpoint(_layer, p, x, cfg, use_reentrant=False,
-                           context_fn=dispatch.recompute_context) if remat
+                           context_fn=REMAT_CONTEXT[cfg.remat]) if remat
                 else _layer(p, x, cfg))
         if a is not None:
             aux = aux + a
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.norm(params, "final_norm", x, cfg)
     return x, {"moe_aux": aux}
 
 
 def logits_from_hidden(params, x, cfg: ModelConfig):
+    """Logits (…, V) f32, the padded vocab masked; under a plan this
+    rank's vocab block of them."""
     logits = L.unembed(params, params["embedding"], x, cfg)
     v = cfg.padded_vocab()
     if v != cfg.vocab_size:   # mask the padded vocab
-        mask = torch.arange(v, device=x.device) < cfg.vocab_size
+        v0, n = _plan.tp_block(v)
+        mask = torch.arange(v0, v0 + n, device=x.device) < cfg.vocab_size
         logits = logits.masked_fill(~mask, -1e30)
     return logits
+
+
+def _no_plan(what: str):
+    if _plan.active() is not None:
+        raise NotImplementedError(
+            f"{what} on a mesh (sharded serving, the context-parallel "
+            f"decode) comes with the slice of the static tools "
+            f"(launch/dryrun)")
 
 
 # -- caches -------------------------------------------------------------------
@@ -139,11 +191,12 @@ class Caches(NamedTuple):
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device=None) -> Caches:
+                device=None, tp: int = 1) -> Caches:
+    _no_plan("init_caches")
     kv, ssm = [], []
     for i in range(cfg.num_layers):
         is_attn = layer_kinds(cfg, i)[0] == "attn"
-        kv.append(attn.init_cache(cfg, batch, max_len, device=device)
+        kv.append(attn.init_cache(cfg, batch, max_len, device=device, tp=tp)
                   if is_attn else None)
         ssm.append(None if is_attn else
                    ssm_mod.init_ssm_cache(cfg, batch, device=device))
@@ -151,11 +204,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params, tokens, cfg: ModelConfig, max_len: int = 0,
-            prefix=None):
+            prefix=None, tp: int = 1):
     """Forward + cache build. tokens: (B, Tt); prefix: (B, P, d) or None;
     T = P + Tt. Returns (hidden, caches). KV caches are allocated at
     ``max_len`` (default T) and filled; SSM caches are the conv window and
-    final state that the scan returns."""
+    final state that the scan returns; ``tp`` pads their KV heads."""
+    _no_plan("prefill")
     x = _embed_inputs(params, tokens, cfg, prefix)
     B, T, _ = x.shape
     kv, ssm = [], []
@@ -163,7 +217,8 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int = 0,
         p = params["layers"][str(i)]
         h = L.rms_norm(x, p["ln_mix"], cfg.norm_eps)
         if "attn" in p:
-            cache = attn.init_cache(cfg, B, max_len or T, device=x.device)
+            cache = attn.init_cache(cfg, B, max_len or T, device=x.device,
+                                    tp=tp)
             y, c = attn.attend_prefill(p["attn"], h, cfg, cache)
             kv.append(c)
             ssm.append(None)
@@ -182,6 +237,7 @@ def decode(params, tokens, cfg: ModelConfig, caches: Caches):
     each attention layer attends at the global ``caches.length``; the
     per-layer lengths come back zeroed and the global one is incremented.
     SSM layers step their conv window and state (the state in place)."""
+    _no_plan("decode")
     x = L.embed_tokens(params["embedding"], tokens, cfg)
     zero = torch.zeros((), dtype=torch.int32, device=x.device)
     kv, ssm = [], []

@@ -53,16 +53,32 @@ def init(params, state_dtype=torch.float32) -> AdamWState:
     return AdamWState(step, tree_map(zeros, params), tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in tree_leaves(tree)))
+def global_norm(tree, counted=None, group=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``. Over shards (a rank's blocks
+    of a tree laid out on a mesh): ``counted``, a tree of bools, keeps the
+    leaves this rank adds (a leaf a mesh axis replicates is added by the
+    rank at index 0 of that axis only, so once, not once a rank), and the
+    sum of squares is all-reduced over ``group`` before the root."""
+    leaves = tree_leaves(tree)
+    if counted is not None:
+        leaves = []
+        tree_map(lambda x, c: leaves.append(x) if c else None, tree,
+                 counted)
+    total = sum(x.float().square().sum() for x in leaves) if leaves else \
+        torch.zeros((), device=tree_leaves(tree)[0].device)
+    if group is not None:
+        from repro_torch.distributed.sharding import allreduce_sum
+        total = allreduce_sum(total, group)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
-           eps=1e-8, weight_decay=0.0, max_grad_norm=0.0):
-    """Returns (new_params, new_state, stats)."""
-    gnorm = global_norm(grads)
+           eps=1e-8, weight_decay=0.0, max_grad_norm=0.0, gnorm=None):
+    """Returns (new_params, new_state, stats). ``gnorm`` is the gradients'
+    global norm where the caller took it (over shards, ``global_norm``'s
+    ``counted`` and ``group``)."""
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = None
     if max_grad_norm:
         scale = (max_grad_norm / gnorm.clamp(min=1e-12)).clamp(max=1.0)

@@ -21,7 +21,9 @@ update on a token rollout through ``BackbonePolicy``'s functional path,
 the backbone's layers recomputed in the backward (``cfg.remat``) and the
 loss taken chunk by chunk (``ppo.chunked_token_loss``). On the card the
 backward runs through the attention and SSD backward kernels
-(``kernels/flash_attention.py``, ``kernels/ssd.py``).
+(``kernels/flash_attention.py``, ``kernels/ssd.py``). A policy laid out on
+a mesh (``BackbonePolicy(cfg, mesh=)``) trains by the reference's FSDP/TP
+plan, one rank a process: see ``make_lm_train_step``.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.vector import blocks
+from repro_torch.distributed import plan as _plan
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tr
@@ -326,8 +329,35 @@ def make_lm_train_step(policy, tcfg: TrainConfig, total_steps: int = 10_000,
     loss and ``0.01 · moe_aux``. ``num_microbatches > 1`` accumulates f32
     gradients over that many slices of the batch, as the reference's scan
     does. The rate is ``warmup_cosine`` of the state's step, then AdamW
-    with ``tcfg.max_grad_norm``."""
+    with ``tcfg.max_grad_norm``.
+
+    On a mesh (``policy.plan``, a ``distributed.plan.Plan``) every rank
+    calls ``train_step`` with the state's blocks it holds and the global
+    batch, of which it takes its data rank's B/D rows (a batch the data
+    size does not divide raises). The forward and backward run under the
+    plan (FSDP gathers and reduce-scatters at each weight's use, TP
+    all-reduces); each rank's loss is its rows' mean, so the gradient is
+    the mean over the data ranks: FSDP gradients arrive reduce-scattered
+    (summed over the data ranks) and are divided by D, those of leaves the
+    data axes replicate (the leaves without an ``embed`` axis: ``q_norm``,
+    ``k_norm``, ``conv_w``, ``A_log``, ``D``, ``dt_bias``, the SSM
+    ``norm``) are all-reduce averaged over ``data``. The
+    advantages are normalised over the data ranks (``normalize_adv``'s
+    group), ``grad_norm`` is the global one over the shards
+    (``adamw.global_norm``), and the metrics are averaged over the data
+    ranks, as the reference's means over the global batch are. AdamW then
+    updates each rank's blocks."""
     cfg = policy.cfg
+    plan = getattr(policy, "plan", None)
+    adv_group = None
+    if plan is not None:
+        pspecs = policy.pspecs(shd.make_rules(plan.mesh))
+        # leaves the data axes replicate; leaves this rank adds to the norm
+        data_rep = adamw.tree_map(
+            lambda ps: "data" in plan.replicated_over(ps), pspecs)
+        counted = adamw.tree_map(lambda ps: all(
+            plan.index_of(k) == 0 for k in plan.replicated_over(ps)), pspecs)
+        adv_group = plan.groups["data"]
 
     def loss_fn(params, batch):
         hidden, aux = tr.forward(params["backbone"], batch["tokens"], cfg,
@@ -338,7 +368,7 @@ def make_lm_train_step(policy, tcfg: TrainConfig, total_steps: int = 10_000,
                            batch["dones"], batch["last_value"], tcfg.gamma,
                            tcfg.gae_lambda)
             returns = adv + batch["old_values"]
-            adv = ppo.normalize_adv(adv, tcfg.norm_adv)
+            adv = ppo.normalize_adv(adv, tcfg.norm_adv, adv_group)
         pg, ent, kl, cf = ppo.chunked_token_loss(
             params["backbone"], hidden, batch["actions"],
             batch["old_logprob"], adv, cfg, tcfg, chunk=loss_chunk)
@@ -349,7 +379,39 @@ def make_lm_train_step(policy, tcfg: TrainConfig, total_steps: int = 10_000,
                       "approx_kl": kl, "clipfrac": cf,
                       "moe_aux": aux["moe_aux"]}
 
+    def rows(batch):
+        """This data rank's B/D rows of the global batch."""
+        n = next(iter(batch.values())).shape[0]
+        if n % plan.dp:
+            raise ValueError(f"batch {n} is not divisible by the mesh's "
+                             f"data size {plan.dp}")
+        k = n // plan.dp
+        i = plan.dp_index
+        return {f: v[i * k:(i + 1) * k] for f, v in batch.items()}
+
+    def across_data(grads, loss, stats):
+        """The gradients' and metrics' means over the data ranks."""
+        D = plan.dp
+        rep = []
+        adamw.tree_map(lambda g, r: rep.append(g) if r else None, grads,
+                       data_rep)
+        keys = sorted(stats)
+        out = shd.allreduce_mean(
+            rep + [torch.stack([loss] + [stats[k] for k in keys])],
+            plan.groups["data"])
+        means = iter(out[:-1])
+        grads = adamw.tree_map(lambda g, r: next(means) if r else g / D,
+                               grads, data_rep)
+        loss, *vals = out[-1].unbind()
+        return grads, loss, dict(zip(keys, vals))
+
     def train_step(ts: TrainState, batch):
+        if plan is None:
+            return step(ts, batch)
+        with _plan.scope(plan):
+            return step(ts, rows(batch))
+
+    def step(ts: TrainState, batch):
         m = num_microbatches
         if m > 1:
             n = next(iter(batch.values())).shape[0]
@@ -373,13 +435,19 @@ def make_lm_train_step(policy, tcfg: TrainConfig, total_steps: int = 10_000,
                      for k in all_stats[0]}
         else:
             loss, stats, grads = _value_and_grad(loss_fn, ts.params, batch)
+        gnorm = None
+        if plan is not None:
+            grads, loss, stats = across_data(grads, loss, stats)
+            gnorm = adamw.global_norm(grads, counted,
+                                      torch.distributed.group.WORLD)
         lr = schedule.warmup_cosine(ts.step, peak_lr=tcfg.learning_rate,
                                     warmup_steps=tcfg.warmup_steps,
                                     total_steps=total_steps)
         params, opt, gstats = adamw.update(
             grads, ts.opt, ts.params, lr=lr, b1=tcfg.adam_b1,
             b2=tcfg.adam_b2, eps=tcfg.adam_eps,
-            weight_decay=tcfg.weight_decay, max_grad_norm=tcfg.max_grad_norm)
+            weight_decay=tcfg.weight_decay, max_grad_norm=tcfg.max_grad_norm,
+            gnorm=gnorm)
         metrics = dict(stats, loss=loss, lr=lr,
                        grad_norm=gstats["grad_norm"])
         return TrainState(params, opt, ts.step + 1), metrics

@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.distributed import plan as _plan
 from repro_torch.distributed.sharding import all_gather_stack
 from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as tr
@@ -89,21 +90,47 @@ def chunked_token_loss(backbone_params, hidden, actions, old_logp, adv,
     chunk's terms run under ``checkpoint`` (in place of the reference's
     ``jax.checkpoint``), so only one chunk's logits live at a time in the
     forward and in the backward. ``gather`` picks the taken token's logit
-    where the reference contracts a one-hot (kept there for a vocab-sharded
-    layout the port does not have): the same value."""
+    where the reference contracts a one-hot: the same value.
+
+    Under a plan with tp > 1 (``distributed/plan.py``) a chunk's logits are
+    this rank's (B, chunk, V/tp) block, and the vocab sums run over
+    ``model``: with m the max of the ranks' block log-sum-exps (no
+    gradient), s = Σ_r exp(lse_r − m) and lse = m + log s; the taken
+    token's logit from the rank that holds it (a masked gather, summed);
+    the entropy as lse − t / s with t = Σ_r exp(lse_r − m)·Σ_v p_v l_v over
+    the rank's block. Each all-reduced term depends on its rank's logits
+    only and what follows is the same on every rank, so each all-reduce
+    is the identity backward (``plan.leave``). The pg, kl and clip terms
+    are then every rank's, and the loss is the reference's."""
     B, T, _ = hidden.shape
     chunk = min(chunk, T)
     if T % chunk:
         raise ValueError(f"T {T} is not a multiple of the loss chunk "
                          f"{chunk}")
 
+    pl = _plan.active()
+    vocab_split = pl is not None and pl.tp > 1
+
     def chunk_terms(h_c, a_c, olp_c, adv_c):
         logits = tr.logits_from_hidden(backbone_params, h_c, cfg)
         lse = torch.logsumexp(logits, dim=-1)
-        tok = logits.gather(-1, a_c.long()[..., None])[..., 0]
-        new_logp = tok - lse
         p = torch.softmax(logits, dim=-1)
-        ent = lse - (p * logits).sum(-1)
+        if vocab_split:
+            v0, n = _plan.tp_block(cfg.padded_vocab())
+            ids = a_c.long() - v0
+            inside = (ids >= 0) & (ids < n)
+            tok = logits.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0]
+            tok = _plan.leave(torch.where(inside, tok, tok.new_zeros(())))
+            m = _plan.reduce_max(lse)
+            e = torch.exp(lse - m)
+            s = _plan.leave(e)
+            t = _plan.leave(e * (p * logits).sum(-1))
+            lse = m + torch.log(s)
+            ent = lse - t / s
+        else:
+            tok = logits.gather(-1, a_c.long()[..., None])[..., 0]
+            ent = lse - (p * logits).sum(-1)
+        new_logp = tok - lse
         logratio = new_logp - olp_c
         ratio = torch.exp(logratio)
         pg1 = -adv_c * ratio

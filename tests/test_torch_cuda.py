@@ -1056,3 +1056,82 @@ def test_launcher_profile_names_the_gae_kernel(tmp_path):
     events = json.loads(trace.read_text())["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert sum("gae_kernel" in n for n in names) >= 2, names[:20]
+
+
+# -- the LM plan at world size 1 over NCCL, and remat="dots" -------------------
+
+def _lm_cfg(arch, **kw):
+    from repro_torch.configs import with_overrides
+    return with_overrides(get_smoke_config(arch), num_layers=2, **kw)
+
+
+def test_plan_at_world_size_one_over_nccl_is_the_unsharded_step_bitwise():
+    """jamba's smoke stack (an SSM + MLP and an attention + MoE layer), bf16,
+    two steps on a 1x1 mesh over NCCL against the unsharded steps: params,
+    moments and metrics bit for bit, with the collectives live."""
+    import torch.distributed as dist
+
+    from repro_torch.data.buffer import random_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.rl.learner import init_train_state, make_lm_train_step
+    cfg = _lm_cfg("jamba-v0.1-52b")
+    own = tmesh.init_process_group(torch.device("cuda"))
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+        out = []
+        for m in (None, mesh):
+            pol = BackbonePolicy(cfg, generator=torch.Generator(
+                device="cuda").manual_seed(0), mesh=m)
+            step = make_lm_train_step(pol, TrainConfig(), loss_chunk=16)
+            st = init_train_state(pol.params())
+            shd.reset_collectives()
+            ms = []
+            for i in range(2):
+                st, mt = step(st, random_batch(cfg, 4, 32, torch.Generator(
+                    device="cuda").manual_seed(10 + i)))
+                ms.append(mt)
+            out.append((st, ms, dict(shd.COLLECTIVES)))
+        (a, ma, _), (b, mb, coll) = out
+        assert coll["all_gather"] > 0 and coll["reduce_scatter"] > 0
+        for x, y in zip(tree_leaves(a.params) + tree_leaves(a.opt.m),
+                        tree_leaves(b.params) + tree_leaves(b.opt.m)):
+            assert torch.equal(x, y)
+        for x, y in zip(ma, mb):
+            assert all(torch.equal(x[k], y[k]) for k in x)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-1.3b"])
+def test_remat_dots_gradients_match_full_on_the_kernels(arch, no_tf32):
+    """f32, the attention and SSD kernels forward and backward: the
+    gradients of one seq under "dots" against "full" within 1e-5 of each
+    leaf's largest, and flash_attention / ssd run again under both."""
+    grads, launches = {}, {}
+    for remat in ("full", "dots"):
+        cfg = _lm_cfg(arch, remat=remat, dtype="float32",
+                      param_dtype="float32")
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(1))
+        pol = BackbonePolicy(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        p = pol.params()
+        leaves = tree_leaves(p)
+        for x in leaves:
+            x.requires_grad_()
+        build.reset_launches()
+        with torch.enable_grad():
+            logits, v, _ = pol.seq(p, toks)
+            loss = logits.logsumexp(-1).mean() + v.square().mean()
+            grads[remat] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        launches[remat] = dict(build.LAUNCHES)
+    op = "flash_attention" if arch == "qwen3-0.6b" else "ssd"
+    assert launches["dots"][op] == launches["full"][op] == 4
+    for g, w in zip(grads["dots"], grads["full"]):
+        assert float((g - w).abs().max()) <= 1e-5 * max(
+            float(w.abs().max()), 1e-30)

@@ -103,7 +103,8 @@ def test_port_imports_no_jax_and_no_repro():
         " 'repro_torch.league.__main__', 'repro_torch.telemetry.http',"
         " 'repro_torch.telemetry.benchwatch',"
         " 'repro_torch.telemetry.__main__',"
-        " 'repro_torch.distributed.sharding', 'repro_torch.launch.mesh'}\n"
+        " 'repro_torch.distributed.sharding', 'repro_torch.launch.mesh',"
+        " 'repro_torch.distributed.plan'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
