@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs eighteen phases, each printing its
+``src/repro_torch/kernels/csrc`` and runs nineteen phases, each printing its
 lines (and a ``[time]`` line after each, the script's seconds so far); any
 failure ends the run with a traceback and a non-zero exit:
 
@@ -295,6 +295,27 @@ failure ends the run with a traceback and a non-zero exit:
                  steps with a sharded checkpoint at step 2 and a
                  ``--resume`` to step 3, bit for bit the 3 unsharded
                  steps
+ 19. serve shard path J, sharded serving on the plan (world size 1 over
+                 NCCL): (a) qwen3-0.6b at full width and depth, B 8 x 512
+                 + 64 tokens, bf16 and int8, ``BackbonePolicy(cfg,
+                 mesh=1x1)`` through ``rl/actor.py``: the tokens and every
+                 step's logits bit for bit the unsharded run's, and the
+                 flash_attention, flash_decode and quant_matmul launches
+                 equal to it, each after a warm-up, with both runs' median
+                 ms a serve step; one mamba2-1.3b prefill on the plan (an
+                 ssd launch a layer); (b) the context-parallel decode:
+                 qwen3, B 1, a cache of ``CP_CACHE`` (32,768) drawn from
+                 a seed, 3 steps with ``context_parallel`` bit for bit the
+                 plain decode's, through flash_decode's LSE route (a
+                 launch a layer and step, ``build.routes("flash_decode")``),
+                 both timed a step after a warm-up run; (c) the LSE route
+                 against its plain version at hd 128, 160 and 256 and
+                 local lengths -1, 0, mid and S - 1, k drawn at std 4 so
+                 that ``out`` is of order 1 (out, in f32, at 2e-2 and,
+                 rounded to bf16, bit for bit the call without the LSE;
+                 lse within 1e-4 of its magnitude); (d) one
+                 ``launch.dryrun`` cell of each shape on jamba-v0.1-52b,
+                 with its seconds
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. First, a line for each new head
@@ -326,7 +347,9 @@ versions and, for attention, the device time of
 the rows also gives the kernel's own by the profiler and both ratios); the
 ssd_bwd line before its row times the f64 CUDA-core route in turns with
 the tensor cores at the same shape, for the record; their launches are a
-train step's.
+train step's. The last row, ``flash_decode_lse``, is flash_decode's LSE
+route at phase 19(b)'s shape (B 1, S 32,768, the full cache), timed in
+turns with SDPA by graph replay; its launches are phase 19(b)'s.
 
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seed 0.
@@ -363,7 +386,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.bridge import make_host_engine  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
-from repro_torch.configs import (get_config,  # noqa: E402
+from repro_torch.configs import (SHAPES, get_config,  # noqa: E402
                                  get_smoke_config, with_overrides)
 from repro_torch.configs.ocean import ocean_tcfg, preset  # noqa: E402
 from repro_torch.core.emulation import (Emulated, emulate,  # noqa: E402
@@ -371,6 +394,9 @@ from repro_torch.core.emulation import (Emulated, emulate,  # noqa: E402
 from repro_torch.envs.ocean import OCEAN  # noqa: E402
 from repro_torch.envs.ocean_host import OCEAN_HOST  # noqa: E402
 from repro_torch.kernels import build, dispatch, ref  # noqa: E402
+from repro_torch.kernels.cost import (  # noqa: E402
+    attention_bwd_work, attention_work, decode_work, gae_work, pack_work,
+    quant_matmul_work, ssd_bwd_work, ssd_work)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BWD, bwd_route, flash_attention, flash_attention_bwd, flash_attention_fwd,
     fwd_route)
@@ -398,7 +424,9 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.params import matmul  # noqa: E402
 from repro_torch.models.policy import BackbonePolicy  # noqa: E402
 from repro_torch.models.transformer import DOTS, layer_kinds  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.rl import actor  # noqa: E402
 from repro_torch.rl.engine import (METRIC_KEYS,  # noqa: E402
                                    TrainEngine, act_transfer_spec)
@@ -448,6 +476,10 @@ KERNELS = {
         "src/repro/kernels/flash_attention.py:74"),
     "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu",
                 "src/repro/kernels/ssd.py:69"),
+    # flash_decode's LSE route (the context-parallel decode's), one launch
+    # of the same kernel with the log-sum-exp written beside out
+    "flash_decode_lse": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:65"),
 }
 # attention parity cases (B, T, S, H, K, hd, causal): the serve shape, ragged
 # tails, one row, one row past a tile, S > T and S < T, non-causal, MQA, MHA
@@ -623,14 +655,6 @@ def sdpa(q, k, v):
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         is_causal=True, enable_gqa=True)
-
-
-def attention_work(B, T, H, K, hd):
-    """(FLOP, bytes) of causal attention: the causal pairs' two products,
-    and q, k, v and o moved once in bf16."""
-    flops = 2 * B * H * hd * T * (T + 1)
-    nbytes = 2 * (2 * B * T * H * hd + 2 * B * T * K * hd)
-    return flops, nbytes
 
 
 def randn(gen, shape, dtype):
@@ -3016,6 +3040,278 @@ def phase_lm_shard():
     plan_phase()
 
 
+# path J, sharded serving (phase 19): the context-parallel decode's cache
+# (qwen3 at full width, B 1), its decode steps, and the LSE route's
+# kernel cases (local lengths -1, 0, mid, S - 1 at each head dim)
+CP_CACHE, CP_STEPS = 32768, 3
+LSE_S = 4096
+LSE_HEADS = {128: (16, 8), 160: (32, 8), 256: (16, 16)}    # hd: (H, K)
+LSE_TOL = 1e-4          # lse's gate, relative to its magnitude
+LSE_K_STD = 4.0         # the scores' std: a softmax that picks few positions
+LSE_OUT_RMS = 0.25      # the least RMS of the plain out that the gate needs
+DRYRUN_ARCH = "jamba-v0.1-52b"
+
+
+def serve_capture(pol, prompt, steps, cp=False, caches=None, tokens=None):
+    """(tokens (B, steps + 1), [logits of each step], launches, [ms of each
+    serve step]): one prefill (or, given ``caches``, none) and ``steps``
+    serve steps through ``rl/actor.py``, the step's logits caught on the
+    way to sampling (a copy a step); the launch counters zeroed just before
+    and read just after; each serve step timed on the host clock between
+    syncs of the card."""
+    caught, times = [], []
+
+    def keep(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            caught.append(out[0].clone())
+            return out
+        return call
+
+    pol.prefill, pol.decode = keep(pol.prefill), keep(pol.decode)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    build.reset_launches()
+    try:
+        if caches is None:
+            tok, _, caches = actor.make_prefill_step(
+                pol, prompt.shape[1] + steps + 1)(prompt, gen)
+        else:
+            tok = tokens
+        out = [tok]
+        serve = actor.make_serve_step(pol, context_parallel=cp)
+        for _ in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            tok, _, caches = serve(tok, caches, gen)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out.append(tok)
+    finally:
+        del pol.prefill, pol.decode
+    launches = dict(build.LAUNCHES,
+                    flash_decode_lse=build.routes("flash_decode")["lse"])
+    return torch.cat(out, dim=1), caught, launches, times
+
+
+def phase_serve_shard():
+    """Phase 19 (path J): sharded serving on the plan at world size 1 over
+    NCCL, the context-parallel decode through the LSE route, the route's
+    kernel cases and its row, and one dry-run cell of each kind. Returns
+    (the LSE row's tuple, its launches on the main path, its max abs
+    error)."""
+    tag = "19 serve shard"
+    own = tmesh.init_process_group(torch.device("cuda"))
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError(f"[{tag}] the group runs "
+                                 f"{torch.distributed.get_backend()}")
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+        cfg = get_config(ARCH)
+        prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(7),
+                               device="cuda")
+        # (a) the 1x1 plan against the unsharded policy, bf16 and int8,
+        # each after a warm-up generate of 2 tokens
+        for q in (None, "int8"):
+            runs = {}
+            for m in (None, mesh):
+                pol = BackbonePolicy(cfg, generator=torch.Generator(
+                    device="cuda").manual_seed(0), quantize=q, mesh=m)
+                serve_capture(pol, prompt, 1)
+                shd.reset_collectives()
+                runs[m is not None] = serve_capture(pol, prompt, NEW - 1)
+                coll = dict(shd.COLLECTIVES)
+                del pol
+            (ta, la, na, wa), (tb, lb, nb, wb) = runs[False], runs[True]
+            same_t = torch.equal(ta, tb)
+            same_l = len(la) == len(lb) == NEW and all(
+                torch.equal(x, y) for x, y in zip(la, lb))
+            keys = ("flash_attention", "flash_decode", "quant_matmul")
+            print(f"[{tag} (a)] {ARCH} {q or 'bf16'} B {BATCH} x "
+                  f"{PROMPT} + {NEW} on a 1x1 mesh over NCCL against the "
+                  f"unsharded generate: tokens bit for bit {same_t}, "
+                  f"logits of all {NEW} steps bit for bit {same_l}; "
+                  f"launches { {k: nb[k] for k in keys} } (unsharded "
+                  f"{ {k: na[k] for k in keys} }); collectives {coll}; "
+                  f"median ms a serve step over {NEW - 1} (host clock "
+                  f"between syncs, one logits copy a step): "
+                  f"{statistics.median(wb):.3f} sharded, "
+                  f"{statistics.median(wa):.3f} unsharded", flush=True)
+            want_q = 0 if q is None else 1
+            if not (same_t and same_l) or any(na[k] != nb[k] for k in keys) \
+                    or nb["flash_attention"] != cfg.num_layers or \
+                    nb["flash_decode"] != cfg.num_layers * (NEW - 1) or \
+                    (nb["quant_matmul"] > 0) != bool(want_q):
+                raise AssertionError(f"[{tag} (a)] the 1x1 plan is not "
+                                     f"the unsharded serve bit for bit")
+            del runs
+            torch.cuda.empty_cache()
+        scfg = get_config(SSM_ARCH)
+        pol = BackbonePolicy(scfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), mesh=mesh)
+        build.reset_launches()
+        lg, _, _ = pol.prefill(prompt % scfg.vocab_size, PROMPT + 1)
+        sync()
+        ls = dict(build.LAUNCHES)
+        print(f"[{tag} (a)] {SSM_ARCH} prefill B {BATCH} x {PROMPT} on the "
+              f"1x1 mesh: ssd launches {ls['ssd']} (one a layer: "
+              f"{scfg.num_layers}), logits finite "
+              f"{bool(torch.isfinite(lg).all())}", flush=True)
+        if ls["ssd"] != scfg.num_layers or not torch.isfinite(lg).all():
+            raise AssertionError(f"[{tag} (a)] {SSM_ARCH} on the plan: {ls}")
+        del pol, lg
+        torch.cuda.empty_cache()
+        # (b) the context-parallel decode at world size 1: B 1, a cache of
+        # CP_CACHE positions drawn from the seed, against the plain decode
+        pol = BackbonePolicy(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), mesh=mesh)
+        g = torch.Generator(device="cuda").manual_seed(13)
+        fill = CP_CACHE - CP_STEPS - 2
+        base = pol.init_caches(1, CP_CACHE, context_parallel=True)
+        for c in base.kv:
+            c.k[:, :fill].copy_(torch.randn(c.k[:, :fill].shape, generator=g,
+                                            device="cuda"))
+            c.v[:, :fill].copy_(torch.randn(c.v[:, :fill].shape, generator=g,
+                                            device="cuda"))
+        base = base._replace(length=torch.full((), fill, dtype=torch.int32,
+                                               device="cuda"))
+        tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=g,
+                            device="cuda")
+        runs = {}
+        for cp in (False, True, False, True):     # a warm-up run of each
+            caches = base._replace(kv=[attn_mod.KVCache(
+                c.k.clone(), c.v.clone(), c.length) for c in base.kv])
+            runs[cp] = serve_capture(pol, None, CP_STEPS, cp=cp,
+                                     caches=caches, tokens=tok)
+            del caches
+        (tp_, lp, np_, wp), (tc, lc, nc, wc) = runs[False], runs[True]
+        same = torch.equal(tp_, tc) and all(
+            torch.equal(x, y) for x, y in zip(lp, lc))
+        cp_launches = nc["flash_decode_lse"]
+        print(f"[{tag} (b)] {ARCH} B 1, a cache of {CP_CACHE} ({fill} "
+              f"filled), {CP_STEPS} decode steps with context_parallel on "
+              f"the 1x1 mesh against the plain decode: tokens and logits "
+              f"bit for bit {same}; LSE-route launches {cp_launches} "
+              f"(plain run: {np_['flash_decode_lse']}), flash_decode "
+              f"launches {nc['flash_decode']}; median ms a step after a "
+              f"warm-up run (host clock between syncs): "
+              f"{statistics.median(wc):.3f} context-parallel (steps "
+              f"{', '.join(f'{t:.3f}' for t in wc)}), "
+              f"{statistics.median(wp):.3f} plain (steps "
+              f"{', '.join(f'{t:.3f}' for t in wp)})", flush=True)
+        if not same or cp_launches != cfg.num_layers * CP_STEPS or \
+                np_["flash_decode_lse"] != 0:
+            raise AssertionError(f"[{tag} (b)] the context-parallel decode "
+                                 f"is not the plain decode bit for bit")
+        del pol, base, runs
+        torch.cuda.empty_cache()
+    finally:
+        if own:
+            torch.distributed.destroy_process_group()
+    row, err = lse_row(torch.Generator(device="cuda").manual_seed(17))
+    t0 = time.perf_counter()
+    for name in SHAPES:
+        t1 = time.perf_counter()
+        r = dryrun.run_cell(DRYRUN_ARCH, name, False)
+        line = {k: r.get(k) for k in dryrun.LINE_KEYS}
+        line["fits"] = r.get("fits")
+        print(f"[{tag} (d)] dryrun {json.dumps(line)} "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+        if r["status"] != "ok":
+            raise AssertionError(f"[{tag} (d)] dryrun {name}: {r}")
+    print(f"[{tag} (d)] four dry-run cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return row, cp_launches, err
+
+
+def lse_row(gen):
+    """Phase 19 (c): the LSE route against its plain version at hd 128,
+    160 and 256 and local lengths -1, 0, mid and S - 1 (``out``, in f32, at
+    the bf16 gate, ``lse`` within ``LSE_TOL`` of its magnitude, one launch
+    a call on the "lse" route, ``out`` rounded to bf16 bit for bit the call
+    without the LSE); k is drawn at ``LSE_K_STD``, so that the softmax is
+    not averaged down to ~1/sqrt(S) and ``out`` is of order 1 (its RMS is
+    checked to stay above ``LSE_OUT_RMS``, which keeps the gate from
+    exceeding a typical value). Then its row at phase 19(b)'s shape, timed
+    in turns with SDPA by graph replay. Returns (the row's tuple, the max
+    abs error of ``out``)."""
+    bf = torch.bfloat16
+    err, least = 0.0, math.inf
+    for hd, (H, K) in LSE_HEADS.items():
+        q = randn(gen, (1, H, hd), bf)
+        k = (randn(gen, (1, LSE_S, K, hd), torch.float32) *
+             LSE_K_STD).to(bf)
+        v = randn(gen, (1, LSE_S, K, hd), bf)
+        for L in (-1, 0, LSE_S // 2, LSE_S - 1):
+            n = torch.tensor(L, dtype=torch.int32, device="cuda")
+            before = build.LAUNCHES["flash_decode"]
+            routes = build.routes("flash_decode")
+            out, lse = flash_decode(q, k, v, n, with_lse=True)
+            if build.LAUNCHES["flash_decode"] != before + 1 or \
+                    build.routes("flash_decode") != dict(
+                        routes, lse=routes["lse"] + 1):
+                raise AssertionError("flash_decode's LSE route: not one "
+                                     "launch a call on its route")
+            w_out, w_lse = ref.flash_decode(q, k, v, n, with_lse=True)
+            if out.dtype != torch.float32 or \
+                    not torch.equal(out.to(bf), flash_decode(q, k, v, n)):
+                raise AssertionError(f"flash_decode's LSE route: out "
+                                     f"rounded to bf16 is not the other "
+                                     f"route's at hd {hd} L {L}")
+            if L >= 0:
+                rms = float(w_out.square().mean().sqrt())
+                least = min(least, rms)
+                if rms < LSE_OUT_RMS:
+                    raise AssertionError(f"flash_decode lse hd {hd} L {L}: "
+                                         f"the plain out's RMS {rms} is "
+                                         f"below {LSE_OUT_RMS}")
+            err = max(err, check_close(f"flash_decode lse hd {hd} L {L}",
+                                       out, w_out, 2e-2))
+            if L < 0:
+                ok = bool(torch.isinf(lse).all() and (lse < 0).all()) and \
+                    not bool(out.any())
+            else:
+                ok = max_err(lse, w_lse) <= LSE_TOL * max(
+                    1.0, float(w_lse.abs().max()))
+            if not ok:
+                raise AssertionError(f"flash_decode lse at hd {hd} L {L}: "
+                                     f"{max_err(lse, w_lse)}")
+    print(f"[19 serve shard (c)] flash_decode's LSE route at hd "
+          f"{tuple(LSE_HEADS)}, S {LSE_S}, k at std {LSE_K_STD}, local "
+          f"lengths -1, 0, {LSE_S // 2}, {LSE_S - 1}: out (f32) within 2e-2 "
+          f"(max abs err {err:.4g}; the plain out's RMS {least:.4g} at "
+          f"least) and, rounded to bf16, bit for bit without the LSE; lse "
+          f"within {LSE_TOL} of its magnitude; one launch a call",
+          flush=True)
+    H, K, hd = 16, 8, 128
+    L = CP_CACHE - 1
+    n = torch.tensor(L, dtype=torch.int32, device="cuda")
+    sets = [(randn(gen, (1, H, hd), bf), randn(gen, (1, CP_CACHE, K, hd), bf),
+             randn(gen, (1, CP_CACHE, K, hd), bf), n) for _ in range(2)]
+    flops, nbytes = decode_work(1, L, H, K, hd, 2, with_lse=True)
+
+    def kern(q, k, v, n):
+        return flash_decode(q, k, v, n, with_lse=True)
+
+    def lib(q, k, v, n):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True)
+
+    (ms, lib_ms), rounds = alternate_ms((kern, lib), sets, 32)
+    plain = cuda_ms(lambda *a: ref.flash_decode(*a, with_lse=True), sets, 4)
+    print(f"[kernel] flash_decode LSE route B 1 S {CP_CACHE} L {L} H {H} K "
+          f"{K} hd {hd} bf16, {len(rounds[0])} rounds in turns: kernel "
+          f"median {ms:.4f} ms, SDPA median {lib_ms:.4f} ms, kernel / SDPA "
+          f"{ms / lib_ms:.3f}, bound {nbytes / PEAK_BYTES * 1e3:.4f} ms by "
+          f"bytes ({nbytes:.4g} B; {nbytes / ms / 1e9:.2f} TB/s), plain "
+          f"{plain:.4f} ms", flush=True)
+    del sets
+    return ("flash_decode_lse", flops, PEAK_FLOPS, nbytes, ms, plain,
+            lib_ms), err
+
+
 def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)", depth=None):
     """LM PPO through the launcher at full width in bf16, B 8 x ``seq``
     (a frontend arch's prefix among them), ``depth`` layers if given (then
@@ -3354,8 +3650,7 @@ def fd_line(gen, S, H, K, hd, n_sets, calls, note="", plain=False):
                 randn(gen, (BATCH, S, K, hd), bf),
                 randn(gen, (BATCH, S, K, hd), bf), length)
                for _ in range(n_sets)]
-    flops = 4 * BATCH * H * hd * (L + 1)
-    nbytes = 2 * (2 * BATCH * (L + 1) * K * hd + 2 * BATCH * H * hd)
+    flops, nbytes = decode_work(BATCH, L, H, K, hd)
 
     def fd_sdpa(q, k, v, n, L=L):
         return F.scaled_dot_product_attention(
@@ -3468,8 +3763,7 @@ def kernel_rows(gen, launches, errs, hd_launches):
                       gae_sets, 200)
     plain_ms = cuda_ms(lambda r, v, d, lv: ref.gae(r.T, v.T, d.T, lv, GAMMA,
                                                    LAM), gae_sets, 10)
-    flops = 8 * B * T
-    nbytes = (4 + 4 + 1 + 4) * B * T + 4 * B
+    flops, nbytes = gae_work(B, T)
     rows.append(("gae", flops, PEAK_F32_FLOPS, nbytes, gae_ms, plain_ms,
                  None))
     print(f"[6 train] gae: one call back to back with CUDA events (host "
@@ -3583,8 +3877,7 @@ def fa_bwd_line(gen, B, T, H, K, hd, note=""):
     # the four products the gradient needs over the causal pairs (dV = P^T
     # dO, dP = dO V^T, dQ = dS K, dK = dS^T Q), and q, k, v, o, do, lse read
     # and dq, dk, dv written once
-    flops = 4 * B * H * hd * T * (T + 1)
-    nbytes = 2 * (4 * B * T * H * hd + 4 * B * T * K * hd) + 4 * B * H * T
+    flops, nbytes = attention_bwd_work(B, T, H, K, hd)
     bound = max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
     print(f"[kernel] flash_attention_bwd B {B} T {T} H {H} K {K} hd {hd} "
           f"causal bf16 ({bwd_route(bf, hd)}) by graph replay: median "
@@ -3688,11 +3981,11 @@ def pack_row(gen):
 
     act_sets = [(u8(gen, HOST_N, 4), f32_bytes(gen, HOST_N, 1),
                  f32_bytes(gen, HOST_N, 1)) for _ in range(16)]
-    nbytes = 2 * HOST_N * 12
+    _, nbytes = pack_work(HOST_N, (4, 4, 4))
     ms, plain_ms, lib_ms = times(act_sets, 64)
     big = [(f32_bytes(gen, TRAIN_ENVS * TRAIN_UNROLL, 4),
             f32_bytes(gen, TRAIN_ENVS * TRAIN_UNROLL, 9)) for _ in range(4)]
-    big_bytes = 2 * TRAIN_ENVS * TRAIN_UNROLL * 52
+    _, big_bytes = pack_work(TRAIN_ENVS * TRAIN_UNROLL, (16, 36))
     big_ms, big_plain, big_lib = times(big, 8)
     leaves = act_sets[0]
     us = {"pack": [], "torch.cat": []}
@@ -3761,11 +4054,9 @@ def qmm_row(gen, launches, errs):
     split = {}          # (part, "ms" or "lib") -> ms over one int8 generate
     int8pack_missing = set()
     for M, K, N, trans, calls in shapes:
-        flops = 2 * M * K * N
         line = []
         for qtype in ("int8", "int4"):
-            wbytes = K * N // (2 if qtype == "int4" else 1)
-            nbytes = 2 * M * K + wbytes + 4 * (K if trans else N) + 2 * M * N
+            flops, nbytes = quant_matmul_work(M, K, N, qtype == "int4", trans)
             nsets = max(2, min(64, math.ceil(64e6 / nbytes)))
             sets = [qmm_inputs(gen, M, K, N, trans, None, 0, qtype, bf)
                     for _ in range(nsets)]
@@ -3892,37 +4183,6 @@ def qmm_host_time(gen):
           f"step", flush=True)
 
 
-def ssd_work(B, T, H, P, N, G, Q, elem):
-    """(FLOP, bytes) the SSD function needs: per (b, h) and chunk of q
-    steps, C.B^T (2 q^2 N), the masked product with x (2 q^2 P), the
-    carried state's term (2 q P N) and the state update (2 q P N); x read
-    and y written in the input type, dt read and h_last written in f32, B_
-    and C read once per group."""
-    flops = 0
-    for c0 in range(0, T, Q):
-        q = min(Q, T - c0)
-        flops += B * H * (2 * q * q * (N + P) + 4 * q * P * N)
-    nbytes = (2 * B * T * H * P * elem + 4 * B * T * H
-              + 2 * B * T * G * N * elem + 4 * B * H * P * N)
-    return flops, nbytes
-
-
-def ssd_bwd_work(B, T, H, P, N, G, Q, elem):
-    """(FLOP, bytes) of the chunked SSD backward in chunks of Q steps: per
-    (b, h) and chunk of q steps, over its q (q + 1) / 2 causal pairs C B^T,
-    dy x^T, (S o L)^T dy, dS B and dS^T C (2 (3 N + 2 P) a pair), and five
-    state products of 2 q P N (B dh^T, x dh, dy h_prev, dh_prev and the
-    recomputed state); x, dt, B_ and C (once a group) and dy read, dx, ddt,
-    dB_ and dC (dense over heads) and dA written once."""
-    flops = 0
-    for c0 in range(0, T, Q):
-        q = min(Q, T - c0)
-        flops += B * H * (q * (q + 1) * (3 * N + 2 * P) + 10 * q * P * N)
-    nbytes = (3 * B * T * H * P * elem + 4 * 2 * B * T * H
-              + 2 * B * T * G * N * elem + 2 * B * T * H * N * elem + 4 * H)
-    return flops, nbytes
-
-
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3973,8 +4233,12 @@ def main():
     lap("17 shard")
     phase_lm_shard()
     lap("18 lm shard")
+    lse, lse_launches, lse_err = phase_serve_shard()
+    lap("19 serve shard")
     rows = kernel_rows(gen, launches, errs, hd_launches) + bwd_rows(
-        gen, lm_launches, lm_errs, hd_launches)
+        gen, lm_launches, lm_errs, hd_launches) + [kernel_row(
+            lse, {"flash_decode_lse": lse_launches},
+            {"flash_decode_lse": lse_err})]
     lap("kernel rows")
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

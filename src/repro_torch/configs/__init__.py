@@ -8,7 +8,9 @@ attention kernels' instances at those head dims.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, with_overrides
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      ShapeNotApplicable, check_applicable,
+                                      with_overrides)
 from repro_torch.configs import (dbrx_132b, gemma_7b, internlm2_20b,
                                  internvl2_26b, jamba_v0p1_52b,
                                  llama4_maverick_400b_a17b, mamba2_1p3b,

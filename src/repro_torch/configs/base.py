@@ -1,6 +1,7 @@
-"""Configuration: copies of ``ModelConfig``, ``MeshConfig``, ``TrainConfig``
-and ``with_overrides`` from ``repro/configs/base.py`` (the port imports nothing
-from ``repro``). ``TrainConfig`` keeps the reference's defaults exactly
+"""Configuration: copies of ``ModelConfig``, ``MeshConfig``, ``TrainConfig``,
+the input-shape cells (``ShapeConfig``, ``SHAPES``, ``check_applicable``)
+and ``with_overrides`` from ``repro/configs/base.py`` (the port imports
+nothing from ``repro``). ``TrainConfig`` keeps the reference's defaults exactly
 (``adam_b2`` 0.95, ``max_grad_norm`` 1.0); the port's engine reads the jit
 tier's fields, and the host, async and checkpoint fields wait for the
 slices that port those tiers.
@@ -128,6 +129,35 @@ class ModelConfig:
 
     def padded_vocab(self, multiple: int = 128) -> int:
         return _round_up(self.vocab_size, multiple)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str              # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str              # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    "train",   4_096,   256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768,  32),
+    "decode_32k":  ShapeConfig("decode_32k",  "decode",  32_768,  128),
+    "long_500k":   ShapeConfig("long_500k",   "decode",  524_288, 1),
+}
+
+
+class ShapeNotApplicable(Exception):
+    """Raised for (arch, shape) cells excluded by the assignment rules
+    (long_500k on pure full-attention archs)."""
+
+
+def check_applicable(model: ModelConfig, shape: ShapeConfig) -> None:
+    if shape.name == "long_500k" and not model.subquadratic:
+        raise ShapeNotApplicable(
+            f"{model.name} is pure full-attention; long_500k requires a "
+            f"sub-quadratic mechanism")
 
 
 @dataclass(frozen=True)

@@ -33,20 +33,40 @@ writes those collectives out:
           result feeds each rank's part, as the gated norm's variance);
       ``data_mean(x)`` the mean over ``data``; backward identity (a
           statistic of the global batch in a loss every data rank holds
-          whole, as the MoE aux loss's).
+          whole, as the MoE aux loss's);
+
+  * and, for serving (no gradient): ``gather_nograd`` all-gathers a
+    tensor as it lies: a quantised weight at its stored width (int8, or
+    int4 packed two to a byte), as the reference's ``weight()`` pins its
+    FSDP gather on the integer value, or an SSM layer's conv window;
+    ``merge_decode`` is the context-parallel decode's merge over
+    ``data``: each rank attended over its slice of the KV sequence
+    and holds (out, lse) a row, in f32; one all-reduce of the max lse, then
+    one of the rescaled numerators and denominators (flash-decode's
+    two-pass trick, which the reference leaves to GSPMD); rounded once to
+    the cache's type after it, as the reference's is. At world size 1 it
+    is out · 1.0 / 1.0, bit for bit the unsharded decode.
 
 With no plan in scope (``active()`` is None) the model code calls none of
-them: one device, the layout of earlier slices, bit for bit. A plan of
-world size 1 issues every collective over groups of one rank, whose
-results are their inputs, so its step is the unsharded one bit for bit.
+them: one device, the layout of earlier slices, bit for bit. Over a group
+of one rank a collective is counted and returns its input, with no call
+and no copy (every group of a plan of world size 1, the ``data`` groups
+of a ``1xM`` mesh, the ``model`` groups of a ``Dx1`` one), so a plan of
+world size 1 steps as the unsharded model does, bit for bit.
 
-``COLLECTIVES`` (``distributed/sharding.py``) counts each call by kind.
+``COLLECTIVES`` (``distributed/sharding.py``) counts each call by kind;
+an open ``kernels/cost.py::recording`` also logs its group size and
+result bytes. ``Plan.virtual`` is rank 0's view of a mesh with no process
+group (the dry run's, ``launch/dryrun.py``):
+its groups are ``sharding.VirtualGroup``s, over which every collective
+records itself and returns an output of the right shape.
 Gloo has no reduce-scatter for every dtype across versions: on gloo it is
 an all-reduce and a slice (counted as the reduce-scatter it stands for).
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import datetime
 import math
 from typing import Optional
@@ -54,7 +74,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import COLLECTIVES, data_axes
+from repro_torch.distributed.sharding import (VirtualGroup, data_axes,
+                                              group_size, record)
 
 _PLAN: Optional["Plan"] = None
 
@@ -97,12 +118,16 @@ def _index(c: dict, axes, sizes: dict) -> int:
 class Plan:
     """One rank's view of ``mesh``. Collective to build (``new_group`` for
     every coset, on every rank, in one order) unless ``groups`` is given:
-    ``{"data": group, "model": group}``, as a test on one rank passes."""
+    ``{"data": group, "model": group[, "world": group]}``, as a test on one
+    rank passes. ``embed`` is the axes the stored ``embed`` dims are split
+    over: the FSDP axes (``with_embed`` gives the plan where the rules
+    replicate them, int4 serving, ``models/policy.py``)."""
 
     def __init__(self, mesh, rank: Optional[int] = None, groups=None):
         self.mesh = mesh
         self.sizes = dict(zip(mesh.axis_names, mesh.sizes))
         self.fsdp = data_axes(mesh)
+        self.embed = self.fsdp
         self.rank = dist.get_rank() if rank is None else rank
         self.coord = coords(mesh, self.rank)
         self.dp = math.prod(self.sizes[a] for a in self.fsdp)
@@ -110,6 +135,23 @@ class Plan:
         self.dp_index = _index(self.coord, self.fsdp, self.sizes)
         self.tp_index = self.coord.get("model", 0)
         self.groups = groups if groups is not None else self._make_groups()
+
+    @classmethod
+    def virtual(cls, mesh):
+        """Rank 0's view of ``mesh`` with no process group: its groups are
+        ``VirtualGroup``s of the data, model and world sizes."""
+        pl = cls(mesh, rank=0, groups={})
+        pl.groups = {"data": VirtualGroup(pl.dp),
+                     "model": VirtualGroup(pl.tp),
+                     "world": VirtualGroup(mesh.size)}
+        return pl
+
+    def with_embed(self, embed: tuple) -> "Plan":
+        """This plan, its groups shared, with the stored ``embed`` dims
+        split over ``embed``."""
+        pl = copy.copy(self)
+        pl.embed = tuple(embed)
+        return pl
 
     def _make_groups(self):
         from repro_torch.launch.mesh import COLLECTIVE_TIMEOUT_S
@@ -129,6 +171,7 @@ class Plan:
                     dist.new_group(ranks, **kw)
                 if key == mine:
                     out[name] = g
+        out["world"] = dist.group.WORLD
         return out
 
     # -- layout --------------------------------------------------------------
@@ -179,36 +222,57 @@ class Plan:
 
 # -- raw collectives (counted) -------------------------------------------------
 
+# Over a group of one rank each is counted and returns its input: no call,
+# no copy, the bits unchanged.
+
 def _all_gather(x, dim: int, group):
-    n = dist.get_world_size(group)
+    n = group_size(group)
+    if n == 1:
+        record("all_gather", x, group)
+        return x
     x = x.movedim(dim, 0).contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
-    COLLECTIVES["all_gather"] += 1
-    return torch.cat(parts).movedim(0, dim)
+    if isinstance(group, VirtualGroup):
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    else:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        out = torch.cat(parts)
+    record("all_gather", out, group)
+    return out.movedim(0, dim)
 
 
 def _reduce_scatter(g, dim: int, group):
-    n = dist.get_world_size(group)
+    n = group_size(group)
+    if n == 1:
+        record("reduce_scatter", g, group)
+        return g
     g = g.movedim(dim, 0).contiguous()
-    COLLECTIVES["reduce_scatter"] += 1
-    if dist.get_backend(group) == "gloo":
+    if isinstance(group, VirtualGroup):
+        out = g.chunk(n)[0].clone()
+    elif dist.get_backend(group) == "gloo":
         dist.all_reduce(g, group=group)
         out = g.chunk(n)[_group_index(group)]
     else:
         out = torch.empty_like(g.chunk(n)[0])
         dist.reduce_scatter(out, list(g.chunk(n)), group=group)
+    record("reduce_scatter", out, group)
     return out.movedim(0, dim).contiguous()
 
 
 def _all_reduce(x, group, op=dist.ReduceOp.SUM):
+    if group_size(group) == 1:
+        record("all_reduce", x, group)
+        return x
     x = x.clone()
-    dist.all_reduce(x, op=op, group=group)
-    COLLECTIVES["all_reduce"] += 1
+    if not isinstance(group, VirtualGroup):
+        dist.all_reduce(x, op=op, group=group)
+    record("all_reduce", x, group)
     return x
 
 
 def _group_index(group) -> int:
+    if isinstance(group, VirtualGroup):
+        return 0
     if group is dist.group.WORLD:
         return dist.get_rank()
     return dist.get_group_rank(group, dist.get_rank())
@@ -226,7 +290,7 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         if ctx.bwd == "sum":
             return _reduce_scatter(g, ctx.dim, ctx.group), None, None, None
-        n = dist.get_world_size(ctx.group)
+        n = group_size(ctx.group)
         part = g.chunk(n, dim=ctx.dim)[_group_index(ctx.group)]
         return part.contiguous(), None, None, None
 
@@ -305,6 +369,30 @@ def data_mean(x):
     if _PLAN is None:
         return x
     return _DataMean.apply(x, _PLAN.groups["data"], _PLAN.dp)
+
+
+def gather_nograd(w, dim: int, kind: str):
+    """All-gather ``w`` along ``dim`` over the plan's ``kind`` group as it
+    lies (a quantised weight at one byte an element, or half a byte
+    packed), with no gradient: the serving path's gather."""
+    return _all_gather(w, dim % w.dim(), _PLAN.groups[kind])
+
+
+def merge_decode(out, lse):
+    """The context-parallel decode's merge over ``data``: ``out`` (B, H,
+    hd) and ``lse`` (B, H), both f32, are this rank's attention over its
+    slice of the KV sequence (``lse`` -inf where the slice holds no filled
+    position, ``out`` 0 there). One all-reduce takes the max lse M, one
+    more sums exp(lse - M) · out and exp(lse - M) together; their ratio is
+    the attention over the whole sequence, in f32 (the caller rounds it
+    once). No plan: ``out``."""
+    if _PLAN is None:
+        return out
+    group = _PLAN.groups["data"]
+    m = _all_reduce(lse, group, dist.ReduceOp.MAX)
+    w = torch.exp(lse - m)[..., None]                       # (B, H, 1)
+    buf = _all_reduce(torch.cat([out * w, w], dim=-1), group)
+    return buf[..., :-1] / buf[..., -1:]
 
 
 def tp_block(n: int):

@@ -42,6 +42,8 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import cost
+
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
                "reduce_scatter": 0}
 
@@ -49,6 +51,35 @@ COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
 def reset_collectives():
     for k in COLLECTIVES:
         COLLECTIVES[k] = 0
+
+
+class VirtualGroup:
+    """``size`` ranks with no process behind them: the groups of a virtual
+    plan (``distributed/plan.py::Plan.virtual``, the dry run's). A
+    collective over one records itself as a real one does and returns an
+    output of the right shape, its values undefined (the dry run's tensors
+    are on the ``meta`` device)."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+
+    def __repr__(self):
+        return f"VirtualGroup({self.size})"
+
+
+def group_size(group=None) -> int:
+    if isinstance(group, VirtualGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def record(kind: str, result: torch.Tensor, group=None) -> None:
+    """Count one collective of ``kind`` whose result is ``result``, and add
+    it (kind, group size, result bytes) to every open
+    ``kernels/cost.py::recording``."""
+    COLLECTIVES[kind] += 1
+    cost.record_collective(kind, group_size(group),
+                           result.numel() * result.element_size())
 
 
 # -- Ocean data-parallel (TrainEngine shard_map tier) -------------------------
@@ -116,8 +147,8 @@ def gather_blocks(tree, group=None):
         v = x.view(torch.uint8) if x.dtype == torch.bool else x
         parts = [torch.empty_like(v) for _ in range(W)]
         dist.all_gather(parts, v, group=group)
-        COLLECTIVES["all_gather"] += 1
         out = torch.cat(parts)
+        record("all_gather", out, group)
         return out.view(torch.bool) if x.dtype == torch.bool else out
     return tree_map(one, tree)
 
@@ -146,25 +177,29 @@ def allreduce_mean(tensors, group=None) -> list:
     flat f32 buffer (a sum, then a division by the world size: gloo has no
     average, and at world size 1 both steps are exact)."""
     buf = _flat(tensors)
-    dist.all_reduce(buf, group=group)
-    COLLECTIVES["all_reduce"] += 1
-    buf /= dist.get_world_size(group)
+    if not isinstance(group, VirtualGroup):
+        dist.all_reduce(buf, group=group)
+    record("all_reduce", buf, group)
+    buf /= group_size(group)
     return _unflat(buf, tensors)
 
 
 def allreduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     t = t.clone()
-    dist.all_reduce(t, group=group)
-    COLLECTIVES["all_reduce"] += 1
+    if not isinstance(group, VirtualGroup):
+        dist.all_reduce(t, group=group)
+    record("all_reduce", t, group)
     return t
 
 
 def all_gather_stack(t: torch.Tensor, group=None) -> torch.Tensor:
     """(W, …): every rank's ``t`` in rank order, on every rank."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    COLLECTIVES["all_gather"] += 1
-    return torch.stack(parts)
+    parts = [torch.empty_like(t) for _ in range(group_size(group))]
+    if not isinstance(group, VirtualGroup):
+        dist.all_gather(parts, t.contiguous(), group=group)
+    out = torch.stack(parts)
+    record("all_gather", out, group)
+    return out
 
 
 def broadcast_tree(tree, group=None, src: int = 0):
@@ -173,7 +208,7 @@ def broadcast_tree(tree, group=None, src: int = 0):
     leaves = tree_leaves(tree)
     buf = _flat(leaves)
     dist.broadcast(buf, src=src, group=group)
-    COLLECTIVES["broadcast"] += 1
+    record("broadcast", buf, group)
     return tree_unflatten(tree, _unflat(buf, leaves))
 
 

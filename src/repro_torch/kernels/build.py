@@ -39,7 +39,8 @@ SIGNATURES = {
         L, L, L, L, L, L, L, L, L,  # q/k/v strides (batch, seq, head)
         I, I, F, P]),               # is_bf16, causal, scale, stream
     "flash_decode": ("flash_decode_fwd", [
-        P, P, P, P, P,              # q, k, v, length (device int32), o
+        P, P, P, P, P, P,           # q, k, v, length (device int32), o,
+                                    # lse (f32 (B, H) or null)
         I, I, I, I, I,              # B, S, H, K, hd
         L, L, L, L, L, L, L, L,     # q (batch, head), k/v (batch, seq, head)
         I, F, I, I, P]),            # is_bf16, scale, split, n_split, stream
@@ -94,6 +95,7 @@ ROUTES = {"quant_matmul": ("quant_matmul_routes", ("decode", "wgmma", "fma")),
           "flash_attention": ("flash_attention_routes",
                               ("wgmma", "mma_sync", "cuda_core")),
           "ssd": ("ssd_routes", ("tensor_core", "cuda_core")),
+          "flash_decode": ("flash_decode_routes", ("out", "lse")),
           "flash_attention_bwd": ("flash_attention_bwd_routes",
                                   ("wgmma", "cuda_core")),
           "ssd_bwd": ("ssd_bwd_routes", ("tensor_core", "cuda_core"))}

@@ -7,6 +7,9 @@
 // masked with -1e30; query head h reads KV head h / G; f32 softmax
 // statistics and accumulator; l floored at 1e-30; output (B,H,hd) in q's
 // dtype. Reading `length` on the device keeps decode free of host syncs.
+// `length` may also be -1 (no filled position: the output is 0), which a
+// context-parallel rank passes when its slice of the sequence holds none of
+// the filled prefix.
 //
 // What bounds it on the H100: bytes. A call reads the filled K/V prefix
 // once, 2 * B * (length + 1) * K * hd elements (18.9 MB at qwen3-0.6b's last
@@ -40,12 +43,23 @@
 //   every part in (rank, warp) order into the output. One relaxed cluster
 //   barrier, no float atomics, no workspace tensor, one launch a call, and
 //   the same output bits on every call.
+// - The LSE route (the context-parallel decode's, whose ranks merge their
+//   softmax statistics: distributed/plan.py's merge_decode). With an `lse`
+//   pointer, rank 0 also writes each head's log-sum-exp of the scaled
+//   scores, ln 2 (M + log2 L), from the (M, L) its merge already holds; -inf
+//   where nothing is filled. It writes `o` in f32, unrounded, so that the
+//   ranks' merge rounds to the cache's type once, as one device's decode
+//   does; rounded to bf16 it is the other route's `o`, bit for bit. Same
+//   launch; the launcher counts the route each call took
+//   (flash_decode_routes).
 // Head dims 16 to 256: at gemma-7b's (256) a bf16 block with 8 ranks takes
 // 221,184 bytes (the ring 101,376, q 4,224, the slots 115,584) of the
 // 232,448 a block may have; above hd 128 q is read from shared memory, so
 // that the accumulator keeps its registers. The f32 ring at 256 keeps 2
 // stages, not 3, and ``plan`` caps its split where the slots would not fit
 // (smem_bytes, flash_decode_smem).
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -60,6 +74,7 @@ constexpr int GB = 8;         // query heads a block: rows 0-7 of an m16 tile
 constexpr int MAX_SPLIT = 8;  // blocks a cluster (the portable limit)
 constexpr int NP = MAX_SPLIT * WARPS;  // parts of a cluster, at most
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // A warp's part: (m, l) a head (log2 units), then acc[head][HD], all f32. A
 // warp keeps its part in its block's shared memory; the warps of ranks 1..n
@@ -124,9 +139,11 @@ constexpr int smem_cap() {
 
 // Weights of the first n parts for each of the block's gb heads, in part
 // order: wts[g][r] = 2^(m_r - M) / max(L, 1e-30), M the parts' max and
-// L = sum_r 2^(m_r - M) l_r.
+// L = sum_r 2^(m_r - M) l_r; with `lse` (the block's heads' row of the
+// output) also ln 2 (M + log2 L), or -inf where L is 0 (no position).
 __device__ __forceinline__ void merge_weights(const float* const (&p)[NP],
-                                              int n, int gb, float* wts) {
+                                              int n, int gb, float* wts,
+                                              float* __restrict__ lse) {
   for (int g = threadIdx.x; g < gb; g += NT) {
     float m[NP], M = rt::NEG_INF;
 #pragma unroll
@@ -143,6 +160,7 @@ __device__ __forceinline__ void merge_weights(const float* const (&p)[NP],
         L = fmaf(a[r], p[r][2 * g + 1], L);
       }
     const float inv = 1.f / fmaxf(L, 1e-30f);
+    if (lse != nullptr) lse[g] = L > 0.f ? (M + log2f(L)) * LN2 : -INFINITY;
 #pragma unroll
     for (int r = 0; r < NP; ++r)
       if (r < n) wts[g * NP + r] = a[r] * inv;
@@ -169,7 +187,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const int* __restrict__ length,
-          T* __restrict__ o, int S, int H, int G, int split, long long q_sb,
+          void* __restrict__ o, float* __restrict__ lse, int S, int H, int G,
+          int split, long long q_sb,
           long long q_sh, long long k_sb, long long k_ss, long long k_sh,
           long long v_sb, long long v_ss, long long v_sh, float scale) {
   using Lay = Layout<T, HD>;
@@ -185,8 +204,8 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int slot_n = 2 * GB + gb * HD;      // floats of a pushed part
   const int b = blockIdx.z;
   const float c2 = scale * LOG2E;           // scores in log2 units
-  // positions [0, length] attend (length >= 0 by contract)
-  const int nvalid = min(S, max(__ldg(length), 0) + 1);
+  // positions [0, length] attend (length >= -1 by contract: -1, none)
+  const int nvalid = min(S, max(__ldg(length), -1) + 1);
   const int s0 = rank * split, s1 = min(s0 + split, nvalid);
   const int ntiles = s1 > s0 ? (s1 - s0 + TP - 1) / TP : 0;
   const int mine = ntiles > warp ? (ntiles - warp + WARPS - 1) / WARPS : 0;
@@ -461,15 +480,22 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  : reinterpret_cast<const float*>(smem + Lay::SLOTS_OFF) +
                        ((r - 1) * WARPS + w) * slot_n;
   float* wts = reinterpret_cast<float*>(smem + Lay::WTS_OFF);
-  merge_weights(pp, n_split * WARPS, gb, wts);
+  merge_weights(pp, n_split * WARPS, gb, wts,
+                lse != nullptr ? lse + (long long)b * H + h0 : nullptr);
   __syncthreads();
-  merge_values<T, HD>(pp, n_split * WARPS, gb, wts,
-                      o + ((long long)b * H + h0) * HD);
+  const long long row = ((long long)b * H + h0) * HD;
+  if (lse != nullptr)  // the LSE route: o in f32, for the ranks' merge
+    merge_values<float, HD>(pp, n_split * WARPS, gb, wts,
+                            static_cast<float*>(o) + row);
+  else
+    merge_values<T, HD>(pp, n_split * WARPS, gb, wts,
+                        static_cast<T*>(o) + row);
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* length,
-           void* o, int B, int S, int H, int K, long long q_sb, long long q_sh,
+           void* o, void* lse, int B, int S, int H, int K, long long q_sb,
+           long long q_sh,
            long long k_sb, long long k_ss, long long k_sh, long long v_sb,
            long long v_ss, long long v_sh, float scale, int split,
            int n_split, cudaStream_t stream) {
@@ -495,8 +521,8 @@ int launch(const void* q, const void* k, const void* v, const void* length,
   err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(length),
-      static_cast<T*>(o), S, H, G, split, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb,
-      v_ss, v_sh, scale);
+      o, static_cast<float*>(lse), S, H, G, split, q_sb,
+      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -529,51 +555,59 @@ int max_clusters(int n_split, int G) {
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
-              const void* length, void* o, int B, int S, int H, int K,
+              const void* length, void* o, void* lse, int B, int S, int H,
+              int K,
               long long q_sb, long long q_sh, long long k_sb, long long k_ss,
               long long k_sh, long long v_sb, long long v_ss, long long v_sh,
               float scale, int split, int n_split, cudaStream_t st) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
-                           n_split, st);
+      return launch<T, 16>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
+                           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                           split, n_split, st);
     case 32:
-      return launch<T, 32>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
-                           n_split, st);
+      return launch<T, 32>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
+                           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                           split, n_split, st);
     case 64:
-      return launch<T, 64>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
-                           n_split, st);
+      return launch<T, 64>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
+                           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                           split, n_split, st);
     case 128:
-      return launch<T, 128>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                            k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
-                            n_split, st);
+      return launch<T, 128>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
+                            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                            split, n_split, st);
     case 160:
-      return launch<T, 160>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                            k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
-                            n_split, st);
+      return launch<T, 160>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
+                            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                            split, n_split, st);
     case 256:
-      return launch<T, 256>(q, k, v, length, o, B, S, H, K, q_sb, q_sh, k_sb,
-                            k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
-                            n_split, st);
+      return launch<T, 256>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
+                            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                            split, n_split, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// The routes a call can take, and the launches each has had.
+enum Route { OUT, LSE, ROUTES };
+std::atomic<unsigned long long> taken[ROUTES];
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). Strides are in
 // elements; the last dimension of q, k and v is contiguous; o is a
-// contiguous (B, H, hd) tensor; length points to one int32 on the device.
+// contiguous (B, H, hd) tensor, of the cache's type or, with lse, f32; lse
+// a contiguous f32 (B, H) one, or null (no LSE written); length points to
+// one int32 on the device, in [-1, S).
 // The cache is split over n_split (1..8) blocks of `split` positions each (a
 // multiple of 16, with (n_split - 1) * split < S <= n_split * split):
 // kernels/flash_decode.py's plan.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
-                                const void* length, void* o, int B, int S,
-                                int H, int K, int hd, long long q_sb,
+                                const void* length, void* o, void* lse,
+                                int B, int S, int H, int K, int hd,
+                                long long q_sb,
                                 long long q_sh, long long k_sb,
                                 long long k_ss, long long k_sh,
                                 long long v_sb, long long v_ss,
@@ -584,13 +618,23 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
       (long long)n_split * split < S || K < 1 || H % K)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, length, o, B, S, H, K, q_sb,
-                                    q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                                    scale, split, n_split, st);
-  return launch_hd<float>(hd, q, k, v, length, o, B, S, H, K, q_sb, q_sh,
-                          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, split,
-                          n_split, st);
+  const int err =
+      is_bf16 ? launch_hd<__nv_bfloat16>(hd, q, k, v, length, o, lse, B, S, H,
+                                         K, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb,
+                                         v_ss, v_sh, scale, split, n_split, st)
+              : launch_hd<float>(hd, q, k, v, length, o, lse, B, S, H, K,
+                                 q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                 v_sh, scale, split, n_split, st);
+  if (err == 0)
+    taken[lse != nullptr ? LSE : OUT].fetch_add(1, std::memory_order_relaxed);
+  return err;
+}
+
+// Copies the launches by route (out, lse) since the last reset into
+// counts[2]; with reset, zeroes them.
+extern "C" void flash_decode_routes(unsigned long long* counts, int reset) {
+  for (int r = 0; r < ROUTES; ++r)
+    counts[r] = reset ? taken[r].exchange(0) : taken[r].load();
 }
 
 // Clusters of a launch at (hd, dtype, n_split, G) that the card holds at

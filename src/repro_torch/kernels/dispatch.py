@@ -10,7 +10,11 @@ Selection, highest precedence first:
 
   1. explicit ``mode=`` at the call site
   2. a ``dispatch.using(mode)`` scope
-  3. the device default — ``cuda`` for CUDA tensors, ``ref`` for CPU tensors
+  3. the device default — ``cuda`` for CUDA tensors, ``ref`` for CPU tensors,
+     and ``cuda`` for ``meta`` tensors, whose wrappers return outputs of
+     the right shape (the dry run, ``launch/dryrun.py``) — never the
+     plain version's internals; ``call`` records the kernel's work while
+     a ``kernels/cost.py`` recording is open
 
 There is no environment override and no autotune: nothing can route a CUDA
 tensor to ``ref`` behind the caller's back, and asking for ``cuda`` on CPU
@@ -24,6 +28,8 @@ from contextlib import contextmanager
 from typing import Callable, Dict
 
 import torch
+
+from repro_torch.kernels import cost
 
 OPS = ("flash_attention", "flash_decode", "quant_matmul", "gae", "ssd",
        "pack")
@@ -112,10 +118,11 @@ def resolve(op: str, device: torch.device, mode: str = None) -> str:
     """Pick the backend for ``op`` on tensors that live on ``device``."""
     names = implementations(op)
     if mode is None:
-        mode = scope() or (CUDA if device.type == "cuda" else REF)
+        mode = scope() or (CUDA if device.type in ("cuda", "meta")
+                           else REF)
     if mode not in names:
         raise KeyError(f"{op}: no backend {mode!r}; have {names}")
-    if mode == CUDA and device.type != "cuda":
+    if mode == CUDA and device.type not in ("cuda", "meta"):
         raise RuntimeError(f"{op}: backend 'cuda' needs CUDA tensors, got "
                            f"tensors on {device}")
     return mode
@@ -126,4 +133,12 @@ def call(op: str, *args, mode: str = None, **kwargs):
     where that argument is a list of tensors) and invoke."""
     first = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
     name = resolve(op, first.device, mode)
+    if cost.recording_open():
+        # an op count is open (launch/op_analysis.py): the call is one unit
+        # of its kernel's work, whatever the backend does inside
+        work = cost.kernel_work(op, args, kwargs)
+        with cost.opaque():
+            out = _REGISTRY[op][name](*args, **kwargs)
+        cost.record(op, *work)
+        return out
     return _REGISTRY[op][name](*args, **kwargs)

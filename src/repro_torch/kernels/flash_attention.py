@@ -41,7 +41,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels._checks import check_heads, check_tensors
 
 NAME = "flash_attention"
@@ -56,7 +56,7 @@ def _check(q, k, v):
         raise ValueError(f"{NAME}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     check_heads(NAME, H, K, hd, q.device)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{NAME}: unsupported device {q.device}")
 
 
@@ -103,6 +103,10 @@ def flash_attention_fwd(q, k, v, causal: bool = True, scale: float = None,
         o = ref.flash_attention(q, k, v, causal=causal, scale=scale)
         return o, (ref.flash_attention_lse(q, k, causal, scale)
                    if with_lse else None)
+    if q.device.type == "meta":     # the dry run: the outputs' shapes
+        return q.new_empty((B, T, H, hd)), (
+            q.new_empty((B, H, T), dtype=torch.float32) if with_lse
+            else None)
     o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -179,6 +183,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, do, causal=causal,
                                        scale=scale)
+    if q.device.type == "meta":
+        cost.record(BWD, *cost.attention_bwd_work(B, T, H, K, hd,
+                                                  q.element_size()))
+        return (q.new_empty((B, T, H, hd)), k.new_empty((B, S, K, hd)),
+                k.new_empty((B, S, K, hd)))
     if tuple(lse.shape) != (B, H, T) or lse.dtype != torch.float32 \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"{BWD}: lse must be a contiguous f32 "

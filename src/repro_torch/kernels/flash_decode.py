@@ -15,6 +15,16 @@ accumulators inside the cluster, in a fixed order. ``plan`` chooses the
 split from B, K and S on the host (never from ``length``), so one launch
 serves every prefix length of a cache.
 
+The LSE route (``with_lse``, the context-parallel decode's: each rank
+attends over its slice of the sequence, and the ranks merge their softmax
+statistics, ``distributed/plan.py::merge_decode``) runs in the same
+launch: rank 0 of each cluster already merges the blocks' (m, l), and
+writes m + log l beside ``out``, which it writes in f32 so that the
+ranks' merge rounds once, as one device's decode does. A local length of
+-1 (a rank's slice holds none of the filled prefix) gives out 0 and lse
+-inf. The launcher counts each call's route (``build.routes(NAME)``:
+"out", "lse").
+
 CPU tensors take the plain version (``ref.flash_decode``); a CUDA tensor
 launches the kernel or raises — there is no fallback.
 """
@@ -108,9 +118,14 @@ def _sms(dev) -> int:
     return n
 
 
-def flash_decode(q, k, v, length):
+def flash_decode(q, k, v, length, with_lse: bool = False):
     """q: (B,H,hd); k, v: (B,S,K,hd) caches; length: () int32 tensor on q's
-    device — the newest valid cache index, in [0, S). Returns (B,H,hd)."""
+    device — the newest valid cache index, in [-1, S) (-1: nothing filled,
+    the output 0). Returns (B,H,hd) in q.dtype; with ``with_lse`` (out,
+    lse), both f32: lse (B,H), each row's log-sum-exp of the scaled scores
+    (-inf where nothing is filled), written by the same launch beside
+    ``out``, which rounded to q.dtype is the other route's, bit for bit.
+    Meta tensors (the dry run) get outputs of the shapes."""
     check_tensors(NAME, {"q": q, "k": k, "v": v}, {"q": 3, "k": 4, "v": 4})
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -119,16 +134,25 @@ def flash_decode(q, k, v, length):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     check_heads(NAME, H, K, hd, q.device)
     if q.device.type == "cpu":
-        return ref.flash_decode(q, k, v, length)
+        return ref.flash_decode(q, k, v, length, with_lse)
+    if q.device.type == "meta":     # the dry run: the outputs' shapes
+        if not with_lse:
+            return q.new_empty((B, H, hd))
+        return (q.new_empty((B, H, hd), dtype=torch.float32),
+                q.new_empty((B, H), dtype=torch.float32))
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     if not (torch.is_tensor(length) and length.dtype == torch.int32
             and length.numel() == 1 and length.device == q.device):
         raise TypeError(f"{NAME}: length must be a one-element int32 tensor "
                         f"on {q.device}")
-    o = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, H, hd), dtype=torch.float32 if with_lse else q.dtype,
+                    device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if o.numel() == 0 or S == 0:
-        return o.zero_()
+        o.zero_()
+        return (o, lse.fill_(float("-inf"))) if with_lse else o
     split, n_split = plan(B, K, S, _sms(q.device), hd, q.element_size(),
                           H // K)
     lib = build.load(NAME)
@@ -136,12 +160,12 @@ def flash_decode(q, k, v, length):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_decode_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-            o.data_ptr(), B, S, H, K, hd,
-            q.stride(0), q.stride(1),
+            o.data_ptr(), lse.data_ptr() if with_lse else None, B, S, H, K,
+            hd, q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd), split,
             n_split, stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
-    return o
+    return (o, lse) if with_lse else o

@@ -54,6 +54,8 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float):
     _check(rewards, values, dones, last_value)
     if rewards.device.type == "cpu":
         return ref.gae(rewards, values, dones, last_value, gamma, lam)
+    if rewards.device.type == "meta":   # the dry run: the output's shape
+        return rewards.new_empty(rewards.shape, dtype=torch.float32)
     if rewards.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {rewards.device}")
     for name, t in (("rewards", rewards), ("values", values),

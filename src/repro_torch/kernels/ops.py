@@ -39,8 +39,11 @@ def flash_attention(q, k, v, causal: bool = True, mode: str = None):
                          causal=causal)
 
 
-def flash_decode(q, k, v, length, mode: str = None):
-    return dispatch.call("flash_decode", q, k, v, length, mode=mode)
+def flash_decode(q, k, v, length, with_lse: bool = False, mode: str = None):
+    """(B, H, hd), or with ``with_lse`` (out, lse (B, H) f32); see
+    ``kernels/flash_decode.py``."""
+    return dispatch.call("flash_decode", q, k, v, length, mode=mode,
+                         with_lse=with_lse)
 
 
 def gae(rewards, values, dones, last_value, gamma: float, lam: float,

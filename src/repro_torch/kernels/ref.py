@@ -58,10 +58,14 @@ def flash_attention_bwd(q, k, v, do, causal: bool = True,
         return torch.autograd.grad(o, (q, k, v), do)
 
 
-def flash_decode(q, k, v, length):
+def flash_decode(q, k, v, length, with_lse: bool = False):
     """One-token decode attention. q: (B,H,hd); k,v: (B,S,K,hd);
     length: () int32 tensor — newest valid cache index (positions
-    ``<= length`` attend). Returns (B,H,hd) in q.dtype."""
+    ``<= length`` attend), in [-1, S): -1 means no filled position, and
+    the output is 0. Returns (B,H,hd) in q.dtype; with ``with_lse`` the
+    output unrounded in f32, and each (b, h) row's log-sum-exp of the
+    scaled scores (B,H) f32, -inf where nothing is filled (a
+    context-parallel rank's empty slice)."""
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
@@ -69,10 +73,13 @@ def flash_decode(q, k, v, length):
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float()) \
         / math.sqrt(hd)
     valid = torch.arange(S, device=q.device) <= length
-    s = s.masked_fill(~valid, -1e30)
-    w = torch.softmax(s, dim=-1)
+    w = torch.softmax(s.masked_fill(~valid, -1e30), dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", w, v.float())
-    return o.reshape(B, H, hd).to(q.dtype)
+    o = torch.where(length >= 0, o, 0.0).reshape(B, H, hd)
+    if not with_lse:
+        return o.to(q.dtype)
+    lse = torch.logsumexp(s.masked_fill(~valid, float("-inf")), dim=-1)
+    return o, lse.reshape(B, H)
 
 
 def gae(rewards, values, dones, last_value, gamma: float, lam: float):

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels._checks import DTYPES
 
 NAME = "ssd"
@@ -140,6 +140,12 @@ class _SSD(torch.autograd.Function):
         return (*ssd_bwd(x, dt, A, B_, C, dy, dh_last), None)
 
 
+def _groups(B_, H: int) -> int:
+    """Groups of B_ read once each: 1 for a stride-0 expansion over heads,
+    else every head's own."""
+    return 1 if B_.stride(2) == 0 else H
+
+
 def _check_types(x, dt, A, B_, C) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {x.device}")
@@ -159,9 +165,12 @@ def ssd_fwd(x, dt, A, B_, C, chunk: int = 128):
     _check(x, dt, A, B_, C)
     if x.device.type == "cpu":
         return ref.ssd(x, dt, A, B_, C)
-    _check_types(x, dt, A, B_, C)
     Bb, T, H, hd = x.shape
     ds = B_.shape[-1]
+    if x.device.type == "meta":     # the dry run: the outputs' shapes
+        return (x.new_empty((Bb, T, H, hd)),
+                x.new_empty((Bb, H, hd, ds), dtype=torch.float32))
+    _check_types(x, dt, A, B_, C)
     for name, n in (("chunk", chunk), ("head dim", hd), ("d_state", ds)):
         if not 1 <= n <= MAX_DIM:
             raise ValueError(f"{NAME}: {name} {n} outside [1, {MAX_DIM}]")
@@ -214,6 +223,12 @@ def _bwd(x, dt, A, B_, C, dy, dh_last, cuda_core):
                          f"{dh_last.device}; expected {(Bb, H, hd, ds)}")
     if x.device.type == "cpu":
         return ref.ssd_bwd(x, dt, A, B_, C, dy, dh_last)
+    if x.device.type == "meta":
+        cost.record(BWD, *cost.ssd_bwd_work(Bb, T, H, hd, ds, _groups(B_, H),
+                                            BWD_CHUNK, x.element_size()))
+        dB = x.new_empty((Bb, T, H, ds))
+        return (x.new_empty((Bb, T, H, hd)), dt.new_empty((Bb, T, H)),
+                A.new_empty((H,)), dB, torch.empty_like(dB))
     _check_types(x, dt, A, B_, C)
     if dy.dtype != x.dtype:
         raise TypeError(f"{BWD}: dy is {dy.dtype}; the kernel takes "

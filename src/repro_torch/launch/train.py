@@ -72,8 +72,8 @@ saves its blocks of the train state and ``--resume`` restores each
 rank's region, onto any mesh (``checkpoint/ckpt.py``). Rank 0 prints the
 step lines, then ``world_size=… mesh=… collectives={…}`` (the
 collectives a step, by kind). A batch the data size does not divide is
-refused. Sharded serving and quantised weights on a mesh come with the
-slice of the static tools (``BackbonePolicy`` raises).
+refused. Training takes float weights (quantised weights on a mesh
+serve only: ``BackbonePolicy(mesh=, quantize=)``, ``rl/actor.py``).
 Runs on the card unless ``--device cpu``. The counterpart of
 ``repro/launch/train.py`` without ``--conformance``.
 

@@ -23,6 +23,11 @@ replicated, so their gradient, a part on each rank, is summed over
 ``model`` on entering the region. With no plan and ``tp`` 1 nothing
 changes.
 
+Serving under a plan: a rank's cache holds its batch rows and KV heads,
+(B/D, S, K'/tp, hd), or under ``context_parallel`` (long_500k, B 1) its
+slice of the KV sequence, (1, S/D, K'/tp, hd) (``cache_pspecs``); see
+``attend_decode``.
+
 The port updates the KV cache in place (``index_copy_`` / slice assignment)
 where JAX returns new arrays; the returned ``KVCache`` holds the same
 tensors.
@@ -68,8 +73,10 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None, tp: int = 1) -> KVCache:
-    shape = (batch, max_len, cfg.padded_kv_heads(tp), cfg.head_dim)
+               device=None, tp: int = 1, split: int = 1) -> KVCache:
+    """Zero caches with the KV heads padded to ``tp``; ``split`` ranks'
+    share of them (a plan's ``model`` size: a rank's heads)."""
+    shape = (batch, max_len, cfg.padded_kv_heads(tp) // split, cfg.head_dim)
     dtype = dtype or dtype_of(cfg.dtype)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
@@ -127,21 +134,46 @@ def attend_prefill(params, x, cfg: ModelConfig, cache: KVCache):
     return _out(params, out, cfg), cache
 
 
-def attend_decode(params, x, cfg: ModelConfig, cache: KVCache):
+def attend_decode(params, x, cfg: ModelConfig, cache: KVCache,
+                  context_parallel: bool = False):
     """One-token decode. x: (B, 1, d); ``cache.length`` tokens are filled.
 
     The new K/V are written at index ``length`` first (in place), then the
     query attends to positions ``<= length``, the new token included. The
-    length stays on the device: nothing here waits for the host."""
+    length stays on the device: nothing here waits for the host.
+
+    ``context_parallel`` under a plan (long_500k, B 1): this rank's cache
+    is its slice [r·S_l, (r+1)·S_l) of the KV sequence, r its data index.
+    Only the rank whose slice holds position ``length`` writes the new K/V
+    (a masked write on the device: the others write back what they hold);
+    each attends over its slice at its local length, clamped to [-1, S_l)
+    (-1: nothing filled), through ``flash_decode``'s LSE route, and
+    ``plan.merge_decode`` merges the ranks' rows over ``data``. With no
+    plan the flag changes nothing, as the reference's constraint does
+    outside a mesh."""
     B, one, _ = x.shape
     if one != 1:
         raise ValueError(f"attend_decode takes one token, got {one}")
     pos = cache.length.expand(B, 1)
     q, k_new, v_new = _project_qkv(params, x, cfg, pos)
-    idx = cache.length.long().view(1)
-    cache.k.index_copy_(1, idx, k_new)
-    cache.v.index_copy_(1, idx, v_new)
-    out = kops.flash_decode(q[:, 0], cache.k, cache.v,
-                            cache.length)                     # (B, H, hd)
+    pl = _plan.active()
+    if context_parallel and pl is not None:
+        S_l = cache.k.shape[1]
+        local = cache.length - pl.dp_index * S_l                 # () int32
+        mine = (local >= 0) & (local < S_l)
+        idx = local.clamp(0, S_l - 1).long().view(1)
+        for c, new in ((cache.k, k_new), (cache.v, v_new)):
+            c.index_copy_(1, idx, torch.where(mine, new,
+                                              c.index_select(1, idx)))
+        out, lse = kops.flash_decode(q[:, 0], cache.k, cache.v,
+                                     local.clamp(-1, S_l - 1),
+                                     with_lse=True)
+        out = _plan.merge_decode(out, lse)                       # (B, H, hd)
+    else:
+        idx = cache.length.long().view(1)
+        cache.k.index_copy_(1, idx, k_new)
+        cache.v.index_copy_(1, idx, v_new)
+        out = kops.flash_decode(q[:, 0], cache.k, cache.v,
+                                cache.length)                    # (B, H, hd)
     y = _out(params, out[:, None].to(dtype_of(cfg.dtype)), cfg)
     return y, KVCache(cache.k, cache.v, cache.length + 1)

@@ -15,6 +15,10 @@ contiguous split gives a rank gate or up columns, so it is gathered over
 row-parallel with one all-reduce; the embedding vocab-parallel (each rank
 looks up the ids in its vocab rows, zeros the rest, one all-reduce) and
 the unembed column-parallel over the vocab (each rank its logits' block).
+Quantised, the embedding's rows are dequantised after the rank's lookup
+in its vocab block, and the MLP's ``wi`` at tp > 1 is gathered at its
+stored width and cut to the rank's gate and up columns (int4 unpacked to
+int8 first: a rank's columns need not start on a byte).
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import plan as _plan
-from repro_torch.models.params import ParamSpec, matmul, stored, use_weight
+from repro_torch.models.params import (ParamSpec, matmul, no_grad, qmm,
+                                       stored, use_quantized, use_weight)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -86,13 +91,24 @@ def embedding_spec(cfg: ModelConfig):
                                fan_in=cfg.d_model, axes=("vocab", "embed"))}
 
 
-def _embed_rows(w, tokens, cfg: ModelConfig, dt):
+def _rows(w, ids, scale, dt):
+    """Rows ``ids`` of the table ``w`` in ``dt``; a quantised table's rows
+    dequantised in bf16 whatever ``dt``, as the reference's weight() does
+    (repro/models/params.py:199-205)."""
+    x = stored(w[ids], scale)
+    if scale is not None:
+        bf = torch.bfloat16
+        x = x.to(bf) * scale.to(bf)
+    return x.to(dt)
+
+
+def _embed_rows(w, tokens, cfg: ModelConfig, dt, scale=None):
     """The rows of ``tokens`` from this rank's vocab block of the table,
     zero where another rank holds the id, summed over ``model``."""
     v0, n = _plan.tp_block(cfg.padded_vocab())
     ids = tokens.long() - v0
     inside = (ids >= 0) & (ids < n)
-    x = w[ids.clamp(0, n - 1)].to(dt)
+    x = _rows(w, ids.clamp(0, n - 1), scale, dt)
     return _plan.leave(torch.where(inside[..., None], x, x.new_zeros(())))
 
 
@@ -100,21 +116,15 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
     dt = dtype_of(cfg.dtype)
     scale = params.get("embed_scale")
     if _plan.active() is not None:
-        if scale is not None:
-            raise NotImplementedError(
-                "quantised weights on a mesh come with the slice of the "
-                "static tools (launch/dryrun)")
-        x = _embed_rows(use_weight(params["embed"], ("vocab", "embed")),
-                        tokens, cfg, dt)
+        axes = ("vocab", "embed")
+        if scale is None:
+            w = use_weight(params["embed"], axes)
+        else:
+            w, scale = use_quantized(params["embed"], scale, axes)
+        x = _embed_rows(w, tokens, cfg, dt, scale)
         return x * torch.full((), math.sqrt(cfg.d_model), dtype=dt,
                               device=x.device)
-    x = stored(params["embed"][tokens], scale)
-    if scale is not None:
-        # the gathered rows dequantised in bf16 whatever cfg.dtype, as the
-        # reference's weight() does (repro/models/params.py:199-205)
-        bf = torch.bfloat16
-        x = x.to(bf) * scale.to(bf)
-    x = x.to(dt)
+    x = _rows(params["embed"], tokens, scale, dt)
     # the scale is rounded to cfg.dtype before the product, as in JAX;
     # torch.full fills on the device (no host-to-device copy, no sync)
     return x * torch.full((), math.sqrt(cfg.d_model), dtype=dt,
@@ -157,11 +167,24 @@ def mlp_apply(params, x, cfg: ModelConfig):
     pl = _plan.active()
     if pl is not None and pl.tp > 1:
         # this rank's gate and up columns of the gathered (d, 2F) weight
-        wi = use_weight(params["wi"], ("embed", "mlp"), model="sum")
+        scale = params.get("wi_scale")
+        if scale is None:
+            wi = use_weight(params["wi"], ("embed", "mlp"), model="sum")
+        else:
+            # int4 unpacked to int8 after its packed gather: a rank's
+            # columns need not start on a byte
+            no_grad("wi", x)
+            wi, scale = use_quantized(params["wi"], scale, ("embed", "mlp"),
+                                      model=True)
+            wi = stored(wi, scale)
         f = wi.shape[1] // 2
         f0, n = _plan.tp_block(f)
-        wi = torch.cat([wi[:, f0:f0 + n], wi[:, f + f0:f + f0 + n]], dim=1)
-        h = _plan.enter(x) @ wi.to(dt)
+        cols = lambda t: torch.cat([t[..., f0:f0 + n],
+                                    t[..., f + f0:f + f0 + n]], dim=-1)
+        if scale is None:
+            h = _plan.enter(x) @ cols(wi).to(dt)
+        else:
+            h = qmm(_plan.enter(x), cols(wi), cols(scale))
     else:
         h = matmul(params, "wi", _plan.enter(x), dt, axes=("embed", "mlp"))
     gate, up = h.chunk(2, dim=-1)

@@ -37,7 +37,11 @@ part on each rank, summed over ``model``), so the router's gradient is
 whole and the same on every rank. The groups are sequences, so a data
 split of the batch keeps each group's capacity exact; the aux loss's two
 means over groups are taken over the data ranks (``plan.data_mean``), so
-that it is the global batch's, as the reference's is.
+that it is the global batch's, as the reference's is. Serving drops the
+aux loss (``aux=False``: not computed, so its two all-reduces are not
+issued, as XLA drops the reference's unused ones); quantised, each rank's
+experts are gathered over the data axes at their stored width
+(``params.use_quantized``) and run through ``quant_matmul`` one by one.
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import plan as _plan
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.params import ParamSpec, use_weight
+from repro_torch.models.params import (ParamSpec, no_grad, use_quantized,
+                                       use_weight)
 
 ROUTER_AXES = ("embed", "expert")
 WI_AXES = ("expert", "embed", "mlp")
@@ -105,16 +110,16 @@ def _experts(params, ebuf, cfg: ModelConfig):
     act = F.silu if cfg.mlp_activation == "silu" else \
         (lambda g: F.gelu(g, approximate="tanh"))
     wi_s, wo_s = params.get("wi_scale"), params.get("wo_scale")
-    if _plan.active() is not None and wi_s is not None:
-        raise NotImplementedError(
-            "quantised weights on a mesh come with the slice of the static "
-            "tools (launch/dryrun)")
     if wi_s is None:
         wi = use_weight(params["wi"], WI_AXES)
         wo = use_weight(params["wo"], WO_AXES)
         g, u = torch.bmm(ebuf, wi.to(dt)).chunk(2, dim=-1)
         return torch.bmm(act(g) * u, wo.to(dt))
-    wi, wo = params["wi"], params["wo"]
+    # this rank's experts at their stored width, gathered over the data
+    # axes, with the scales whole (shared by every expert)
+    no_grad("wi", ebuf)
+    wi, wi_s = use_quantized(params["wi"], wi_s, WI_AXES)
+    wo, wo_s = use_quantized(params["wo"], wo_s, WO_AXES)
     ys = []
     for e in range(ebuf.shape[0]):
         g, u = kops.quant_matmul(ebuf[e], wi[e], wi_s).chunk(2, dim=-1)
@@ -122,19 +127,22 @@ def _experts(params, ebuf, cfg: ModelConfig):
     return torch.stack(ys)
 
 
-def moe_apply(params, x, cfg: ModelConfig):
+def moe_apply(params, x, cfg: ModelConfig, aux: bool = True):
     """x: (G, S, d), one group a sequence. Returns (y (G,S,d) in x.dtype,
-    aux loss () f32)."""
+    aux loss () f32, or None without ``aux``)."""
     G, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     C = capacity(cfg, S)
     dt = dtype_of(cfg.dtype)
 
     probs, gate, eidx = route(params, x, cfg)
-    me = _plan.data_mean(probs.mean(dim=(0, 1)))                  # (E,)
-    ce = _plan.data_mean((F.one_hot(eidx[..., 0], E).float().sum(dim=1)
-                          / S).mean(dim=0))
-    aux = E * torch.sum(me * ce)
+    if aux:
+        me = _plan.data_mean(probs.mean(dim=(0, 1)))              # (E,)
+        ce = _plan.data_mean((F.one_hot(eidx[..., 0], E).float().sum(dim=1)
+                              / S).mean(dim=0))
+        aux = E * torch.sum(me * ce)
+    else:
+        aux = None
 
     # each (token, choice) pair's slot: its expert's block among this
     # rank's El experts, its group's C rows there, its place in the queue;

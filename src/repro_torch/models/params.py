@@ -26,6 +26,16 @@ columns are not its stored block, over ``model``), the backward
 reduce-scatters the gradient back to the stored layout, as the
 reference's custom VJP asks GSPMD to. With no plan ``use_weight`` and
 ``constrain`` return their input.
+
+Quantised weights on a plan (serving): ``init_params(quantize=, plan=)``
+quantises each global leaf as the unsharded init does (its scale over the
+global leaf), then keeps this rank's blocks of the leaf and its scale, so
+that a rank's blocks are blocks of the one-device quantised tree; at its
+use ``use_quantized`` all-gathers the stored integers over the data axes
+at their stored width (one byte an element, half a byte packed) and the
+scale's matching part, and ``quant_matmul`` runs on the rank's block:
+the reference's ``weight()``, whose gather moves the int8 value, never
+bf16. A packed int4 leaf splits its last dim on whole bytes only.
 """
 from __future__ import annotations
 
@@ -153,7 +163,7 @@ def use_weight(w, axes: tuple, model: Optional[str] = None):
     pl = _plan.active()
     if pl is None:
         return w
-    spec = storage_pspec(axes, pl.fsdp)
+    spec = storage_pspec(axes, pl.embed)
     for dim, part in enumerate(spec):
         if pl.part_of(part) == "data":
             w = _plan.gather(w, dim, "data")
@@ -162,6 +172,38 @@ def use_weight(w, axes: tuple, model: Optional[str] = None):
             if part == "model":
                 w = _plan.gather(w, dim, "model", model)
     return w
+
+
+def use_quantized(w, scale, axes: tuple, model: bool = False):
+    """A quantised weight ``w`` (int8, or int4 packed) and its ``scale``
+    at their use under a plan, with no gradient (serving only): ``w``
+    all-gathered over the data axes, and with ``model`` over ``model``
+    too, at its stored width (``plan.gather_nograd``); the scale gathered
+    where its split differs from the gathered weight's last dim (a scale
+    over ``mlp`` split over ``model`` beside an expert weight whose
+    ``model`` went to ``expert``) and cut to that dim's block (a ``scale``
+    of None stays None). No plan: both as they are."""
+    pl = _plan.active()
+    if pl is None:
+        return w, scale
+    spec = storage_pspec(axes, pl.embed)
+    for dim, part in enumerate(spec):
+        kind = pl.part_of(part)
+        if kind == "data" or (model and kind == "model"):
+            w = _plan.gather_nograd(w, dim, kind)
+    w = w.contiguous()      # the kernel reads rows of a contiguous last dim
+    if scale is None:
+        return w, None
+    last = pl.part_of(spec[-1])
+    last = last if last == "model" and not model else None
+    kind = pl.part_of(storage_pspec(axes[-1:], pl.embed)[0])
+    if kind != last:
+        if kind is not None:
+            scale = _plan.gather_nograd(scale, 0, kind)
+        if last is not None:
+            s0, n = _plan.tp_block(scale.shape[0])
+            scale = scale[s0:s0 + n]
+    return w, scale
 
 
 def constrain(x, *logical_axes, rules: dict = None):
@@ -212,26 +254,37 @@ def init_params(spec_tree, generator: torch.Generator,
     With a ``plan`` (``distributed/plan.py``) and the tree's ``pspecs``
     each leaf is this rank's block of the global one: a zeros leaf is made
     at its block's shape; a drawn leaf is drawn whole (every rank draws
-    the same stream), sliced and freed before the next, so that no more
-    than one global leaf is ever held."""
+    the same stream), quantised whole where ``quantize`` says, sliced and
+    freed before the next, so that no more than one global leaf is ever
+    held. A packed int4 leaf whose last dim is split must split it on
+    whole bytes: an odd part raises, naming the leaf and the mesh."""
     device = torch.device(device) if device is not None else generator.device
+    if device.type == "meta":
+        return _meta_tree(spec_tree, param_dtype, quantize, pspecs, plan)
     out: dict = {}
     for path, spec in _leaves(spec_tree):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
         if plan is not None:
-            if quantize:
-                raise NotImplementedError(
-                    "quantised weights on a mesh come with the slice of "
-                    "the static tools (launch/dryrun)")
             ps = _pspec_at(pspecs, path)
             if spec.init == "zeros":
                 node[path[-1]] = torch.zeros(
                     plan.local_shape(spec.shape, ps),
                     dtype=spec.dtype or param_dtype, device=device)
+                continue
+            x = _draw(spec, generator, param_dtype, device)
+            if quantize and _quantizable(spec):
+                if quantize == "int4":
+                    _whole_bytes(".".join(path), spec.shape, ps, plan)
+                q, sc = quantize_leaf(x, quantize)
+                del x
+                node[path[-1]] = _plan.shard(q, ps, plan)
+                node[path[-1] + "_scale"] = _plan.shard(
+                    sc, _pspec_at(pspecs, path[:-1] + (path[-1] + "_scale",)),
+                    plan)
+                del q
             else:
-                x = _draw(spec, generator, param_dtype, device)
                 node[path[-1]] = _plan.shard(x, ps, plan)
                 del x
             continue
@@ -243,6 +296,47 @@ def init_params(spec_tree, generator: torch.Generator,
             node[path[-1]] = x
         del x      # a quantised leaf's float draw is freed before the next
     return out
+
+
+def _meta_tree(spec_tree, param_dtype, quantize, pspecs, plan) -> dict:
+    """The tree ``init_params`` makes, as empty ``meta`` tensors of each
+    leaf's (block's) shape and dtype: nothing allocated, nothing drawn (the
+    dry run's, ``launch/dryrun.py``). A packed int4 leaf holds its last dim
+    two to a byte."""
+    out: dict = {}
+    spec_tree = quantize_spec(spec_tree, quantize) if quantize else spec_tree
+    for path, spec in _leaves(spec_tree):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        shape = spec.shape
+        if spec.dtype == torch.uint8:
+            _whole_bytes(".".join(path), shape, _pspec_at(pspecs, path)
+                         if plan is not None else (), plan)
+            shape = shape[:-1] + ((shape[-1] + 1) // 2,)
+        if plan is not None:
+            shape = plan.local_shape(shape, _pspec_at(pspecs, path))
+        node[path[-1]] = torch.empty(shape, dtype=spec.dtype or param_dtype,
+                                     device="meta")
+    return out
+
+
+def _whole_bytes(name: str, shape, pspec, plan) -> None:
+    """A packed int4 leaf's last dim, split over k ranks, must give each an
+    even part: two elements a byte, a byte never shared."""
+    if plan is None:
+        return
+    kind = plan.part_of(tuple(pspec)[len(shape) - 1]
+                        if len(pspec) >= len(shape) else None)
+    if kind is None:
+        return
+    k = plan.size_of(kind)
+    if shape[-1] % k or (shape[-1] // k) % 2:
+        raise ValueError(
+            f"int4 leaf {name} of shape {tuple(shape)}: its last dim split "
+            f"over the {k} ranks of {tuple(pspec)[-1]!r} on mesh "
+            f"{plan.mesh.shape} gives parts of {shape[-1] / k:g} elements; "
+            f"packed two to a byte, a part must be even")
 
 
 def param_count(spec_tree) -> int:
@@ -357,6 +451,15 @@ def stored(w, scale=None):
     return w
 
 
+def no_grad(name: str, x) -> None:
+    """Quantised weights on a plan serve only: their gather has no
+    backward."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            f"{name}: quantised weights on a mesh serve only (their stored "
+            f"gather has no backward); train the float tree")
+
+
 def matmul(params, name: str, x, dtype, transposed: bool = False,
            axes: tuple = ()):
     """``x @ w`` at the use site of weight ``name``: the counterpart of
@@ -374,15 +477,21 @@ def matmul(params, name: str, x, dtype, transposed: bool = False,
     w, scale = params[name], params.get(name + "_scale")
     K = x.shape[-1]
     if _plan.active() is not None:
-        if scale is not None:
-            raise NotImplementedError(
-                "quantised weights on a mesh come with the slice of the "
-                "static tools (launch/dryrun)")
-        w = use_weight(w, axes)
+        if scale is None:
+            w = use_weight(w, axes)
+        else:
+            no_grad(name, x)
+            w, scale = use_quantized(w, scale, axes)
     if scale is None:
         w = w.to(dtype)
         return x @ (w.t() if transposed else w.reshape(K, -1))
-    y = kops.quant_matmul(x.reshape(-1, K),
-                          w if transposed else w.reshape(K, -1), scale,
+    return qmm(x, w if transposed else w.reshape(K, -1), scale, transposed)
+
+
+def qmm(x, w, scale, transposed: bool = False):
+    """x (..., K) through ``kernels.ops.quant_matmul`` with the 2-D
+    quantised weight ``w`` as it lies on this rank: the leading dims
+    flattened and restored."""
+    y = kops.quant_matmul(x.reshape(-1, x.shape[-1]), w, scale,
                           transposed=transposed)
     return y.unflatten(0, x.shape[:-1])

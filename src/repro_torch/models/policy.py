@@ -28,9 +28,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import dtype_of
 from repro_torch.distributed.plan import scope as _plan_scope
+from repro_torch.models.attention import KVCache as attn_cache
 from repro_torch.models.params import (QMAX, ParamSpec, Params, init_params,
                                        param_pspecs, quantize_spec, stored,
-                                       use_weight)
+                                       use_quantized, use_weight)
 
 
 # -- LSTM cell ----------------------------------------------------------------
@@ -226,6 +227,17 @@ def _bias_rows(params: dict) -> dict:
 # -- LM backbone policy ---------------------------------------------------------
 
 
+def policy_spec(cfg: ModelConfig, tp: int = 1,
+                quantize: Optional[str] = None):
+    """``BackbonePolicy``'s spec tree without a policy: the backbone at
+    ``tp`` and the value head, quantised where ``quantize`` says."""
+    s = {"backbone": tr.transformer_spec(cfg, tp)}
+    if cfg.value_head:
+        s["value"] = ParamSpec((cfg.d_model, 1), fan_in=cfg.d_model,
+                               axes=("embed", "null"))
+    return quantize_spec(s, quantize) if quantize else s
+
+
 class BackbonePolicy(nn.Module):
     """The kernels' backend is the dispatch registry's choice (the CUDA
     kernels on the card); ``kernels.dispatch.using("ref")`` forces the plain
@@ -233,7 +245,9 @@ class BackbonePolicy(nn.Module):
 
     Parameters are drawn from ``generator`` (default: a new generator on
     ``device`` seeded with 0), in ``dtype`` (default ``cfg.param_dtype``).
-    ``device=None`` means CUDA and raises without a Hopper card.
+    ``device=None`` means CUDA and raises without a Hopper card;
+    ``device="meta"`` draws nothing and allocates nothing (shapes only, the
+    dry run's: ``launch/dryrun.py``).
     ``quantize="int8"`` or ``"int4"`` draws the same float parameters and
     quantises each as it is drawn (``params.init_params(..., quantize=)``,
     bitwise ``params.quantize_params`` of the float tree), so that only the
@@ -244,11 +258,17 @@ class BackbonePolicy(nn.Module):
     reference's ``BackbonePolicy(cfg, tp)`` does. ``mesh`` (a
     ``launch.mesh.Mesh`` of the process group, or a ``distributed.plan.
     Plan``) lays the policy out on it: this rank holds its block of every
-    leaf (``pspecs(sharding.make_rules(mesh))``), drawn leaf by leaf from
-    the same stream as the whole tree, and ``tp`` is the mesh's ``model``
-    size. On a mesh it trains (``seq``, ``rl.learner.make_lm_train_step``);
-    serving and quantised weights there come with the slice of the static
-    tools and raise."""
+    leaf (``pspecs(self.rules())``), drawn leaf by leaf from the same
+    stream as the whole tree (quantised whole, then cut), and ``tp`` is
+    the mesh's ``model`` size. On a mesh it trains (``seq``,
+    ``rl.learner.make_lm_train_step``) and serves: ``prefill`` and
+    ``decode`` take this rank's rows of the batch (all of it under
+    ``context_parallel``) and return its vocab block of the logits
+    (``rl/actor.py`` gathers and samples them); ``init_caches`` gives its
+    part of the caches, ``shard_caches`` its part of global ones. int4 on
+    a mesh replicates the ``embed`` dims over the data axes, as the
+    reference's dry run does (``repro/launch/dryrun.py:143-147``): the
+    weights are then gathered over no axis but ``model``."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: torch.Generator = None, dtype=None,
@@ -260,25 +280,25 @@ class BackbonePolicy(nn.Module):
                              f", got {quantize!r}")
         self.plan = None
         if mesh is not None:
-            if quantize:
-                raise NotImplementedError(
-                    "quantised weights on a mesh come with the slice of "
-                    "the static tools (launch/dryrun)")
             from repro_torch.distributed import plan as _plan
             self.plan = mesh if isinstance(mesh, _plan.Plan) else \
                 _plan.Plan(mesh)
+            if quantize == "int4":
+                self.plan = self.plan.with_embed(())
             if tp is not None and tp != self.plan.tp:
                 raise ValueError(f"tp {tp} is not the mesh's model size "
                                  f"{self.plan.tp}")
             tp = self.plan.tp
-        dev = _device.resolve(device)
+        # "meta": shapes only, nothing drawn (the dry run's,
+        # launch/dryrun.py); else a device the entry points take
+        dev = torch.device("meta") if str(device) == "meta" else \
+            _device.resolve(device)
         self.cfg, self.quantize, self.tp = cfg, quantize, tp or 1
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         pspecs = None
         if self.plan is not None:
-            from repro_torch.distributed import sharding as shd
-            pspecs = self.pspecs(shd.make_rules(self.plan.mesh))
+            pspecs = self.pspecs(self.rules())
         tree = init_params(self._float_spec(), generator,
                            dtype_of(dtype or cfg.param_dtype), dev,
                            quantize=quantize, pspecs=pspecs, plan=self.plan)
@@ -288,27 +308,26 @@ class BackbonePolicy(nn.Module):
                 setattr(self, k, nn.Parameter(tree[k], requires_grad=False))
 
     def _float_spec(self):
-        s = {"backbone": tr.transformer_spec(self.cfg, self.tp)}
-        if self.cfg.value_head:
-            s["value"] = ParamSpec((self.cfg.d_model, 1),
-                                   fan_in=self.cfg.d_model,
-                                   axes=("embed", "null"))
-        return s
+        return policy_spec(self.cfg, self.tp)
 
     def spec(self):
-        s = self._float_spec()
-        return quantize_spec(s, self.quantize) if self.quantize else s
+        return policy_spec(self.cfg, self.tp, self.quantize)
 
     def pspecs(self, rules=None):
         """The ``PartitionSpec`` of every leaf under ``rules`` (default
         ``params.DEFAULT_RULES``)."""
         return param_pspecs(self.spec(), rules)
 
-    def _serving(self, what: str):
-        if self.plan is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh (sharded serving) comes with the slice "
-                f"of the static tools (launch/dryrun)")
+    def rules(self) -> dict:
+        """The mesh's rules table (``sharding.make_rules``), ``embed``
+        replicated for int4 (``repro/launch/dryrun.py:143-147``)."""
+        from repro_torch.distributed import sharding as shd
+        rules = shd.make_rules(self.plan.mesh)
+        return dict(rules, embed=None) if self.quantize == "int4" else rules
+
+    def cache_pspecs(self, context_parallel: bool = False):
+        from repro_torch.distributed import sharding as shd
+        return shd.cache_pspecs(self.cfg, self.rules(), context_parallel)
 
     def _own(self) -> dict:
         """The policy's own parameters as the tree ``seq`` and ``_value``
@@ -349,8 +368,12 @@ class BackbonePolicy(nn.Module):
             return torch.zeros(hidden.shape[:-1], device=hidden.device)
         # A quantised head is read as its raw integers without value_scale,
         # as the reference reads it (repro/models/policy.py:220-221).
-        w = stored(use_weight(params["value"], ("embed", "null")),
-                   params.get("value_scale"))
+        w, scale = params["value"], params.get("value_scale")
+        if scale is None:
+            w = use_weight(w, ("embed", "null"))
+        else:
+            w, _ = use_quantized(w, None, ("embed", "null"))
+        w = stored(w, scale)
         # dot in hidden.dtype, upcast after
         return (hidden @ w.to(hidden.dtype))[..., 0].float()
 
@@ -372,27 +395,75 @@ class BackbonePolicy(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens, max_len: int, prefix=None):
         """tokens: (B, Tt); prefix: (B, P, d) or None. Returns (last-token
-        logits (B,V), value (B,), caches of P + Tt positions)."""
-        self._serving("prefill")
-        hidden, caches = tr.prefill(self.backbone, tokens, self.cfg,
-                                    max_len=max_len, prefix=prefix,
-                                    tp=self.tp)
-        last = hidden[:, -1:]
-        logits = tr.logits_from_hidden(self.backbone, last, self.cfg)
-        return logits[:, 0], self._value(self._own(), last)[:, 0], caches
+        logits (B,V), value (B,), caches of P + Tt positions). On a mesh B
+        is this rank's rows and V its vocab block."""
+        with _plan_scope(self.plan):
+            hidden, caches = tr.prefill(self.backbone, tokens, self.cfg,
+                                        max_len=max_len, prefix=prefix,
+                                        tp=self.tp)
+            last = hidden[:, -1:]
+            logits = tr.logits_from_hidden(self.backbone, last, self.cfg)
+            return logits[:, 0], self._value(self._own(), last)[:, 0], \
+                caches
 
     @torch.no_grad()
-    def decode(self, tokens, caches):
+    def decode(self, tokens, caches, context_parallel: bool = False):
         """tokens: (B, 1) — one serve step against ``caches`` (KV caches and
         SSM states updated in place). Returns (logits (B,V), value (B,),
-        caches)."""
-        self._serving("decode")
-        hidden, caches = tr.decode(self.backbone, tokens, self.cfg, caches)
-        logits = tr.logits_from_hidden(self.backbone, hidden, self.cfg)
-        return logits[:, 0], self._value(self._own(), hidden)[:, 0], caches
+        caches). ``context_parallel`` (long_500k, on a mesh): the KV caches
+        hold this rank's slice of the sequence."""
+        with _plan_scope(self.plan):
+            hidden, caches = tr.decode(self.backbone, tokens, self.cfg,
+                                       caches,
+                                       context_parallel=context_parallel)
+            logits = tr.logits_from_hidden(self.backbone, hidden, self.cfg)
+            return logits[:, 0], self._value(self._own(), hidden)[:, 0], \
+                caches
 
-    def init_caches(self, batch: int, max_len: int):
-        self._serving("init_caches")
-        return tr.init_caches(self.cfg, batch, max_len,
-                              device=self.backbone["final_norm"].device,
-                              tp=self.tp)
+    def init_caches(self, batch: int, max_len: int,
+                    context_parallel: bool = False):
+        """Zero caches for ``batch`` sequences of ``max_len`` positions: on
+        a mesh this rank's part (``cache_pspecs``: its B/D rows, or under
+        ``context_parallel`` its S/D positions, and its heads)."""
+        dev = self.backbone["final_norm"].device
+        if self.plan is None:
+            return tr.init_caches(self.cfg, batch, max_len, device=dev,
+                                  tp=self.tp)
+        b, s = self._local_extent(batch, max_len, context_parallel)
+        return tr.init_caches(self.cfg, b, s, device=dev, tp=self.tp,
+                              split=self.plan.tp)
+
+    def _local_extent(self, batch: int, max_len: int, cp: bool):
+        """(rows, positions) of this rank's caches; raises where the data
+        size does not divide them."""
+        D = self.plan.dp
+        n = max_len if cp else batch
+        if n % D:
+            raise ValueError(f"{'max_len' if cp else 'batch'} {n} is not "
+                             f"divisible by the mesh's data size {D}")
+        return (batch, max_len // D) if cp else (batch // D, max_len)
+
+    def shard_caches(self, caches, context_parallel: bool = False):
+        """This rank's blocks of the global ``caches`` (KV heads padded to
+        ``tp``), laid out by ``cache_pspecs``. No mesh: ``caches``."""
+        if self.plan is None:
+            return caches
+        from repro_torch.distributed.plan import shard
+        ps = self.cache_pspecs(context_parallel)
+        kv = [None if c is None else attn_cache(
+            shard(c.k, p.k, self.plan), shard(c.v, p.v, self.plan), c.length)
+            for c, p in zip(caches.kv, ps.kv)]
+        ssm = [None if c is None else type(c)(
+            shard(c.conv, p.conv, self.plan),
+            shard(c.state, p.state, self.plan))
+            for c, p in zip(caches.ssm, ps.ssm)]
+        return tr.Caches(kv, ssm, caches.length)
+
+    def rows(self, x, context_parallel: bool = False):
+        """This rank's rows of a global batch ``x`` (B, ...): its data
+        rank's B/D, all of them under ``context_parallel`` or with no
+        mesh."""
+        if self.plan is None or context_parallel:
+            return x
+        b, _ = self._local_extent(x.shape[0], 1, False)
+        return x[self.plan.dp_index * b:(self.plan.dp_index + 1) * b]

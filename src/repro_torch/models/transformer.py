@@ -27,9 +27,12 @@ attention and SSD kernels included, as ``dots_saveable`` saves
 
 ``tp`` pads the head counts (``attention.attention_spec``); under a plan
 (``distributed/plan.py``) every layer runs on this rank's heads, experts
-and vocab block, their counts read off the local parameters. ``prefill``
-and ``decode`` on a mesh (sharded serving, the context-parallel decode)
-come with the slice of the static tools and raise.
+and vocab block, their counts read off the local parameters. Serving on a
+mesh: ``init_caches(..., tp=)`` gives a rank's caches (``cache_pspecs``:
+its batch rows, KV heads, SSM heads and block of the conv channels, or
+under ``context_parallel`` its slice of the KV sequence); ``prefill`` and
+``decode`` take the rank's rows of the batch (all of it, B 1, under
+``context_parallel``) and return its vocab block of the logits.
 """
 from __future__ import annotations
 
@@ -85,14 +88,15 @@ def transformer_spec(cfg: ModelConfig, tp: int = 1):
     return spec
 
 
-def _ffn(p, x, cfg: ModelConfig):
-    """The layer's FFN with its residual: (x, MoE aux loss or None)."""
+def _ffn(p, x, cfg: ModelConfig, aux: bool = True):
+    """The layer's FFN with its residual: (x, MoE aux loss or None; None
+    without ``aux``, serving's)."""
     if "ln_ffn" not in p:
         return x, None
     h = L.norm(p, "ln_ffn", x, cfg)
     if "moe" in p:
-        y, aux = moe_mod.moe_apply(p["moe"], h, cfg)
-        return x + y, aux
+        y, a = moe_mod.moe_apply(p["moe"], h, cfg, aux=aux)
+        return x + y, a
     return x + L.mlp_apply(p["mlp"], h, cfg), None
 
 
@@ -174,14 +178,6 @@ def logits_from_hidden(params, x, cfg: ModelConfig):
     return logits
 
 
-def _no_plan(what: str):
-    if _plan.active() is not None:
-        raise NotImplementedError(
-            f"{what} on a mesh (sharded serving, the context-parallel "
-            f"decode) comes with the slice of the static tools "
-            f"(launch/dryrun)")
-
-
 # -- caches -------------------------------------------------------------------
 
 class Caches(NamedTuple):
@@ -191,15 +187,20 @@ class Caches(NamedTuple):
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device=None, tp: int = 1) -> Caches:
-    _no_plan("init_caches")
+                device=None, tp: int = 1, split: int = 1) -> Caches:
+    """Zero caches of ``batch`` rows and ``max_len`` positions: whole with
+    ``tp`` 1 (``tp`` only pads the KV heads, as the reference's do), or a
+    rank's part of them with ``split`` = tp (a plan's ``model`` size: its
+    KV heads, SSM heads and block of the conv channels); ``batch`` and
+    ``max_len`` are the rank's own (B/D rows, or S/D positions under
+    ``context_parallel``)."""
     kv, ssm = [], []
     for i in range(cfg.num_layers):
         is_attn = layer_kinds(cfg, i)[0] == "attn"
-        kv.append(attn.init_cache(cfg, batch, max_len, device=device, tp=tp)
-                  if is_attn else None)
-        ssm.append(None if is_attn else
-                   ssm_mod.init_ssm_cache(cfg, batch, device=device))
+        kv.append(attn.init_cache(cfg, batch, max_len, device=device, tp=tp,
+                                  split=split) if is_attn else None)
+        ssm.append(None if is_attn else ssm_mod.init_ssm_cache(
+            cfg, batch, device=device, tp=split))
     return Caches(kv, ssm, torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -208,17 +209,19 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int = 0,
     """Forward + cache build. tokens: (B, Tt); prefix: (B, P, d) or None;
     T = P + Tt. Returns (hidden, caches). KV caches are allocated at
     ``max_len`` (default T) and filled; SSM caches are the conv window and
-    final state that the scan returns; ``tp`` pads their KV heads."""
-    _no_plan("prefill")
+    final state that the scan returns; ``tp`` pads their KV heads. Under a
+    plan: this rank's rows, heads and caches."""
+    pl = _plan.active()
+    split = pl.tp if pl is not None else 1
     x = _embed_inputs(params, tokens, cfg, prefix)
     B, T, _ = x.shape
     kv, ssm = [], []
     for i in range(cfg.num_layers):
         p = params["layers"][str(i)]
-        h = L.rms_norm(x, p["ln_mix"], cfg.norm_eps)
+        h = L.norm(p, "ln_mix", x, cfg)
         if "attn" in p:
             cache = attn.init_cache(cfg, B, max_len or T, device=x.device,
-                                    tp=tp)
+                                    tp=tp, split=split)
             y, c = attn.attend_prefill(p["attn"], h, cfg, cache)
             kv.append(c)
             ssm.append(None)
@@ -226,33 +229,38 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int = 0,
             y, c = ssm_mod.ssm_apply(p["ssm"], h, cfg, return_cache=True)
             kv.append(None)
             ssm.append(c)
-        x, _ = _ffn(p, x + y, cfg)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, _ = _ffn(p, x + y, cfg, aux=False)
+    x = L.norm(params, "final_norm", x, cfg)
     return x, Caches(kv, ssm, torch.full((), T, dtype=torch.int32,
                                          device=x.device))
 
 
-def decode(params, tokens, cfg: ModelConfig, caches: Caches):
+def decode(params, tokens, cfg: ModelConfig, caches: Caches,
+           context_parallel: bool = False):
     """One-token step. tokens: (B, 1). Returns (hidden, caches). As in JAX,
     each attention layer attends at the global ``caches.length``; the
     per-layer lengths come back zeroed and the global one is incremented.
-    SSM layers step their conv window and state (the state in place)."""
-    _no_plan("decode")
+    SSM layers step their conv window and state (the state in place).
+    ``context_parallel`` (long_500k): the KV caches hold this rank's slice
+    of the sequence (``attention.attend_decode``); the SSM layers run the
+    same step on every data rank, their caches replicated over the data
+    axes, as the reference's ``cache_pspecs`` imply."""
     x = L.embed_tokens(params["embedding"], tokens, cfg)
     zero = torch.zeros((), dtype=torch.int32, device=x.device)
     kv, ssm = [], []
     for i in range(cfg.num_layers):
         p = params["layers"][str(i)]
-        h = L.rms_norm(x, p["ln_mix"], cfg.norm_eps)
+        h = L.norm(p, "ln_mix", x, cfg)
         if "attn" in p:
             y, c = attn.attend_decode(
-                p["attn"], h, cfg, caches.kv[i]._replace(length=caches.length))
+                p["attn"], h, cfg, caches.kv[i]._replace(length=caches.length),
+                context_parallel=context_parallel)
             kv.append(c._replace(length=zero))
             ssm.append(None)
         else:
             y, c = ssm_mod.ssm_decode(p["ssm"], h, cfg, caches.ssm[i])
             kv.append(None)
             ssm.append(c)
-        x, _ = _ffn(p, x + y, cfg)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, _ = _ffn(p, x + y, cfg, aux=False)
+    x = L.norm(params, "final_norm", x, cfg)
     return x, Caches(kv, ssm, caches.length + 1)

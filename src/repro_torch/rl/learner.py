@@ -438,8 +438,8 @@ def make_lm_train_step(policy, tcfg: TrainConfig, total_steps: int = 10_000,
         gnorm = None
         if plan is not None:
             grads, loss, stats = across_data(grads, loss, stats)
-            gnorm = adamw.global_norm(grads, counted,
-                                      torch.distributed.group.WORLD)
+            gnorm = adamw.global_norm(grads, counted, plan.groups.get(
+                "world", torch.distributed.group.WORLD))
         lr = schedule.warmup_cosine(ts.step, peak_lr=tcfg.learning_rate,
                                     warmup_steps=tcfg.warmup_steps,
                                     total_steps=total_steps)

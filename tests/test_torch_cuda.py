@@ -182,6 +182,37 @@ def test_flash_decode_kernel_on_strided_views_is_deterministic(dtype,
     assert torch.equal(first, again)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [128, 160, 256])
+def test_flash_decode_lse_route_matches_ref(hd, dtype, no_tf32):
+    """The LSE route (the context-parallel decode's): one launch a call,
+    counted on its route, ``out`` in f32 and, rounded to the dtype, bit for
+    bit the call without it, within the dtype's tolerance of the plain
+    version, ``lse`` within 1e-4 of its magnitude, at local lengths -1
+    (nothing filled: 0 and -inf), 0, mid and S - 1."""
+    B, S, H, K = 2, 300, 16, 8
+    q, k, v = _fd_inputs(np.random.default_rng(hd), B, S, H, K, hd, dtype)
+    for L in (-1, 0, S // 2, S - 1):
+        length = torch.tensor(L, dtype=torch.int32, device="cuda")
+        before = build.LAUNCHES["flash_decode"]
+        routes = build.routes("flash_decode")
+        out, lse = ops.flash_decode(q, k, v, length, with_lse=True)
+        assert build.LAUNCHES["flash_decode"] == before + 1
+        assert build.routes("flash_decode") == dict(routes,
+                                                    lse=routes["lse"] + 1)
+        w_out, w_lse = ref.flash_decode(q, k, v, length, with_lse=True)
+        assert out.dtype == w_out.dtype == torch.float32
+        assert torch.equal(out.to(dtype), ops.flash_decode(q, k, v, length))
+        torch.testing.assert_close(out.float(), w_out.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        if L < 0:
+            assert torch.equal(out, torch.zeros_like(out))
+            assert bool(torch.isinf(lse).all() and (lse < 0).all())
+        else:
+            tol = 1e-4 * max(1.0, float(w_lse.abs().max()))
+            torch.testing.assert_close(lse, w_lse, atol=tol, rtol=0)
+
+
 def test_flash_decode_length_must_be_a_device_tensor():
     q = torch.zeros(1, 4, 32, device="cuda")
     k = torch.zeros(1, 8, 2, 32, device="cuda")

@@ -28,9 +28,9 @@
 * one rank with ``tp`` 4 (padded heads, all local): ``seq``, ``prefill``
   and one ``decode`` step against the reference's at tp 4, within 1e-5;
 * the plan at world size 1 (gloo, this process) bit for bit the unsharded
-  step through the launcher, and the errors: quantised weights and
-  serving on a mesh, a batch the data size does not divide, a mesh of
-  the wrong size.
+  step through the launcher, quantised serving at 1 x 1 bit for bit the
+  unsharded, and the errors: a gradient through quantised weights on a
+  mesh, a batch the data size does not divide, a mesh of the wrong size.
 """
 import dataclasses
 import os
@@ -538,15 +538,22 @@ def mesh1():
 
 
 def test_the_plan_refuses_what_it_cannot_take(mesh1, capsys):
+    """Quantised weights and serving on a mesh run (at 1 x 1 the unsharded
+    policy's values bit for bit; many ranks: tests/test_torch_serve_shard.py);
+    what the plan cannot take raises: a gradient through quantised weights
+    on a mesh, a wrong tp, a batch or mesh that does not divide."""
     cfg = get_smoke_config("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="static tools"):
-        BackbonePolicy(cfg, device="cpu", quantize="int8", mesh=mesh1)
-    pol = BackbonePolicy(cfg, device="cpu", mesh=mesh1)
-    for serve in (lambda: pol.prefill(torch.zeros((1, 4), dtype=torch.int32),
-                                      8),
-                  lambda: pol.init_caches(1, 8)):
-        with pytest.raises(NotImplementedError, match="sharded serving"):
-            serve()
+    q = BackbonePolicy(cfg, device="cpu", quantize="int8", mesh=mesh1)
+    one = BackbonePolicy(cfg, device="cpu", quantize="int8")
+    toks = torch.arange(8, dtype=torch.int32).view(2, 4)
+    got, want = q.prefill(toks, 8), one.prefill(toks, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    caches = q.init_caches(2, 8)
+    assert caches.kv[0].k.shape == one.init_caches(2, 8).kv[0].k.shape
+    tree = q.params()
+    tree["backbone"]["layers"]["0"]["ln_mix"].requires_grad_()
+    with pytest.raises(NotImplementedError, match="serve only"):
+        q.seq(tree, toks.long())
     with pytest.raises(ValueError, match="tp 2"):
         BackbonePolicy(cfg, device="cpu", mesh=mesh1, tp=2)
     with pytest.raises(ValueError, match="needs 4 ranks"):

@@ -40,7 +40,7 @@ def launcher(split, n_split, S):
     def call(q, k, v, length):
         o = torch.empty_like(q)
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  length.data_ptr(), o.data_ptr(), B, S, H, K, hd,
+                  length.data_ptr(), o.data_ptr(), None, B, S, H, K, hd,
                   q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                   k.stride(2), v.stride(0), v.stride(1), v.stride(2), 1,
                   hd ** -0.5, split, n_split,
