@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (H100) and nvcc. It builds the port's kernels from
-``src/repro_torch/kernels/csrc`` and runs nineteen phases, each printing its
+``src/repro_torch/kernels/csrc`` and runs twenty-one phases, each printing its
 lines (and a ``[time]`` line after each, the script's seconds so far); any
 failure ends the run with a traceback and a non-zero exit:
 
@@ -33,6 +33,15 @@ failure ends the run with a traceback and a non-zero exit:
                  576, 100, 577, 1000 and at B 64, 1 to 20 query heads a KV
                  head at every head dim, strided cache and q views whose
                  two calls must agree bit for bit) at the same tolerances;
+                 and at jamba-v0.1-52b's long_500k cache (``LONG_S``
+                 524,288, H 32, K 8, hd 128) both routes, the plain one
+                 and ``with_lse`` (out and lse), at B 1 in bf16 and f32
+                 at the lengths S - 1, S / 2 and split - 1, split, split
+                 + 1 of ``flash_decode.plan``, and at B 4 in bf16 (element
+                 offsets past 2^31) at S - 1 and split + 1, q drawn at
+                 std 3 so that the softmax is peaked: bf16 at 2e-2, f32
+                 at 1e-4, both as atol = rtol and of the largest |out|,
+                 against the plain version taken a batch row at a time;
                  GAE f32 at 1e-5 (``GAE_CASES``: B 1 to 10,000, T 1 to
                  1000, two calls bit for bit);
                  SSD (y and h_last) bf16 at the serve shape at 2e-2 (two
@@ -200,9 +209,10 @@ failure ends the run with a traceback and a non-zero exit:
                  per step, tokens
                  per second, max_memory_allocated and a profile of one step
  15. moe+front   path F, MoE and the modality frontends: (a)
-                 jamba-v0.1-52b with int8 weights at full width (32 layers,
-                 d_model 4096, 16 experts top-2; built leaf by leaf, ~52 GB)
-                 in f32 as phase 4 runs it, the router's choices of both
+                 jamba-v0.1-52b with int8 weights at full width and depth
+                 ``MOE_DEPTH`` 8 (of 32 layers: one attention, seven SSM
+                 and four MoE layers; d_model 4096, 16 experts top-2) in
+                 f32 as phase 4 runs it, the router's choices of both
                  backends recorded (``RoutingLog``): logits within 1e-3,
                  and every token whose experts differ between the two runs
                  printed with its router-probability gap, which must be a
@@ -211,7 +221,7 @@ failure ends the run with a traceback and a non-zero exit:
                  quant_matmul launches a MoE layer and forward, one per
                  expert and weight (``serve_launches``), the experts' rows
                  (B x capacity) on the wgmma kernel (``serve_routes``), all
-                 28 ssd calls on the tensor cores; (c) musicgen-medium's
+                 7 ssd calls on the tensor cores; both at depth 8; (c) musicgen-medium's
                  f32 train gate as phase 14(b)'s at B 2 x T 320 (its
                  256-frame audio prefix and 64 tokens), then 10 bf16 steps
                  through the launcher at ``--seq 512`` (B 8), with 96
@@ -239,11 +249,10 @@ failure ends the run with a traceback and a non-zero exit:
                  for bit across two calls), and decode's shared memory as
                  ``flash_decode.plan`` reads it equal to the launcher's at
                  every instance; (b) both archs' f32 serve gates as phase 4
-                 runs them at full width and depth (34 and 48.6 GB of
-                 params), within 1e-3; (c) both served as phase 5 serves, in
-                 bf16 at full width and depth: 28 flash_attention a prefill
-                 (all on wgmma) and 1,764 flash_decode a generate for gemma,
-                 40 and 2,520 for stablelm; (d) each arch's f32 train gate
+                 runs them at full width and depth ``HD_SERVE_DEPTH`` 8,
+                 within 1e-3; (c) both served as phase 5 serves, in bf16 at
+                 full width and depth 8: 8 flash_attention a prefill (all
+                 on wgmma) and 504 flash_decode a generate for each; (d) each arch's f32 train gate
                  as phase 14(b)'s at depth ``HD_GATE_DEPTH`` 4, then 10 bf16
                  steps through the launcher at depth ``HD_TRAIN_DEPTH`` 8
                  (full width, B 8 x T 256; ``at_depth``), with 2L
@@ -316,6 +325,24 @@ failure ends the run with a traceback and a non-zero exit:
                  lse within 1e-4 of its magnitude); (d) one
                  ``launch.dryrun`` cell of each shape on jamba-v0.1-52b,
                  with its seconds
+ 20. conformance path K, the env-conformance harness on the card: the
+                 launcher's ``--ocean all --conformance`` (the 13 envs,
+                 nine checks each, ``jit_purity`` under sync debug mode
+                 "error") and ``--ocean duel --conformance --selfplay``,
+                 in this process, each of which must exit 0; the host
+                 profile over the ``thread`` backend on every
+                 ``OCEAN_HOST`` env; then one ``core/vector.py::autotune``
+                 line on squared at 64 envs x 16 steps (env steps/s of
+                 ``serial`` and ``vmap``). Any violation fails the run
+ 21. analysis    path L, ``python -m repro_torch.analysis --self`` in a
+                 subprocess must exit 0: the lint of ``src/repro_torch``
+                 against the empty baseline, and ``audit_all`` on cuda —
+                 the six kernels and the two backward kernels, the engine
+                 tiers and the 13 envs' steps, each once (after a warm-up
+                 call) under sync debug mode "error" — with zero
+                 violations and zero host syncs and device-to-host copies;
+                 prints each target's syncs, copies and f64 results from
+                 its JSON report
 
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. First, a line for each new head
@@ -357,8 +384,10 @@ Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 from __future__ import annotations
 
 import ast
+import contextlib
 import ctypes
 import gc
+import io
 import itertools
 import json
 import math
@@ -440,11 +469,14 @@ SLICE_ARCHS = ("internlm2-20b", "internvl2-26b", AUDIO_ARCH, MOE_ARCH,
                "dbrx-132b", "llama4-maverick-400b-a17b", "gemma-7b",
                "stablelm-12b")
 # path G, the head-dim slice: gemma-7b (hd 256, H 16, K 16) and
-# stablelm-12b (hd 160, H 32, K 8) served at full width and depth, trained
-# at full width and depth HD_GATE_DEPTH (f32 gate) and HD_TRAIN_DEPTH (bf16)
+# stablelm-12b (hd 160, H 32, K 8) served at full width and depth
+# HD_SERVE_DEPTH, trained at full width and depth HD_GATE_DEPTH (f32 gate)
+# and HD_TRAIN_DEPTH (bf16)
 HD_ARCHS = ("gemma-7b", "stablelm-12b")
 NEW_HEAD_DIMS = (160, 256)
 HD_GATE_DEPTH, HD_TRAIN_DEPTH = 4, 8
+HD_SERVE_DEPTH = 8        # of 28 and 40 layers: the script's time
+MOE_DEPTH = 8             # jamba's layers in phase 15(a-b) (of 32): time
 HD_PEAK_GIB = 70        # the depth-8 bf16 run's peak memory must stay below
 AUDIO_GATE_T = 320      # the f32 gate's T: the 256-frame prefix + 64 tokens
 AUDIO_SEQ = 512         # the launcher's --seq: 256 frames + 256 tokens
@@ -452,6 +484,7 @@ NEAR_TIE = 1e-4         # a routing flip's largest router-probability gap
 BATCH, PROMPT, NEW = 8, 512, 64
 INT4_DEPTH = 7            # int4 qwen3's layers in phase 5 (of 28): time
 GREEDY_STEPS = 16         # greedy decode steps run twice for determinism
+LONG_S = 524_288          # jamba-v0.1-52b's long_500k cache (phase 3)
 PEAK_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
@@ -920,6 +953,7 @@ def phase_parity(gen):
                 errs["flash_decode"] = max(errs["flash_decode"], err)
             cases += len(lengths)
         cases += fd_view_case(gen, dtype, tol)
+    cases += fd_long_cases()
     # GAE at the training shapes: (B, T) views of (T, B)-stored tensors, as
     # the learner passes them, and a ragged B
     for B, T in ((TRAIN_ENVS, TRAIN_UNROLL), (64, 64), (1000, 37)):
@@ -1113,6 +1147,56 @@ def fd_cases():
     return cases
 
 
+def fd_long_cases():
+    """Both routes of flash_decode at jamba's long_500k cache (B 1 in bf16
+    and f32, B 4 in bf16) against the plain version, which runs a batch row
+    at a time (an f32 copy of one row's cache is 2.1 GB); returns the
+    number of cases. The inputs come from a generator of their own, so the
+    phases after this one draw what they drew before these cases existed
+    (phase 4's mamba2 gate, at another draw, is PERF.md §7's open item)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    S, H, K, hd = LONG_S, 32, 8, 128
+    cases, errs = 0, {}
+    for B, dtype, tol in ((1, torch.bfloat16, 2e-2), (1, torch.float32, 1e-4),
+                          (4, torch.bfloat16, 2e-2)):
+        split, n_split = fd_plan(B, K, S)
+        lengths = (sorted({S - 1, S // 2, split - 1, split, split + 1})
+                   if B == 1 else [S - 1, split + 1])
+        q = (randn(gen, (B, H, hd), torch.float32) * 3).to(dtype)
+        k, v = (randn(gen, (B, S, K, hd), dtype) for _ in range(2))
+        for L in lengths:
+            length = torch.tensor(L, dtype=torch.int32, device="cuda")
+            rows = [ref.flash_decode(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                     length, with_lse=True) for b in range(B)]
+            want = torch.cat([o for o, _ in rows])
+            want_lse = torch.cat([lse for _, lse in rows])
+            o, lse = flash_decode(q, k, v, length, with_lse=True)
+            what = f"flash_decode long_500k B {B} length {L} {dtype}"
+            scale = float(want.abs().max())
+            got = {"plain": check_close(f"{what} plain route",
+                                        flash_decode(q, k, v, length),
+                                        want.to(dtype), tol),
+                   "lse route out": check_close(f"{what} lse route out", o,
+                                                want, tol),
+                   "lse": check_close(f"{what} lse", lse, want_lse, tol)}
+            for name in ("plain", "lse route out"):
+                if got[name] > tol * scale:
+                    raise AssertionError(f"{what} {name}: max abs err "
+                                         f"{got[name]} beyond {tol} of the "
+                                         f"largest |out| {scale}")
+            errs[f"B {B} {str(dtype)[6:]} L {L}"] = {
+                n: f"{e:.3g}" for n, e in got.items()} | {
+                "max |out|": f"{scale:.3g}"}
+            cases += 3
+        del q, k, v, rows
+        torch.cuda.empty_cache()
+    print(f"[3 parity] flash_decode at long_500k (S {S}, H {H}, K {K}, hd "
+          f"{hd}; split {fd_plan(1, K, S)[0]} x {fd_plan(1, K, S)[1]} at B "
+          f"1, {fd_plan(4, K, S)[0]} x {fd_plan(4, K, S)[1]} at B 4): "
+          f"both routes pass, max abs err {errs}", flush=True)
+    return cases
+
+
 def fd_view_case(gen, dtype, tol):
     """flash_decode on caches laid out (B, K, S, hd) and viewed as (B, S, K,
     hd), q a view of a wider row; two calls must give the same bits."""
@@ -1252,18 +1336,21 @@ def routing_flips(got, want):
     return decisions, p_err, flips
 
 
-def phase_full_width_f32(gen, arch, quantize=None, tag="4 full width"):
+def phase_full_width_f32(gen, arch, quantize=None, tag="4 full width",
+                         depth=None):
     """The cuda and ref backends on the same f32 params and tokens:
     last-token logits of a prefill and 4 teacher-forced decode steps
     within 1e-3. On an MoE arch the two runs' routing is compared too:
     every flip of a token's experts must be a near-tie (its router
-    probabilities within ``NEAR_TIE``), and each one is printed."""
+    probabilities within ``NEAR_TIE``), and each one is printed. ``depth``
+    cuts the number of layers (the widths stay the arch's)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg = with_overrides(get_config(arch), dtype="float32",
-                         param_dtype="float32")
+                         param_dtype="float32",
+                         **({"num_layers": depth} if depth else {}))
     policy = BackbonePolicy(cfg, generator=gen, quantize=quantize)
     B, T, steps = 2, 256, 4
     toks = torch.randint(0, cfg.vocab_size, (B, T + steps), generator=gen,
@@ -3444,16 +3531,18 @@ def phase_lm_train(gen):
 
 def phase_moe_frontends(gen):
     """Path F, MoE and the modality frontends: (a) jamba-v0.1-52b int8 at
-    full width, the f32 gate of cuda against ref with its routing compared;
-    (b) jamba served int8 in bf16 at B 8, prompt 512, 64 new tokens; (c)
+    full width and depth ``MOE_DEPTH``, the f32 gate of cuda against ref
+    with its routing compared; (b) jamba served so, int8 in bf16 at B 8,
+    prompt 512, 64 new tokens; (c)
     musicgen-medium's f32 train gate with its 256-frame prefix, then 10
     bf16 steps through the launcher at --seq 512; (d) each arch of the
     slice at smoke size: one generate and two train steps. Returns jamba's
     serve launches."""
     t0 = time.perf_counter()
     phase_full_width_f32(gen, MOE_ARCH, quantize="int8",
-                         tag="15 moe+frontends (a)")
-    launches = phase_serve(gen, MOE_ARCH, "int8", tag="15 moe+frontends (b)")
+                         tag="15 moe+frontends (a)", depth=MOE_DEPTH)
+    launches = phase_serve(gen, MOE_ARCH, "int8", tag="15 moe+frontends (b)",
+                           depth=MOE_DEPTH)
     lm_gate(AUDIO_ARCH, T=AUDIO_GATE_T, tag="15 moe+frontends (c)")
     lm_launcher_run(AUDIO_ARCH, seq=AUDIO_SEQ, tag="15 moe+frontends (c)")
     for arch in SLICE_ARCHS:
@@ -3532,8 +3621,8 @@ def phase_headdims(gen):
     both against their plain versions (forward and backward on the route
     each names, the backward bit for bit across two calls; decode's shared
     memory as ``plan`` reads it against the launcher's); (b) gemma-7b's and
-    stablelm-12b's f32 serve gates at full width and depth; (c) both served
-    in bf16 at full width and depth; (d) both archs' f32 train gates at
+    stablelm-12b's f32 serve gates at full width and depth
+    ``HD_SERVE_DEPTH``; (c) both served so in bf16; (d) both archs' f32 train gates at
     depth ``HD_GATE_DEPTH``, then 10 bf16 steps through the launcher at
     depth ``HD_TRAIN_DEPTH``, full width. Returns each arch's launches: a
     prefill's and a generate's attention, a train step's backward."""
@@ -3544,10 +3633,12 @@ def phase_headdims(gen):
     t0 = time.perf_counter()
     hd_parity(gen)
     for arch in HD_ARCHS:
-        phase_full_width_f32(gen, arch, tag="16 head dims (b)")
+        phase_full_width_f32(gen, arch, tag="16 head dims (b)",
+                             depth=HD_SERVE_DEPTH)
     launches = {}
     for arch in HD_ARCHS:
-        got = phase_serve(gen, arch, tag="16 head dims (c)")
+        got = phase_serve(gen, arch, tag="16 head dims (c)",
+                          depth=HD_SERVE_DEPTH)
         launches[arch] = {k: got[k] for k in ("flash_attention",
                                               "flash_decode")}
     for arch in HD_ARCHS:
@@ -3674,6 +3765,90 @@ def fd_line(gen, S, H, K, hd, n_sets, calls, note="", plain=False):
     return ms, lib_ms, flops, nbytes, fd_sets, fd_sdpa
 
 
+def phase_conformance():
+    """Path K (phase 20): the conformance harness on the card, through the
+    launcher and ``run_cli``; then one autotune line."""
+    from repro_torch.core.vector import autotune
+    from repro_torch.envs import conformance
+    for tag, argv in (("--ocean all", ["--ocean", "all"]),
+                      ("--selfplay duel", ["--ocean", "duel", "--selfplay"])):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            try:
+                launch_train.main(argv + ["--conformance", "--device",
+                                          "cuda"])
+                code = "no exit"
+            except SystemExit as e:
+                code = e.code
+        text = out.getvalue()
+        heads = [ln.split(" — ")[-1] for ln in text.splitlines()
+                 if ln.startswith("conformance report")]
+        if code != 0:
+            raise AssertionError(f"[20 conformance] {tag}: exit {code}\n"
+                                 f"{text[-6000:]}")
+        print(f"[20 conformance] launcher {tag} --conformance on cuda: exit "
+              f"0, {len(heads)} reports ({', '.join(heads)}) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = conformance.run_cli("all", host=True, host_backend="thread")
+    heads = [ln.split(" — ")[-1] for ln in out.getvalue().splitlines()
+             if ln.startswith("conformance report")]
+    if rc != 0 or len(heads) != len(OCEAN_HOST):
+        raise AssertionError(f"[20 conformance] host profile: exit {rc}\n"
+                             f"{out.getvalue()[-6000:]}")
+    print(f"[20 conformance] host profile on threads: {', '.join(heads)}",
+          flush=True)
+    rates, best = autotune(Emulated(OCEAN["squared"]()), 64, steps=16,
+                           device="cuda")
+    print(f"[20 conformance] autotune squared, 64 envs x 16 steps on cuda: "
+          f"serial {rates['serial']:.1f}, vmap {rates['vmap']:.1f} env "
+          f"steps/s; best {best}", flush=True)
+
+
+def phase_analysis():
+    """Path L (phase 21): ``python -m repro_torch.analysis --self`` must exit
+    0: the lint against the empty baseline, and ``analysis.audit_all`` on
+    the card with no violation and no host sync or device-to-host copy
+    anywhere. Each target's counts come from its JSON report."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--self", "--format",
+         "json", "--device", "cuda"], cwd=ROOT, capture_output=True,
+        text=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    try:
+        report = json.loads(r.stdout)
+    except json.JSONDecodeError:
+        report = None
+    if r.returncode != 0 or report is None:
+        why = (r.stdout[-4000:] if report is None else json.dumps(
+            {"findings": report["findings"],
+             "violations": report["audit"]["violations"]}, indent=1))
+        raise AssertionError(f"[21 analysis] --self exit {r.returncode}:\n"
+                             f"{why}\n{r.stderr[-4000:]}")
+    audit = report["audit"]
+    counts = audit["counts"]
+    if (not counts or audit["violations"]
+            or audit["passed"] != audit["targets"]
+            or any(c["syncs"] or c["copies"] for c in counts)):
+        raise AssertionError("[21 analysis] audit_all on cuda:\n" +
+                             json.dumps(audit, indent=1))
+    kernels = [c["target"] for c in counts
+               if c["target"].startswith("kernel:")]
+    print(f"[21 analysis] python -m repro_torch.analysis --self: exit 0, "
+          f"{len(report['findings'])} findings, {report['grandfathered']} "
+          f"baselined, in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[21 analysis] audit_all on cuda: {len(counts)} targets, 0 "
+          f"violations, {len(kernels)} kernel targets ({', '.join(kernels)});"
+          f" syncs, copies, f64 each: " + "; ".join(
+              f"{c['target']}: syncs {c['syncs']}, copies {c['copies']}, "
+              f"f64 {c['f64']}" + (f" (allowed: {c['allowed']})"
+                                   if c["allowed"] else "")
+              for c in counts), flush=True)
+
+
 def kernel_rows(gen, launches, errs, hd_launches):
     """Times at the main paths' shapes: kernel, plain version, library call
     (SDPA for attention; none for GAE and SSD), and bound. First a line for
@@ -3689,14 +3864,15 @@ def kernel_rows(gen, launches, errs, hd_launches):
         *_, sets = fa_line(gen, BATCH, PROMPT, cfg.num_heads,
                            cfg.num_kv_heads, cfg.head_dim, 32,
                            f"; {n['flash_attention']} launches a {arch} "
-                           f"prefill", plain=True)
+                           f"prefill at depth {HD_SERVE_DEPTH}", plain=True)
         del sets
         G = cfg.num_heads // cfg.num_kv_heads
         split, n_split = fd_plan(BATCH, cfg.num_kv_heads, PROMPT + NEW, SMS,
                                  cfg.head_dim, 2, G)
         *_, sets, _ = fd_line(
             gen, PROMPT + NEW, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            6, 64, f"; {n['flash_decode']} launches a {arch} generate; plan "
+            6, 64, f"; {n['flash_decode']} launches a {arch} generate at "
+            f"depth {HD_SERVE_DEPTH}; plan "
             f"{n_split} blocks of {split} positions a (batch, KV head), the "
             f"card holding {fd_max_clusters(n_split, G, cfg.head_dim)} such "
             f"clusters at once", plain=True)
@@ -4235,6 +4411,10 @@ def main():
     lap("18 lm shard")
     lse, lse_launches, lse_err = phase_serve_shard()
     lap("19 serve shard")
+    phase_conformance()
+    lap("20 conformance")
+    phase_analysis()
+    lap("21 analysis")
     rows = kernel_rows(gen, launches, errs, hd_launches) + bwd_rows(
         gen, lm_launches, lm_errs, hd_launches) + [kernel_row(
             lse, {"flash_decode_lse": lse_launches},

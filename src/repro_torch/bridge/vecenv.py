@@ -4,8 +4,8 @@
 emulation specs from ``core/emuspec``, and return a ``HostVecEnv`` whose
 batches look exactly like the device ``VecEnv``'s — flat f32 observations
 of stable shape, flat emulated actions, autoreset with ``valid == done``
-episode stats — so the policy and the learner never notice the env lives
-on the host. The counterpart of ``repro/bridge/vecenv.py``.
+episode stats — so the policy, the learner and the conformance harness
+never notice the env lives on the host. The counterpart of ``repro/bridge/vecenv.py``.
 
 Two usage modes, mirroring ``core/pool.py`` vs ``core/vector.py``:
 
@@ -15,7 +15,7 @@ Two usage modes, mirroring ``core/pool.py`` vs ``core/vector.py``:
     drives.
   * sync (num_envs == batch_size): deterministic wait-for-all rows, the
     Gymnasium/SB3 baseline; ``reset()``/``step()`` convenience methods give
-    the classic loop for tests.
+    the classic loop for tests and the conformance host profile.
 
 The module imports no torch: ``make_host_engine`` imports the engine where
 it runs.
@@ -51,7 +51,8 @@ class HostVecEnv:
                  single_action_space: sp.Space, num_agents: int = 1,
                  recv_timeout: Optional[float] = None,
                  backend: str = "thread",
-                 spin: Optional["_shm.SpinConfig"] = None):
+                 spin: Optional["_shm.SpinConfig"] = None,
+                 horizon: Optional[int] = None):
         self.num_envs = len(env_fns)            # M simulated envs
         self.batch_envs = int(batch_size)       # N envs per batch
         self.num_agents = int(num_agents)
@@ -66,6 +67,7 @@ class HostVecEnv:
                              if act_spec.kind == "discrete"
                              else sp.Box((act_spec.cont_dim,)))
         self.backend = backend
+        self.horizon = horizon
         A = self.num_agents
         # per-env slab rows, sized from the emulation specs (used by the
         # proc backend; harmless metadata under threads)
@@ -108,7 +110,7 @@ class HostVecEnv:
                                       + actions.shape[1:])
         self.pool.send(actions, env_ids)
 
-    # -- sync convenience (tests, sync baselines) ------------------------------
+    # -- sync convenience (tests, conformance, sync baselines) ----------------
     def reset(self, timeout=_UNSET):
         """First observations (construction already queued the resets)."""
         assert self._ids is None, "reset() after stepping; build a fresh env"
@@ -136,7 +138,8 @@ def wrap(env_fn: Union[Callable, object], num_envs: int = 1,
          api: Optional[str] = None, pad_to: Optional[int] = None,
          recv_timeout: Optional[float] = TrainConfig.host_recv_timeout,
          backend: str = "thread",
-         spin: Optional["_shm.SpinConfig"] = None) -> HostVecEnv:
+         spin: Optional["_shm.SpinConfig"] = None,
+         horizon: Optional[int] = None) -> HostVecEnv:
     """One-line wrapper: any host env factory → a trainable ``HostVecEnv``.
 
         venv = bridge.wrap(lambda: MyGymEnv(), num_envs=8)
@@ -147,7 +150,8 @@ def wrap(env_fn: Union[Callable, object], num_envs: int = 1,
     ``num_envs``/``batch_size`` — M simulated / N batched; defaults give the
     synchronous baseline, ``num_envs=2 * batch_size`` the paper's
     double-buffered async pool. ``pad_to`` — pad pettingzoo agent rows to a
-    fixed larger count.
+    fixed larger count; ``horizon`` — declared episode bound (defaults to
+    the env's ``horizon`` attribute), used by the conformance host profile.
     ``recv_timeout`` — default bound on every ``recv``/``reset``/``step``
     wait (``TrainConfig.host_recv_timeout``, 60 s): a hung host env raises
     ``TimeoutError`` instead of deadlocking; ``None`` waits forever.
@@ -202,7 +206,9 @@ def wrap(env_fn: Union[Callable, object], num_envs: int = 1,
         obs_spec=obs_spec, act_spec=act_spec,
         single_observation_space=obs_space, single_action_space=act_space,
         num_agents=num_agents,
-        recv_timeout=recv_timeout, backend=backend, spin=spin)
+        recv_timeout=recv_timeout, backend=backend, spin=spin,
+        horizon=horizon if horizon is not None
+        else getattr(probe, "horizon", None))
 
 
 def make_host_engine(env_fn, tcfg, *, hidden: int = 64,

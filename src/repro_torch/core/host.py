@@ -217,7 +217,7 @@ class HostPool:
                 try:
                     if deadline is None:
                         # explicit timeout=None: a deliberate wait-forever
-                        it = self._ready.get()
+                        it = self._ready.get()  # repro_torch: noqa[BLOCKING-NO-TIMEOUT] — the caller passed timeout=None
                     else:
                         remaining = deadline - time.monotonic()
                         if remaining <= 0:

@@ -250,6 +250,7 @@ def _reduce_scatter(g, dim: int, group):
     if isinstance(group, VirtualGroup):
         out = g.chunk(n)[0].clone()
     elif dist.get_backend(group) == "gloo":
+        g = g.clone()       # at dim 0 ``g`` is the incoming gradient itself
         dist.all_reduce(g, group=group)
         out = g.chunk(n)[_group_index(group)]
     else:

@@ -364,6 +364,22 @@ cudaError_t allow_smem(F kern, int bytes, unsigned long long& done) {
   return err;
 }
 
+// Make the current device's primary context current on the calling thread.
+// CUDA's cuTensorMapEncodeTiled needs a current context, and a thread
+// that has launched nothing yet (autograd's device thread, say, or a worker)
+// may have none: torch does not set a device that is already the thread's
+// default, so no runtime call has bound one. Called before every encode; it
+// binds once per thread and device, so later calls cost one cudaGetDevice.
+inline cudaError_t bind_context() {
+  thread_local int bound = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev == bound) return err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) bound = dev;
+  return err;
+}
+
 // cuTensorMapEncodeTiled from the driver, found through the runtime (no
 // link against libcuda); null where the driver lacks it.
 inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {

@@ -1184,6 +1184,7 @@ cudaError_t make_maps(CUtensorMap* tx, CUtensorMap* tw, const void* x,
                       long long ldw) {
   auto encode = rt::tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  if (cudaError_t err = rt::bind_context()) return err;
   const cuuint32_t one[2] = {1, 1};
   const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t xs[1] = {(cuuint64_t)sxm * sizeof(bf16)};

@@ -159,6 +159,7 @@ inline cudaError_t make_map(CUtensorMap* map, int* ord, const void* base,
                             long long s_batch) {
   auto encode = rt::tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  if (cudaError_t err = rt::bind_context()) return err;
   struct Dim {
     long long stride;
     int n, what;

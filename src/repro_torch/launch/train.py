@@ -18,6 +18,8 @@ PPO.
   PYTHONPATH=src python -m repro_torch.launch.train --ocean duel \\
       --selfplay --league-dir league [--snapshot-every 10] \\
       [--strategy prioritized]
+  PYTHONPATH=src python -m repro_torch.launch.train --ocean all \\
+      --conformance [--selfplay] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --batch 8 --seq 256 --steps 20 [--smoke] [--ckpt-dir ckpts --resume]
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
@@ -74,8 +76,11 @@ step lines, then ``world_size=… mesh=… collectives={…}`` (the
 collectives a step, by kind). A batch the data size does not divide is
 refused. Training takes float weights (quantised weights on a mesh
 serve only: ``BackbonePolicy(mesh=, quantize=)``, ``rl/actor.py``).
-Runs on the card unless ``--device cpu``. The counterpart of
-``repro/launch/train.py`` without ``--conformance``.
+Runs on the card unless ``--device cpu``. ``--conformance`` runs the
+env-conformance harness (``envs/conformance.py``) on the ``--ocean``
+env(s) instead of training, the competitive-env profile with
+``--selfplay``, and exits 1 on any violation. The counterpart of
+``repro/launch/train.py``.
 
 The module imports no torch at its top: ``--host-backend proc``, the async
 tier and ``--devices`` spawn processes, and spawn re-imports this module in
@@ -104,6 +109,9 @@ def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ocean", default=None,
                     help="ocean env name(s, comma-separated) or 'all'")
+    ap.add_argument("--conformance", action="store_true",
+                    help="run the env-conformance harness on the --ocean "
+                         "env(s) instead of training; exit 1 on violations")
     ap.add_argument("--host-env", default=None,
                     help="host-mirror env name(s, comma-separated) or 'all' "
                          "(envs/ocean_host.py), trained through bridge.wrap "
@@ -697,8 +705,9 @@ def _spawn(args, argv, ap, dev):
     # read while joining: rank 0's put must never wait on a full pipe
     while not ranks.join(timeout=0.5):
         if res is None and not out.empty():
-            res = out.get()
-    return out.get() if res is None else res
+            res = out.get()  # repro_torch: noqa[BLOCKING-NO-TIMEOUT] — not empty
+    # every rank exited cleanly (join raises otherwise): rank 0's result is in
+    return out.get() if res is None else res  # repro_torch: noqa[BLOCKING-NO-TIMEOUT]
 
 
 def _dispatch(args, ap):
@@ -718,6 +727,13 @@ def main(argv=None):
     ap = _parser()
     argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
+    if args.conformance:
+        if not args.ocean:
+            ap.error("--conformance requires --ocean <name(s)|all>")
+        # --selfplay routes to the competitive-env (league) profile
+        from repro_torch.envs.conformance import run_cli
+        raise SystemExit(run_cli(args.ocean, seed=args.seed,
+                                 selfplay=args.selfplay, device=args.device))
     if args.mesh != "1x1" and args.arch is None:
         ap.error(f"--mesh {args.mesh}: the Ocean tiers take 1x1; a mesh "
                  f"lays out --arch training")

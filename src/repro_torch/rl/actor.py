@@ -38,8 +38,8 @@ def categorical(logits, generator: torch.Generator, rows=None):
     return torch.argmax(logits.float() + gumbel, dim=-1).to(torch.int32)
 
 
-def _sample(policy, logits, generator, temperature=1.0, greedy=False,
-            context_parallel=False):
+def _sample(policy, logits, generator, temperature: float = 1.0,
+            greedy: bool = False, context_parallel: bool = False):
     """(B, 1) int32 tokens of the global batch from this rank's logits."""
     plan = getattr(policy, "plan", None)
     if plan is None:
@@ -50,10 +50,11 @@ def _sample(policy, logits, generator, temperature=1.0, greedy=False,
         logits = _plan.gather_nograd(logits, -1, "model")
         n = logits.shape[0]
         split = not context_parallel and plan.dp > 1
-        rows = (plan.dp_index * n, plan.dp * n) if split else None
+        # ``split`` is a host bool of the plan's layout, not a tensor
+        rows = (plan.dp_index * n, plan.dp * n) if split else None  # repro_torch: noqa[HOST-SYNC]
         tok = torch.argmax(logits, dim=-1).to(torch.int32) if greedy else \
             categorical(logits / temperature, generator, rows)
-        if split:
+        if split:  # repro_torch: noqa[HOST-SYNC] — a host bool, as above
             tok = _plan.gather_nograd(tok, 0, "data")
         return tok[:, None]
 

@@ -54,7 +54,8 @@ def init_train_state(params, state_dtype=torch.float32) -> TrainState:
                       torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _check_divisible(n, M, num_envs, unroll_length, what):
+def _check_divisible(n: int, M: int, num_envs: int, unroll_length: int,
+                     what: str):
     if n % M != 0:
         raise ValueError(
             f"{what} ({n}) is not divisible by num_minibatches={M} "

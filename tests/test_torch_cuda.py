@@ -1012,7 +1012,7 @@ def test_flash_decode_smem_matches_the_plan_mirror():
                         fd.smem_bytes(n, hd, elem, G), (hd, elem, n, G)
 
 
-# -- the data-parallel tier (shard_map) at world size 1 over NCCL ----------------
+# -- the data-parallel tier (shard_map) at world size 1 over NCCL -------------
 
 def _shard_engine(name, backend, selfplay):
     from repro_torch.league.selfplay import SelfPlay
@@ -1089,7 +1089,7 @@ def test_launcher_profile_names_the_gae_kernel(tmp_path):
     assert sum("gae_kernel" in n for n in names) >= 2, names[:20]
 
 
-# -- the LM plan at world size 1 over NCCL, and remat="dots" -------------------
+# -- the LM plan at world size 1 over NCCL, and remat="dots" ------------------
 
 def _lm_cfg(arch, **kw):
     from repro_torch.configs import with_overrides
@@ -1166,3 +1166,64 @@ def test_remat_dots_gradients_match_full_on_the_kernels(arch, no_tf32):
     for g, w in zip(grads["dots"], grads["full"]):
         assert float((g - w).abs().max()) <= 1e-5 * max(
             float(w.abs().max()), 1e-30)
+
+
+# -- kernels first called from a new thread, the audit and conformance --------
+
+def test_tma_kernels_launch_first_from_a_new_thread(no_tf32):
+    """CUDA's tensor-map encoder needs a current context, which a
+    thread that has launched nothing yet (autograd's device thread) may
+    lack: the wgmma attention backward and forward and quant_matmul's
+    wgmma route, each first called from a fresh thread (and then once more
+    there, where the context is already bound), and the backward through
+    autograd at a small shape, held to the plain version."""
+    import threading
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    q = _randn(rng, (1, 64, 4, 128), bf)
+    k, v = (_randn(rng, (1, 64, 2, 128), bf) for _ in range(2))
+    do = _randn(rng, (1, 64, 4, 128), bf)
+    from repro_torch.kernels import flash_attention as fa
+    o, lse = fa.flash_attention_fwd(q, k, v, True, with_lse=True)
+    x = _randn(rng, (512, 1024), bf)
+    w = torch.from_numpy(rng.integers(-127, 128, (1024, 1024),
+                                      dtype=np.int8)).cuda()
+    s = torch.from_numpy(rng.random(1024, dtype=np.float32) * 0.02).cuda()
+    errors = []
+
+    def run(f):
+        try:
+            f()
+            f()
+            torch.cuda.synchronize()
+        except Exception as e:          # noqa: BLE001 — reported below
+            errors.append(e)
+
+    for f in (lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
+              lambda: fa.flash_attention_fwd(q, k, v, True, with_lse=True),
+              lambda: qmm.quant_matmul(x, w, s)):
+        t = threading.Thread(target=run, args=(f,))
+        t.start()
+        t.join()
+    assert not errors, errors
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*ins, causal=True), ins, do)
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                   do.float(), causal=True)
+    scale = max(float(g.abs().max()) for g in want)
+    for g, r in zip(got, want):
+        assert float((g.float() - r).abs().max()) <= TOL[bf] * scale
+
+
+def test_audit_all_on_cuda_is_clean():
+    from repro_torch.analysis import audit_all
+    audits = audit_all(device="cuda")
+    assert [v.render() for a in audits for v in a.violations] == []
+    assert all(a.syncs == 0 and a.copies == 0 for a in audits)
+    assert sum(a.target.startswith("kernel:") for a in audits) == 8
+
+
+def test_conformance_on_cuda():
+    from repro_torch.envs.conformance import run_cli
+    assert run_cli("all", device="cuda") == 0
+    assert run_cli("duel", selfplay=True, device="cuda") == 0

@@ -570,3 +570,48 @@ def test_the_plan_refuses_what_it_cannot_take(mesh1, capsys):
     with pytest.raises(SystemExit):
         launch_train.main(base + ["--devices", "2"])
     assert "pass one" in capsys.readouterr().err
+
+
+# -- the gloo reduce-scatter leaves its input as it was ----------------------------
+
+REDUCE_SCATTER = r'''
+import datetime, sys
+import torch
+import torch.distributed as dist
+
+rank, port = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+from repro_torch.distributed import plan
+ok = True
+for dim in (0, 1):
+    g = torch.arange(24, dtype=torch.float32).view(4, 6) * (rank + 1)
+    if dim == 1:
+        g = g.T.contiguous()
+    before = g.clone()
+    out = plan._reduce_scatter(g, dim, dist.group.WORLD)
+    want = (torch.arange(24, dtype=torch.float32).view(4, 6) * 3)
+    want = want.chunk(2)[rank] if dim == 0 else want.T.chunk(2, dim=1)[rank]
+    ok &= torch.equal(g, before) and torch.equal(out, want.contiguous())
+dist.destroy_process_group()
+sys.exit(0 if ok else 3)
+'''
+
+
+def test_gloo_reduce_scatter_leaves_its_input_unchanged(tmp_path):
+    """``plan._reduce_scatter`` on 2 gloo ranks, the gradient split along dim
+    0 (where ``movedim(0, 0).contiguous()`` is the tensor itself) and dim 1:
+    each rank's block of the sum, and the incoming tensor unchanged."""
+    import socket
+    script = tmp_path / "rs.py"
+    script.write_text(REDUCE_SCATTER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), port],
+                              env=env, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    errs = [p.communicate(timeout=120)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], errs

@@ -104,7 +104,10 @@ def test_port_imports_no_jax_and_no_repro():
         " 'repro_torch.telemetry.benchwatch',"
         " 'repro_torch.telemetry.__main__',"
         " 'repro_torch.distributed.sharding', 'repro_torch.launch.mesh',"
-        " 'repro_torch.distributed.plan'}\n"
+        " 'repro_torch.distributed.plan', 'repro_torch.envs.conformance',"
+        " 'repro_torch.analysis', 'repro_torch.analysis.__main__',"
+        " 'repro_torch.analysis.dispatch_audit', 'repro_torch.analysis.lint',"
+        " 'repro_torch.analysis.rules', 'repro_torch.analysis.targets'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
