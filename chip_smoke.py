@@ -16,7 +16,8 @@ failure ends the run with a traceback and a non-zero exit:
                  registers and spills
                  (none allowed in the serve-path instances, the bf16
                  forward and decode at hd 160 and 256 among them, nor in
-                 flash_attention_bwd's wgmma kernels at hd 128 nor in
+                 flash_attention_bwd's wgmma kernels at hd 128, 160 and
+                 256 nor in
                  ssd_bwd's tensor-core kernel, ``NO_SPILLS``), and
                  ``cuobjdump -sass`` of the
                  built libraries counts tensor-core (HMMA, HGMMA) and
@@ -245,7 +246,9 @@ failure ends the run with a traceback and a non-zero exit:
                  both archs' caches at lengths 0, mid and S - 1, a whole
                  cluster, G 8) and the backward (``FA_BWD_CASES`` at those
                  head dims: both archs' training shapes, ragged T, T = 1,
-                 S != T, non-causal, an odd group; on the CUDA cores, bit
+                 S != T, non-causal, an odd group, T and S off the
+                 64-row tile; on wgmma in bf16, its two consumers
+                 splitting the head dim, and on the CUDA cores in f32, bit
                  for bit across two calls), and decode's shared memory as
                  ``flash_decode.plan`` reads it equal to the launcher's at
                  every instance; (b) both archs' f32 serve gates as phase 4
@@ -256,8 +259,8 @@ failure ends the run with a traceback and a non-zero exit:
                  as phase 14(b)'s at depth ``HD_GATE_DEPTH`` 4, then 10 bf16
                  steps through the launcher at depth ``HD_TRAIN_DEPTH`` 8
                  (full width, B 8 x T 256; ``at_depth``), with 2L
-                 flash_attention, L flash_attention_bwd (all on the CUDA
-                 cores) and 1 gae launch a step and a peak memory below
+                 flash_attention, L flash_attention_bwd (all on wgmma)
+                 and 1 gae launch a step and a peak memory below
                  ``HD_PEAK_GIB`` 70 GiB
  17. shard       path H, the data-parallel ``shard_map`` tier at world size
                  1 over NCCL: (a) squared's preset and duel self-play (a
@@ -625,11 +628,14 @@ FA_BWD_CASES = (
     (2, 200, 200, 16, 16, 256, True), (2, 130, 130, 32, 8, 160, True),
     (2, 1, 1, 16, 16, 256, True), (2, 100, 300, 8, 2, 160, True),
     (2, 190, 77, 4, 4, 256, True), (2, 130, 200, 8, 4, 160, False),
-    (2, 96, 96, 6, 2, 256, True))
+    (2, 96, 96, 6, 2, 256, True), (2, 65, 65, 8, 8, 256, True),
+    (1, 77, 190, 8, 4, 160, True))
 # the same with q, k, v views of one fused projection and a transposed,
 # non-contiguous do (TMA reads both as they lie)
 FA_BWD_VIEWS = ((2, 150, 150, 16, 8, 128, True),
-                (2, 150, 150, 16, 2, 64, True))
+                (2, 150, 150, 16, 2, 64, True),
+                (2, 150, 150, 16, 16, 256, True),   # phase 16
+                (2, 150, 150, 32, 8, 160, True))
 # mamba2's SSD at the training shape (B, T) and the backward's edge cases
 # (B, T, H, P, N, G, x a view, dh_last given): ragged T, T = 1, stride-0
 # B_/C, x a view, two and three groups, head dim and state 128; for the
@@ -744,7 +750,8 @@ def phase_build():
 # (16, 32) and its f32 kernels; quant_matmul's bf16 decode kernels by
 # layout, weight and m-tiles (MT 1 serves M <= 8), its wgmma prefill
 # kernel and its CUDA-core tiles; flash_attention_bwd's dq and dk/dv
-# kernels on wgmma (bf16 at head dims 64, 128) or the CUDA cores.
+# kernels on wgmma (bf16 at head dims 64, 128, 160, 256) or the CUDA
+# cores.
 FA_ROUTE = {"wg": "bf16 wgmma", "tc": "bf16 mma.sync", None: "f32 CUDA cores"}
 QMM_TYPE = {"0": "int8", "1": "int4"}
 
@@ -809,9 +816,9 @@ SASS_NEEDS = {
                         "bf16 wgmma": (4, (("HGMMA",), ("UTMALDG",)))},
     "quant_matmul": {"bf16 decode": (8, (("HMMA",), ("LDGSTS",))),
                      "bf16 wgmma": (2, (("HGMMA",), ("UTMALDG",)))},
-    # flash_attention_bwd's wgmma route (dq and dk/dv at hd 64 and 128);
-    # ssd_bwd's tensor-core route (mma.sync fed by cp.async)
-    "flash_attention_bwd": {"bf16 wgmma": (4, (("HGMMA",), ("UTMALDG",)))},
+    # flash_attention_bwd's wgmma route (dq and dk/dv at hd 64, 128, 160
+    # and 256); ssd_bwd's tensor-core route (mma.sync fed by cp.async)
+    "flash_attention_bwd": {"bf16 wgmma": (8, (("HGMMA",), ("UTMALDG",)))},
     "ssd_bwd": {"bf16 tensor cores": (1, (("HMMA", "HGMMA"),
                                           ("LDGSTS", "UTMALDG")))},
 }
@@ -828,7 +835,11 @@ NO_SPILLS = {"ssd": ("bf16 tensor cores",),     # mamba2's P 64 among them
                               "bf16 wgmma prefill int8",
                               "bf16 wgmma prefill int4"),
              "flash_attention_bwd": ("bf16 wgmma dq hd 128",
-                                     "bf16 wgmma dkdv hd 128"),
+                                     "bf16 wgmma dkdv hd 128",
+                                     "bf16 wgmma dq hd 160",
+                                     "bf16 wgmma dkdv hd 160",
+                                     "bf16 wgmma dq hd 256",
+                                     "bf16 wgmma dkdv hd 256"),
              "ssd_bwd": ("bf16 tensor cores",)}     # mamba2's training call
 
 
@@ -3428,11 +3439,13 @@ def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)", depth=None):
     if any(launches[k] != n * LM_STEPS for k, n in per_step.items()):
         raise AssertionError(f"{arch}: launches {launches} over {LM_STEPS} "
                              f"steps, expected {per_step} a step")
-    # every attention backward of a bf16 train step on the route its head
-    # dim takes: wgmma at 64 and 128, the CUDA cores at 160 and 256
-    route = bwd_route(torch.bfloat16, cfg.head_dim)
-    want_routes = {r: attn * LM_STEPS * (r == route)
-                   for r in ("wgmma", "cuda_core")}
+    # every attention backward of a bf16 train step on wgmma, at every
+    # head dim an arch has (64, 128, 160, 256)
+    if bwd_route(torch.bfloat16, cfg.head_dim) != "wgmma":
+        raise AssertionError(f"{arch}: bwd_route names "
+                             f"{bwd_route(torch.bfloat16, cfg.head_dim)} "
+                             f"at hd {cfg.head_dim}, not wgmma")
+    want_routes = {"wgmma": attn * LM_STEPS, "cuda_core": 0}
     if bwd_routes != want_routes:
         raise AssertionError(f"{arch}: flash_attention_bwd routes "
                              f"{bwd_routes} over {LM_STEPS} steps, expected "
@@ -3475,11 +3488,10 @@ def lm_launcher_run(arch, seq=LM_SEQ, tag="14 lm train (c)", depth=None):
     def one():
         state["ts"], _ = run.step(state["ts"], batch)
 
-    bwd = ("fa_bwd_wg_dq_kernel", "fa_bwd_wg_dkdv_kernel") \
-        if route == "wgmma" else ("fa_bwd_dq_kernel", "fa_bwd_dkdv_kernel")
     profile_steps(tag, f"{cfg.name} train step", one, 1, step_ms,
-                  bwd + ("flash_attention_wg_kernel", "ssd_bwd_tc_kernel",
-                         "ssd_bwd_da_kernel", "ssd_tc_kernel", "gae_kernel"))
+                  ("fa_bwd_wg_dq_kernel", "fa_bwd_wg_dkdv_kernel",
+                   "flash_attention_wg_kernel", "ssd_bwd_tc_kernel",
+                   "ssd_bwd_da_kernel", "ssd_tc_kernel", "gae_kernel"))
     del run, state, batch
     torch.cuda.empty_cache()
     return per_step
@@ -3503,6 +3515,8 @@ def phase_lm_train(gen):
                 errs["flash_attention_bwd"] = err
             cases += 1
         for shape in FA_BWD_VIEWS:
+            if shape[5] in NEW_HEAD_DIMS:
+                continue                    # phase 16
             fa_bwd_case(gen, shape, dtype, tol, view=True)
             cases += 1
         for shape in SSD_BWD_CASES:
@@ -3679,6 +3693,10 @@ def hd_parity(gen):
             if shape[0] == LM_BATCH:
                 errs[f"flash_attention_bwd hd {shape[5]} {dtype}"] = err
             cases += 1
+        for shape in FA_BWD_VIEWS:
+            if shape[5] in NEW_HEAD_DIMS:
+                fa_bwd_case(gen, shape, dtype, tol, view=True)
+                cases += 1
     # the decode split's shared memory: plan's mirror against the launcher's
     smem = build.load("flash_decode").flash_decode_smem
     smem.argtypes = [ctypes.c_int] * 4
@@ -3693,8 +3711,10 @@ def hd_parity(gen):
     sync()
     print(f"[16 head dims (a)] {cases} cases at hd 160 and 256 pass "
           f"(flash_attention on the route fwd_route names, flash_decode, "
-          f"flash_attention_bwd on the CUDA cores bit for bit across two "
-          f"calls; bf16 at 2e-2, f32 at 1e-4 with TF32 off), decode's shared "
+          f"flash_attention_bwd on the route bwd_route names, wgmma in "
+          f"bf16 and the CUDA cores in f32, bit for bit across two calls "
+          f"and, as views of a fused projection, against contiguous copies; "
+          f"bf16 at 2e-2, f32 at 1e-4 with TF32 off), decode's shared "
           f"memory as plan reads it equals the launcher's, in "
           f"{time.perf_counter() - t0:.1f} s; max abs err at the serve and "
           f"training shapes: { {k: f'{v:.3g}' for k, v in errs.items()} }",

@@ -24,38 +24,73 @@
 // K 8, hd 128, causal, bf16) the seven products over the causal pairs (S
 // and dP in both kernels, dV, dK, dQ) are 7.5 GFLOP, 7.6 us at 989
 // TFLOP/s of bf16 tensor cores, and moving q, k, v, o, do once and writing
-// dq, dk, dv is ~50 MB, 15 us at 3.35 TB/s: bytes bound it. Two routes;
+// dq, dk, dv is ~50 MB, 15 us at 3.35 TB/s: bytes bound it. At gemma-7b's
+// (H 16, K 16, hd 256) the bytes are 134 MB (40 us) and the seven products
+// 15 GFLOP (15 us); at stablelm-12b's (H 32, K 8, hd 160) 105 MB (31 us)
+// and 19 GFLOP (19 us). Two routes;
 // the launcher counts the one each call took (flash_attention_bwd_routes):
 //
-// wgmma, bf16 at head dims 64 and 128 (the training path; wgb::), after
-// FlashAttention-3's backward without its dq atomics. Two kernels, one
+// wgmma, bf16 at head dims 64, 128, 160 and 256 (the training path; wgb::),
+// after FlashAttention-3's backward without its dq atomics. Two kernels, one
 // after the other on the stream, each a producer warpgroup and two
 // consumer warpgroups (setmaxnreg: producer 24 registers, consumers 240);
-// one producer lane issues every TMA copy (128-byte swizzle, 64-row boxes,
-// rows past T or S arrive as zeros) into a 2-stage ring paced by mbarriers
-// ("full" per stage, "empty" once all 8 consumer warps are done with it).
-//  1. dq (the forward's layout): each consumer owns 64 query rows of one
-//     head (the two heads of a GQA pair where G is even, else two 64-row
-//     tiles of one head), loads its Q and dO tiles once, computes D for its
-//     rows from dO and the forward's o, and writes D and lse log2 e to a
-//     scratch whose rows are padded to a multiple of 64 (pad: D 0, lse
-//     1e30, so P = 0 there). The producer streams 64-row K and V tiles of
-//     the key range the mask leaves the block. S = Q K^T and dP = dO V^T by
-//     SS wgmma m64n64k16 (both operands K-major), P = exp2(S scale log2 e -
-//     lse log2 e), dS = P (dP - D) on the accumulator fragments; dQ += dS K
-//     by RS wgmma m64nHDk16, dS going from the accumulator fragments to the
-//     A fragments in registers (bf16) and K read MN-major from the same
-//     tile. Query tiles are launched heaviest first.
-//  2. dk, dv: a block owns 128 keys of one KV head; each consumer 64 of
-//     them, whose K and V tiles it loads once. The producer streams 64-row
-//     Q and dO tiles, with their rows of the scratch (lse log2 e and D, by
-//     bulk copy), for every query head of the group and only the query
-//     tiles the causal mask lets see these keys. S^T = K Q^T and dP^T =
-//     V dO^T by SS wgmma, P^T and dS^T on the fragments, then dV += P^T dO
-//     and dK += dS^T Q by RS wgmma (dO and Q read MN-major): P and dS never
-//     go through shared memory. dK and dV stay in f32 registers over the
-//     group's heads and query tiles, in order (at hd 128: 128 values a
-//     thread, S^T and dP^T 32 each).
+// one producer lane issues every TMA copy (128-byte swizzle, 64-row boxes
+// in 64-column halves, rows past T or S arrive as zeros; hd 160 as three
+// halves, the tensor map's dim 0 kept at 160 so that columns 160-191
+// arrive as zeros, as in the forward) into a 2-stage ring paced by
+// mbarriers ("full" per stage, "empty" once all 8 consumer warps are done
+// with it).
+//  1. dq (the forward's layout): at hd 64, 128 and 160 each consumer owns
+//     64 query rows of one head (the two heads of a GQA pair where G is
+//     even, else two 64-row tiles of one head); at 256 the two share one
+//     64-row tile of one head. The block loads its Q and dO tiles once,
+//     computes D for its rows from dO and the forward's o, and writes D and
+//     lse log2 e to a scratch whose rows are padded to a multiple of 64
+//     (pad: D 0, lse 1e30, so P = 0 there). The producer streams 64-row K
+//     and V tiles of the key range the mask leaves the block. S = Q K^T and
+//     dP = dO V^T by SS wgmma m64n64k16 (both operands K-major), P =
+//     exp2(S scale log2 e - lse log2 e), dS = P (dP - D) on the accumulator
+//     fragments; dQ += dS K by RS wgmma, m64n128k16 over each pair of the
+//     consumer's halves and m64n64k16 over an odd one, dS going from the
+//     accumulator fragments to the A fragments in registers (bf16) and K
+//     read MN-major from the same tile. Query tiles are launched heaviest
+//     first.
+//  2. dk, dv: a block owns 64 keys of one KV head a consumer at hd 64 and
+//     128 (each consumer loads its K and V tiles once), one 64-key tile
+//     shared by both above. The producer streams 64-row Q and dO tiles,
+//     with their rows of the scratch (lse log2 e and D, by bulk copy), for
+//     every query head of the group and only the query tiles the causal
+//     mask lets see these keys. S^T = K Q^T and dP^T = V dO^T by SS wgmma,
+//     P^T and dS^T on the fragments, then dV += P^T dO and dK += dS^T Q by
+//     RS wgmma (dO and Q read MN-major): at 64 and 128 P and dS never go
+//     through shared memory. dK and dV stay in f32 registers over the
+//     group's heads and query tiles, in order. Key tiles are launched
+//     heaviest first.
+// Above hd 128 a consumer cannot hold dK and dV over the whole head dim (at
+// 256: 128 + 128 registers a thread, on top of S^T and dP^T at 32 each);
+// at 256 two 64-row tiles a consumer plus the ring would need 256 KB of
+// shared memory of the 227 KB a block has, in both kernels. There (the
+// dk/dv kernel above 128, the dq kernel at 256; dQ at 160 takes 96
+// registers and its block 192 KB, and keeps the layout of 64 and 128) the
+// two consumers of a block share one 64-row tile and split the output's
+// head dim along the halves:
+// consumer 0 owns columns 0-127 (m64n128 products), consumer 1 the rest
+// (128-255 at hd 256; at 160 one m64n64 half whose last 32 columns are
+// TMA's zeros, and only 128-159 are written). dK and dV then take 64 + 64
+// registers at most, and a block's shared memory is its two tiles, the
+// ring and the exchange below: at 256 226.5 KB of the 227 KB a block may
+// have in the dk/dv kernel and 210.5 KB in the dq kernel, at 160 178.5 KB
+// in the dk/dv kernel (smem_bytes). S and dP
+// (S^T and dP^T) reduce over the whole head dim: each consumer computes
+// them for 32 of the tile's 64 columns (m64n32k16, B from row 32 w), turns
+// them into the bf16 A fragments of its two k-steps of the products that
+// follow, and trades those with the other consumer through shared memory
+// (a slot a thread, read by the thread of the other consumer that holds
+// the same fragment rows; two slots by tile parity, so one named barrier a
+// tile orders the trade). Each then runs the RS products over its columns
+// with all four k-steps. The dq kernel's consumers add their halves of D
+// through shared memory, in one order, and both wait at the named barrier
+// before the epilogue stages a tile the other may still read.
 // Only tiles that cross the diagonal or the end of T or S are masked; a
 // consumer skips tiles the mask hides from it (but waits for and releases
 // their stage). Epilogues apply scale, stage the tile in shared memory
@@ -65,20 +100,19 @@
 // element); S, dP, D and every sum stay f32.
 //
 // cuda_core, f32 (the TF32-off gates only) and bf16 at head dims 16 and 32
-// (no full-width arch has them), 160 (stablelm-12b) and 256 (gemma-7b): the
-// first simple kernels. dq: a block per (query tile, head, batch) computes
-// D for its rows (into the scratch), then walks the key tiles the mask
-// leaves it; dk, dv: a block per (key tile, KV head, batch) holds its k and
-// v tiles and walks the query tiles of every head of the group that can
-// see them. Tiles are staged in shared memory as f32 and the products run
-// on the f32 CUDA cores, thread (ty, tx) of a 16 x 16 grid owning rows
-// ty + 16 i and columns tx + 16 j of each score tile and of each tile x hd
-// accumulator; operations bound them (0.08 ms at the f32 CUDA cores' peak
-// at the shape above). Tiles are 64 rows, and 32 at hd 256, where four
-// 64-row f32 tiles would not fit a block's shared memory (ROWS). A
-// tensor-core backward above hd 128 (FlashAttention-3 splits dK and dV's
-// head dim across its two consumers) is later work.
+// (no full-width arch has them): the first simple kernels. dq: a block per
+// (query tile, head, batch) computes D for its rows (into the scratch),
+// then walks the key tiles the mask leaves it; dk, dv: a block per (key
+// tile, KV head, batch) holds its k and v tiles and walks the query tiles
+// of every head of the group that can see them. Tiles are staged in shared
+// memory as f32 and the products run on the f32 CUDA cores, thread (ty, tx)
+// of a 16 x 16 grid owning rows ty + 16 i and columns tx + 16 j of each
+// score tile and of each tile x hd accumulator; operations bound them (0.08
+// ms at the f32 CUDA cores' peak at the shape above). Tiles are 64 rows,
+// and 32 at hd 256, where four 64-row f32 tiles would not fit a block's
+// shared memory (ROWS).
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -367,13 +401,13 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// -- bf16 at head dims 64 and 128: TMA ring, warpgroup products (wgmma) ----
+// -- bf16 at head dims 64, 128, 160 and 256: TMA ring, warpgroup products --
 
 namespace wgb {
 
 using namespace hop;  // wgmma_*, tma_tile, make_map (wgmma.cuh)
 using bf16 = __nv_bfloat16;
-constexpr int CONSUMERS = 2;  // warpgroups, each 64 rows
+constexpr int CONSUMERS = 2;  // warpgroups
 constexpr int NT = 128 * (1 + CONSUMERS);  // warpgroup 0 is the producer
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 static_assert(128 * (PRODUCER_REGS + CONSUMERS * CONSUMER_REGS) <= 65536,
@@ -385,20 +419,47 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float PAD_LSE = 1e30f;   // lse log2 e of a row past T: P = 0
 
 template <int HD>
-constexpr int TILE = ROWS * HD * 2;  // bytes of a 64-row tile
+constexpr int NH = (HD + 63) / 64;  // 64-column halves (hd 160: three)
+template <int HD>
+constexpr int TILE = NH<HD> * HALF;  // bytes of a 64-row tile
+// Where a consumer cannot hold its accumulators over the whole head dim
+// (dK and dV above hd 128, dQ above 160) the two consumers share one
+// 64-row tile and split the output's head dim (consumer 0 halves 0-1,
+// consumer 1 the rest): a block owns one tile of each of its two operands,
+// else one a consumer.
+enum Kernel { DQ, DKDV };
+template <Kernel KN, int HD>
+constexpr bool SPLIT = HD > (KN == DQ ? 160 : 128);
+template <Kernel KN, int HD>
+constexpr int OWN = SPLIT<KN, HD> ? 1 : CONSUMERS;
 
 struct Barriers {
   uint64_t once, full[STAGES], empty[STAGES];
 };
 
-// Both kernels: two tiles a consumer, two a stage, the dk/dv kernel's
-// scratch rows (lse log2 e and D, 64 each) a stage, the barriers.
-template <int HD>
+// Split consumers trade the bf16 A fragments of the products they share
+// (dS; P^T and dS^T in the dk/dv kernel) through shared memory: Q uint4 a
+// thread, for each consumer and each tile parity.
+template <Kernel KN>
+constexpr int XQ = KN == DQ ? 2 : 4;
+template <Kernel KN, int HD>
+constexpr int XWORDS = SPLIT<KN, HD> ? 2 * CONSUMERS * 128 * 4 * XQ<KN> : 0;
+
+// Both kernels: the block's own tiles (two operands), two tiles a stage,
+// the dk/dv kernel's scratch rows (lse log2 e and D, 64 each) a stage, the
+// dq kernel's exchange of D between split consumers, the fragments'
+// exchange, the barriers.
+template <Kernel KN, int HD>
 constexpr size_t smem_bytes() {
-  return 2 * CONSUMERS * TILE<HD> + 2 * STAGES * TILE<HD> +
-         2 * STAGES * ROWS * sizeof(float) + sizeof(Barriers) +
-         1024;  // + alignment slack
+  return 2 * OWN<KN, HD> * TILE<HD> + 2 * STAGES * TILE<HD> +
+         2 * STAGES * ROWS * sizeof(float) +
+         CONSUMERS * ROWS * sizeof(float) + XWORDS<KN, HD> * 4 +
+         sizeof(Barriers) + 1024;  // + alignment slack
 }
+static_assert(smem_bytes<DQ, 160>() <= 232448 &&
+                  smem_bytes<DQ, 256>() <= 232448 &&
+                  smem_bytes<DKDV, 256>() <= 232448,
+              "a block's shared memory");
 
 __host__ __device__ inline int padded(int T) {  // scratch row length
   return (T + ROWS - 1) / ROWS * ROWS;
@@ -421,6 +482,11 @@ __device__ __forceinline__ void init(Barriers& bar) {
   __syncthreads();
 }
 
+// The consumer warpgroups' own barrier (the producer has left).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * CONSUMERS) : "memory");
+}
+
 // A K-major operand at k-step kk (16 columns) of a 64-row tile, and an
 // MN-major B operand at k-step c (rows 16c..16c+15: two 8-row groups, SBO
 // 1024; the column halves HALF bytes apart, LBO).
@@ -434,40 +500,133 @@ __device__ __forceinline__ uint64_t mn_major(const unsigned char* tile,
   return rt::wgmma_desc(tile + c * 2048, HALF, 1024);
 }
 
-// acc (64 x 64) = A B^T over the head dim: A and B 64-row tiles
-template <int HD>
-__device__ __forceinline__ void issue_abt(float (&acc)[32],
+// acc (64 x NN) = A B^T over the head dim: A a 64-row tile, B the NN rows
+// (64, or 32 from row 0 or 32: b 4096 bytes on) of another
+template <int HD, int NN>
+__device__ __forceinline__ void issue_abt(float (&acc)[NN / 2],
                                           const unsigned char* a,
                                           const unsigned char* b) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_ss_m64n64(acc, k_major(a, kk), k_major(b, kk), kk > 0);
-}
-
-// acc (64 x HD) += A B: A (64 x 64) as the bf16 fragments of four k-steps,
-// B a 64-row tile read MN-major
-template <int HD>
-__device__ __forceinline__ void issue_ab(float (&acc)[HD / 2],
-                                         const uint32_t (&a)[4][4],
-                                         const unsigned char* b) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if constexpr (HD == 128)
-      wgmma_rs_m64n128_t(acc, a[c], mn_major(b, c));
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if constexpr (NN == 64)
+      wgmma_ss_m64n64(acc, k_major(a, kk), k_major(b, kk), kk > 0);
     else
-      wgmma_rs_m64n64_t(acc, a[c], mn_major(b, c));
+      wgmma_ss_m64n32(acc, k_major(a, kk), k_major(b, kk), kk > 0);
   }
 }
 
-// The bf16 A fragments of a 64 x 64 accumulator: column tiles 2c and
-// 2c + 1 are k-step c.
-__device__ __forceinline__ void to_fragments(uint32_t (&f)[4][4],
-                                             const float (&x)[32]) {
+// acc (64 x NC) += A B: A (64 x 64) as the bf16 fragments of four k-steps,
+// B the NC columns of a 64-row tile from half b on, read MN-major: an
+// m64n128 product over a pair of halves, an m64n64 over an odd one
+template <int NC>
+__device__ __forceinline__ void issue_ab(float (&acc)[NC / 2],
+                                         const uint32_t (&a)[4][4],
+                                         const unsigned char* b) {
+  static_assert(NC == 64 || NC == 128 || NC == 192, "halves of a tile");
+  float(&odd)[32] = *reinterpret_cast<float(*)[32]>(acc + NC / 2 - 32);
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < 4; ++c) {
+    if constexpr (NC >= 128)
+      wgmma_rs_m64n128_t(*reinterpret_cast<float(*)[64]>(acc), a[c],
+                         mn_major(b, c));
+    if constexpr (NC != 128)
+      wgmma_rs_m64n64_t(odd, a[c], mn_major(b + (NC - 64) * 128, c));
+  }
+}
+
+// The bf16 A fragments of a 64 x 16 KS accumulator: column tiles 2c and
+// 2c + 1 are k-step c.
+template <int KS>
+__device__ __forceinline__ void to_fragments(uint32_t (&f)[KS][4],
+                                             const float (&x)[8 * KS]) {
+#pragma unroll
+  for (int c = 0; c < KS; ++c)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       f[c][i] = rt::pack_bf16(x[8 * c + 2 * i], x[8 * c + 2 * i + 1]);
+}
+
+// This thread's slot i (a uint4) of consumer cw's fragments at tile parity
+// par: the partner thread (same warp and lane of the other consumer) holds
+// the same rows of the A fragments.
+template <Kernel KN>
+__device__ __forceinline__ uint4* slot(uint32_t* sF, int par, int cw, int i) {
+  return reinterpret_cast<uint4*>(sF) +
+         ((par * CONSUMERS + cw) * XQ<KN> + i) * 128 + threadIdx.x % 128;
+}
+
+__device__ __forceinline__ uint4 as_uint4(const uint32_t (&f)[4]) {
+  return make_uint4(f[0], f[1], f[2], f[3]);
+}
+
+// The four k-steps of an A operand from this consumer's two (k-steps 2w,
+// 2w + 1) and the partner's two (its slots from theirs on, 128 apart).
+__device__ __forceinline__ void merge(uint32_t (&f)[4][4],
+                                      const uint32_t (&mine)[2][4],
+                                      const uint4* theirs, int w) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const uint4 v = theirs[128 * c];
+    const uint32_t o[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[c][i] = w == 0 ? mine[c][i] : o[i];
+      f[2 + c][i] = w == 0 ? o[i] : mine[c][i];
+    }
+  }
+}
+
+// dS = P (dP - D), P = exp2(S scale log2 e - L) or 0 where masked, in place
+// on the dq kernel's S and dP accumulators over NN keys from key kc (element
+// 4n + e: row row0 + 8 (e / 2), key kc + 8 n + 2 t + e % 2).
+template <int NN>
+__device__ __forceinline__ void ds_rows(float (&s)[NN / 2],
+                                        float (&dp)[NN / 2],
+                                        const float (&Lr)[2],
+                                        const float (&Dr)[2], int kc,
+                                        int row0, int t, bool masked, int T_,
+                                        int S, int causal, float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < NN / 2; ++i) {
+    const int r = (i % 4) / 2;
+    float p = rt::exp2_approx(fmaf(s[i], scale_log2, -Lr[r]));
+    if (masked) {
+      const int col = kc + 8 * (i / 4) + 2 * t + i % 2, row = row0 + 8 * r;
+      if (col >= S || row >= T_ || (causal && col > row)) p = 0.f;
+    }
+    dp[i] = p * (dp[i] - Dr[r]);
+  }
+}
+
+// P^T and dS^T in place on the dk/dv kernel's S^T and dP^T accumulators
+// over NN queries from tile column qc (element 4n + e: key key0 + 8 (e /
+// 2), query q0 + qc + 8 n + 2 t + e % 2; sL, sD the tile's rows).
+template <int NN>
+__device__ __forceinline__ void p_ds_t(float (&s)[NN / 2], float (&dp)[NN / 2],
+                                       const float* sL, const float* sD,
+                                       int qc, int q0, int key0, int t,
+                                       bool masked, int T_, int S,
+                                       int causal, float scale_log2) {
+#pragma unroll
+  for (int n = 0; n < NN / 8; ++n) {
+    const float2 l2 =
+        *reinterpret_cast<const float2*>(sL + qc + 8 * n + 2 * t);
+    const float2 d2 =
+        *reinterpret_cast<const float2*>(sD + qc + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e;
+      float p =
+          rt::exp2_approx(fmaf(s[i], scale_log2, -(e % 2 ? l2.y : l2.x)));
+      if (masked) {
+        const int key = key0 + 8 * (e / 2),
+                  qry = q0 + qc + 8 * n + 2 * t + e % 2;
+        if (qry >= T_ || key >= S || (causal && key > qry)) p = 0.f;
+      }
+      s[i] = p;
+      dp[i] = p * (dp[i] - (e % 2 ? d2.y : d2.x));
+    }
+  }
 }
 
 __device__ __forceinline__ void release(uint64_t* empty, int lane) {
@@ -475,16 +634,17 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
   if (lane == 0) rt::mbar_arrive(empty);
 }
 
-// Write acc * mul (a 64 x HD accumulator) as bf16 rows out + r * ld for
-// r < valid: each warp stages its 16 rows in the swizzled tile s, which no
-// wgmma reads any more, and stores them in 16-byte pieces.
-template <int HD>
+// Write the first NV of acc's NC columns (a 64 x NC accumulator) times mul
+// as bf16 rows out + r * ld for r < valid: each warp stages its 16 rows in
+// the swizzled halves at s, which no wgmma reads any more, and stores them
+// in 16-byte pieces.
+template <int NC, int NV>
 __device__ __forceinline__ void store_tile(unsigned char* s,
-                                           const float (&acc)[HD / 2],
+                                           const float (&acc)[NC / 2],
                                            float mul, bf16* out,
                                            long long ld, int valid, int warp,
                                            int lane) {
-  constexpr int DN = HD / 8;
+  constexpr int DN = NV / 8;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int d = 0; d < DN; ++d)
@@ -504,9 +664,30 @@ __device__ __forceinline__ void store_tile(unsigned char* s,
   }
 }
 
+// Runs body(NC, NV, c0) for the columns consumer w owns: all of them (NC
+// accumulator columns, 192 at hd 160, whose last 32 are TMA's zeros, NV =
+// HD real), or split, its share of the halves (NC columns from half c0 on,
+// the first NV of them real: at 256 128 each, at 160 128 and 32 of an
+// m64n64 half).
+template <Kernel KN, int HD, typename F>
+__device__ __forceinline__ void by_columns(int w, F&& body) {
+  using I = std::integral_constant<int, 128>;
+  if constexpr (!SPLIT<KN, HD>)
+    body(std::integral_constant<int, 64 * NH<HD>>(),
+         std::integral_constant<int, HD>(), 0);
+  else if constexpr (HD == 256)
+    body(I(), I(), 2 * w);
+  else if (w == 0)
+    body(I(), I(), 0);
+  else
+    body(std::integral_constant<int, 64 * (NH<HD> - 2)>(),
+         std::integral_constant<int, HD - 128>(), 2);
+}
+
 // dq, and the scratch rows D and L (lse log2 e) of every (batch, head)
 // over padded(T) rows. Block (head pair or head, batch, query tile from the
-// last): consumer w owns head h0 + w % hpb, rows q0 + 64 (w / hpb).
+// last): consumer w owns head h0 + w % hpb, rows q0 + 64 (w / hpb); at hd
+// 256 both consumers own head h0, rows q0.., each its columns.
 template <int HD>
 __global__ void __launch_bounds__(NT, 1)
 fa_bwd_wg_dq_kernel(const __grid_constant__ CUtensorMap tq,
@@ -519,14 +700,18 @@ fa_bwd_wg_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     int hpb, int q_ord, int k_ord, int v_ord, int d_ord,
                     long long o_sb, long long o_st, long long o_sh,
                     int causal, float scale_log2, float scale) {
+  constexpr bool split = SPLIT<DQ, HD>;
+  constexpr int own = OWN<DQ, HD>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* sQ = align1024(smem_raw);         // CONSUMERS tiles
-  unsigned char* sdO = sQ + CONSUMERS * TILE<HD>;  // CONSUMERS tiles
-  unsigned char* sRing = sdO + CONSUMERS * TILE<HD>;  // STAGES x (K, V)
-  Barriers& bar = *reinterpret_cast<Barriers*>(
-      sRing + 2 * STAGES * TILE<HD> + 2 * STAGES * ROWS * sizeof(float));
+  unsigned char* sQ = align1024(smem_raw);      // own tiles
+  unsigned char* sdO = sQ + own * TILE<HD>;     // own tiles
+  unsigned char* sRing = sdO + own * TILE<HD>;  // STAGES x (K, V)
+  float* sX = reinterpret_cast<float*>(sRing + 2 * STAGES * TILE<HD>) +
+              2 * STAGES * ROWS;  // D's shares, CONSUMERS x ROWS
+  uint32_t* sF = reinterpret_cast<uint32_t*>(sX + CONSUMERS * ROWS);
+  Barriers& bar = *reinterpret_cast<Barriers*>(sF + XWORDS<DQ, HD>);
 
-  const int bq = ROWS * (CONSUMERS / hpb);  // query rows per block
+  const int bq = ROWS * (own / hpb);  // query rows per block
   const int h0 = blockIdx.x * hpb, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * bq;  // heaviest tiles first
   const int kh = h0 / G;
@@ -540,8 +725,8 @@ fa_bwd_wg_dq_kernel(const __grid_constant__ CUtensorMap tq,
   if (w < 0) {  // the producer: one lane issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x != 0) return;
-    rt::mbar_expect_tx(&bar.once, 2 * CONSUMERS * TILE<HD>);
-    for (int c = 0; c < CONSUMERS; ++c) {
+    rt::mbar_expect_tx(&bar.once, 2 * own * TILE<HD>);
+    for (int c = 0; c < own; ++c) {
       const int h = h0 + c % hpb, row = q0 + ROWS * (c / hpb);
       tma_tile<HD, HALF>(sQ + c * TILE<HD>, &tq, q_ord, &bar.once, h, row, b);
       tma_tile<HD, HALF>(sdO + c * TILE<HD>, &tdo, d_ord, &bar.once, h, row,
@@ -560,26 +745,32 @@ fa_bwd_wg_dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-  const int h = h0 + w % hpb;
-  const int qw = q0 + ROWS * (w / hpb);  // this warpgroup's first query row
+  const int wt = split ? 0 : w;  // the block's tile this consumer reads
+  const int h = h0 + wt % hpb;
+  const int qw = q0 + ROWS * (wt / hpb);  // this warpgroup's first query row
   const int g = lane / 4, t = lane % 4;
   const int row0 = qw + warp * 16 + g;  // rows row0 and row0 + 8
-  unsigned char* sQw = sQ + w * TILE<HD>;
-  const unsigned char* sdOw = sdO + w * TILE<HD>;
+  unsigned char* sQw = sQ + wt * TILE<HD>;
+  const unsigned char* sdOw = sdO + wt * TILE<HD>;
   const long long bh = (long long)b * H + h;
   rt::mbar_wait(&bar.once, 0);
 
-  // D of the warp's 16 rows: lanes 2r and 2r + 1 take the two halves of
-  // row r's head dim (dO from shared memory, o from device memory)
+  // D of the warp's 16 rows: lanes 2r and 2r + 1 (of each consumer, when
+  // the two share the rows) take a share of row r's head dim (dO from
+  // shared memory, o from device memory); split consumers add their shares
+  // through shared memory, in one order
   float Dr[2], Lr[2];
   {
+    constexpr int PARTS = split ? CONSUMERS : 1;
+    constexpr int CH = HD / 16 / PARTS;  // 8-column chunks a lane
+    const int part = split ? w : 0;
     const int rl = warp * 16 + lane / 2, row = qw + rl;
     float acc = 0.f;
     if (row < T_) {
       const bf16* orow = o + b * o_sb + row * o_st + h * o_sh;
 #pragma unroll
-      for (int i = 0; i < HD / 16; ++i) {
-        const int c = (lane % 2) * (HD / 16) + i;
+      for (int i = 0; i < CH; ++i) {
+        const int c = (part * 2 + lane % 2) * CH + i;
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
         const uint4 dv = *reinterpret_cast<const uint4*>(
             sdOw + rt::swizzle128<HALF>(rl, c));
@@ -597,6 +788,11 @@ fa_bwd_wg_dq_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if constexpr (split) {
+      if (lane % 2 == 0) sX[w * ROWS + rl] = acc;
+      consumers_sync();
+      acc = sX[rl] + sX[ROWS + rl];
+    }
     Dr[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
     Dr[1] = __shfl_sync(0xffffffffu, acc, 2 * (g + 8));
     const int Tp = padded(T_);
@@ -604,62 +800,83 @@ fa_bwd_wg_dq_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       Lr[r] = row < T_ ? lse[bh * T_ + row] * LOG2E : PAD_LSE;
-      if (t == 0 && row < Tp) {
+      if (t == 0 && part == 0 && row < Tp) {
         D[bh * Tp + row] = Dr[r];
         L[bh * Tp + row] = Lr[r];
       }
     }
   }
 
-  float acc[HD / 2];
+  by_columns<DQ, HD>(w, [&](auto nc, auto nv, int c0) {
+    constexpr int NC = decltype(nc)::value, NV = decltype(nv)::value;
+    float acc[NC / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
-  for (int j = 0; j < nkv; ++j) {
-    const int st = j % STAGES, k0 = j * ROWS;
-    const unsigned char* sKs = sRing + st * 2 * TILE<HD>;
-    rt::mbar_wait(&bar.full[st], (j / STAGES) & 1);
-    if (qw < T_ && !(causal && k0 > qw + ROWS - 1)) {
-      float s[32], dp[32];
-      rt::wgmma_fence();
-      issue_abt<HD>(s, sQw, sKs);
-      issue_abt<HD>(dp, sdOw, sKs + TILE<HD>);
-      rt::wgmma_commit();
-      rt::wgmma_wait<0>();
-      rt::fence_regs(s);
-      rt::fence_regs(dp);
-      // element 4n + e: row row0 + 8 (e / 2), key k0 + 8 n + 2 t + e % 2
+    for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+    for (int j = 0; j < nkv; ++j) {
+      const int st = j % STAGES, k0 = j * ROWS;
+      const unsigned char* sKs = sRing + st * 2 * TILE<HD>;
+      rt::mbar_wait(&bar.full[st], (j / STAGES) & 1);
+      const bool live = qw < T_ && !(causal && k0 > qw + ROWS - 1);
       const bool masked =
           (causal && k0 + ROWS - 1 > qw) || k0 + ROWS > S || qw + ROWS > T_;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = (i % 4) / 2;
-        float p = rt::exp2_approx(fmaf(s[i], scale_log2, -Lr[r]));
-        if (masked) {
-          const int col = k0 + 8 * (i / 4) + 2 * t + i % 2,
-                    row = row0 + 8 * r;
-          if (col >= S || row >= T_ || (causal && col > row)) p = 0.f;
-        }
-        dp[i] = p * (dp[i] - Dr[r]);
-      }
       uint32_t df[4][4];
-      to_fragments(df, dp);
-      rt::wgmma_fence();
-      issue_ab<HD>(acc, df, sKs);
-      rt::wgmma_commit();
-      rt::wgmma_wait<0>();
-      rt::fence_regs(acc);
-      rt::fence_regs(df);
+      if constexpr (!split) {
+        if (live) {
+          float s[32], dp[32];
+          rt::wgmma_fence();
+          issue_abt<HD, 64>(s, sQw, sKs);
+          issue_abt<HD, 64>(dp, sdOw, sKs + TILE<HD>);
+          rt::wgmma_commit();
+          rt::wgmma_wait<0>();
+          rt::fence_regs(s);
+          rt::fence_regs(dp);
+          ds_rows<64>(s, dp, Lr, Dr, k0, row0, t, masked, T_, S, causal,
+                      scale_log2);
+          to_fragments(df, dp);
+        }
+      } else {  // S and dP of keys k0 + 32 w.., then trade dS
+        uint32_t mine[2][4];
+        if (live) {
+          float s[16], dp[16];
+          rt::wgmma_fence();
+          issue_abt<HD, 32>(s, sQw, sKs + 4096 * w);
+          issue_abt<HD, 32>(dp, sdOw, sKs + TILE<HD> + 4096 * w);
+          rt::wgmma_commit();
+          rt::wgmma_wait<0>();
+          rt::fence_regs(s);
+          rt::fence_regs(dp);
+          ds_rows<32>(s, dp, Lr, Dr, k0 + 32 * w, row0, t, masked, T_, S,
+                      causal, scale_log2);
+          to_fragments(mine, dp);
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            *slot<DQ>(sF, j & 1, w, c) = as_uint4(mine[c]);
+        }
+        consumers_sync();
+        if (live) merge(df, mine, slot<DQ>(sF, j & 1, 1 - w, 0), w);
+      }
+      if (live) {
+        rt::wgmma_fence();
+        issue_ab<NC>(acc, df, sKs + c0 * HALF);
+        rt::wgmma_commit();
+        rt::wgmma_wait<0>();
+        rt::fence_regs(acc);
+        rt::fence_regs(df);
+      }
+      release(&bar.empty[st], lane);
     }
-    release(&bar.empty[st], lane);
-  }
-  store_tile<HD>(sQw, acc, scale, dq + ((b * (long long)T_ + qw) * H + h) * HD,
-                 (long long)H * HD, T_ - qw, warp, lane);
+    if constexpr (split) consumers_sync();  // the other's S reads sQw
+    store_tile<NC, NV>(sQw + c0 * HALF, acc, scale,
+                       dq + ((b * (long long)T_ + qw) * H + h) * HD + 64 * c0,
+                       (long long)H * HD, T_ - qw, warp, lane);
+  });
 }
 
-// dk and dv. Block (KV head, batch, 128-key tile): consumer w owns keys
-// k0 + 64 w.. of KV head kh; the producer streams (Q, dO, L, D) tiles of
-// query head kh G + hh, rows q0.., for hh over the group and q0 from the
-// first tile the causal mask lets see k0.
+// dk and dv. Block (KV head, batch, key tile of 64 OWN keys): consumer w
+// owns keys k0 + 64 w.. of KV head kh (above hd 128 both own k0.., each its
+// columns); the producer streams (Q, dO, L, D) tiles of query head kh G +
+// hh, rows q0.., for hh over the group and q0 from the first tile the
+// causal mask lets see k0.
 template <int HD>
 __global__ void __launch_bounds__(NT, 1)
 fa_bwd_wg_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
@@ -671,15 +888,19 @@ fa_bwd_wg_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       bf16* __restrict__ dv, int T_, int S, int H, int K,
                       int G, int q_ord, int k_ord, int v_ord, int d_ord,
                       int causal, float scale_log2, float scale) {
+  constexpr bool split = SPLIT<DKDV, HD>;
+  constexpr int own = OWN<DKDV, HD>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* sK = align1024(smem_raw);          // CONSUMERS tiles
-  unsigned char* sV = sK + CONSUMERS * TILE<HD>;    // CONSUMERS tiles
-  unsigned char* sRing = sV + CONSUMERS * TILE<HD>;  // STAGES x (Q, dO)
+  unsigned char* sK = align1024(smem_raw);     // own tiles
+  unsigned char* sV = sK + own * TILE<HD>;     // own tiles
+  unsigned char* sRing = sV + own * TILE<HD>;  // STAGES x (Q, dO)
   float* sLD = reinterpret_cast<float*>(sRing + 2 * STAGES * TILE<HD>);
-  Barriers& bar = *reinterpret_cast<Barriers*>(sLD + 2 * STAGES * ROWS);
+  uint32_t* sF =
+      reinterpret_cast<uint32_t*>(sLD + 2 * STAGES * ROWS + CONSUMERS * ROWS);
+  Barriers& bar = *reinterpret_cast<Barriers*>(sF + XWORDS<DKDV, HD>);
 
   const int kh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * CONSUMERS * ROWS;  // heaviest tiles first
+  const int k0 = blockIdx.z * own * ROWS;  // heaviest tiles first
   const int qt0 = causal ? k0 / ROWS : 0;  // causal: earlier rows see none
   const int nq = max(0, (T_ + ROWS - 1) / ROWS - qt0);
   const int ntiles = G * nq;
@@ -691,8 +912,8 @@ fa_bwd_wg_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x != 0) return;
     const int Tp = padded(T_);
-    rt::mbar_expect_tx(&bar.once, 2 * CONSUMERS * TILE<HD>);
-    for (int c = 0; c < CONSUMERS; ++c) {
+    rt::mbar_expect_tx(&bar.once, 2 * own * TILE<HD>);
+    for (int c = 0; c < own; ++c) {
       tma_tile<HD, HALF>(sK + c * TILE<HD>, &tk, k_ord, &bar.once, kh,
                          k0 + ROWS * c, b);
       tma_tile<HD, HALF>(sV + c * TILE<HD>, &tv, v_ord, &bar.once, kh,
@@ -718,72 +939,92 @@ fa_bwd_wg_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-  const int kw = k0 + ROWS * w;  // this warpgroup's first key
+  const int wt = split ? 0 : w;  // the block's tile this consumer reads
+  const int kw = k0 + ROWS * wt;     // this warpgroup's first key
   const int g = lane / 4, t = lane % 4;
   const int key0 = kw + warp * 16 + g;  // keys key0 and key0 + 8
-  unsigned char* sKw = sK + w * TILE<HD>;
-  unsigned char* sVw = sV + w * TILE<HD>;
-  float dk_acc[HD / 2], dv_acc[HD / 2];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  unsigned char* sKw = sK + wt * TILE<HD>;
+  unsigned char* sVw = sV + wt * TILE<HD>;
   rt::mbar_wait(&bar.once, 0);
 
-  for (int j = 0; j < ntiles; ++j) {
-    const int st = j % STAGES, q0 = (qt0 + j % nq) * ROWS;
-    const unsigned char* sQs = sRing + st * 2 * TILE<HD>;
-    const unsigned char* sdOs = sQs + TILE<HD>;
-    const float* sL = sLD + st * 2 * ROWS;
-    const float* sD = sL + ROWS;
-    rt::mbar_wait(&bar.full[st], (j / STAGES) & 1);
-    if (kw < S && !(causal && q0 + ROWS - 1 < kw)) {
-      float s[32], dp[32];
-      rt::wgmma_fence();
-      issue_abt<HD>(s, sKw, sQs);
-      issue_abt<HD>(dp, sVw, sdOs);
-      rt::wgmma_commit();
-      rt::wgmma_wait<0>();
-      rt::fence_regs(s);
-      rt::fence_regs(dp);
-      // element 4n + e: key key0 + 8 (e / 2), query q0 + 8 n + 2 t + e % 2
+  by_columns<DKDV, HD>(w, [&](auto nc, auto nv, int c0) {
+    constexpr int NC = decltype(nc)::value, NV = decltype(nv)::value;
+    float dk_acc[NC / 2], dv_acc[NC / 2];
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % STAGES, q0 = (qt0 + j % nq) * ROWS;
+      const unsigned char* sQs = sRing + st * 2 * TILE<HD>;
+      const unsigned char* sdOs = sQs + TILE<HD>;
+      const float* sL = sLD + st * 2 * ROWS;
+      const float* sD = sL + ROWS;
+      rt::mbar_wait(&bar.full[st], (j / STAGES) & 1);
+      const bool live = kw < S && !(causal && q0 + ROWS - 1 < kw);
       const bool masked =
           (causal && kw + ROWS - 1 > q0) || q0 + ROWS > T_ || kw + ROWS > S;
+      uint32_t pf[4][4], df[4][4];
+      if constexpr (!split) {
+        if (live) {
+          float s[32], dp[32];
+          rt::wgmma_fence();
+          issue_abt<HD, 64>(s, sKw, sQs);
+          issue_abt<HD, 64>(dp, sVw, sdOs);
+          rt::wgmma_commit();
+          rt::wgmma_wait<0>();
+          rt::fence_regs(s);
+          rt::fence_regs(dp);
+          p_ds_t<64>(s, dp, sL, sD, 0, q0, key0, t, masked, T_, S, causal,
+                     scale_log2);
+          to_fragments(pf, s);
+          to_fragments(df, dp);
+        }
+      } else {  // S^T and dP^T of queries q0 + 32 w.., then trade P, dS
+        uint32_t pm[2][4], dm[2][4];
+        if (live) {
+          float s[16], dp[16];
+          rt::wgmma_fence();
+          issue_abt<HD, 32>(s, sKw, sQs + 4096 * w);
+          issue_abt<HD, 32>(dp, sVw, sdOs + 4096 * w);
+          rt::wgmma_commit();
+          rt::wgmma_wait<0>();
+          rt::fence_regs(s);
+          rt::fence_regs(dp);
+          p_ds_t<32>(s, dp, sL, sD, 32 * w, q0, key0, t, masked, T_, S,
+                     causal, scale_log2);
+          to_fragments(pm, s);
+          to_fragments(dm, dp);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * n + 2 * t);
-        const float2 d2 = *reinterpret_cast<const float2*>(sD + 8 * n + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * n + e;
-          float p = rt::exp2_approx(
-              fmaf(s[i], scale_log2, -(e % 2 ? l2.y : l2.x)));
-          if (masked) {
-            const int key = key0 + 8 * (e / 2), qry = q0 + 8 * n + 2 * t + e % 2;
-            if (qry >= T_ || key >= S || (causal && key > qry)) p = 0.f;
+          for (int c = 0; c < 2; ++c) {
+            *slot<DKDV>(sF, j & 1, w, c) = as_uint4(pm[c]);
+            *slot<DKDV>(sF, j & 1, w, 2 + c) = as_uint4(dm[c]);
           }
-          s[i] = p;
-          dp[i] = p * (dp[i] - (e % 2 ? d2.y : d2.x));
+        }
+        consumers_sync();
+        if (live) {
+          merge(pf, pm, slot<DKDV>(sF, j & 1, 1 - w, 0), w);
+          merge(df, dm, slot<DKDV>(sF, j & 1, 1 - w, 2), w);
         }
       }
-      uint32_t pf[4][4], df[4][4];
-      to_fragments(pf, s);
-      to_fragments(df, dp);
-      rt::wgmma_fence();
-      issue_ab<HD>(dv_acc, pf, sdOs);
-      issue_ab<HD>(dk_acc, df, sQs);
-      rt::wgmma_commit();
-      rt::wgmma_wait<0>();
-      rt::fence_regs(dv_acc);
-      rt::fence_regs(dk_acc);
-      rt::fence_regs(pf);
-      rt::fence_regs(df);
+      if (live) {
+        rt::wgmma_fence();
+        issue_ab<NC>(dv_acc, pf, sdOs + c0 * HALF);
+        issue_ab<NC>(dk_acc, df, sQs + c0 * HALF);
+        rt::wgmma_commit();
+        rt::wgmma_wait<0>();
+        rt::fence_regs(dv_acc);
+        rt::fence_regs(dk_acc);
+        rt::fence_regs(pf);
+        rt::fence_regs(df);
+      }
+      release(&bar.empty[st], lane);
     }
-    release(&bar.empty[st], lane);
-  }
-  const long long at = ((b * (long long)S + kw) * K + kh) * HD;
-  store_tile<HD>(sKw, dk_acc, scale, dk + at, (long long)K * HD, S - kw, warp,
-                 lane);
-  store_tile<HD>(sVw, dv_acc, 1.f, dv + at, (long long)K * HD, S - kw, warp,
-                 lane);
+    if constexpr (split) consumers_sync();  // the other's S reads sK, sV
+    const long long at = ((b * (long long)S + kw) * K + kh) * HD + 64 * c0;
+    store_tile<NC, NV>(sKw + c0 * HALF, dk_acc, scale, dk + at,
+                       (long long)K * HD, S - kw, warp, lane);
+    store_tile<NC, NV>(sVw + c0 * HALF, dv_acc, 1.f, dv + at,
+                       (long long)K * HD, S - kw, warp, lane);
+  });
 }
 
 }  // namespace wgb
@@ -816,27 +1057,30 @@ int launch_wg(const Args& a, cudaStream_t stream) {
     return err;
   auto kdq = wgb::fa_bwd_wg_dq_kernel<HD>;
   auto kkv = wgb::fa_bwd_wg_dkdv_kernel<HD>;
-  const int smem = (int)wgb::smem_bytes<HD>();
+  const int smem_dq = (int)wgb::smem_bytes<wgb::DQ, HD>();
+  const int smem_kv = (int)wgb::smem_bytes<wgb::DKDV, HD>();
   static unsigned long long done_dq = 0, done_kv = 0;
-  if ((err = rt::allow_smem(kdq, smem, done_dq)) ||
-      (err = rt::allow_smem(kkv, smem, done_kv)))
+  if ((err = rt::allow_smem(kdq, smem_dq, done_dq)) ||
+      (err = rt::allow_smem(kkv, smem_kv, done_kv)))
     return err;
   const int G = a.H / a.K;
-  const int hpb = G % wgb::CONSUMERS == 0 ? wgb::CONSUMERS : 1;
-  const int bq = R * (wgb::CONSUMERS / hpb);
+  const int hpb = !wgb::SPLIT<wgb::DQ, HD> && G % wgb::CONSUMERS == 0
+                      ? wgb::CONSUMERS
+                      : 1;
+  const int bq = R * (wgb::OWN<wgb::DQ, HD> / hpb);
   float* D = static_cast<float*>(a.D);
   float* L = D + (size_t)a.B * a.H * wgb::padded(a.T);
   const float scale_log2 = a.scale * wgb::LOG2E;
   const dim3 g1(a.H / hpb, a.B, (a.T + bq - 1) / bq);
-  kdq<<<g1, wgb::NT, smem, stream>>>(
+  kdq<<<g1, wgb::NT, smem_dq, stream>>>(
       tq, tk, tv, tdo, static_cast<const bf16*>(a.o),
       static_cast<const float*>(a.lse), D, L, static_cast<bf16*>(a.dq), a.T,
       a.S, a.H, G, hpb, q_ord, k_ord, v_ord, d_ord, a.o_sb, a.o_st, a.o_sh,
       a.causal, scale_log2, a.scale);
   if ((err = cudaGetLastError())) return err;
-  const int bk = R * wgb::CONSUMERS;
+  const int bk = R * wgb::OWN<wgb::DKDV, HD>;
   const dim3 g2(a.K, a.B, (a.S + bk - 1) / bk);
-  kkv<<<g2, wgb::NT, smem, stream>>>(
+  kkv<<<g2, wgb::NT, smem_kv, stream>>>(
       tq, tk, tv, tdo, D, L, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.T, a.S, a.H, a.K, G, q_ord, k_ord, v_ord,
       d_ord, a.causal, scale_log2, a.scale);
@@ -890,8 +1134,9 @@ std::atomic<unsigned long long> taken[ROUTES];
 // route 16-byte aligned, as TMA reads them); dq is a contiguous
 // (B, T, H, hd) tensor, dk and dv contiguous (B, S, K, hd), lse a
 // contiguous f32 (B, H, T) tensor, D an f32 scratch of 2 B H Tp floats,
-// Tp = T rounded up to a multiple of 64. bf16 at head dims 64 and 128 takes
-// the wgmma route, everything else the CUDA cores.
+// Tp = T rounded up to a multiple of 64. bf16 at head dims 64, 128, 160 and
+// 256 takes the wgmma route, everything else (f32; bf16 at 16 and 32) the
+// CUDA cores.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dO, void* dq, void* dk, void* dv, void* D,
@@ -918,10 +1163,12 @@ extern "C" int flash_attention_bwd(
       err = launch_wg<64>(a, st);
       break;
     case 256:
-      err = launch<__nv_bfloat16, 256>(a, st);
+      r = WGMMA;
+      err = launch_wg<256>(a, st);
       break;
     case 160:
-      err = launch<__nv_bfloat16, 160>(a, st);
+      r = WGMMA;
+      err = launch_wg<160>(a, st);
       break;
     case 32:
       err = launch<__nv_bfloat16, 32>(a, st);

@@ -91,8 +91,15 @@
 // rows with 16 warps at head dim 64, else 32 rows with 8 warps): C rows, the
 // masked scores S (stored transposed, so a warp reads its 4 rows as one
 // float4) and y; then the state update. Column groups wholly above a warp's
-// rows are skipped. T may be any length >= 1 on both routes (the Pallas
-// kernel asserts T % chunk == 0), the tail chunk masked.
+// rows are skipped. The cumsum of dt*A over the chunk, and each difference
+// of it that a decay exp(cum_i - cum_j) takes, are f64 (the f32 route's
+// only f64): in f32 the cumsum reached |cum| ~ 90 over a 128-step chunk of
+// mamba2-1.3b at random init, its rounding cost every decay ~1e-5 of
+// relative error, and the route added 1.6e-6 of relative error to y and
+// h_last a layer, 17x an f32 recurrence's, which summed over 48 layers to
+// the f32 serve gate's edge (tools/mamba2_gate_margin.py on an H100). T
+// may be any length >= 1 on both routes (the Pallas kernel asserts
+// T % chunk == 0), the tail chunk masked.
 //
 // Shared memory: above the 48 KB default on both routes (227,328 bytes on
 // the tensor cores), so each instance raises its limit once a device.
@@ -172,16 +179,15 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int QP = ((Q + 31) / 32) * 32;  // padded chunk length
   const int HS = N | 1;                 // state and B row stride (odd)
 
-  extern __shared__ float smem[];
-  float* hs = smem;             // [PP][HS]  the state h[p][n]
+  extern __shared__ double smem_d[];
+  double* cum = smem_d;         // [QP]      inclusive cumsum of dt*A, f64
+  float* hs = reinterpret_cast<float*>(cum + QP);  // [PP][HS] the state
   float* xs = hs + PP * HS;     // [QP][PP]  x of the chunk
   float* bs = xs + QP * PP;     // [QP][HS]  B of the chunk
   float* cs = bs + QP * HS;     // [R][N]    C of a row block
   float* ss = cs + R * N;       // [QP][R]   masked scores of a row block,
                                 //           transposed: ss[j][r]
   float* dts = ss + QP * R;     // [QP]      dt
-  float* cum = dts + QP;        // [QP]      inclusive cumsum of dt*A
-  float* wj = cum + QP;         // [QP]      exp(cum_last - cum_j) dt_j
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -204,21 +210,21 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       dts[i] = i < qv ? dtb[(c0 + i) * sdt.t] : 0.f;
     __syncthreads();
     if (warp == 0) {                     // cumsum: 4 per lane, then a scan
-      float v[QMAX / 32];
-      float run = 0.f;
+      double v[QMAX / 32];
+      double run = 0.0;
 #pragma unroll
       for (int k = 0; k < QMAX / 32; ++k) {
         const int i = lane * (QMAX / 32) + k;
-        run += i < QP ? dts[i] * a : 0.f;
+        run += i < QP ? (double)dts[i] * a : 0.0;
         v[k] = run;
       }
-      float incl = run;
+      double incl = run;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, incl, o);
+        const double u = __shfl_up_sync(0xffffffffu, incl, o);
         if (lane >= o) incl += u;
       }
-      const float off = incl - run;
+      const double off = incl - run;
 #pragma unroll
       for (int k = 0; k < QMAX / 32; ++k) {
         const int i = lane * (QMAX / 32) + k;
@@ -226,9 +232,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       }
     }
     __syncthreads();
-    const float clast = cum[qv - 1];
-    for (int i = tid; i < QP; i += NT)
-      wj[i] = i < qv ? expf(clast - cum[i]) * dts[i] : 0.f;
+    const double clast = cum[qv - 1];
 
     for (int i0 = 0; i0 < qv; i0 += R) {
       stage<NT>(cs, N, cb + (c0 + i0) * sc.t, sc.t, sc.e, R, N, qv - i0,
@@ -269,7 +273,9 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           for (int i = 0; i < RW; ++i) {
             const int r = r0 + i;
             sp[i] = (g < gmax && j <= r)
-                        ? acc[i][g] * expf(cum[r] - cum[j]) * dts[j] : 0.f;
+                        ? acc[i][g] * expf((float)(cum[r] - cum[j])) *
+                              dts[j]
+                        : 0.f;
           }
           *reinterpret_cast<float4*>(ss + j * R + rw) = sv;
         }
@@ -312,7 +318,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int i = 0; i < RW; ++i) {
         const int r = r0 + i;
         if (r < qv) {
-          const float e = expf(cum[r]);
+          const float e = expf((float)cum[r]);
 #pragma unroll
           for (int c = 0; c < PC; ++c) {
             const int p = c * 32 + lane;
@@ -326,7 +332,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
     // h = exp(cum_last) h + sum_j w_j x_j B_j^T; each thread owns its
     // (p, n) entries: p = PU warp + u (a float4-aligned run), n = lane + 32 m
-    const float eq = expf(clast);
+    const float eq = expf((float)clast);
     float ha[PU][NL];
 #pragma unroll
     for (int u = 0; u < PU; ++u)
@@ -347,7 +353,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         xv[u + 2] = v4.z;
         xv[u + 3] = v4.w;
       }
-      const float w = wj[j];
+      const float w = expf((float)(clast - cum[j])) * dts[j];
 #pragma unroll
       for (int m = 0; m < NL; ++m) {
         const int n = lane + 32 * m;
@@ -380,7 +386,8 @@ size_t smem_bytes(int N, int Q) {
   const size_t PP = PC * 32, QP = ((Q + 31) / 32) * 32, HS = N | 1;
   const size_t R = Shape<PC>::R;
   return sizeof(float) * (PP * HS + QP * PP + QP * HS + R * N + QP * R +
-                          3 * QP);
+                          QP) +
+         sizeof(double) * QP;
 }
 
 template <typename T, int PC>

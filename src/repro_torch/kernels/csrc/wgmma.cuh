@@ -67,6 +67,23 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D (64 x 32, f32) = A B (+ D if scale_d): A (64 x 16) and B (32 x 16)
+// both K-major in shared memory (descriptors).
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // D (64 x 64, f32) += A B: A (64 x 16, bf16) in registers, laid out per
 // warp as mma.sync's m16n8k16 A fragment; B (16 x 64) MN-major in shared
 // memory (descriptor, imm-trans-b 1).

@@ -25,10 +25,12 @@ forward kernel with the LSE output, its backward ``flash_attention_bwd``
 no atomics). With no gradient needed (serving) it is the forward launch
 alone, as before. The backward takes one of two routes (``bwd_route``;
 the launcher counts the one each call took, ``build.routes(BWD)``): bf16
-at head dims 64 and 128 (the training path) runs ``wgmma`` fed by TMA,
-rounding P and dS to bf16 before its three products from registers, as
-FlashAttention-2 and -3 do; f32, and bf16 at 16, 32, 160 and 256, run the
-CUDA-core kernels (32-row tiles at 256).
+at head dims 64, 128, 160 and 256 (the training path) runs ``wgmma`` fed
+by TMA, rounding P and dS to bf16 before its three products from
+registers, as FlashAttention-2 and -3 do (above 128 the two consumer
+warpgroups of a block share one 64-row tile and split the output's head
+dim); f32, and bf16 at 16 and 32, run the CUDA-core kernels (32-row tiles
+at 256).
 
 CPU tensors take the plain versions (``ref.flash_attention``,
 ``ref.flash_attention_lse``, ``ref.flash_attention_bwd``; autograd
@@ -145,8 +147,9 @@ def bwd_route(dtype, hd: int) -> str:
     """The backward kernels a CUDA call takes, by the rule
     ``flash_attention_bwd`` of ``csrc/flash_attention_bwd.cu`` applies (it
     counts the route it took under these names, ``build.routes(BWD)``):
-    bf16 at head dims 64 and 128 "wgmma", all else "cuda_core"."""
-    return ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
+    bf16 at head dims 64, 128, 160 and 256 "wgmma", all else (f32; bf16 at
+    16 and 32) "cuda_core"."""
+    return ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 160, 256)
             else "cuda_core")
 
 

@@ -133,13 +133,16 @@ def test_flash_attention_bwd_kernel_arithmetic_matches_jax_grad(
 
 
 def _fa_bwd_wgmma_arithmetic(q, k, v, o, lse, do, causal, scale):
-    """The wgmma route of csrc/flash_attention_bwd.cu (bf16 at head dims 64
-    and 128) on bf16 q, k, v, do and the forward's bf16 o: S and dP from the
-    bf16 operands with f32 sums, P = exp2(S scale log2 e - lse log2 e) and
-    dS = P (dP - D) in f32 with D = rowsum(do * o); P and dS rounded to
-    bf16 before dV = P^T do, dK = dS^T q and dQ = dS k (f32 sums), dk and
-    dv folded over the group. Returns the f32 sums (scale applied) and P,
-    dS for the bound."""
+    """The wgmma route of csrc/flash_attention_bwd.cu (bf16 at head dims 64,
+    128, 160 and 256) on bf16 q, k, v, do and the forward's bf16 o: S and
+    dP from the bf16 operands with f32 sums, P = exp2(S scale log2 e - lse
+    log2 e) and dS = P (dP - D) in f32 with D = rowsum(do * o); P and dS
+    rounded to bf16 before dV = P^T do, dK = dS^T q and dQ = dS k (f32
+    sums), dk and dv folded over the group. Returns the f32 sums (scale
+    applied) and P, dS for the bound. Above hd 128 the kernel's two
+    consumers split the output's head dim and each computes S and dP over
+    the whole of it: the same arithmetic, column by column (D's f32 sum is
+    taken in two halves there, an order this f32 sum does not fix)."""
     q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
     B, T, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -164,8 +167,19 @@ def _fa_bwd_wgmma_arithmetic(q, k, v, o, lse, do, causal, scale):
     return (dq, fold(dk), fold(dv)), (p, ds)
 
 
+# head dims 256 (gemma-7b) and 160 (stablelm-12b), whose two consumers
+# split the head dim: G 1, G 4, odd groups, S != T, non-causal
+FA_WIDE_CASES = [
+    (2, 20, 20, 4, 4, 256, True),    # G 1
+    (1, 24, 24, 8, 2, 160, True),    # G 4
+    (2, 21, 21, 6, 2, 256, True),    # an odd group (3)
+    (1, 17, 30, 3, 1, 160, True),    # an odd group (3), S > T
+    (2, 33, 17, 4, 4, 160, False)]   # non-causal, S < T
+
+
 @pytest.mark.parametrize("B,T,S,H,K,hd,causal",
-                         FA_CASES + [(2, 40, 40, 8, 2, 64, True)])
+                         FA_CASES + [(2, 40, 40, 8, 2, 64, True)]
+                         + FA_WIDE_CASES)
 def test_flash_attention_bwd_bf16_rounding_contract_matches_jax_grad(
         B, T, S, H, K, hd, causal):
     """The wgmma route's rounding of P and dS (and of the forward's o, from

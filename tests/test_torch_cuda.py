@@ -727,13 +727,18 @@ FA_BWD_CASES = [
     (2, 77, 190, 4, 2, 64, True), (2, 150, 150, 8, 1, 64, True),
     (2, 100, 100, 6, 2, 128, True), (2, 200, 90, 4, 2, 128, False),
     (1, 70, 250, 4, 4, 64, False),
-    # head dims 256 (gemma-7b, 32-row tiles) and 160 (stablelm-12b) on the
-    # CUDA cores: the training shapes, T off the tiles, one row, S != T,
-    # non-causal, an odd group
+    # head dims 256 (gemma-7b) and 160 (stablelm-12b), on wgmma in bf16
+    # (the two consumers split the head dim) and on the CUDA cores in f32
+    # (32-row tiles at 256): the training shapes, T off the tiles, one row,
+    # S != T, non-causal, an odd group; T and S off the 64-row tile in
+    # both directions, MQA
     (8, 256, 256, 16, 16, 256, True), (8, 256, 256, 32, 8, 160, True),
     (2, 200, 200, 16, 16, 256, True), (2, 130, 130, 32, 8, 160, True),
     (2, 1, 1, 16, 16, 256, True), (2, 100, 300, 8, 2, 160, True),
-    (2, 150, 70, 4, 4, 256, False), (2, 96, 96, 6, 2, 160, True)]
+    (2, 150, 70, 4, 4, 256, False), (2, 96, 96, 6, 2, 160, True),
+    (2, 65, 65, 8, 8, 256, True), (1, 63, 63, 8, 2, 160, True),
+    (2, 190, 77, 4, 2, 256, True), (2, 77, 190, 8, 4, 160, True),
+    (2, 129, 129, 4, 1, 256, True), (2, 200, 90, 8, 8, 160, False)]
 
 
 def _grad_close(name, got, want, tol, scale=None):
@@ -817,8 +822,8 @@ def test_flash_attention_bwd_is_deterministic(H, K, hd, dtype):
                                       (torch.float32, 64),
                                       (torch.float32, 256)])
 def test_flash_attention_bwd_routes(dtype, hd):
-    """Every bf16 call at head dims 64 and 128 runs the wgmma kernels, hd
-    16, 32, 160 and 256 and f32 the CUDA-core ones, as the launcher
+    """Every bf16 call at head dims 64, 128, 160 and 256 runs the wgmma
+    kernels, hd 16 and 32 and f32 the CUDA-core ones, as the launcher
     counted them."""
     from repro_torch.kernels.flash_attention import (BWD, bwd_route,
                                                      flash_attention_bwd,
@@ -833,14 +838,14 @@ def test_flash_attention_bwd_routes(dtype, hd):
         flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     want = bwd_route(dtype, hd)
-    assert want == ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
-                    else "cuda_core")
+    assert want == ("wgmma" if dtype == torch.bfloat16
+                    and hd in (64, 128, 160, 256) else "cuda_core")
     assert build.routes(BWD) == {r: 3 * (r == want)
                                  for r in ("wgmma", "cuda_core")}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,K", [(128, 8), (64, 2)])
+@pytest.mark.parametrize("hd,K", [(128, 8), (64, 2), (256, 16), (160, 8)])
 def test_flash_attention_bwd_on_strided_views(hd, K, dtype, no_tf32):
     """q, k, v as views of one fused projection (B, T, (H + 2K) hd), and a
     transposed, non-contiguous do (a (B, H, T, hd) tensor seen as
