@@ -37,12 +37,16 @@ failure ends the run with a traceback and a non-zero exit:
                  and at jamba-v0.1-52b's long_500k cache (``LONG_S``
                  524,288, H 32, K 8, hd 128) both routes, the plain one
                  and ``with_lse`` (out and lse), at B 1 in bf16 and f32
-                 at the lengths S - 1, S / 2 and split - 1, split, split
-                 + 1 of ``flash_decode.plan``, and at B 4 in bf16 (element
-                 offsets past 2^31) at S - 1 and split + 1, q drawn at
-                 std 3 so that the softmax is peaked: bf16 at 2e-2, f32
-                 at 1e-4, both as atol = rtol and of the largest |out|,
-                 against the plain version taken a batch row at a time;
+                 (two clusters of 8 blocks a (batch, KV head)) at the
+                 lengths S - 1, S / 2 (the clusters' boundary), -1 and
+                 split - 1, split, split + 1 of ``flash_decode.plan``, at
+                 B 1, S 32,768, H 16 (the LSE row's) likewise, and at B 4
+                 in bf16 (element offsets past 2^31) at S - 1 and split +
+                 1, q drawn at std 3 so that the softmax is peaked: bf16
+                 at 2e-2, f32 at 1e-4, both as atol = rtol and of the
+                 largest |out|, against the plain version taken a batch
+                 row at a time, two calls bit for bit and the LSE route's
+                 out rounded the plain route's;
                  GAE f32 at 1e-5 (``GAE_CASES``: B 1 to 10,000, T 1 to
                  1000, two calls bit for bit);
                  SSD (y and h_last) bf16 at the serve shape at 2e-2 (two
@@ -350,15 +354,19 @@ failure ends the run with a traceback and a non-zero exit:
 Kernel rows: each kernel's ms at its main path's shapes beside its plain
 version's, its bound and a library call. First, a line for each new head
 dim: flash_attention and flash_decode at gemma-7b's and stablelm-12b's
-serve shapes in turns with SDPA, and (before the backward rows)
+serve shapes in turns with SDPA (after each forward line, its launch's
+blocks in their order, batch row by batch row), and
+(before the backward rows)
 flash_attention_bwd at their training shapes against SDPA's backward by the
 profiler, each with its launches on phase 16's paths. flash_attention and
 SDPA are timed
 in turns over 9 rounds by CUDA-graph replay, and the row gives each one's
 median; a line before it does the same at T 2048, where operations bound
 it. flash_decode's row is timed the same way against SDPA over the filled
-prefix at the last serve step, and a line before it at S 8192, whose
-caches exceed the L2. ssd's row is the median of 7 CUDA-graph
+prefix at the last serve step, and lines before it at jamba-v0.1-52b's
+long_500k cache on one card (B 1, S 524,288, H 32, K 8, one cache set, the
+plain route: two clusters a (batch, KV head)) and at S 8192, whose caches
+exceed the L2. ssd's row is the median of 7 CUDA-graph
 replays at mamba2's serve shape, and a line before it times T 2048, a walk
 of 16 chunks; a line after it times jamba's prefill shape (state 16). pack's row is timed by CUDA-graph
 replay at the host tier's act shape, with ``torch.cat`` as its library
@@ -379,7 +387,9 @@ ssd_bwd line before its row times the f64 CUDA-core route in turns with
 the tensor cores at the same shape, for the record; their launches are a
 train step's. The last row, ``flash_decode_lse``, is flash_decode's LSE
 route at phase 19(b)'s shape (B 1, S 32,768, the full cache), timed in
-turns with SDPA by graph replay; its launches are phase 19(b)'s.
+turns with SDPA by graph replay, a line after it giving its plan's blocks
+and clusters and the clusters the card holds at once; its launches are
+phase 19(b)'s.
 
 Then one JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seed 0.
@@ -434,8 +444,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     fwd_route)
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
-    SMS, max_clusters as fd_max_clusters, plan as fd_plan,
-    smem_bytes as fd_smem)
+    SMS, cluster as fd_cluster, max_clusters as fd_max_clusters,
+    plan as fd_plan, smem_bytes as fd_smem)
 from repro_torch.kernels.gae import gae  # noqa: E402
 from repro_torch.kernels.pack import MAX_LEAVES, pack  # noqa: E402
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
@@ -745,7 +755,8 @@ def phase_build():
 # Kernel instances by their mangled names, for the ptxas and SASS reports:
 # ssd's bf16 tensor-core kernel (every head dim <= 64) and its CUDA-core
 # kernels by dtype and head dim; flash_decode's bf16 (mma.sync) and f32
-# (CUDA cores) kernels by head dim;
+# (CUDA cores) kernels by head dim, each with one cluster a (batch, KV head)
+# and with several;
 # flash_attention's bf16 kernels on wgmma (head dims 64, 128) or mma.sync
 # (16, 32) and its f32 kernels; quant_matmul's bf16 decode kernels by
 # layout, weight and m-tiles (MT 1 serves M <= 8), its wgmma prefill
@@ -782,9 +793,10 @@ INSTANCES = {
         (re.compile(r"ssd_tc_kernel"), lambda m: "bf16 tensor cores"),
         (re.compile(r"ssd_kernelI(f|13__nv_bfloat16)Li(\d)E"), _ssd_cc)],
     "flash_decode": [
-        (re.compile(r"fd_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
+        (re.compile(r"fd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"),
          lambda m: f"{'f32' if m.group(1) == 'f' else 'bf16'} hd "
-                   f"{m.group(2)}")],
+                   f"{m.group(2)}"
+                   + (" several clusters" if m.group(3) == "1" else ""))],
     "flash_attention": [
         (re.compile(r"flash_attention_(wg|tc)?_?kernelI(f)?Li(\d+)E"), _fa)],
     "flash_attention_bwd": [
@@ -810,7 +822,7 @@ INSTANCES = {
 SASS_NEEDS = {
     "ssd": {"bf16 tensor cores": (1, (("HMMA", "HGMMA"),
                                       ("LDGSTS", "UTMALDG")))},
-    "flash_decode": {"bf16": (6, (("HMMA",), ("LDGSTS",)))},
+    "flash_decode": {"bf16": (12, (("HMMA",), ("LDGSTS",)))},
     "flash_attention": {"bf16": (6, (("HMMA", "HGMMA"),
                                      ("LDGSTS", "UTMALDG"))),
                         "bf16 wgmma": (4, (("HGMMA",), ("UTMALDG",)))},
@@ -825,7 +837,8 @@ SASS_NEEDS = {
 # instances on the serve and training paths, where ptxas must report no
 # spills
 NO_SPILLS = {"ssd": ("bf16 tensor cores",),     # mamba2's P 64 among them
-             "flash_decode": ("bf16 hd 128", "bf16 hd 160", "bf16 hd 256"),
+             "flash_decode": ("bf16 hd 128", "bf16 hd 160", "bf16 hd 256",
+                              "bf16 hd 128 several clusters"),
              "flash_attention": ("bf16 wgmma hd 128", "bf16 wgmma hd 160",
                                  "bf16 wgmma hd 256"),
              "quant_matmul": ("bf16 decode (K, N) int8 MT 1",
@@ -1155,23 +1168,36 @@ def fd_cases():
     for G in (1, 2, 4, 8, 20):
         for hd in (16, 32, 64, 128):
             cases.append(((2, 200, 2 * G, 2, hd), [150]))
+    # several clusters a (batch, KV head, head group): B 1, K 1, S 2048
+    for G in (1, 4, 8, 20):
+        for hd in (64, 128):
+            cases.append(((1, 2048, G, 1, hd), [1000, 2047]))
     return cases
 
 
 def fd_long_cases():
-    """Both routes of flash_decode at jamba's long_500k cache (B 1 in bf16
-    and f32, B 4 in bf16) against the plain version, which runs a batch row
-    at a time (an f32 copy of one row's cache is 2.1 GB); returns the
-    number of cases. The inputs come from a generator of their own, so the
-    phases after this one draw what they drew before these cases existed
-    (phase 4's mamba2 gate, at another draw, is PERF.md §7's open item)."""
+    """Both routes of flash_decode at small B·K, where a (batch, KV head)
+    takes two clusters (``flash_decode.cluster``), against the plain
+    version, which runs a batch row at a time (an f32 copy of one row's
+    cache is 2.1 GB): at jamba's long_500k cache (B 1 in bf16 and f32, B 4
+    in bf16, one cluster a pair) and at the LSE row's B 1, S 32,768, H 16;
+    at B 1 the lengths S - 1, S / 2 (the clusters' boundary), split - 1,
+    split, split + 1 and -1 (out 0, lse -inf), two calls bit for bit and
+    the LSE route's out rounded to the cache's type the other route's.
+    Returns the number of cases. The inputs come from a generator of their
+    own, so the phases after this one draw what they drew before these
+    cases existed (phase 4's mamba2 gate, at another draw, is PERF.md §7's
+    open item)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    S, H, K, hd = LONG_S, 32, 8, 128
+    K, hd = 8, 128
     cases, errs = 0, {}
-    for B, dtype, tol in ((1, torch.bfloat16, 2e-2), (1, torch.float32, 1e-4),
-                          (4, torch.bfloat16, 2e-2)):
+    for B, S, H, dtype, tol in (
+            (1, LONG_S, 32, torch.bfloat16, 2e-2),
+            (1, LONG_S, 32, torch.float32, 1e-4),
+            (4, LONG_S, 32, torch.bfloat16, 2e-2),
+            (1, CP_CACHE, 16, torch.bfloat16, 2e-2)):
         split, n_split = fd_plan(B, K, S)
-        lengths = (sorted({S - 1, S // 2, split - 1, split, split + 1})
+        lengths = (sorted({S - 1, S // 2, split - 1, split, split + 1, -1})
                    if B == 1 else [S - 1, split + 1])
         q = (randn(gen, (B, H, hd), torch.float32) * 3).to(dtype)
         k, v = (randn(gen, (B, S, K, hd), dtype) for _ in range(2))
@@ -1182,10 +1208,20 @@ def fd_long_cases():
             want = torch.cat([o for o, _ in rows])
             want_lse = torch.cat([lse for _, lse in rows])
             o, lse = flash_decode(q, k, v, length, with_lse=True)
-            what = f"flash_decode long_500k B {B} length {L} {dtype}"
+            plain = flash_decode(q, k, v, length)
+            what = f"flash_decode B {B} S {S} length {L} {dtype}"
+            if not torch.equal(plain, flash_decode(q, k, v, length)) or \
+                    not torch.equal(o.to(dtype), plain):
+                raise AssertionError(f"{what}: two calls differ, or the LSE "
+                                     f"route's out rounded is not the "
+                                     f"plain route's")
+            if L < 0:
+                if o.any() or not bool((torch.isinf(lse) & (lse < 0)).all()):
+                    raise AssertionError(f"{what}: not out 0 and lse -inf")
+                cases += 1
+                continue
             scale = float(want.abs().max())
-            got = {"plain": check_close(f"{what} plain route",
-                                        flash_decode(q, k, v, length),
+            got = {"plain": check_close(f"{what} plain route", plain,
                                         want.to(dtype), tol),
                    "lse route out": check_close(f"{what} lse route out", o,
                                                 want, tol),
@@ -1195,16 +1231,20 @@ def fd_long_cases():
                     raise AssertionError(f"{what} {name}: max abs err "
                                          f"{got[name]} beyond {tol} of the "
                                          f"largest |out| {scale}")
-            errs[f"B {B} {str(dtype)[6:]} L {L}"] = {
+            errs[f"B {B} S {S} {str(dtype)[6:]} L {L}"] = {
                 n: f"{e:.3g}" for n, e in got.items()} | {
                 "max |out|": f"{scale:.3g}"}
             cases += 3
         del q, k, v, rows
         torch.cuda.empty_cache()
-    print(f"[3 parity] flash_decode at long_500k (S {S}, H {H}, K {K}, hd "
-          f"{hd}; split {fd_plan(1, K, S)[0]} x {fd_plan(1, K, S)[1]} at B "
-          f"1, {fd_plan(4, K, S)[0]} x {fd_plan(4, K, S)[1]} at B 4): "
-          f"both routes pass, max abs err {errs}", flush=True)
+    plans = {f"B {B} S {S}": "{} x {} in clusters of {}".format(
+        *fd_plan(B, K, S), fd_cluster(fd_plan(B, K, S)[1]))
+        for B, S in ((1, LONG_S), (4, LONG_S), (1, CP_CACHE))}
+    print(f"[3 parity] flash_decode at long_500k (S {LONG_S}, H 32, K {K}, "
+          f"hd {hd}) and at B 1, S {CP_CACHE}, H 16 (splits: {plans}): "
+          f"both routes pass, two calls bit for bit, the LSE route's out "
+          f"rounded the plain route's, length -1 out 0 and lse -inf; max "
+          f"abs err {errs}", flush=True)
     return cases
 
 
@@ -3405,6 +3445,14 @@ def lse_row(gen):
           f"{ms / lib_ms:.3f}, bound {nbytes / PEAK_BYTES * 1e3:.4f} ms by "
           f"bytes ({nbytes:.4g} B; {nbytes / ms / 1e9:.2f} TB/s), plain "
           f"{plain:.4f} ms", flush=True)
+    split, n_split = fd_plan(1, K, CP_CACHE)
+    cl = fd_cluster(n_split)
+    print(f"[kernel] flash_decode LSE route plan at B 1, S {CP_CACHE}: "
+          f"{n_split} blocks of {split} positions a (batch, KV head) in "
+          f"{n_split // cl} clusters of {cl}, {K * n_split} blocks for "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+          f"SMs; the card holds {fd_max_clusters(cl, H // K)} such clusters "
+          f"at once", flush=True)
     del sets
     return ("flash_decode_lse", flops, PEAK_FLOPS, nbytes, ms, plain,
             lib_ms), err
@@ -3748,7 +3796,24 @@ def fa_line(gen, B, T, H, K, hd, calls, note="", plain=False):
     return ms, lib_ms, flops, nbytes, fa_sets
 
 
-def fd_line(gen, S, H, K, hd, n_sets, calls, note="", plain=False):
+def fa_launch_line(arch, cfg):
+    """The wgmma forward's launch at ``arch``'s prefill (B 8 x T 512): its
+    blocks, in its order (batch row by batch row, each row's query tiles
+    heaviest first)."""
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hpb = 2 if (H // K) % 2 == 0 else 1
+    nq = -(-PROMPT // (128 // hpb))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[kernel] flash_attention launch at {arch}'s prefill (B {BATCH}, "
+          f"T {PROMPT}, hd {hd}): {BATCH * H // hpb * nq} blocks for {sms} "
+          f"SMs, {BATCH} batch rows in turn, each {H // hpb} blocks of "
+          f"{hpb} head(s) x {nq} query tiles of {128 // hpb} rows, heaviest "
+          f"first (a row's K/V {4 * PROMPT * K * hd / 2**20:.0f} MiB, the "
+          f"launch's {4 * BATCH * PROMPT * K * hd / 2**20:.0f})", flush=True)
+
+
+def fd_line(gen, S, H, K, hd, n_sets, calls, note="", plain=False,
+            B=BATCH):
     """flash_decode at the last step of a cache of S positions (B 8, the
     newest valid index S - 2), bf16, timed in turns with SDPA over the
     filled prefix by graph replay over ``n_sets`` cache sets, with
@@ -3757,11 +3822,11 @@ def fd_line(gen, S, H, K, hd, n_sets, calls, note="", plain=False):
     bf = torch.bfloat16
     L = S - 2                                        # newest valid index
     length = torch.tensor(L, dtype=torch.int32, device="cuda")
-    fd_sets = [(randn(gen, (BATCH, H, hd), bf),
-                randn(gen, (BATCH, S, K, hd), bf),
-                randn(gen, (BATCH, S, K, hd), bf), length)
+    fd_sets = [(randn(gen, (B, H, hd), bf),
+                randn(gen, (B, S, K, hd), bf),
+                randn(gen, (B, S, K, hd), bf), length)
                for _ in range(n_sets)]
-    flops, nbytes = decode_work(BATCH, L, H, K, hd)
+    flops, nbytes = decode_work(B, L, H, K, hd)
 
     def fd_sdpa(q, k, v, n, L=L):
         return F.scaled_dot_product_attention(
@@ -3774,7 +3839,7 @@ def fd_line(gen, S, H, K, hd, n_sets, calls, note="", plain=False):
     if plain:
         note = (f"; plain {cuda_ms(ref.flash_decode, fd_sets, 50):.4f} "
                 f"ms{note}")
-    print(f"[kernel] flash_decode B {BATCH} S {S} L {L} H {H} K {K} hd "
+    print(f"[kernel] flash_decode B {B} S {S} L {L} H {H} K {K} hd "
           f"{hd} bf16, {len(rounds[0])} rounds in turns: kernel median "
           f"{ms:.4f} ms (rounds {min(rounds[0]):.4f}-"
           f"{max(rounds[0]):.4f}), SDPA median {lib_ms:.4f} ms (rounds "
@@ -3886,6 +3951,7 @@ def kernel_rows(gen, launches, errs, hd_launches):
                            f"; {n['flash_attention']} launches a {arch} "
                            f"prefill at depth {HD_SERVE_DEPTH}", plain=True)
         del sets
+        fa_launch_line(arch, cfg)
         G = cfg.num_heads // cfg.num_kv_heads
         split, n_split = fd_plan(BATCH, cfg.num_kv_heads, PROMPT + NEW, SMS,
                                  cfg.head_dim, 2, G)
@@ -3914,6 +3980,19 @@ def kernel_rows(gen, launches, errs, hd_launches):
                  cuda_ms(ref.flash_attention, fa_sets, 10), lib_ms))
     del fa_sets, q, k, v
 
+    # decode attention at jamba-v0.1-52b's long_500k cache on one card (B 1,
+    # S 524,288, H 32, K 8: two clusters of 8 blocks a (batch, KV head)),
+    # one cache set of 2.1 GB, the plain route, beside SDPA
+    jamba = get_config(MOE_ARCH)
+    split, n_split = fd_plan(1, jamba.num_kv_heads, LONG_S)
+    *_, sets, _ = fd_line(                  # its own draw: the rows' stay
+        torch.Generator(device="cuda").manual_seed(1), LONG_S,
+        jamba.num_heads, jamba.num_kv_heads, jamba.head_dim, 1,
+        2, f"; {MOE_ARCH}'s long_500k decode on one card; plan {n_split} "
+        f"blocks of {split} a (batch, KV head) in clusters of "
+        f"{fd_cluster(n_split)}", B=1)
+    del sets
+    torch.cuda.empty_cache()
     # decode attention at the last serve step, timed in turns with SDPA by
     # graph replay: 6 cache sets of 18.9 MB; first a line at S 8192 (2 sets
     # of 268 MB), past the L2

@@ -39,11 +39,13 @@ SIGNATURES = {
         L, L, L, L, L, L, L, L, L,  # q/k/v strides (batch, seq, head)
         I, I, F, P]),               # is_bf16, causal, scale, stream
     "flash_decode": ("flash_decode_fwd", [
-        P, P, P, P, P, P,           # q, k, v, length (device int32), o,
-                                    # lse (f32 (B, H) or null)
+        P, P, P, P, P, P, P,        # q, k, v, length (device int32), o,
+                                    # lse (f32 (B, H) or null), workspace
+                                    # (f32, or null with one cluster a pair)
         I, I, I, I, I,              # B, S, H, K, hd
         L, L, L, L, L, L, L, L,     # q (batch, head), k/v (batch, seq, head)
-        I, F, I, I, P]),            # is_bf16, scale, split, n_split, stream
+        I, F, I, I, I, P]),         # is_bf16, scale, split, n_split,
+                                    # blocks a cluster, stream
     "gae": ("gae_fwd", [
         P, P, P, P, P,              # rewards, values, dones (u8), last, out
         I, I,                       # B, T

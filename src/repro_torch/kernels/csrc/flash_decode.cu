@@ -17,14 +17,17 @@
 // FLOPs per element read, far below the tensor cores' line. The Pallas
 // kernel walks S in order on one core; here S is split over the blocks of a
 // thread block cluster, so that the whole card streams:
-// - Split-KV over a cluster. The grid is (n_split, K * head groups, B), one
-//   cluster of n_split <= 8 blocks per (batch, KV head, group of up to 8
-//   query heads). Block r takes positions [r * split, (r + 1) * split), split
-//   a multiple of 16 chosen on the host from B, K and S (never from
-//   `length`: kernels/flash_decode.py's ``plan``), about one block an SM;
-//   a block whose split starts past `length` loads nothing and contributes
-//   m = -1e30, l = 0. At the serve shape: 128 blocks of 288 positions
-//   (54 KB of shared memory each), in clusters of 2.
+// - Split-KV over clusters. The grid is (n_split, K * head groups, B): the
+//   n_split blocks of each (batch, KV head, group of up to 8 query heads)
+//   form n_split / cl thread block clusters of cl <= 8 blocks. Block j takes
+//   positions [j * split, (j + 1) * split), split a multiple of 16 chosen on
+//   the host from B, K and S (never from `length`: kernels/flash_decode.py's
+//   ``plan``), about one block an SM; a block whose split starts past
+//   `length` loads nothing and contributes m = -1e30, l = 0. At the serve
+//   shape: 128 blocks of 288 positions (54 KB of shared memory each), one
+//   cluster of 2 a pair. At B 1, K 8 (the context-parallel decode's rank, a
+//   long cache on one card) one cluster a pair would fill 64 of the 132
+//   SMs, so ``plan`` gives each pair two clusters of 8: 128 blocks.
 // - An asynchronous ring. A block's two warps each own every other 16-
 //   position tile and stream its K and V rows through their own 3-stage
 //   cp.async ring (16 bytes a lane), issued before any math; tile i + 2's
@@ -38,15 +41,26 @@
 //   exp2. f32 caches take CUDA cores (a lane per position and half of the
 //   heads for the scores, a lane per head dim for P V).
 // - The combine stays in the cluster. Every warp ends with its (m, l, acc);
-//   the warps of ranks 1..n push theirs into rank 0's shared memory with
+//   the warps of ranks 1..cl-1 push theirs into rank 0's shared memory with
 //   st.async, completing on rank 0's mbarrier, and leave; rank 0 merges
 //   every part in (rank, warp) order into the output. One relaxed cluster
-//   barrier, no float atomics, no workspace tensor, one launch a call, and
-//   the same output bits on every call.
+//   barrier, no float atomics, one launch a call, and the same output bits
+//   on every call. With several clusters a pair, rank 0 writes its cluster's
+//   merge as the LSE route writes it (out in f32 and its log-sum-exp) to a
+//   workspace the wrapper allocates, and bumps the pair's arrival counter;
+//   the last cluster to arrive merges the clusters' parts by their
+//   log-sum-exps, as the context-parallel ranks' merge does, in cluster
+//   order (the order, not the arrival, fixes the bits), into the output,
+//   and sets the counter back to 0 for the next launch, so that no memset
+//   runs and a CUDA graph replays the launch as it stands. The
+//   counters are one array of the library on each device: two launches
+//   that overlap on two streams of one device would share them, and the
+//   port launches decode attention on one stream.
 // - The LSE route (the context-parallel decode's, whose ranks merge their
 //   softmax statistics: distributed/plan.py's merge_decode). With an `lse`
-//   pointer, rank 0 also writes each head's log-sum-exp of the scaled
-//   scores, ln 2 (M + log2 L), from the (M, L) its merge already holds; -inf
+//   pointer, the block that writes the output (rank 0, or the last cluster's
+//   rank 0) also writes each head's log-sum-exp of the scaled scores,
+//   ln 2 (M + log2 L), from the (M, L) its merge already holds; -inf
 //   where nothing is filled. It writes `o` in f32, unrounded, so that the
 //   ranks' merge rounds to the cache's type once, as one device's decode
 //   does; rounded to bf16 it is the other route's `o`, bit for bit. Same
@@ -73,6 +87,10 @@ constexpr int SMEM_MAX = 232448 - 1024;
 constexpr int GB = 8;         // query heads a block: rows 0-7 of an m16 tile
 constexpr int MAX_SPLIT = 8;  // blocks a cluster (the portable limit)
 constexpr int NP = MAX_SPLIT * WARPS;  // parts of a cluster, at most
+constexpr int MAX_CLUSTERS = NP;  // clusters a (batch, KV head, head group)
+// (batch, KV head, head group) triples a launch of several clusters each may
+// have: one arrival counter each
+constexpr int MAX_PAIRS = 1024;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -85,7 +103,8 @@ struct Layout {
   static constexpr bool F32 = sizeof(T) == 4;
   // ring stages a warp: 3, and 2 for f32 above head dim 160, whose 3-stage
   // ring (195 KB) leaves no room for the parts (kernels/flash_decode.py's
-  // ``plan`` caps n_split there so that the slots fit: 5 at 8 heads a block)
+  // ``plan`` caps the cluster there so that the slots fit: 5 at 8 heads a
+  // block)
   static constexpr int R = F32 && HD > 160 ? 2 : 3;
   static constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte chunk
   static constexpr int LD = HD + VEC;         // shared row stride: rows 16
@@ -122,12 +141,13 @@ struct Layout {
                 "the weights fit the P tiles");
 };
 
-// Dynamic shared memory of a launch: the slots for n_split ranks' parts of
-// gb heads (kernels/flash_decode.py's ``smem_bytes`` mirrors it).
+// Dynamic shared memory of a launch: the slots for the parts of a cluster's
+// cl ranks, of gb heads (kernels/flash_decode.py's ``smem_bytes`` mirrors
+// it).
 template <typename T, int HD>
-constexpr int smem_bytes(int n_split, int gb) {
+constexpr int smem_bytes(int cl, int gb) {
   return Layout<T, HD>::SLOTS_OFF +
-         (n_split - 1) * WARPS * (2 * GB + gb * HD) * 4;
+         (cl - 1) * WARPS * (2 * GB + gb * HD) * 4;
 }
 
 // The most a launch of the instance may ask for: its largest split, or the
@@ -183,12 +203,99 @@ __device__ __forceinline__ void merge_values(const float* const (&p)[NP],
   }
 }
 
+// The last cluster's merge of a pair's n clusters' parts in cluster order,
+// each (lse, then out) as the cluster's own merge wrote it, the LSE route's
+// arithmetic (distributed/plan.py's merge_decode): M the largest lse, w_c =
+// e^(lse_c - M), out = sum_c (w_c / sum w) out_c, lse = M + ln sum w; out 0
+// and lse -inf where no cluster held a position. Other SMs wrote the parts
+// in this launch: they are read through L2 (ld.global.cg).
 template <typename T, int HD>
+__device__ __forceinline__ void merge_lse(const float* parts, int n, int gb,
+                                          float* wts, float* __restrict__ lse,
+                                          T* __restrict__ out) {
+  constexpr int PART_N = GB + GB * HD;
+  for (int g = threadIdx.x; g < gb; g += NT) {
+    float l[MAX_CLUSTERS], M = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTERS; ++c)
+      if (c < n) {
+        l[c] = __ldcg(parts + c * PART_N + g);
+        M = fmaxf(M, l[c]);
+      }
+    float w[MAX_CLUSTERS], L = 0.f;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTERS; ++c)
+      if (c < n) {
+        w[c] = M == -INFINITY ? 0.f : rt::exp2_approx((l[c] - M) * LOG2E);
+        L += w[c];
+      }
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    if (lse != nullptr) lse[g] = L > 0.f ? M + logf(L) : -INFINITY;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTERS; ++c)
+      if (c < n) wts[g * MAX_CLUSTERS + c] = w[c] * inv;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < gb * HD; e += NT) {
+    const int g = e / HD;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTERS; ++c)
+      if (c < n)
+        acc = fmaf(wts[g * MAX_CLUSTERS + c],
+                   __ldcg(parts + c * PART_N + GB + e), acc);
+    out[e] = rt::Elem<T>::from_float(acc);
+  }
+}
+
+// Arrivals of a pair's clusters in the running launch (0 between launches):
+// the last to arrive merges. Zero when the library loads on a device.
+__device__ unsigned int arrivals[MAX_PAIRS];
+
+// Rank 0's tail with several clusters a pair: its cluster's merge (lse,
+// then out in f32, as the LSE route writes them; GB + GB HD floats a
+// cluster) to the pair's slot of the workspace, then the arrival; the last
+// cluster to arrive merges the pair's parts in cluster order into the
+// output (and lse, where asked) and zeroes the counter.
+template <typename T, int HD>
+__device__ __forceinline__ void merge_clusters(const float* const (&pp)[NP],
+                                               int cl, int gb, float* wts,
+                                               float* lse_row, void* o,
+                                               long long row, float* ws) {
+  __shared__ bool last;  // this cluster arrived last of its pair
+  constexpr int PART_N = GB + GB * HD;
+  const int pair = blockIdx.z * gridDim.y + blockIdx.y;
+  const int n_cl = gridDim.x / cl;
+  float* parts = ws + (long long)pair * n_cl * PART_N;
+  float* mine = parts + (blockIdx.x / cl) * PART_N;
+  merge_weights(pp, cl * WARPS, gb, wts, mine);
+  __syncthreads();
+  merge_values<float, HD>(pp, cl * WARPS, gb, wts, mine + GB);
+  __threadfence();  // the part is visible on the device before the arrival
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&arrivals[pair], 1u) == (unsigned)(n_cl - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every cluster's part is read after its arrival
+  if (lse_row != nullptr)
+    merge_lse<float, HD>(parts, n_cl, gb, wts, lse_row,
+                         static_cast<float*>(o) + row);
+  else
+    merge_lse<T, HD>(parts, n_cl, gb, wts, nullptr, static_cast<T*>(o) + row);
+  if (threadIdx.x == 0) arrivals[pair] = 0u;  // ready for the next launch
+}
+
+// MULTI: several clusters a pair (the workspace, the arrival and the
+// clusters' merge); without it the instance is the one-cluster kernel,
+// compiled apart so that the other's code leaves its schedule as it was.
+template <typename T, int HD, bool MULTI>
 __global__ void __launch_bounds__(NT)
 fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const int* __restrict__ length,
-          void* __restrict__ o, float* __restrict__ lse, int S, int H, int G,
-          int split, long long q_sb,
+          void* __restrict__ o, float* __restrict__ lse,
+          float* __restrict__ ws, int S, int H, int G, int split, int cl,
+          long long q_sb,
           long long q_sh, long long k_sb, long long k_ss, long long k_sh,
           long long v_sb, long long v_ss, long long v_sh, float scale) {
   using Lay = Layout<T, HD>;
@@ -197,7 +304,8 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t pushed;  // rank 0: the other ranks' parts have landed
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int rank = blockIdx.x, n_split = gridDim.x;
+  const int ncl = MULTI ? cl : gridDim.x;         // blocks of the cluster
+  const int rank = MULTI ? blockIdx.x % cl : blockIdx.x;  // in the cluster
   const int HG = (G + GB - 1) / GB;
   const int kh = blockIdx.y / HG, h0 = kh * G + (blockIdx.y % HG) * GB;
   const int gb = min(GB, kh * G + G - h0);  // the block's query heads
@@ -206,7 +314,7 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float c2 = scale * LOG2E;           // scores in log2 units
   // positions [0, length] attend (length >= -1 by contract: -1, none)
   const int nvalid = min(S, max(__ldg(length), -1) + 1);
-  const int s0 = rank * split, s1 = min(s0 + split, nvalid);
+  const int s0 = blockIdx.x * split, s1 = min(s0 + split, nvalid);
   const int ntiles = s1 > s0 ? (s1 - s0 + TP - 1) / TP : 0;
   const int mine = ntiles > warp ? (ntiles - warp + WARPS - 1) / WARPS : 0;
   T* ring = reinterpret_cast<T*>(smem + warp * Lay::WARP_RING_B);
@@ -235,11 +343,11 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (i < mine) issue(i);
     rt::cp_async_commit();
   }
-  if (n_split > 1) {
+  if (ncl > 1) {
     if (rank == 0 && threadIdx.x == 0) {
       rt::mbar_init(&pushed, 1);
       rt::mbar_init_fence();
-      rt::mbar_expect_tx(&pushed, (n_split - 1) * WARPS * gb * (8 + 4 * HD));
+      rt::mbar_expect_tx(&pushed, (ncl - 1) * WARPS * gb * (8 + 4 * HD));
     }
     // relaxed: a release here would wait for the loads just issued; the
     // mbarrier's init is released by its own fence
@@ -463,8 +571,9 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // rank 0: its warps' parts, then the other ranks' in (rank, warp) order,
-  // merged into the output
-  if (n_split > 1) {
+  // merged into the output, or with several clusters a pair into the
+  // cluster's part
+  if (ncl > 1) {
     rt::cluster_wait();
     rt::mbar_wait(&pushed, 0);
   }
@@ -480,31 +589,37 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  : reinterpret_cast<const float*>(smem + Lay::SLOTS_OFF) +
                        ((r - 1) * WARPS + w) * slot_n;
   float* wts = reinterpret_cast<float*>(smem + Lay::WTS_OFF);
-  merge_weights(pp, n_split * WARPS, gb, wts,
-                lse != nullptr ? lse + (long long)b * H + h0 : nullptr);
-  __syncthreads();
-  const long long row = ((long long)b * H + h0) * HD;
-  if (lse != nullptr)  // the LSE route: o in f32, for the ranks' merge
-    merge_values<float, HD>(pp, n_split * WARPS, gb, wts,
-                            static_cast<float*>(o) + row);
-  else
-    merge_values<T, HD>(pp, n_split * WARPS, gb, wts,
-                        static_cast<T*>(o) + row);
+  float* lse_row = lse != nullptr ? lse + (long long)b * H + h0 : nullptr;
+  if constexpr (MULTI) {
+    merge_clusters<T, HD>(pp, cl, gb, wts, lse_row, o,
+                          ((long long)b * H + h0) * HD, ws);
+  } else {
+    merge_weights(pp, ncl * WARPS, gb, wts, lse_row);
+    __syncthreads();
+    const long long row = ((long long)b * H + h0) * HD;
+    if (lse != nullptr)  // the LSE route: o in f32, for the ranks' merge
+      merge_values<float, HD>(pp, ncl * WARPS, gb, wts,
+                              static_cast<float*>(o) + row);
+    else
+      merge_values<T, HD>(pp, ncl * WARPS, gb, wts, static_cast<T*>(o) + row);
+  }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* length,
-           void* o, void* lse, int B, int S, int H, int K, long long q_sb,
-           long long q_sh,
-           long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-           long long v_ss, long long v_sh, float scale, int split,
-           int n_split, cudaStream_t stream) {
-  static unsigned long long done = 0;  // devices with the limit raised
-  auto kern = fd_kernel<T, HD>;
+           void* o, void* lse, void* ws, int B, int S, int H, int K,
+           long long q_sb, long long q_sh, long long k_sb, long long k_ss,
+           long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+           float scale, int split, int n_split, int cl, cudaStream_t stream) {
+  static unsigned long long done[2] = {};  // devices with the limit raised
+  const bool multi = n_split > cl;
+  auto kern = multi ? fd_kernel<T, HD, true> : fd_kernel<T, HD, false>;
   const int G = H / K, HG = (G + GB - 1) / GB;
-  const int smem = smem_bytes<T, HD>(n_split, G < GB ? G : GB);
+  if (multi && (ws == nullptr || (long long)B * K * HG > MAX_PAIRS))
+    return cudaErrorInvalidValue;
+  const int smem = smem_bytes<T, HD>(cl, G < GB ? G : GB);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = rt::allow_smem(kern, smem_cap<T, HD>(), done);
+  cudaError_t err = rt::allow_smem(kern, smem_cap<T, HD>(), done[multi]);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, K * HG, B);
@@ -513,7 +628,7 @@ int launch(const void* q, const void* k, const void* v, const void* length,
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.x = cl;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -521,29 +636,29 @@ int launch(const void* q, const void* k, const void* v, const void* length,
   err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(length),
-      o, static_cast<float*>(lse), S, H, G, split, q_sb,
-      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
+      o, static_cast<float*>(lse), static_cast<float*>(ws), S, H, G, split,
+      cl, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Clusters of n_split blocks (G query heads a KV head) that the card holds
-// at once (cudaOccupancyMaxActiveClusters), or minus the cudaError_t.
+// Clusters of cl blocks (G query heads a KV head) that the card holds at
+// once (cudaOccupancyMaxActiveClusters), or minus the cudaError_t.
 template <typename T, int HD>
-int max_clusters(int n_split, int G) {
+int max_clusters(int cl, int G) {
   static unsigned long long done = 0;
-  auto kern = fd_kernel<T, HD>;
-  const int smem = smem_bytes<T, HD>(n_split, G < GB ? G : GB);
+  auto kern = fd_kernel<T, HD, false>;
+  const int smem = smem_bytes<T, HD>(cl, G < GB ? G : GB);
   if (smem > SMEM_MAX) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = rt::allow_smem(kern, smem_cap<T, HD>(), done);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split);
+  cfg.gridDim = dim3(cl);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.x = cl;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -555,39 +670,24 @@ int max_clusters(int n_split, int G) {
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
-              const void* length, void* o, void* lse, int B, int S, int H,
-              int K,
-              long long q_sb, long long q_sh, long long k_sb, long long k_ss,
-              long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-              float scale, int split, int n_split, cudaStream_t st) {
+              const void* length, void* o, void* lse, void* ws, int B, int S,
+              int H, int K, long long q_sb, long long q_sh, long long k_sb,
+              long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+              long long v_sh, float scale, int split, int n_split, int cl,
+              cudaStream_t st) {
+#define FD_LAUNCH(HD_)                                                       \
+  launch<T, HD_>(q, k, v, length, o, lse, ws, B, S, H, K, q_sb, q_sh, k_sb, \
+                 k_ss, k_sh, v_sb, v_ss, v_sh, scale, split, n_split, cl, st)
   switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
-                           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                           split, n_split, st);
-    case 32:
-      return launch<T, 32>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
-                           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                           split, n_split, st);
-    case 64:
-      return launch<T, 64>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
-                           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                           split, n_split, st);
-    case 128:
-      return launch<T, 128>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
-                            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                            split, n_split, st);
-    case 160:
-      return launch<T, 160>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
-                            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                            split, n_split, st);
-    case 256:
-      return launch<T, 256>(q, k, v, length, o, lse, B, S, H, K, q_sb, q_sh,
-                            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                            split, n_split, st);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return FD_LAUNCH(16);
+    case 32: return FD_LAUNCH(32);
+    case 64: return FD_LAUNCH(64);
+    case 128: return FD_LAUNCH(128);
+    case 160: return FD_LAUNCH(160);
+    case 256: return FD_LAUNCH(256);
+    default: return cudaErrorInvalidValue;
   }
+#undef FD_LAUNCH
 }
 
 // The routes a call can take, and the launches each has had.
@@ -601,30 +701,36 @@ std::atomic<unsigned long long> taken[ROUTES];
 // contiguous (B, H, hd) tensor, of the cache's type or, with lse, f32; lse
 // a contiguous f32 (B, H) one, or null (no LSE written); length points to
 // one int32 on the device, in [-1, S).
-// The cache is split over n_split (1..8) blocks of `split` positions each (a
-// multiple of 16, with (n_split - 1) * split < S <= n_split * split):
-// kernels/flash_decode.py's plan.
+// The cache is split over n_split blocks of `split` positions each (a
+// multiple of 16, with (n_split - 1) * split < S <= n_split * split), in
+// clusters of cl (1..8) blocks, at most 16 clusters a (batch, KV head, head
+// group): kernels/flash_decode.py's plan. With more than one cluster, ws is
+// an f32 workspace of B * K * ceil(H / K / 8) * (n_split / cl) * 8 * (1 +
+// hd) floats (its contents on entry do not matter), else it may be null.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const void* length, void* o, void* lse,
-                                int B, int S, int H, int K, int hd,
+                                void* ws, int B, int S, int H, int K, int hd,
                                 long long q_sb,
                                 long long q_sh, long long k_sb,
                                 long long k_ss, long long k_sh,
                                 long long v_sb, long long v_ss,
                                 long long v_sh, int is_bf16, float scale,
-                                int split, int n_split, void* stream) {
-  if (n_split < 1 || n_split > MAX_SPLIT || split < TP || split % TP ||
+                                int split, int n_split, int cl,
+                                void* stream) {
+  if (cl < 1 || cl > MAX_SPLIT || n_split < 1 || n_split % cl ||
+      n_split / cl > MAX_CLUSTERS || split < TP || split % TP ||
       (long long)(n_split - 1) * split >= S ||
       (long long)n_split * split < S || K < 1 || H % K)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err =
-      is_bf16 ? launch_hd<__nv_bfloat16>(hd, q, k, v, length, o, lse, B, S, H,
-                                         K, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                         v_ss, v_sh, scale, split, n_split, st)
-              : launch_hd<float>(hd, q, k, v, length, o, lse, B, S, H, K,
+      is_bf16 ? launch_hd<__nv_bfloat16>(hd, q, k, v, length, o, lse, ws, B,
+                                         S, H, K, q_sb, q_sh, k_sb, k_ss,
+                                         k_sh, v_sb, v_ss, v_sh, scale, split,
+                                         n_split, cl, st)
+              : launch_hd<float>(hd, q, k, v, length, o, lse, ws, B, S, H, K,
                                  q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                                 v_sh, scale, split, n_split, st);
+                                 v_sh, scale, split, n_split, cl, st);
   if (err == 0)
     taken[lse != nullptr ? LSE : OUT].fetch_add(1, std::memory_order_relaxed);
   return err;
@@ -637,49 +743,49 @@ extern "C" void flash_decode_routes(unsigned long long* counts, int reset) {
     counts[r] = reset ? taken[r].exchange(0) : taken[r].load();
 }
 
-// Clusters of a launch at (hd, dtype, n_split, G) that the card holds at
-// once, or minus the cudaError_t: a grid of more clusters runs in waves.
-extern "C" int flash_decode_max_clusters(int hd, int is_bf16, int n_split,
+// Clusters of cl blocks at (hd, dtype, G) that the card holds at once, or
+// minus the cudaError_t: a grid of more clusters runs in waves.
+extern "C" int flash_decode_max_clusters(int hd, int is_bf16, int cl,
                                          int G) {
   using bf16 = __nv_bfloat16;
-  if (n_split < 1 || n_split > MAX_SPLIT || G < 1)
+  if (cl < 1 || cl > MAX_SPLIT || G < 1)
     return -static_cast<int>(cudaErrorInvalidValue);
   switch (2 * hd + (is_bf16 != 0)) {
-    case 32: return max_clusters<float, 16>(n_split, G);
-    case 33: return max_clusters<bf16, 16>(n_split, G);
-    case 64: return max_clusters<float, 32>(n_split, G);
-    case 65: return max_clusters<bf16, 32>(n_split, G);
-    case 128: return max_clusters<float, 64>(n_split, G);
-    case 129: return max_clusters<bf16, 64>(n_split, G);
-    case 256: return max_clusters<float, 128>(n_split, G);
-    case 257: return max_clusters<bf16, 128>(n_split, G);
-    case 320: return max_clusters<float, 160>(n_split, G);
-    case 321: return max_clusters<bf16, 160>(n_split, G);
-    case 512: return max_clusters<float, 256>(n_split, G);
-    case 513: return max_clusters<bf16, 256>(n_split, G);
+    case 32: return max_clusters<float, 16>(cl, G);
+    case 33: return max_clusters<bf16, 16>(cl, G);
+    case 64: return max_clusters<float, 32>(cl, G);
+    case 65: return max_clusters<bf16, 32>(cl, G);
+    case 128: return max_clusters<float, 64>(cl, G);
+    case 129: return max_clusters<bf16, 64>(cl, G);
+    case 256: return max_clusters<float, 128>(cl, G);
+    case 257: return max_clusters<bf16, 128>(cl, G);
+    case 320: return max_clusters<float, 160>(cl, G);
+    case 321: return max_clusters<bf16, 160>(cl, G);
+    case 512: return max_clusters<float, 256>(cl, G);
+    case 513: return max_clusters<bf16, 256>(cl, G);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory bytes of a launch at (hd, dtype, n_split, G), or
-// -1 for a head dim with no instance: what kernels/flash_decode.py's
-// ``smem_bytes`` must equal.
-extern "C" int flash_decode_smem(int hd, int is_bf16, int n_split, int G) {
+// Dynamic shared memory bytes of a launch of clusters of cl blocks at (hd,
+// dtype, G), or -1 for a head dim with no instance: what
+// kernels/flash_decode.py's ``smem_bytes`` must equal.
+extern "C" int flash_decode_smem(int hd, int is_bf16, int cl, int G) {
   using bf16 = __nv_bfloat16;
   const int gb = G < GB ? G : GB;
   switch (2 * hd + (is_bf16 != 0)) {
-    case 32: return smem_bytes<float, 16>(n_split, gb);
-    case 33: return smem_bytes<bf16, 16>(n_split, gb);
-    case 64: return smem_bytes<float, 32>(n_split, gb);
-    case 65: return smem_bytes<bf16, 32>(n_split, gb);
-    case 128: return smem_bytes<float, 64>(n_split, gb);
-    case 129: return smem_bytes<bf16, 64>(n_split, gb);
-    case 256: return smem_bytes<float, 128>(n_split, gb);
-    case 257: return smem_bytes<bf16, 128>(n_split, gb);
-    case 320: return smem_bytes<float, 160>(n_split, gb);
-    case 321: return smem_bytes<bf16, 160>(n_split, gb);
-    case 512: return smem_bytes<float, 256>(n_split, gb);
-    case 513: return smem_bytes<bf16, 256>(n_split, gb);
+    case 32: return smem_bytes<float, 16>(cl, gb);
+    case 33: return smem_bytes<bf16, 16>(cl, gb);
+    case 64: return smem_bytes<float, 32>(cl, gb);
+    case 65: return smem_bytes<bf16, 32>(cl, gb);
+    case 128: return smem_bytes<float, 64>(cl, gb);
+    case 129: return smem_bytes<bf16, 64>(cl, gb);
+    case 256: return smem_bytes<float, 128>(cl, gb);
+    case 257: return smem_bytes<bf16, 128>(cl, gb);
+    case 320: return smem_bytes<float, 160>(cl, gb);
+    case 321: return smem_bytes<bf16, 160>(cl, gb);
+    case 512: return smem_bytes<float, 256>(cl, gb);
+    case 513: return smem_bytes<bf16, 256>(cl, gb);
     default: return -1;
   }
 }

@@ -11,9 +11,14 @@ The Pallas kernel walks the cache in order on one core; one block per
 So the kernel splits the cache over a thread block cluster of up to 8
 blocks per (batch, KV head), each streaming its split through a
 ``cp.async`` ring, and merges the blocks' softmax statistics and
-accumulators inside the cluster, in a fixed order. ``plan`` chooses the
-split from B, K and S on the host (never from ``length``), so one launch
-serves every prefix length of a cache.
+accumulators inside the cluster, in a fixed order. Where one cluster a
+pair leaves SMs idle (B 1, K 8: 64 blocks), a pair takes several
+clusters, up to 16; each writes its merge (out in f32 and its
+log-sum-exp) to a workspace, and the last to finish merges the parts by
+their log-sum-exps in cluster order (a counter on the device that resets
+itself: no memset, no second launch).
+``plan`` chooses the split from B, K and S on the host (never from
+``length``), so one launch serves every prefix length of a cache.
 
 The LSE route (``with_lse``, the context-parallel decode's: each rank
 attends over its slice of the sequence, and the ranks merge their softmax
@@ -42,6 +47,7 @@ from repro_torch.kernels._checks import check_heads, check_tensors
 NAME = "flash_decode"
 TILE = 16         # cache positions a tile; splits are multiples of it
 MAX_SPLIT = 8     # blocks a cluster (the portable limit); csrc's MAX_SPLIT
+MAX_CLUSTERS = 16  # clusters a (batch, KV head, head group); csrc's
 WARPS = 2         # warps a block, warp w taking its tiles w, w + 2, ...
 GB = 8            # query heads a block
 SMEM_MAX = 232448 - 1024  # dynamic shared memory a launch may take (H100:
@@ -51,8 +57,8 @@ SMS = 132         # the H100's SMs
 _SMS: dict = {}   # torch.device -> its SM count
 
 
-def smem_bytes(n_split: int, hd: int = 128, elem: int = 2, G: int = 1) -> int:
-    """Dynamic shared memory of a launch of ``n_split`` blocks a cluster at
+def smem_bytes(cl: int, hd: int = 128, elem: int = 2, G: int = 1) -> int:
+    """Dynamic shared memory of a launch in clusters of ``cl`` blocks at
     head dim ``hd``, ``elem``-byte caches and G query heads a KV head: the
     layout of ``csrc/flash_decode.cu`` (``Layout``, ``smem_bytes``; the
     card checks the two agree, ``flash_decode_smem``). Each warp's ring of
@@ -69,41 +75,65 @@ def smem_bytes(n_split: int, hd: int = 128, elem: int = 2, G: int = 1) -> int:
             GB * hd * 4
     else:
         slots_off = ring + (GB * (hd + 8) * 2 if hd > 128 else 0)
-    return slots_off + (n_split - 1) * WARPS * (2 * GB + min(G, GB) * hd) * 4
+    return slots_off + (cl - 1) * WARPS * (2 * GB + min(G, GB) * hd) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_cap(hd: int = 128, elem: int = 2, G: int = 1) -> int:
+    """The most blocks a cluster may have at this head dim, cache type and
+    group: ``MAX_SPLIT``, less where rank 0's slots would not fit a block's
+    shared memory (``smem_bytes``: only f32 at hd 256 with 6 or more heads
+    a block, 6 blocks, and 5 at 8 heads)."""
+    n = MAX_SPLIT
+    while n > 1 and smem_bytes(n, hd, elem, G) > SMEM_MAX:
+        n -= 1
+    return n
 
 
 @functools.lru_cache(maxsize=None)
 def plan(B: int, K: int, S: int, sms: int = SMS, hd: int = 128,
          elem: int = 2, G: int = 1):
     """(split, n_split) for a cache of S positions at B·K (batch, KV head)
-    pairs: n_split blocks a pair, as many as keep ``WAVE`` blocks or fewer
-    on each of ``sms`` SMs, at most ``MAX_SPLIT`` (one cluster), at most
-    one per 16-position tile, and no more than the shared memory of a
-    block holds at this head dim, cache type and group G (``smem_bytes``:
-    only f32 at hd 256 with 6 or more heads a block is held back, to 6
-    blocks, and to 5 at 8 heads); each takes ``split`` positions, a
-    multiple of 16, the last one the rest. At the serve shape (B 8, K 8, S
-    576) that is 2 blocks of 288 positions, 128 blocks for 132 SMs. A block streams
-    near the card's rate by itself, and more blocks an SM measured slower
-    (tools/flash_decode_plans.py): more parts to merge, and past about
-    2.5 blocks an SM clusters that must share a GPC no longer fit at once
-    and run in a second wave."""
+    pairs (each of ceil(G / 8) head groups): n_split blocks a pair, as many
+    as keep ``WAVE`` blocks or fewer on each of ``sms`` SMs and at most one
+    per 16-position tile, each taking ``split`` positions, a multiple of
+    16, the last one the rest. They run in clusters of ``cluster(n_split,
+    ...)`` blocks: one cluster of up to ``cluster_cap`` blocks a pair, or,
+    where that leaves SMs idle, up to ``MAX_CLUSTERS`` clusters of
+    ``cluster_cap`` blocks, as many as keep every block non-empty (the
+    split rounds to 16). At the serve shape (B 8, K 8, S 576) that is 2
+    blocks of 288 positions, 128 blocks for 132 SMs; at B 1, K 8, S 32,768
+    two clusters of 8 blocks of 2,048 (one cluster of 8 would fill 64 SMs).
+    A block streams near the card's rate by itself, and more blocks an SM
+    measured slower (tools/flash_decode_plans.py): more parts to merge, and
+    past about 2.5 blocks an SM clusters that must share a GPC no longer fit
+    at once and run in a second wave."""
     tiles = max(1, -(-S // TILE))
-    n = min(MAX_SPLIT, tiles, max(1, int(WAVE * sms) // max(1, B * K)))
-    while n > 1 and smem_bytes(n, hd, elem, G) > SMEM_MAX:
-        n -= 1
-    split = -(-tiles // n) * TILE
+    want = min(tiles, max(1, int(WAVE * sms) // max(1, B * K * -(-G // GB))))
+    cap = cluster_cap(hd, elem, G)
+    for n_cl in range(min(MAX_CLUSTERS, want // cap), 1, -1):
+        split = -(-tiles // (n_cl * cap))
+        if -(-tiles // split) == n_cl * cap:
+            return split * TILE, n_cl * cap
+    split = -(-tiles // min(want, cap)) * TILE
     return split, max(1, -(-S // split))
 
 
-def max_clusters(n_split: int, G: int, hd: int = 128,
+def cluster(n_split: int, hd: int = 128, elem: int = 2, G: int = 1) -> int:
+    """Blocks a cluster of a launch of ``n_split`` blocks a pair (``plan``):
+    all of them up to ``cluster_cap``, else ``cluster_cap`` (``plan`` makes
+    n_split a multiple of it)."""
+    return min(n_split, cluster_cap(hd, elem, G))
+
+
+def max_clusters(cl: int, G: int, hd: int = 128,
                  dtype=torch.bfloat16) -> int:
-    """Clusters of ``n_split`` blocks (G query heads a KV head) that the
-    current card holds at once, by the launcher's
+    """Clusters of ``cl`` blocks (G query heads a KV head) that the current
+    card holds at once, by the launcher's
     ``cudaOccupancyMaxActiveClusters``: a grid of more runs in waves."""
     fn = build.load(NAME).flash_decode_max_clusters
     fn.argtypes = [ctypes.c_int] * 4
-    n = fn(hd, int(dtype == torch.bfloat16), n_split, G)
+    n = fn(hd, int(dtype == torch.bfloat16), cl, G)
     if n < 0:
         raise RuntimeError(f"{NAME}: occupancy query failed with "
                            f"cudaError_t {-n}")
@@ -153,19 +183,25 @@ def flash_decode(q, k, v, length, with_lse: bool = False):
     if o.numel() == 0 or S == 0:
         o.zero_()
         return (o, lse.fill_(float("-inf"))) if with_lse else o
-    split, n_split = plan(B, K, S, _sms(q.device), hd, q.element_size(),
-                          H // K)
+    G, elem = H // K, q.element_size()
+    split, n_split = plan(B, K, S, _sms(q.device), hd, elem, G)
+    cl = cluster(n_split, hd, elem, G)
+    ws = None        # the clusters' parts, where a pair has several
+    if n_split > cl:
+        ws = torch.empty(B * K * -(-G // GB) * (n_split // cl) * GB *
+                         (1 + hd), dtype=torch.float32, device=q.device)
     lib = build.load(NAME)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_decode_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-            o.data_ptr(), lse.data_ptr() if with_lse else None, B, S, H, K,
+            o.data_ptr(), lse.data_ptr() if with_lse else None,
+            None if ws is None else ws.data_ptr(), B, S, H, K,
             hd, q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd), split,
-            n_split, stream)
+            n_split, cl, stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     return (o, lse) if with_lse else o

@@ -213,6 +213,113 @@ def test_flash_decode_lse_route_matches_ref(hd, dtype, no_tf32):
             torch.testing.assert_close(lse, w_lse, atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [32_768, 524_288])
+def test_flash_decode_over_several_clusters_a_pair(S, dtype, no_tf32):
+    """B 1, K 8 (the LSE row's heads; jamba's long_500k length): a (batch,
+    KV head) takes two clusters of 8 blocks, the last to finish merging
+    both. Both routes against the plain version at lengths S - 1, the
+    split's and the clusters' boundaries and one each side, and -1 (out 0,
+    lse -inf); two calls bit for bit; the LSE route's out rounded to the
+    cache's type is the plain route's."""
+    from repro_torch.kernels.flash_decode import cluster, plan
+    B, H, K, hd = 1, 16, 8, 128
+    split, n_split = plan(B, K, S)
+    cl = cluster(n_split)
+    assert n_split == 2 * cl
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    q = (3 * torch.randn((B, H, hd), generator=gen, device="cuda")).to(dtype)
+    k, v = (torch.randn((B, S, K, hd), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    lengths = {S - 1, -1} | {e + d for e in (split, cl * split)
+                             for d in (-1, 0, 1)}
+    for L in sorted(lengths):
+        length = torch.tensor(L, dtype=torch.int32, device="cuda")
+        got = ops.flash_decode(q, k, v, length)
+        out, lse = ops.flash_decode(q, k, v, length, with_lse=True)
+        assert torch.equal(got, ops.flash_decode(q, k, v, length))
+        assert torch.equal(out.to(dtype), got)
+        w_out, w_lse = ref.flash_decode(q, k, v, length, with_lse=True)
+        torch.testing.assert_close(out, w_out, atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        if L < 0:
+            assert not out.any()
+            assert bool(torch.isinf(lse).all() and (lse < 0).all())
+        else:
+            tol = 1e-4 * max(1.0, float(w_lse.abs().max()))
+            torch.testing.assert_close(lse, w_lse, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 8, 20])
+@pytest.mark.parametrize("hd", [64, 128, 160, 256])
+def test_flash_decode_several_clusters_over_groups_and_head_dims(G, hd, dtype,
+                                                                 no_tf32):
+    """B 1, K 1, S 2048: up to 16 clusters a (batch, KV head, head group),
+    of 5 or 6 blocks where f32 at hd 256 caps the cluster, at every head
+    dim and 1 to 20 query heads (three head groups)."""
+    from repro_torch.kernels.flash_decode import cluster, plan
+    B, S, K = 1, 2048, 1
+    elem = 4 if dtype == torch.float32 else 2
+    _, n_split = plan(B, K, S, 132, hd, elem, G)
+    assert n_split > cluster(n_split, hd, elem, G)
+    q, k, v = _fd_inputs(np.random.default_rng(G + hd), B, S, G * K, K, hd,
+                         dtype)
+    for L in (1000, S - 1):
+        _fd_check(q, k, v, L, dtype)
+
+
+def _parent_flash_attention():
+    """The flash_attention module of the checkout at $REPRO_PARENT (the
+    parent, unpacked with ``git archive``), bound to a build of its own
+    sources (as tools/fa_bwd_ab.py loads an old tree), or None."""
+    import importlib.util
+    import os
+    from pathlib import Path
+    root = os.environ.get("REPRO_PARENT")
+    if not root:
+        return None
+    mods = {}
+    for name in ("build", "flash_attention"):
+        path = Path(root) / "src/repro_torch/kernels" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    mods["flash_attention"].build = mods["build"]
+    return mods["flash_attention"]
+
+
+@pytest.mark.parametrize("hd,H,K", [(64, 24, 24), (128, 16, 8), (160, 32, 8),
+                                    (256, 16, 16)])
+def test_flash_attention_launch_order_keeps_the_bits(hd, H, K):
+    """The wgmma forward's launch order (batch row by batch row) only moves
+    blocks: at each arch's prefill (musicgen-medium, qwen3-0.6b,
+    stablelm-12b, gemma-7b; B 8 x T 512) out and lse repeat bit for bit and
+    hold to the plain version; with $REPRO_PARENT a checkout of the parent
+    (whose grid ran heaviest first over the whole launch), they are its
+    build's bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+    B, T = 8, 512
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+               .to(torch.bfloat16) for s in ((B, T, H, hd), (B, T, K, hd),
+                                             (B, T, K, hd)))
+
+    def bits(mod):
+        return (mod.flash_attention(q, k, v),
+                *mod.flash_attention_fwd(q, k, v, True, with_lse=True))
+
+    want = bits(fa)
+    assert all(torch.equal(a, b) for a, b in zip(bits(fa), want))
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(want[0].float(),
+                               ref.flash_attention(q, k, v).float(),
+                               atol=tol, rtol=tol)
+    parent = _parent_flash_attention()
+    if parent is not None:
+        assert all(torch.equal(a, b) for a, b in zip(bits(parent), want))
+
+
 def test_flash_decode_length_must_be_a_device_tensor():
     q = torch.zeros(1, 4, 32, device="cuda")
     k = torch.zeros(1, 8, 2, 32, device="cuda")

@@ -15,7 +15,11 @@ numpy and the JAX package.
   within 1e-6 (f32), and a split into one slice is it bit for bit; in
   bf16 the merged rows, rounded once, are within half a bf16 unit of the
   whole cache's f32 decode and within one unit of its bf16 decode;
-* the meta path: shapes, and the work recorded in ``kernels/cost.py``.
+* the meta path: shapes, and the work recorded in ``kernels/cost.py``;
+* the kernel's LSE route as tests/test_torch_decode_split.py emulates it,
+  at B 1 shapes whose plan gives a (batch, KV head) several clusters:
+  ``out`` against the Pallas kernel and JAX's ``ref`` at this file's
+  tolerances, ``lse`` against numpy's, at lengths -1, 0, mid and S - 1.
 
 The CUDA route is held to the plain version on the card
 (tests/test_torch_cuda.py, ``chip_smoke.py``).
@@ -32,6 +36,7 @@ from repro_torch.kernels import cost
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref
 from repro_torch.models.convert import to_torch
+from test_torch_decode_split import MULTI, _emulate
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SHAPES = [(2, 4, 2, 32, 64, 16), (1, 8, 1, 64, 48, 16),
@@ -183,3 +188,32 @@ def test_plain_version_without_lse_is_unchanged():
         o = torch.einsum("bkgs,bskh->bkgh", torch.softmax(s, -1), v)
         assert torch.equal(ref.flash_decode(q, k, v, length),
                            o.reshape(1, 2, 16))
+
+
+@pytest.mark.parametrize("jax_mode", ["interpret", "ref"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("frac", [-1, 0.0, 0.4, 1.0])
+@pytest.mark.parametrize("B,H,K,hd,S,bs", MULTI)
+def test_lse_route_merged_across_clusters(B, H, K, hd, S, bs, frac, dtype,
+                                          jax_mode):
+    """The emulated LSE route over several clusters a pair (more than 8
+    blocks at B 1): ``out`` f32 against JAX, ``lse`` against numpy, and
+    rounded to the dtype ``out`` is the emulated plain route's; at -1 out 0
+    and lse -inf."""
+    rng = np.random.default_rng(S + hd + 7)
+    (qj, q), (kj, k), (vj, v) = (_pair(rng, s, dtype) for s in
+                                 ((B, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    L = -1 if frac < 0 else int(frac * (S - 1))
+    out, lse = _emulate(q, k, v, L, with_lse=True)
+    assert out.dtype == lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out.to(q.dtype), _emulate(q, k, v, L))
+    if L < 0:
+        assert not out.any() and torch.isinf(lse).all() and (lse < 0).all()
+        return
+    want = jops.flash_decode(qj, kj, vj, jnp.asarray(L, jnp.int32),
+                             mode=jax_mode, block_s=bs)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    w = _np_lse(q.float().numpy(), k.float().numpy(), L)
+    np.testing.assert_allclose(lse.numpy(), w, rtol=0,
+                               atol=1e-5 * max(1.0, np.abs(w).max()))

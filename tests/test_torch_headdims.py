@@ -315,20 +315,22 @@ def test_cuda_head_dims_need_an_instance_and_cpu_takes_any():
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("elem", [2, 4])
 def test_decode_plan_fits_shared_memory(hd, elem):
-    """Every split ``plan`` picks fits a block at its head dim, cache type
-    and group; only f32 at hd 256 with 6 or more heads a block is held back (to 6
-    blocks, and to 5 at 8 heads, where 8 ranks' slots would take 274,496
-    bytes)."""
+    """Every cluster of the splits ``plan`` picks fits a block at its head
+    dim, cache type and group; only f32 at hd 256 with 6 or more heads a
+    block has its cluster held back (to 6 blocks, and to 5 at 8 heads, where
+    8 ranks' slots would take 274,496 bytes), and a pair then takes several
+    clusters of that size where one would leave SMs idle."""
     for G in (1, 2, 4, 6, 8, 20):
+        cap = fd.cluster_cap(hd, elem, G)
+        if cap < fd.MAX_SPLIT:
+            assert elem == 4 and hd == 256 and G >= 6
+            assert cap == (5 if G >= 8 else 6)
         for B, K, S in ((1, 1, 4096), (1, 2, 577), (8, 8, 576), (8, 16, 576),
                         (2, 1, 100)):
             _, n = fd.plan(B, K, S, fd.SMS, hd, elem, G)
-            unheld = fd.plan(B, K, S, fd.SMS)[1]
-            assert n <= unheld
-            assert fd.smem_bytes(n, hd, elem, G) <= fd.SMEM_MAX
-            if n < unheld:      # (the split rounds to 16: n may fall more)
-                assert elem == 4 and hd == 256 and G >= 6
-                assert n <= (5 if G >= 8 else 6)
+            cl = fd.cluster(n, hd, elem, G)
+            assert cl <= cap and n % cl == 0
+            assert fd.smem_bytes(cl, hd, elem, G) <= fd.SMEM_MAX
     assert fd.smem_bytes(8, 256, 2, 8) == 221184
     assert fd.smem_bytes(8, 256, 4, 8) == 274496
 

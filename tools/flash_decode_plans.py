@@ -10,7 +10,9 @@ smallest split, a multiple of 16, that covers S), and
 ``scaled_dot_product_attention`` over the filled prefix, by CUDA-graph
 replay in turns (5 rounds, each in order and then reversed), beside the
 clusters of each plan the card holds at once (``flash_decode.max_clusters``;
-B x K are needed). ``flash_decode.plan``'s choice is marked. The card's
+B x K are needed), each plan one cluster a (batch, KV head).
+``flash_decode.plan``'s choice is marked. Plans of several clusters a pair
+(small B·K): ``tools/fd_small_bk_ab.py``. The card's
 name and power limit come first; then one JSON line.
 """
 from __future__ import annotations
@@ -40,10 +42,10 @@ def launcher(split, n_split, S):
     def call(q, k, v, length):
         o = torch.empty_like(q)
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  length.data_ptr(), o.data_ptr(), None, B, S, H, K, hd,
-                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                  length.data_ptr(), o.data_ptr(), None, None, B, S, H, K,
+                  hd, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                   k.stride(2), v.stride(0), v.stride(1), v.stride(2), 1,
-                  hd ** -0.5, split, n_split,
+                  hd ** -0.5, split, n_split, n_split,
                   torch.cuda.current_stream().cuda_stream)
         build.check(err, "flash_decode")
         return o

@@ -27,9 +27,18 @@ and the MoE routing flips by step; the steps before a decode's first flip
 are the ones the gate holds. The sound readings are ``kernel`` against
 ``bf16 P``, the controls' ``fp8 P`` and ``lost split`` against ``bf16 P``:
 a limit can sit between them only if the largest held sound reading is
-below the smallest held reading of a control. The card's name and power
-limit come first; the last line is one JSON object, also written to
-``chiprun_out/long_bf16_gate.json``.
+below the smallest held reading of a control.
+
+Every way also goes through the attention-output gate of
+``tools/serve_shard_parity.py`` (``LayerGate``): each attention layer's
+output at every step against flash_decode's plain version on the same
+inputs, in bf16 units of the plain output's largest |value|, limit 1 (fixed
+before any reading). It holds only if it passes ``kernel`` (and ``kernel
+again``) and fails both controls at every seed; its readings by way and
+step are printed beside the logits'.
+
+The card's name and power limit come first; the last line is one JSON
+object, also written to ``chiprun_out/long_bf16_gate.json``.
 """
 from __future__ import annotations
 
@@ -85,8 +94,9 @@ CONTROLS = ("fp8 P", "lost split")
 
 
 def decode_ways(pol, cfg, S, toks, seed, dev):
+    """{way: logits by step}, {way: its RoutingLog}, {way: its LayerGate}."""
     from repro_torch.kernels import dispatch, ref
-    from repro_torch.kernels.flash_decode import plan
+    from repro_torch.kernels.flash_decode import flash_decode, plan
     split, _ = plan(1, cfg.num_kv_heads, S)
     fns = {"kernel": None, "kernel again": None,
            "bf16 P": rounded_p(torch.bfloat16),
@@ -94,20 +104,18 @@ def decode_ways(pol, cfg, S, toks, seed, dev):
            "fp8 P": rounded_p(torch.float8_e4m3fn),
            "lost split": rounded_p(torch.bfloat16, drop=(0, split))}
     backend = "cuda" if dev.type == "cuda" else "ref"
-    logits, routes = {}, {}
+    kernel = flash_decode if dev.type == "cuda" else ref.flash_decode
+    logits, routes, gates = {}, {}, {}
     for way in WAYS:
         caches = ssp._long_caches(pol, cfg, S, dev, seed=13 + seed)
-        with ssp.RoutingLog() as log:
-            if fns[way] is None:
-                out, _, _ = ssp._decode_steps(pol, caches, toks, False, dev)
-            else:
-                with dispatch.replaced("flash_decode", backend, fns[way]):
-                    out, _, _ = ssp._decode_steps(pol, caches, toks, False,
-                                                  dev)
-        logits[way], routes[way] = out, log
+        gate = ssp.LayerGate()
+        with ssp.RoutingLog() as log, dispatch.replaced(
+                "flash_decode", backend, gate.wrap(fns[way] or kernel)):
+            out, _, _ = ssp._decode_steps(pol, caches, toks, False, dev)
+        logits[way], routes[way], gates[way] = out, log, gate
         del caches
         ssp._free(dev)
-    return logits, routes
+    return logits, routes, gates
 
 
 def main(argv=None):
@@ -131,14 +139,24 @@ def main(argv=None):
     print(f"{cfg.name} int8 {cfg.dtype} {cfg.num_layers}L d{cfg.d_model} on "
           f"one card, cache {S}: policy built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    out = {"card": smi, "seeds": {}}
+    out = {"card": smi, "seeds": {}, "layer_gate": {}}
     sound, control = [], {}
+    layer = {way: [] for way in WAYS}      # the gate's verdict at each seed
     for seed in map(int, args.seeds.split(",")):
         toks = torch.randint(0, cfg.vocab_size, (1, 1 + ssp.LONG_STEPS),
                              generator=torch.Generator(dev).manual_seed(
                                  5 + seed), device=dev)
-        logits, routes = decode_ways(pol, cfg, S, toks, seed, dev)
+        logits, routes, gates = decode_ways(pol, cfg, S, toks, seed, dev)
         n = len(logits["kernel"])
+        out["layer_gate"][seed] = {w: g.by_step(n) for w, g in gates.items()}
+        for way, g in gates.items():
+            layer[way].append(g.ok())
+        print(f"seed {seed}: the attention-output gate, the largest "
+              f"|difference| from the plain version in bf16 units of its "
+              f"largest |out| by step (limit {ssp.LayerGate.LIMIT:g}): "
+              + "; ".join(f"{w} {[f'{u:.3g}' for u in g.by_step(n)]} "
+                          f"({'passes' if g.ok() else 'fails'})"
+                          for w, g in gates.items()), flush=True)
         row = {}
         for way, base in PAIRS:
             dist = [ssp._rel(g, w) for g, w in zip(logits[way],
@@ -163,6 +181,14 @@ def main(argv=None):
     out["separate"] = {w: out["sound_max"] is not None and m is not None
                        and out["sound_max"] < m
                        for w, m in out["control_min"].items()}
+    sound_ok = all(layer["kernel"]) and all(layer["kernel again"])
+    out["layer_gate_holds"] = {w: sound_ok and not any(layer[w])
+                               for w in CONTROLS}
+    print(f"the attention-output gate passes the kernel at every seed: "
+          f"{sound_ok}; fails each control at every seed: "
+          f"{ {w: not any(layer[w]) for w in CONTROLS} }; so it holds "
+          f"(passes the kernel, fails the control): "
+          f"{out['layer_gate_holds']}", flush=True)
     print(f"held sound readings (kernel vs bf16 P): max "
           f"{out['sound_max']}; held control readings against bf16 P, the "
           f"smallest: {out['control_min']}; separate from the sound ones: "
@@ -171,7 +197,8 @@ def main(argv=None):
     (ROOT / "chiprun_out/long_bf16_gate.json").write_text(
         json.dumps(out, indent=1))
     print(json.dumps({k: out[k] for k in ("card", "sound_max",
-                                          "control_min", "separate")}))
+                                          "control_min", "separate",
+                                          "layer_gate_holds")}))
     return 0
 
 

@@ -48,8 +48,13 @@ in one process group:
     with P in fp8, or without a split of the cache, lands no farther from
     the bf16-P plain decode than the kernel does (``tools/long_bf16_gate.py``
     on an H100: sound readings up to 2.560e-2, the controls from 1.963e-2
-    and 2.046e-2). Decode ms a token both ways (each step between syncs of
-    the card, the median of the 4), and one more context-parallel step
+    and 2.046e-2). So in bf16 each decode's attention is also held where
+    it is computed (``LayerGate``): in one more, untimed, decode of fresh
+    caches each way, every attention layer's output at every step (on 4x1
+    the rows after ``plan.merge_decode``) against flash_decode's plain
+    version on the same inputs, within one bf16 unit of the plain output's
+    largest |value|. Decode ms a token both ways (each step between syncs
+    of the card, the median of the 4), and one more context-parallel step
     under ``torch.profiler``.
 
 ``--smoke`` runs both at the archs' smoke configs (2 layers, B 8 x 16, a
@@ -61,6 +66,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import datetime
+import math
 import os
 import socket
 import statistics
@@ -196,6 +202,51 @@ def held_before_flip(rel: list, flips: list, tol: float):
     ``tol``; the steps from the first flip on are held to nothing."""
     first = next((t for t, f in enumerate(flips) if f), len(flips))
     return all(r <= tol for r in rel[:first]), first
+
+
+class LayerGate:
+    """Holds each decode attention's output to the plain version on the
+    same inputs: ``wrap(fn)`` is a flash_decode backend that runs ``fn``
+    (the kernel, or a control) and ``ref.flash_decode`` on the same q, k,
+    v and length, and records, at every call (each attention layer of each
+    step), the largest |difference| of the two outputs rounded to the
+    model's dtype, in units of the bf16 unit of the plain output's largest
+    |value| (2^(floor(log2 max|out|) - 7)). On the LSE route (the
+    context-parallel decode) both are first merged over the ranks
+    (``plan.merge_decode``, a collective every rank runs), so the reading is
+    of the merged rows. The gate's limit is one unit: phase 3's hold of the
+    kernel at long_500k. Its yardstick runs on the inputs of the decode it
+    holds, so a routing flip does not move it: every step is held."""
+
+    LIMIT = 1.0
+
+    def __init__(self):
+        self.units = []
+
+    def wrap(self, fn):
+        from repro_torch.distributed import plan as P
+        from repro_torch.kernels import ref
+
+        def gated(q, k, v, length, with_lse=False):
+            got = fn(q, k, v, length, with_lse=with_lse)
+            want = ref.flash_decode(q, k, v, length, with_lse=with_lse)
+            g, w = (P.merge_decode(*x) if with_lse else x
+                    for x in (got, want))
+            g, w = (x.to(q.dtype).float() for x in (g, w))
+            top = float(w.abs().max())
+            unit = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 \
+                else 2.0 ** -133
+            self.units.append(float((g - w).abs().max()) / unit)
+            return got
+        return gated
+
+    def by_step(self, steps: int) -> list:
+        """The largest reading of each step (its layers' calls)."""
+        per = len(self.units) // steps
+        return [max(self.units[t * per:(t + 1) * per]) for t in range(steps)]
+
+    def ok(self) -> bool:
+        return bool(self.units) and max(self.units) <= self.LIMIT
 
 
 def _mesh(spec):
@@ -353,6 +404,24 @@ def long(rank, args, dev) -> bool:
     return ok
 
 
+def _gated_decode(pol, cfg, S, toks, cp, dev) -> LayerGate:
+    """A decode of fresh caches (the timed runs' draw) with flash_decode's
+    backend wrapped by a ``LayerGate``: its readings. Untimed."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    gate = LayerGate()
+    caches = _long_caches(pol, cfg, S, dev)
+    if cp:
+        caches = pol.shard_caches(caches, context_parallel=True)
+    backend, fn = (("cuda", flash_decode) if dev.type == "cuda"
+                   else ("ref", ref.flash_decode))
+    with dispatch.replaced("flash_decode", backend, gate.wrap(fn)):
+        _decode_steps(pol, caches, toks, cp, dev)
+    del caches
+    _free(dev)
+    return gate
+
+
 def _long_one(rank, args, dev, f32) -> bool:
     from repro_torch.kernels import dispatch, ref
     cfg = _config(JAMBA, args.smoke, f32=f32)
@@ -373,7 +442,10 @@ def _long_one(rank, args, dev, f32) -> bool:
     if dev.type == "cuda":      # one more step, under the profiler
         prof = "; " + profiled(lambda: pol.decode(
             toks[:, :1], caches, context_parallel=True), dev)
-    del pol, caches
+    del caches
+    _free(dev)
+    cp_gate = None if f32 else _gated_decode(pol, cfg, S, toks, True, dev)
+    del pol
     _free(dev)
     ok = True
     if rank == 0:
@@ -402,6 +474,21 @@ def _long_one(rank, args, dev, f32) -> bool:
             own_ok, own_held = held_before_flip(own, own_flips,
                                                 args.bf16_tol)
             ok = cp_ok and own_ok
+            caches = None
+            _free(dev)
+            own_gate = _gated_decode(one, cfg, S, toks, False, dev)
+            layer_ok = cp_gate.ok() and own_gate.ok()
+            ok = ok and layer_ok
+            layers = (f"; the attention-output gate (each attention "
+                      f"layer's decode output against flash_decode's plain "
+                      f"version on the same inputs, largest |difference| "
+                      f"in bf16 units of the plain output's largest "
+                      f"|value|, limit {LayerGate.LIMIT:g} at every layer "
+                      f"and step): the context-parallel decode by step "
+                      f"{[f'{u:.3g}' for u in cp_gate.by_step(n)]}, the "
+                      f"one card's kernel decode by step "
+                      f"{[f'{u:.3g}' for u in own_gate.by_step(n)]}, "
+                      f"{'ok' if layer_ok else 'MISSED'}")
             verdict = (f"(no gate: another split of the sequence); from the "
                        f"one card's decode with flash_decode's plain "
                        f"version by step: the context-parallel decode "
@@ -411,8 +498,8 @@ def _long_one(rank, args, dev, f32) -> bool:
                        f"{own_flips} (held to {args.bf16_tol} before "
                        f"each one's first flip: the first {cp_held} and "
                        f"{own_held} of {n} steps, "
-                       f"{'ok' if ok else 'MISSED'}; nothing held from a "
-                       f"first flip on)")
+                       f"{'ok' if cp_ok and own_ok else 'MISSED'}; nothing "
+                       f"held from a first flip on){layers}")
         print(f"[long] {cfg.name} int8 {cfg.dtype} {cfg.num_layers}L "
               f"d{cfg.d_model} long_500k: B 1, a cache of {S} "
               f"({S - 2 - LONG_STEPS} filled, drawn from the seed), --mesh "
